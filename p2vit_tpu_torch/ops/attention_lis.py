@@ -1,0 +1,187 @@
+"""qkv projection + int8 attention with Log-Int-Softmax (counterpart of
+``lis_attention_qkv_fused`` in ``p2vit_tpu/ops/attention_lis.py``).
+
+Per image and head: qkv codes = clip(round(h·W_qkvᵀ·r + b)); scores
+acc = q·kᵀ (int32) → attn codes clip(round(acc·rq)); LIS: I-BERT int-exp,
+round(Σ/exp), ⌊log2⌋ with ties up → weight 2^-q (q ≤ 15) or 0 on overflow;
+av = Σ_j w_j·v_j; out = clip(round(av·ro)).
+
+Two sums are made exact and order-free, in the kernel AND the plain version:
+
+* ``exp_sum`` is summed exactly and rounded to float32 once
+  (``exact_sum_f32``). Its terms reach c_int·2^32 ≈ 2.8·2^32/s² (the row
+  maximum's): past 2^24, so the float32 sum of the JAX twin depends on its
+  order, and past 2^63 for s ≤ 2^-11 (the scale random-init DeiT-S gets),
+  so not even int64 holds it. Each term is split into 32-bit limbs summed
+  in int64; exact while s_attn ≥ 2^-20 (``check_lis_scale``). The JAX sum
+  can differ by an ulp, which flips a LIS code where round(Σ/exp) lands on
+  a .5 or 1.5·2^k edge.
+* attn@v is the paper's shift-accumulate: Σ_j v_j·2^(15−q_j) in int32, then
+  ×2^-15. Exact while |av| < 2^9 (|av_int| < 2^24): with |v| ≤ 128 that
+  holds while the LIS weights of a row sum below 4; they sum to about 1.
+  The JAX twin's float32 product is exact in the same range, so the two
+  agree bit for bit there.
+
+CUDA kernel (``csrc/attention_lis.cu``) replaces the Pallas kernel
+``p2vit_tpu/ops/attention_lis.py:lis_attention_qkv_fused``
+(``_qkv_fused_kernel`` → ``heads_attention``). One block per (image, head):
+the head's 3·d qkv columns are computed with ``mma.sync`` int8 tiles into
+shared memory (N·3d bytes, 42 KB at DeiT-S), then each warp owns query rows:
+dp4a scores, warp-shuffle max and the exact two-limb sum, and the shift-accumulate
+attn@v from warp-shuffled weights. Bound on the card: the per-element LIS
+chain (a divide and an exponent extraction per score) and shared-memory
+reads, not the tensor cores. The LIS-off fp softmax arm runs only in the
+plain version; the kernel raises on ``lis=False`` (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ._lib import check_cuda_operand, device_of, f32_scalars, f32_vec, launch
+from .fastmath import exp2i, floor_log2i
+from .matmul_int8 import int8_matmul_requant_plain
+
+EXP_N = 32  # range-reduction steps of the int-exp
+_COEF = (0.35815147, 0.96963238, 1.0)  # int-exp polynomial
+MIN_LIS_SCALE = 2.0**-20  # exact_sum_f32's limbs fit int64 above this attn scale
+AV_SHIFT = 15  # LIS weights 2^-q, q ≤ 15, as integers 2^(15-q)
+
+
+def check_lis_scale(attn_scale) -> None:
+    """Raise if the LIS input scale is below the exact ``exp_sum`` bound
+    (each exp term ≤ (1/c0)/s²·2^32 < 2^74, its high limb < 2^42)."""
+    if float(attn_scale) < MIN_LIS_SCALE:
+        raise ValueError(
+            f"LIS attention scale {float(attn_scale)} < 2^-20: the exact exp_sum "
+            f"limbs could overflow; this scale is outside the ported kernel's range")
+
+
+def exact_sum_f32(t: torch.Tensor) -> torch.Tensor:
+    """Σ over the last axis (keepdim) of non-negative integer-valued float32
+    terms, exact, rounded once to float32 (round to nearest even).
+
+    hi = ⌊t·2^-32⌋ and lo = t − hi·2^32 are exact; their int64 sums are
+    exact in any order. V = S_hi·2^32 + S_lo: below 2^63 it converts
+    directly; above, S_lo can only act as a sticky bit, so V rounds as
+    (2·S_hi + [S_lo ≠ 0])·2^31. ``csrc/attention_lis.cu`` does the same."""
+    hi_f = torch.floor(t * 2.0**-32)
+    lo = (t - hi_f * 2.0**32).to(torch.int64).sum(dim=-1, keepdim=True)
+    hi = hi_f.to(torch.int64).sum(dim=-1, keepdim=True) + (lo >> 32)
+    lo = lo & 0xFFFFFFFF
+    small = ((hi << 32) + lo).to(torch.float32)
+    big = ((hi << 1) | (lo != 0).to(torch.int64)).to(torch.float32) * 2.0**31
+    return torch.where(hi < 2**31, small, big)
+
+
+def _full(v, t):
+    return torch.full_like(t, v)
+
+
+def int_exp_consts(s_attn: torch.Tensor):
+    """x0_int, b_int, c_int of the int-exp for scale ``s_attn`` (0-d float32),
+    as the JAX twin forms them: float32 constants divided by s."""
+    c0, c1, c2 = _COEF
+    x0_int = torch.floor(_full(-0.6931, s_attn) / s_attn)
+    b_int = torch.floor(_full(c1 / c0, s_attn) / s_attn)
+    c_int = torch.floor(_full(c2 / c0, s_attn) / (s_attn * s_attn))
+    return x0_int, b_int, c_int
+
+
+def lis_codes(attn_c: torch.Tensor, s_attn: torch.Tensor) -> torch.Tensor:
+    """LIS exponent per score from attention codes (last axis = keys): int32
+    q with weight 2^-q; q ≥ 2^lis_bits means weight 0."""
+    x0_int, b_int, c_int = int_exp_consts(s_attn)
+    x_int = attn_c - attn_c.amax(dim=-1, keepdim=True)
+    x_int = torch.maximum(x_int, EXP_N * x0_int)
+    q = torch.floor(x_int / x0_int)
+    r = x_int - x0_int * q
+    poly = r * (r + b_int) + c_int
+    exp_int = torch.clamp(torch.floor(poly * exp2i(EXP_N - q.to(torch.int32))), min=0.0)
+    exp_sum = exact_sum_f32(exp_int)
+    softmax_out = torch.round(exp_sum / exp_int)
+    big = floor_log2i(softmax_out)
+    tie = softmax_out >= 1.5 * exp2i(big)
+    return big + tie.to(torch.int32)
+
+
+def lis_attention_plain(q_q, k_q, v_q, score_requant, attn_scale, out_requant,
+                        lis_bits=4, lis=True):
+    """Attention on (..., N, d) int8 q/k/v codes → (..., N, d) int8 codes."""
+    dev = q_q.device
+    acc = (q_q.to(torch.float64) @ k_q.to(torch.float64).transpose(-1, -2)).to(torch.float32)
+    attn_c = torch.clamp(torch.round(acc * score_requant), -128, 127)
+    sa = torch.as_tensor(attn_scale, dtype=torch.float32, device=dev)
+    if lis:
+        if lis_bits > 4:
+            raise ValueError(f"lis_bits={lis_bits}: the LIS codes are uint4 (lis_bits <= 4)")
+        big = lis_codes(attn_c, sa)
+        keep = big < 2**lis_bits
+        w_int = torch.where(keep, exp2i(AV_SHIFT - big), torch.zeros_like(attn_c))
+        av_int = w_int.to(torch.float64) @ v_q.to(torch.float64)  # exact integers
+        av = av_int.to(torch.float32) * 2.0**-AV_SHIFT
+    else:
+        logits = attn_c * sa
+        e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        av = (e / e.sum(dim=-1, keepdim=True)) @ v_q.to(torch.float32)
+    ro = torch.as_tensor(out_requant, dtype=torch.float32, device=dev)
+    return torch.clamp(torch.round(av * ro), -128, 127).to(torch.int8)
+
+
+def lis_attention_qkv_fused_plain(h_q, w_q, requant_vec, bias_vec, num_heads,
+                                  score_requant, attn_scale, out_requant,
+                                  lis_bits=4, lis=True):
+    """Plain PyTorch version of the kernel."""
+    b, n, c_in = h_q.shape
+    c = w_q.shape[0] // 3
+    d = c // num_heads
+    qkv = int8_matmul_requant_plain(h_q.reshape(-1, c_in), w_q, requant_vec, bias_vec)
+    qkv = qkv.reshape(b, n, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+    av = lis_attention_plain(qkv[0], qkv[1], qkv[2], score_requant, attn_scale,
+                             out_requant, lis_bits, lis)
+    return av.permute(0, 2, 1, 3).reshape(b, n, c)
+
+
+def lis_attention_qkv_fused(h_q, w_q, requant_vec, bias_vec, num_heads,
+                            score_requant, attn_scale, out_requant,
+                            lis_bits=4, lis=True):
+    """qkv projection + LIS attention over the attention input codes.
+
+    Args:
+      h_q: (B, N, C_in) int8 codes (qact0 node). w_q: (3C, C_in) int8.
+      requant_vec/bias_vec: (3C,) float32 = s_act·s_w/s_qact1, bias/s_qact1.
+      score_requant: s_qact1²·head_scale/s_attn; attn_scale: s_attn (LIS
+        input); out_requant: s_qact1/s_out.
+    Returns (B, N, C) int8 codes of the qact2 node. CPU tensors take the
+    plain version; CUDA tensors launch the kernel (LIS on, head_dim 64,
+    C_in % 16 == 0, N ≤ 256) or raise.
+    """
+    dev = device_of(h_q, w_q)
+    if dev.type == "cpu":
+        return lis_attention_qkv_fused_plain(h_q, w_q, requant_vec, bias_vec, num_heads,
+                                             score_requant, attn_scale, out_requant,
+                                             lis_bits, lis)
+    b, n, c_in = h_q.shape
+    c3 = w_q.shape[0]
+    c = c3 // 3
+    check_cuda_operand(h_q, "h_q", torch.int8)
+    check_cuda_operand(w_q, "w_q", torch.int8, (c3, c_in))
+    if not lis or lis_bits != 4:
+        raise ValueError("the CUDA attention kernel implements LIS with uint4 codes only "
+                         "(lis=True, lis_bits=4); the LIS-off arm is not ported yet")
+    if c3 != 3 * c or c != 64 * num_heads or c_in % 16 or n > 256:
+        raise ValueError(f"attention kernel needs head_dim 64, C_in % 16 == 0 and N <= 256; "
+                         f"got C={c}, heads={num_heads}, C_in={c_in}, N={n}")
+    sa = torch.as_tensor(attn_scale, dtype=torch.float32, device=dev)
+    x0_int, b_int, c_int = int_exp_consts(sa)
+    scal = f32_scalars(score_requant, sa, out_requant, x0_int, b_int, c_int, device=dev)
+    r = f32_vec(requant_vec, c3, dev)
+    bias = f32_vec(bias_vec, c3, dev)
+    out = torch.empty((b, n, c), dtype=torch.int8, device=dev)
+    launch("p2v_lis_attention_qkv_fused", h_q, w_q, r, bias, scal, out,
+           b, n, c_in, c, num_heads)
+    lis_attention_qkv_fused.launches += 1
+    return out
+
+
+lis_attention_qkv_fused.launches = 0

@@ -1,0 +1,115 @@
+"""The whole serving prologue in one kernel (counterpart of
+``p2vit_tpu/ops/embed_fused.py``).
+
+From qact_input int8 patch codes to the first encoder block's inputs:
+
+  patch matmul → clip(round(acc·r1 + b1))        patch-qact codes
+  → clip(round(·r2))                               qact_embed codes
+  → val = ·s_embed + pos_val[p]                    + positional values
+  → clip(round(val / s_qact1[c]))                  qact1 codes (PTF divide)
+  → [cls_xc; ·] = xc                               the residual carrier
+  → ln_mn_chain(xc·mask) → clip(round(·)) = h      block-0 integer LN1
+
+The op chain is the JAX package's staged ``embed_codes`` path, op for op, so
+the outputs equal it bit for bit (the LN row sums are exact here).
+
+CUDA kernel (``csrc/embed_fused.cu``) replaces the Pallas kernel
+``p2vit_tpu/ops/embed_fused.py:fused_patch_embed`` (``_kernel``). At DeiT-S:
+patches (B, 196, 768) × w (384, 768) → xc, h (B, 197, 384). A block owns 32
+output token rows with their full width: the [CLS] rows take the constant
+codes, the patch rows gather their patch from the (B·196, 768) matrix
+inside the ``mma.sync`` tile loads, so no [cls; patches] concatenation is
+materialized. Bound on the card: the K = 768 int8 matmul; one launch per
+forward.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ._lib import check_cuda_operand, device_of, f32_scalars, f32_vec, launch
+from .intln import ln_mn_chain, row_sums
+from .matmul_ln import MAX_ROW
+from .matmul_int8 import int_matmul_nt
+
+_I8 = (-128, 127)
+
+
+def embed_consts(c, device, patch_requant, patch_bias, s_qact1, ln_mask, ln_w_os,
+                 ln_b_os, embed_requant, s_embed, ln_s1):
+    """Per-column vectors (5, C) and scalars (3,) shared by kernel and plain."""
+    v = lambda a: f32_vec(a, c, device)  # noqa: E731
+    vecs = torch.stack([v(patch_requant), v(patch_bias), v(s_qact1), v(ln_mask),
+                        v(ln_w_os), v(ln_b_os)])
+    scal = f32_scalars(embed_requant, s_embed, ln_s1, device=device)
+    return vecs, scal
+
+
+def fused_patch_embed_plain(patches, w_q, patch_requant, patch_bias,
+                            embed_requant, s_embed, pos_val, cls_xc, s_qact1,
+                            ln_mask, ln_s1, ln_w_os, ln_b_os):
+    """Plain PyTorch version of the kernel; returns (xc, h)."""
+    dev = device_of(patches, w_q)
+    b, n_patch, k = patches.shape
+    c = w_q.shape[0]
+    vecs, scal = embed_consts(c, dev, patch_requant, patch_bias, s_qact1, ln_mask,
+                              ln_w_os, ln_b_os, embed_requant, s_embed, ln_s1)
+    r1, b1, sq1, mask, w_os, b_os = (row[None, :] for row in vecs)
+    r2, s_emb, s1 = scal
+    acc = int_matmul_nt(patches.reshape(-1, k), w_q).reshape(b, n_patch, c)
+    mid1 = torch.clamp(torch.round(acc.to(torch.float32) * r1 + b1), *_I8)
+    mid2 = torch.clamp(torch.round(mid1 * r2), *_I8)
+    val = mid2 * s_emb + pos_val.to(torch.float32)[None]
+    xcp = torch.clamp(torch.round(val / sq1), *_I8)
+    cls_row = cls_xc.to(torch.float32).reshape(1, 1, c).expand(b, 1, c)
+    xc = torch.cat([cls_row, xcp], dim=1)
+    x2 = xc * mask
+    sx, sxx = row_sums(x2)
+    y = ln_mn_chain(x2, sx, sxx, s1, float(c), w_os, b_os)
+    h = torch.clamp(torch.round(y), *_I8)
+    return xc.to(torch.int8), h.to(torch.int8)
+
+
+def fused_patch_embed(patches, w_q, patch_requant, patch_bias, embed_requant,
+                      s_embed, pos_val, cls_xc, s_qact1, ln_mask, ln_s1, ln_w_os,
+                      ln_b_os):
+    """Image patch codes → (xc, h) int8 codes of the first encoder block.
+
+    Args:
+      patches: (B, N_patch, K) int8 qact_input codes, extracted after
+        quantizing (quantize and extract commute exactly).
+      w_q: (C, K) int8 patch weight codes.
+      patch_requant/patch_bias: (C,) matmul epilogue onto the patch qact.
+      embed_requant: s_patch/s_embed; s_embed; pos_val: (N_patch, C) float32
+        positional values of the patch rows; cls_xc: (1, C) int8 [CLS] row.
+      s_qact1: (C,) PTF scale (divides). ln_*: block-0 LN1 constants.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (K % 16 == 0, C % 8 == 0, C ≤ 1024) or raise.
+    """
+    dev = device_of(patches, w_q)
+    if dev.type == "cpu":
+        return fused_patch_embed_plain(patches, w_q, patch_requant, patch_bias,
+                                       embed_requant, s_embed, pos_val, cls_xc, s_qact1,
+                                       ln_mask, ln_s1, ln_w_os, ln_b_os)
+    b, n_patch, k = patches.shape
+    c = w_q.shape[0]
+    check_cuda_operand(patches, "patches", torch.int8)
+    check_cuda_operand(w_q, "w_q", torch.int8, (c, k))
+    if k % 16 or c % 8 or c > MAX_ROW:
+        raise ValueError(f"fused_patch_embed kernel needs K % 16 == 0, C % 8 == 0 and "
+                         f"C <= {MAX_ROW}; got K={k}, C={c}")
+    pos = pos_val.to(torch.float32).contiguous()
+    cls = cls_xc.to(torch.int8).reshape(c).contiguous()
+    if tuple(pos.shape) != (n_patch, c) or pos.device != dev or cls.device != dev:
+        raise ValueError("pos_val must be (N_patch, C) and cls_xc (1, C), on the patches' device")
+    vecs, scal = embed_consts(c, dev, patch_requant, patch_bias, s_qact1, ln_mask,
+                              ln_w_os, ln_b_os, embed_requant, s_embed, ln_s1)
+    xc = torch.empty((b, n_patch + 1, c), dtype=torch.int8, device=dev)
+    h = torch.empty((b, n_patch + 1, c), dtype=torch.int8, device=dev)
+    launch("p2v_fused_patch_embed", patches, w_q, vecs, scal, pos, cls, xc, h,
+           b, n_patch, k, c)
+    fused_patch_embed.launches += 1
+    return xc, h
+
+
+fused_patch_embed.launches = 0

@@ -1,0 +1,133 @@
+"""The four CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: they skip without a CUDA device (decided inside the
+fixture, never at import). Run them on a GPU machine with
+``python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q``
+(``--noconftest``: the repository conftest imports JAX, which a GPU-only
+machine need not have).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from p2vit_tpu_torch import serving
+from p2vit_tpu_torch.config import make_policy
+from p2vit_tpu_torch.models import VIT_ZOO, vit
+from p2vit_tpu_torch.ops import (
+    attention_lis, embed_fused, launch_counts, matmul_int8, matmul_ln, reset_launch_counts,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU or interpret mode")
+    return torch.device("cuda", 0)
+
+
+def _i8(rng, shape, lo=-128, hi=128):
+    return torch.from_numpy(rng.randint(lo, hi, shape).astype(np.int8))
+
+
+def _pot(rng, n, lo, hi):
+    return torch.from_numpy((2.0 ** rng.randint(lo, hi, n)).astype(np.float32))
+
+
+def _same(got, want):
+    got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple) else (want,))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert int((g != w).sum()) == 0
+
+
+@pytest.mark.parametrize("gelu", [False, True])
+def test_int8_matmul_requant_kernel(dev, gelu):
+    rng = np.random.RandomState(0)
+    m, k, n = 1576, 384, 1536
+    x, w = _i8(rng, (m, k)).to(dev), _i8(rng, (n, k), -8, 8).to(dev)
+    r = _pot(rng, n, -14, -10).to(dev)
+    b = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
+    kw = dict(out_inv=torch.tensor(32.0, device=dev), gelu=True) if gelu else {}
+    _same(matmul_int8.int8_matmul_requant(x, w, r, b, **kw),
+          matmul_int8.int8_matmul_requant_plain(x, w, r, b, **kw))
+    # ragged edges: M, N not multiples of the 128 tile
+    _same(matmul_int8.int8_matmul_requant(x[:77], w[:1000], r[:1000], b[:1000], **kw),
+          matmul_int8.int8_matmul_requant_plain(x[:77], w[:1000], r[:1000], b[:1000], **kw))
+
+
+@pytest.mark.parametrize("k", [384, 1536])
+def test_int8_matmul_res_ln_kernel(dev, k):
+    rng = np.random.RandomState(1)
+    m, n = 394, 384
+    args = [
+        _i8(rng, (m, k)), _i8(rng, (n, k), -8, 8), _pot(rng, n, -10, -6),
+        torch.from_numpy(rng.randn(n).astype(np.float32)), _i8(rng, (m, n)),
+        torch.from_numpy((np.abs(rng.randn(n)) * 0.02 + 0.01).astype(np.float32)),
+        torch.from_numpy((0.011 * 2.0 ** rng.randint(0, 4, n)).astype(np.float32)),
+        torch.from_numpy((0.013 * 2.0 ** rng.randint(0, 4, n)).astype(np.float32)),
+        torch.from_numpy(rng.randn(n).astype(np.float32)),
+        torch.from_numpy((rng.randn(n) * 0.1).astype(np.float32)),
+        torch.from_numpy((np.abs(rng.randn(n)) * 0.03 + 0.01).astype(np.float32)),
+        _pot(rng, n, -1, 2),
+    ]
+    args = [a.to(dev) for a in args]
+    _same(matmul_ln.int8_matmul_res_ln(*args), matmul_ln.int8_matmul_res_ln_plain(*args))
+
+
+@pytest.mark.parametrize("s_attn", [2.0**-11, 2.0**-5])
+def test_lis_attention_qkv_fused_kernel(dev, s_attn):
+    rng = np.random.RandomState(2)
+    b, n, c, heads = 3, 197, 384, 6
+    h, w = _i8(rng, (b, n, c)).to(dev), _i8(rng, (3 * c, c)).to(dev)
+    rv = _pot(rng, 3 * c, -13, -10).to(dev)
+    bv = torch.from_numpy(rng.randn(3 * c).astype(np.float32)).to(dev)
+    a = (h, w, rv, bv, heads, 2.0**-12, s_attn, 0.5)
+    _same(attention_lis.lis_attention_qkv_fused(*a), attention_lis.lis_attention_qkv_fused_plain(*a))
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    x = torch.zeros(64, 384, dtype=torch.int8, device=dev)
+    w = torch.zeros(128, 384, dtype=torch.int8, device=dev)
+    v = torch.ones(128, device=dev)
+    with pytest.raises(TypeError):
+        matmul_int8.int8_matmul_requant(x.int(), w, v, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        matmul_int8.int8_matmul_requant(x[:, ::2], w[:, :192], v, v)
+    with pytest.raises(ValueError, match="K % 16"):
+        matmul_int8.int8_matmul_requant(x[:, :40].contiguous(), w[:, :40].contiguous(), v, v)
+    h = torch.zeros(1, 197, 384, dtype=torch.int8, device=dev)
+    wq = torch.zeros(1152, 384, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="LIS"):
+        attention_lis.lis_attention_qkv_fused(h, wq, torch.ones(1152, device=dev),
+                                              torch.zeros(1152, device=dev), 6, 1.0, 1.0, 1.0, lis=False)
+
+
+def test_serving_forward_small_model(dev):
+    """A small ViT with head_dim 64: the whole serving path through the
+    kernels equals the plain path bit for bit, with the expected launches."""
+    cfg = dataclasses.replace(VIT_ZOO["deit_small_patch16_224"], img_size=64, depth=2,
+                              embed_dim=128, num_heads=2, num_classes=10)
+    policy = make_policy()
+    params = vit.init_params(0, cfg, device=dev)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((6, 3, 64, 64), generator=gen).to(dev)
+    calib = vit.calibrate(params, cfg, policy, x)
+    s = serving.convert(params, calib.qstate, cfg, policy, [4] * cfg.num_matmuls)
+    reset_launch_counts()
+    got = serving.serving_forward(s, cfg, x)
+    assert launch_counts() == {"fused_patch_embed": 1, "lis_attention_qkv_fused": 2,
+                               "int8_matmul_res_ln": 4, "int8_matmul_requant": 3}
+    want = serving.serving_forward(s, cfg, x, use_kernels=False)
+    assert torch.equal(got, want) and bool(torch.isfinite(got).all())
+    # embed kernel alone, on the serving path's arguments
+    k = serving._embed_fused_consts(s, cfg)
+    from p2vit_tpu_torch.models.common import extract_patches
+
+    patches = extract_patches(serving._input_codes(s, x), cfg.patch_size).contiguous()
+    _same(embed_fused.fused_patch_embed(patches, s["patch"]["w_q"], **k),
+          embed_fused.fused_patch_embed_plain(patches, s["patch"]["w_q"], **k))
