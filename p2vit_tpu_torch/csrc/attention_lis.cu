@@ -9,10 +9,10 @@
 //    codes into shared memory (rows of 68 bytes: 17 words, so the per-lane
 //    key rows below fall in distinct banks).
 // 2. Each warp owns query rows. Per row: 32 lanes × 8 key slots of dp4a
-//    scores → attn codes clip(round(acc·rq)); warp max; the I-BERT int-exp;
-//    exp_sum as an exact two-limb int64 sum (hi = ⌊e·2^-32⌋, lo = e − hi·2^32)
-//    rounded once to float32; LIS code q = ⌊log2 round(Σ/e)⌋ + tie; the weight
-//    as the integer 2^(15−q) (0 when q ≥ 16).
+//    scores → attn codes clip(round(acc·rq)); then p2v::lis_row
+//    (common.cuh, shared with csrc/swin_attention.cu): warp max, the I-BERT
+//    int-exp, the exact two-limb exp_sum, LIS code q = ⌊log2 round(Σ/e)⌋ +
+//    tie, the weight as the integer 2^(15−q) (0 when q ≥ 16).
 // 3. attn@v as the paper's shift-accumulate: lane l accumulates output dims
 //    2l, 2l+1 over all keys in int32, weights broadcast by warp shuffle.
 //    Exact while |av| < 2^9, i.e. |Σ_j v_j·2^(15−q_j)| < 2^24: with
@@ -71,7 +71,6 @@ __global__ void __launch_bounds__(p2v::kThreads)
   __syncthreads();
 
   const float rq = scal[0], ro = scal[2], x0 = scal[3], b_int = scal[4], c_int = scal[5];
-  const float xmin = __fmul_rn(32.f, x0);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int i = warp; i < N; i += p2v::kThreads / 32) {
     uint32_t qv[D / 4];
@@ -79,7 +78,6 @@ __global__ void __launch_bounds__(p2v::kThreads)
     for (int u = 0; u < D / 4; ++u) qv[u] = p2v::ld32(qs + i * QROW + 4 * u);
 
     float ac[JT];
-    float mx = __int_as_float(0xff800000);  // -inf
 #pragma unroll
     for (int t = 0; t < JT; ++t) {
       const int j = lane + 32 * t;
@@ -89,49 +87,10 @@ __global__ void __launch_bounds__(p2v::kThreads)
 #pragma unroll
         for (int u = 0; u < D / 4; ++u) s = __dp4a(static_cast<int>(qv[u]), static_cast<int>(p2v::ld32(ks + j * QROW + 4 * u)), s);
         ac[t] = p2v::requant(__fmul_rn(__int2float_rn(s), rq), -128.f, 127.f);
-        mx = fmaxf(mx, ac[t]);
       }
     }
-    mx = p2v::warp_max(mx);
-
-    float ex[JT];
-    long long shi = 0, slo = 0;
-#pragma unroll
-    for (int t = 0; t < JT; ++t) {
-      const int j = lane + 32 * t;
-      ex[t] = 0.f;
-      if (j < N) {
-        const float xi = fmaxf(__fsub_rn(ac[t], mx), xmin);
-        const float q = floorf(__fdiv_rn(xi, x0));
-        const float rr = __fsub_rn(xi, __fmul_rn(x0, q));
-        const float poly = __fadd_rn(__fmul_rn(rr, __fadd_rn(rr, b_int)), c_int);
-        const float e = fmaxf(floorf(__fmul_rn(poly, p2v::exp2i(32 - static_cast<int>(q)))), 0.f);
-        ex[t] = e;
-        const float hf = floorf(__fmul_rn(e, 0x1p-32f));
-        shi += static_cast<long long>(hf);
-        slo += static_cast<long long>(__fsub_rn(e, __fmul_rn(hf, 0x1p32f)));
-      }
-    }
-    shi = p2v::warp_sum(shi);
-    slo = p2v::warp_sum(slo);
-    shi += slo >> 32;
-    slo &= 0xFFFFFFFFLL;
-    const float esum = shi < (1LL << 31)
-                           ? __ll2float_rn((shi << 32) + slo)
-                           : __fmul_rn(__ll2float_rn((shi << 1) | (slo != 0 ? 1LL : 0LL)), 0x1p31f);
-
     int wt[JT];
-#pragma unroll
-    for (int t = 0; t < JT; ++t) {
-      const int j = lane + 32 * t;
-      wt[t] = 0;
-      if (j < N) {
-        const float so = rintf(__fdiv_rn(esum, ex[t]));
-        int big = p2v::floor_log2i(so);
-        big += so >= __fmul_rn(1.5f, p2v::exp2i(big)) ? 1 : 0;
-        wt[t] = big < 16 ? (1 << (15 - big)) : 0;
-      }
-    }
+    p2v::lis_row<JT>(ac, N, x0, b_int, c_int, wt);
 
     int a0 = 0, a1 = 0;
 #pragma unroll

@@ -3,8 +3,10 @@
 // * exact exponent-field math (floor_log2i / exp2i), as ops/fastmath.py;
 // * the A&S 7.1.26 erf-GELU, as ops/matmul_int8.py gelu_as;
 // * the serving integer-LN chain, as ops/intln.py ln_mn_chain;
+// * the Log-Int-Softmax row chain of both attention kernels, as
+//   ops/attention_lis.py lis_codes;
 // * Gemm: a tiled int8 x int8 -> int32 matrix product on mma.sync.m16n8k32,
-//   shared by all four kernels.
+//   shared by the four GEMM kernels.
 //
 // Every float32 operation that a plain PyTorch version rounds on its own is
 // written with an explicit round-to-nearest intrinsic (__fmul_rn, __fadd_rn,
@@ -216,6 +218,60 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// Log-Int-Softmax of one attention row held by a warp (ops/attention_lis.py
+// lis_codes, op for op). Lane l holds the scores ac[t] of keys l + 32·t of a
+// row of n keys (slots past n are ignored). Per key: the I-BERT int-exp on
+// x = max(ac − rowmax, 32·x0) with the constants x0_int, b_int, c_int;
+// exp_sum as an exact two-limb int64 sum (hi = ⌊e·2^-32⌋, lo = e − hi·2^32)
+// rounded once to float32; the LIS code q = ⌊log2 round(Σ/e)⌋ + tie. Writes
+// each key's weight as the integer 2^(15−q), 0 when q ≥ 16.
+template <int JT>
+__device__ __forceinline__ void lis_row(const float (&ac)[JT], int n, float x0, float b_int,
+                                        float c_int, int (&wt)[JT]) {
+  const int lane = threadIdx.x & 31;
+  float mx = __int_as_float(0xff800000);  // -inf
+#pragma unroll
+  for (int t = 0; t < JT; ++t)
+    if (lane + 32 * t < n) mx = fmaxf(mx, ac[t]);
+  mx = warp_max(mx);
+
+  const float xmin = __fmul_rn(32.f, x0);
+  float ex[JT];
+  long long shi = 0, slo = 0;
+#pragma unroll
+  for (int t = 0; t < JT; ++t) {
+    ex[t] = 0.f;
+    if (lane + 32 * t < n) {
+      const float xi = fmaxf(__fsub_rn(ac[t], mx), xmin);
+      const float q = floorf(__fdiv_rn(xi, x0));
+      const float rr = __fsub_rn(xi, __fmul_rn(x0, q));
+      const float poly = __fadd_rn(__fmul_rn(rr, __fadd_rn(rr, b_int)), c_int);
+      const float e = fmaxf(floorf(__fmul_rn(poly, exp2i(32 - static_cast<int>(q)))), 0.f);
+      ex[t] = e;
+      const float hf = floorf(__fmul_rn(e, 0x1p-32f));
+      shi += static_cast<long long>(hf);
+      slo += static_cast<long long>(__fsub_rn(e, __fmul_rn(hf, 0x1p32f)));
+    }
+  }
+  shi = warp_sum(shi);
+  slo = warp_sum(slo);
+  shi += slo >> 32;
+  slo &= 0xFFFFFFFFLL;
+  const float esum = shi < (1LL << 31)
+                         ? __ll2float_rn((shi << 32) + slo)
+                         : __fmul_rn(__ll2float_rn((shi << 1) | (slo != 0 ? 1LL : 0LL)), 0x1p31f);
+#pragma unroll
+  for (int t = 0; t < JT; ++t) {
+    wt[t] = 0;
+    if (lane + 32 * t < n) {
+      const float so = rintf(__fdiv_rn(esum, ex[t]));
+      int big = floor_log2i(so);
+      big += so >= __fmul_rn(1.5f, exp2i(big)) ? 1 : 0;
+      wt[t] = big < 16 ? (1 << (15 - big)) : 0;
+    }
+  }
 }
 
 // Launch helper: raise the dynamic shared-memory limit when a kernel needs

@@ -2,9 +2,12 @@
 tensors.
 
 ``params_from_numpy`` takes the JAX parameter dict after ``np.asarray`` on
-each leaf; ``qstate_from_numpy`` a ``QuantState`` the same way. Layouts stay
-as in JAX: weights (out, in), images NCHW, qkv (B, N, 3C). This module uses
-numpy and torch only, so it works without JAX installed.
+each leaf; ``qstate_from_numpy`` a ``QuantState`` the same way. Both walk
+nested dicts, lists and tuples, so the ViT trees and the Swin trees
+(``stages`` → ``blocks``, ``downsample``) convert alike; a ``None`` leaf
+(Swin's bias-free reduction) stays ``None``. Layouts stay as in JAX:
+weights (out, in), images NCHW, qkv (B, N, 3C). This module uses numpy and
+torch only, so it works without JAX installed.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ import torch
 
 
 def _tree_to_torch(tree, device=None):
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _tree_to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -22,10 +27,10 @@ def _tree_to_torch(tree, device=None):
 
 
 def params_from_numpy(tree, device=None) -> dict:
-    """JAX ViT params (numpy leaves) → the port's parameter dict."""
+    """JAX ViT or Swin params (numpy leaves) → the port's parameter dict."""
     return _tree_to_torch(tree, device)
 
 
 def qstate_from_numpy(tree, device=None) -> dict:
-    """JAX ``QuantState`` (numpy leaves) → the port's qstate dict."""
+    """JAX ViT or Swin ``QuantState`` (numpy leaves) → the port's qstate dict."""
     return _tree_to_torch(tree, device)

@@ -2,10 +2,11 @@
 
 All ``.cu`` sources are compiled by ``nvcc`` into ONE shared library with a
 plain C interface, on first use, into ``build/p2vit_tpu_torch/`` at the
-checkout's root, and loaded with ``ctypes``. The library's file name carries
-a hash of the sources and flags, so an edited source is rebuilt. Nothing is
-built or imported when this module is imported: CPU-only installs never
-reach ``library()``.
+checkout's root, and loaded with ``ctypes``: one ``nvcc -c`` per source, all
+started together, then one link. The library's file name carries a hash of
+the sources and flags, so an edited source is rebuilt. Nothing is built or
+imported when this module is imported: CPU-only installs never reach
+``library()``.
 
 Flags: ``sm_90a`` (Hopper), no fast math, and ``--fmad=false``, because the
 plain PyTorch versions round every float32 operation on its own; an FMA
@@ -26,10 +27,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "p2vit_tpu_torch"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
+    *ARCH,
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -39,6 +41,9 @@ SIGNATURES = {
     "p2v_int8_matmul_res_ln": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "p2v_lis_attention_qkv_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "p2v_fused_patch_embed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "p2v_int_ln_requant": [_P, _P, _P, _P, _I, _I, _P],
+    "p2v_int_res_ln_requant": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "p2v_swin_lis_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -54,6 +59,34 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
+def _build(so: Path, cu) -> str:
+    """Compile every source in parallel, link them into ``so``; returns the
+    compiler output. Waits for every compiler before raising on a failure."""
+    nvcc = _nvcc()
+    work = so.with_suffix(f".{os.getpid()}.d")
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        objs = [work / f"{f.stem}.o" for f in cu]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(f)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for f, o in zip(cu, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        log = "".join(outs)
+        failed = [f.name for f, p in zip(cu, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp = work / so.name
+        proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, so)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return log
+
+
 @functools.cache
 def library():
     """Build (if needed) and load the kernel library; returns (lib, build_log)."""
@@ -65,14 +98,7 @@ def library():
     so = BUILD_DIR / f"libp2vit_kernels_{h.hexdigest()[:16]}.so"
     log = ""
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, so)
+        log = _build(so, cu)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
@@ -86,8 +112,8 @@ def library():
 def launch(name: str, *args) -> None:
     """Call C entry ``name`` on the current stream; raise on a CUDA error.
 
-    Tensors pass as their data pointers, Python ints as C ints. The stream
-    is appended as the last argument.
+    Tensors pass as their data pointers, ``None`` as a null pointer, Python
+    ints as C ints. The stream is appended as the last argument.
     """
     lib, _ = library()
     conv = []
@@ -96,6 +122,8 @@ def launch(name: str, *args) -> None:
         if isinstance(a, torch.Tensor):
             dev = a.device
             conv.append(ctypes.c_void_p(a.data_ptr()))
+        elif a is None:
+            conv.append(ctypes.c_void_p(None))
         else:
             conv.append(ctypes.c_int(int(a)))
     conv.append(ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))

@@ -1,5 +1,6 @@
-"""qkv projection + int8 attention with Log-Int-Softmax (counterpart of
-``lis_attention_qkv_fused`` in ``p2vit_tpu/ops/attention_lis.py``).
+"""int8 attention with Log-Int-Softmax (counterpart of
+``p2vit_tpu/ops/attention_lis.py``): the ViT qkv projection + attention
+``lis_attention_qkv_fused``, and the Swin windowed ``swin_lis_attention``.
 
 Per image and head: qkv codes = clip(round(h·W_qkvᵀ·r + b)); scores
 acc = q·kᵀ (int32) → attn codes clip(round(acc·rq)); LIS: I-BERT int-exp,
@@ -31,7 +32,17 @@ dp4a scores, warp-shuffle max and the exact two-limb sum, and the shift-accumula
 attn@v from warp-shuffled weights. Bound on the card: the per-element LIS
 chain (a divide and an exponent extraction per score) and shared-memory
 reads, not the tensor cores. The LIS-off fp softmax arm runs only in the
-plain version; the kernel raises on ``lis=False`` (ROADMAP.md).
+plain versions; both kernels raise on ``lis=False`` (ROADMAP.md).
+
+CUDA kernel (``csrc/swin_attention.cu``) replaces the Pallas kernel
+``p2vit_tpu/ops/attention_lis.py:swin_lis_attention`` (``_swin_kernel`` →
+``_swin_head_loop``), on (B·nW, 49, 3C) window panels with d = 32: per
+head, q·kᵀ → attn1 codes → + rel-pos bias → ·1/s2 round/clip (qact2
+codes) → + the shift mask/s2, unrounded → LIS → shift-accumulate @v →
+qact3 codes. One block per (window, head) holds the head's q/k/v rows in
+shared memory; warps own query rows, lanes own keys, then output dims.
+The JAX kernel pads rows 49 → 56 and keys to 64 and parks padded keys at
+−2^30; neither the kernel nor the plain version pads.
 """
 
 from __future__ import annotations
@@ -105,27 +116,37 @@ def lis_codes(attn_c: torch.Tensor, s_attn: torch.Tensor) -> torch.Tensor:
     return big + tie.to(torch.int32)
 
 
-def lis_attention_plain(q_q, k_q, v_q, score_requant, attn_scale, out_requant,
-                        lis_bits=4, lis=True):
-    """Attention on (..., N, d) int8 q/k/v codes → (..., N, d) int8 codes."""
-    dev = q_q.device
+def _scores(q_q, k_q, score_requant):
+    """int8 q·kᵀ (exact, float64) → attention codes clip(round(acc·rq))."""
     acc = (q_q.to(torch.float64) @ k_q.to(torch.float64).transpose(-1, -2)).to(torch.float32)
-    attn_c = torch.clamp(torch.round(acc * score_requant), -128, 127)
-    sa = torch.as_tensor(attn_scale, dtype=torch.float32, device=dev)
+    return torch.clamp(torch.round(acc * score_requant), -128, 127)
+
+
+def _attend(scores, v_q, s_attn, out_requant, lis_bits, lis):
+    """Softmax of score codes ``scores`` (scale ``s_attn``) @ v codes →
+    clip(round(av·ro)) int8. LIS: integer weights 2^(15−q) and the exact
+    shift-accumulate; otherwise the fp32 softmax of the dequantized scores."""
     if lis:
         if lis_bits > 4:
             raise ValueError(f"lis_bits={lis_bits}: the LIS codes are uint4 (lis_bits <= 4)")
-        big = lis_codes(attn_c, sa)
+        big = lis_codes(scores, s_attn)
         keep = big < 2**lis_bits
-        w_int = torch.where(keep, exp2i(AV_SHIFT - big), torch.zeros_like(attn_c))
+        w_int = torch.where(keep, exp2i(AV_SHIFT - big), torch.zeros_like(scores))
         av_int = w_int.to(torch.float64) @ v_q.to(torch.float64)  # exact integers
         av = av_int.to(torch.float32) * 2.0**-AV_SHIFT
     else:
-        logits = attn_c * sa
+        logits = scores * s_attn
         e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
         av = (e / e.sum(dim=-1, keepdim=True)) @ v_q.to(torch.float32)
-    ro = torch.as_tensor(out_requant, dtype=torch.float32, device=dev)
+    ro = torch.as_tensor(out_requant, dtype=torch.float32, device=scores.device)
     return torch.clamp(torch.round(av * ro), -128, 127).to(torch.int8)
+
+
+def lis_attention_plain(q_q, k_q, v_q, score_requant, attn_scale, out_requant,
+                        lis_bits=4, lis=True):
+    """Attention on (..., N, d) int8 q/k/v codes → (..., N, d) int8 codes."""
+    sa = torch.as_tensor(attn_scale, dtype=torch.float32, device=q_q.device)
+    return _attend(_scores(q_q, k_q, score_requant), v_q, sa, out_requant, lis_bits, lis)
 
 
 def lis_attention_qkv_fused_plain(h_q, w_q, requant_vec, bias_vec, num_heads,
@@ -185,3 +206,88 @@ def lis_attention_qkv_fused(h_q, w_q, requant_vec, bias_vec, num_heads,
 
 
 lis_attention_qkv_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Swin windowed attention
+# ---------------------------------------------------------------------------
+
+SWIN_HEAD_DIM = 32  # every Swin in the zoo
+SWIN_MAX_N = 64  # tokens per window the kernel takes (49 for 7×7 windows)
+
+
+def swin_attention_scalars(score_requant, attn_scale, s2, out_requant, device, lis=True):
+    """The kernel's scalars (rq, s1, 1/s2, ro, x0_int, b_int, c_int); LIS runs
+    at the qact2 scale s2, which must clear the exact-sum bound."""
+    s2t = torch.as_tensor(s2, dtype=torch.float32, device=device)
+    if lis:
+        check_lis_scale(s2t)
+    inv_s2 = torch.ones_like(s2t) / s2t
+    return f32_scalars(score_requant, attn_scale, inv_s2, out_requant, *int_exp_consts(s2t),
+                       device=device)
+
+
+def swin_lis_attention_plain(qkv_q, bias, mask, num_heads, n_windows, score_requant,
+                             attn_scale, s2, out_requant, lis_bits=4, lis=True):
+    """Plain PyTorch version of the kernel, the twin of the JAX package's
+    ``serving_swin._window_attention_codes_vals``. s2 is a power of two
+    (a minmax PoT node), so the multiply by 1/s2 equals the twin's divide."""
+    w, n, c3 = qkv_q.shape
+    c = c3 // 3
+    d = c // num_heads
+    scal = swin_attention_scalars(score_requant, attn_scale, s2, out_requant, qkv_q.device, lis)
+    rq, s1, inv_s2, ro = scal[0], scal[1], scal[2], scal[3]
+    qkv = qkv_q.reshape(w, n, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+    attn_c = _scores(qkv[0], qkv[1], rq)
+    attn2 = torch.clamp(torch.round((attn_c * s1 + bias.to(torch.float32)[None]) * inv_s2), -128, 127)
+    if mask is not None:
+        attn2 = (attn2.reshape(w // n_windows, n_windows, num_heads, n, n)
+                 + mask.to(torch.float32)[None, :, None]).reshape(w, num_heads, n, n)
+    s2t = torch.as_tensor(s2, dtype=torch.float32, device=qkv_q.device)
+    out = _attend(attn2, qkv[2], s2t, ro, lis_bits, lis)
+    return out.permute(0, 2, 1, 3).reshape(w, n, c)
+
+
+def swin_lis_attention(qkv_q, bias, mask, num_heads, n_windows, score_requant, attn_scale,
+                       s2, out_requant, lis_bits=4, lis=True):
+    """Windowed attention over (W, N, 3C) int8 qkv codes of B·nW windows.
+
+    Args:
+      bias: (H, N, N) float32 dequantized relative-position-bias values.
+      mask: (nW, N, N) float32 shift mask ALREADY divided by s2, or None;
+        window i takes mask[i % n_windows].
+      score_requant: s_qkv²·d^-0.5/s_attn1; attn_scale: s_attn1;
+      s2: the qact2 scale (LIS input); out_requant: s_qkv/s_qact3.
+    Returns (W, N, C) int8 codes of the qact3 node. CPU tensors take the
+    plain version; CUDA tensors launch the kernel (LIS on with uint4 codes,
+    head_dim 32, N ≤ 64) or raise.
+    """
+    dev = device_of(qkv_q, bias, *(() if mask is None else (mask,)))
+    if dev.type == "cpu":
+        return swin_lis_attention_plain(qkv_q, bias, mask, num_heads, n_windows, score_requant,
+                                        attn_scale, s2, out_requant, lis_bits, lis)
+    w, n, c3 = qkv_q.shape
+    c = c3 // 3
+    check_cuda_operand(qkv_q, "qkv_q", torch.int8)
+    if not lis or lis_bits != 4:
+        raise ValueError("the CUDA Swin attention kernel implements LIS with uint4 codes only "
+                         "(lis=True, lis_bits=4); the LIS-off arm is not ported yet")
+    if c3 != 3 * c or c != SWIN_HEAD_DIM * num_heads or n > SWIN_MAX_N:
+        raise ValueError(f"Swin attention kernel needs head_dim {SWIN_HEAD_DIM} and "
+                         f"N <= {SWIN_MAX_N}; got C={c}, heads={num_heads}, N={n}")
+    bias = bias.to(torch.float32).contiguous()
+    check_cuda_operand(bias, "bias", torch.float32, (num_heads, n, n))
+    if mask is not None:
+        mask = mask.to(torch.float32).contiguous()
+        check_cuda_operand(mask, "mask", torch.float32, (n_windows, n, n))
+        if w % n_windows:
+            raise ValueError(f"{w} windows are not whole images of {n_windows} windows")
+    scal = swin_attention_scalars(score_requant, attn_scale, s2, out_requant, dev)
+    out = torch.empty((w, n, c), dtype=torch.int8, device=dev)
+    launch("p2v_swin_lis_attention", qkv_q, bias, mask, scal, out, w, n, c, num_heads,
+           n_windows if mask is not None else 1)
+    swin_lis_attention.launches += 1
+    return out
+
+
+swin_lis_attention.launches = 0

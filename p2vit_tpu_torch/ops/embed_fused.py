@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from ._lib import check_cuda_operand, device_of, f32_scalars, f32_vec, launch
-from .intln import ln_mn_chain, row_sums
+from .intln import ln_codes
 from .matmul_ln import MAX_ROW
 from .matmul_int8 import int_matmul_nt
 
@@ -63,11 +63,7 @@ def fused_patch_embed_plain(patches, w_q, patch_requant, patch_bias,
     xcp = torch.clamp(torch.round(val / sq1), *_I8)
     cls_row = cls_xc.to(torch.float32).reshape(1, 1, c).expand(b, 1, c)
     xc = torch.cat([cls_row, xcp], dim=1)
-    x2 = xc * mask
-    sx, sxx = row_sums(x2)
-    y = ln_mn_chain(x2, sx, sxx, s1, float(c), w_os, b_os)
-    h = torch.clamp(torch.round(y), *_I8)
-    return xc.to(torch.int8), h.to(torch.int8)
+    return xc.to(torch.int8), ln_codes(xc * mask, s1, w_os, b_os, 1.0)
 
 
 def fused_patch_embed(patches, w_q, patch_requant, patch_bias, embed_requant,

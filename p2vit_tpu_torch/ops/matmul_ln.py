@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from ._lib import check_cuda_operand, device_of, f32_vec, launch
-from .intln import ln_mn_chain, row_sums
+from .intln import ln_codes
 from .matmul_int8 import int_matmul_nt
 
 MAX_ROW = 1024  # the kernel's shared-memory row buffer; Σx² < 2^31 up to here
@@ -54,15 +54,10 @@ def res_ln_consts(n, device, requant_scale, bias_scaled, s_mid, s_res, s_out,
 def res_ln_epilogue_plain(acc, res_q, vecs, s1, qmin=-128, qmax=127):
     """Everything after the matmul, on an int32 accumulator (M, N)."""
     r, b, s_mid, s_res, inv_s_out, mask, w_os, b_os, ratio = (row[None, :] for row in vecs)
-    n = acc.shape[-1]
     mid = torch.clamp(torch.round(acc.to(torch.float32) * r + b), qmin, qmax)
     val = mid * s_mid + res_q.to(torch.float32) * s_res
     res_codes = torch.clamp(torch.round(val * inv_s_out), qmin, qmax)
-    x = res_codes * mask
-    sx, sxx = row_sums(x)
-    y = ln_mn_chain(x, sx, sxx, s1[0], float(n), w_os, b_os)
-    ln_codes = torch.clamp(torch.round(y * ratio), qmin, qmax)
-    return res_codes.to(torch.int8), ln_codes.to(torch.int8)
+    return res_codes.to(torch.int8), ln_codes(res_codes * mask, s1[0], w_os, b_os, ratio, qmin, qmax)
 
 
 def int8_matmul_res_ln_plain(x_q, w_q, requant_scale, bias_scaled, res_q, s_mid,

@@ -1,0 +1,292 @@
+"""Int8 serving pipeline for Swin (counterpart of ``p2vit_tpu/serving_swin.py``).
+
+``convert`` freezes (params, QuantState, bit_config) into int8 weight codes
+and the constants the forward needs; ``serving_forward`` runs the network on
+int8 codes. After an fp patch stem (a float32 ``torch.matmul`` against the
+dequantized weight codes, as the JAX package leaves it to XLA), every step
+runs through five kernels:
+
+  * ``ops/intln.int_ln_requant``: patch norm, each stage's first norm1 and
+    the PatchMerging norms (4C, the previous scale tiled ×4);
+  * ``ops/attention_lis.swin_lis_attention``: windowed LIS attention;
+  * ``ops/intln.int_res_ln_requant``: the attention-side residual junction
+    after ``window_reverse`` and norm2;
+  * ``ops/matmul_ln.int8_matmul_res_ln``: fc2 + residual + the next norm1
+    (or the final norm);
+  * ``ops/matmul_int8.int8_matmul_requant``: qkv, proj, fc1+GELU, the fc2
+    before a PatchMerging, the reductions and the head.
+
+This is the JAX package's default path (``pallas_attn=True, fuse_res=True,
+fuse_stem=False, int_stem=False, fold_windows=False, reorder="real"``). The
+XLA window-attention twin ``_window_attention_codes{,_vals}`` is the plain
+version of the attention kernel (``swin_lis_attention_plain``). Not ported
+(ROADMAP.md): the other flag settings, uint8 ingest and
+``weight_only_params``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .config import QuantPolicy
+from .models.swin import (
+    SwinConfig,
+    _merge_patches,
+    _patches,
+    _roll,
+    relative_position_index,
+    shift_mask_tensor,
+    window_partition,
+    window_reverse,
+)
+from .ops import attention_lis, intln, matmul_int8, matmul_ln
+
+_I8 = (-128, 127)
+_ROW = {4: 2, 8: 3}  # weight-scale row of each eval bit
+_BOUNDS = {4: (-8, 7), 8: (-128, 127)}
+
+
+def _bias_values(table, table_scale, ws: int, heads: int):
+    """Dequantized rel-pos-bias values (heads, N, N): the table
+    fake-quantized at qact_table, gathered per position."""
+    table_q = torch.clamp(torch.round(table / table_scale), *_I8)
+    idx = torch.from_numpy(relative_position_index(ws).reshape(-1)).to(table.device)
+    n = ws * ws
+    return (table_q[idx] * table_scale).reshape(n, n, heads).permute(2, 0, 1).contiguous()
+
+
+def convert(params, qstate, cfg: SwinConfig, policy: QuantPolicy, bit_config=8) -> dict:
+    """Freeze int8 weight codes and the serving constants for a bit config:
+    one int (uniform weight bit) or a per-layer list of ``cfg.num_matmuls``
+    in the calibration-walk slot order ([patch] + per stage (per block [qkv,
+    proj, fc1, fc2]) + [reduction] + [head]).
+
+    Beyond the JAX package's state, each block carries its bias values and
+    its shift mask divided by s2, which the JAX package re-forms inside its
+    compiled forward."""
+    if not policy.int_norm:
+        raise ValueError("Swin serving requires the PTF integer-LN pipeline")
+    if "qact_input" not in qstate:
+        raise KeyError("qstate has no 'qact_input': a Swin quant state saved before the input "
+                       "fake-quant node existed; recalibrate")
+    if isinstance(bit_config, int):
+        bits = [bit_config] * cfg.num_matmuls
+    else:
+        bits = [int(b) for b in bit_config]
+        if len(bits) != cfg.num_matmuls:
+            raise ValueError(f"bit_config has {len(bits)} entries; {cfg.num_matmuls} expected")
+
+    def wq(w, dic, bit):
+        sw = dic[_ROW[bit]]
+        w_q = torch.clamp(torch.round(w / sw[:, None]), *_BOUNDS[bit]).to(torch.int8)
+        return {"w_q": w_q, "sw": sw}
+
+    s: dict = {
+        "s_input": qstate["qact_input"]["scale"],
+        "zp_input": qstate["qact_input"]["zp"],
+        "patch": wq(params["patch_embed"]["w"], qstate["patch_wscale"], bits[0]),
+        "patch_b": params["patch_embed"]["b"],
+        "head": wq(params["head"]["w"], qstate["head_wscale"], bits[-1]),
+        "head_b": params["head"]["b"],
+        "stages": [],
+    }
+    slot = 1
+    for i, stage in enumerate(params["stages"]):
+        sq = qstate["stages"][i]
+        st = {"blocks": []}
+        for j, blk in enumerate(stage["blocks"]):
+            aq = sq["blocks"][j]["attn"]
+            mask = shift_mask_tensor(cfg, i, cfg.shift(i, j), blk["bias_table"].device)
+            st["blocks"].append({
+                "qkv": wq(blk["qkv"]["w"], aq["qkv_wscale"], bits[slot]),
+                "qkv_b": blk["qkv"]["b"],
+                "proj": wq(blk["proj"]["w"], aq["proj_wscale"], bits[slot + 1]),
+                "proj_b": blk["proj"]["b"],
+                "fc1": wq(blk["fc1"]["w"], sq["blocks"][j]["fc1_wscale"], bits[slot + 2]),
+                "fc1_b": blk["fc1"]["b"],
+                "fc2": wq(blk["fc2"]["w"], sq["blocks"][j]["fc2_wscale"], bits[slot + 3]),
+                "fc2_b": blk["fc2"]["b"],
+                "norm1": blk["norm1"],
+                "norm2": blk["norm2"],
+                "bias_val": _bias_values(blk["bias_table"], aq["qact_table"]["scale"],
+                                         cfg.window(i), cfg.num_heads[i]),
+                "mask_s2": None if mask is None else mask / aq["qact2"]["scale"],
+            })
+            slot += 4
+        if "downsample" in stage:
+            ds = stage["downsample"]
+            st["downsample"] = {"red": wq(ds["reduction"]["w"], sq["downsample"]["red_wscale"],
+                                          bits[slot]),
+                                "norm": ds["norm"]}
+            slot += 1
+        s["stages"].append(st)
+    s["patch_norm"] = params["patch_norm"]
+    s["norm"] = params["norm"]
+    return s
+
+
+def launches_per_forward(cfg: SwinConfig) -> dict:
+    """Kernel launches of one ``serving_forward``: the stem's, each stage's
+    first and each PatchMerging's LN; one attention and one junction per
+    block; an fc2 junction per block but the one before each PatchMerging;
+    qkv, proj and fc1 per block, plus that fc2, the reductions and the head."""
+    blocks, merges = sum(cfg.depths), cfg.num_layers - 1
+    return {"int_ln_requant": 1 + cfg.num_layers + merges, "swin_lis_attention": blocks,
+            "int_res_ln_requant": blocks, "int8_matmul_res_ln": blocks - merges,
+            "int8_matmul_requant": 3 * blocks + 2 * merges + 1}
+
+
+def _iln(codes, s_in, lnp, out_scale, expand=1, use_kernels=True):
+    """Integer LN on codes; ``expand`` tiles the input scale over a
+    PatchMerging concat of ``expand`` copies."""
+    c = codes.shape[-1]
+    s_in_v = torch.broadcast_to(torch.as_tensor(s_in, dtype=torch.float32, device=codes.device),
+                                (c // expand,))
+    if expand != 1:
+        s_in_v = s_in_v.repeat(expand)
+    s1 = s_in_v.min()
+    fn = intln.int_ln_requant if use_kernels else intln.int_ln_requant_plain
+    out = fn(codes.reshape(-1, c), torch.round(s_in_v / s1), s1, lnp["w"], lnp["b"], out_scale, 1.0)
+    return out.reshape(codes.shape)
+
+
+def _input_dequant(s, x):
+    """float32 image → its qact_input fake-quant (the simulation's formula)."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"Swin serving takes float32 images; {x.dtype} ingest is not ported yet "
+                        f"(ROADMAP.md)")
+    q0 = torch.clamp(torch.round(x / s["s_input"] + s["zp_input"]), *_I8)
+    return (q0 - s["zp_input"]) * s["s_input"]
+
+
+def _mean_codes(codes, s_in, s_out):
+    """Token mean of (B, L, C) codes at scale ``s_in`` → (B, C) int8 codes at
+    ``s_out``. The float32 sum of codes is exact in any order. XLA forms
+    ``jnp.mean`` as sum·fl(1/L), not the quotient; the two give the same
+    codes: they part by an ulp only off the rounding ties, and at a tie the
+    quotient is an exact integer that sum·fl(1/L) also hits (all L = 49
+    multiples checked in tests/test_torch_swin_serving.py)."""
+    return torch.clamp(torch.round(codes.to(torch.float32).mean(dim=1) * s_in / s_out),
+                       *_I8).to(torch.int8)
+
+
+def stem_codes(s, qstate, cfg: SwinConfig, x, use_kernels: bool = True):
+    """The serving stem: float32 image → patch-norm codes (B, L, C).
+
+    fp patch matmul against the dequantized weight codes (float32, TF32 off)
+    → patch_qact_bn codes → int LN onto patch_qact codes."""
+    b = x.shape[0]
+    x = _input_dequant(s, x)
+    pw = s["patch"]["w_q"].to(torch.float32) * s["patch"]["sw"][:, None]
+    px = _patches(x, cfg.patch_size)
+    sq_bn = qstate["patch_qact_bn"]["scale"]
+    h = px @ pw.T + s["patch_b"]
+    xc = torch.clamp(torch.round(h / sq_bn), *_I8).to(torch.int8)
+    return _iln(xc, sq_bn, s["patch_norm"], qstate["patch_qact"]["scale"],
+                use_kernels=use_kernels).reshape(b, px.shape[1], -1)
+
+
+@torch.no_grad()
+def serving_forward(s, qstate, cfg: SwinConfig, policy: QuantPolicy, x, use_kernels: bool = True,
+                    lis: bool | None = None):
+    """Run the Swin int8 pipeline on a float32 image batch (B, 3, H, W);
+    returns float32 logits (B, num_classes).
+
+    ``use_kernels``: the kernel wrappers (CUDA kernels on CUDA tensors, their
+    plain versions on CPU tensors). False calls the plain versions directly
+    on any device: the reference the kernels are held against.
+    ``lis``: override the policy's Log-Int-Softmax switch; off runs the fp
+    softmax, which only the plain attention implements so far.
+    """
+    if use_kernels:
+        attn = attention_lis.swin_lis_attention
+        res_ln = intln.int_res_ln_requant
+        mm_res_ln = matmul_ln.int8_matmul_res_ln
+        mm = matmul_int8.int8_matmul_requant
+    else:
+        attn = attention_lis.swin_lis_attention_plain
+        res_ln = intln.int_res_ln_requant_plain
+        mm_res_ln = matmul_ln.int8_matmul_res_ln_plain
+        mm = matmul_int8.int8_matmul_requant_plain
+    lis = bool(policy.int_softmax) if lis is None else bool(lis)
+
+    b = x.shape[0]
+    xc = stem_codes(s, qstate, cfg, x, use_kernels)
+    s_prev = qstate["patch_qact"]["scale"]
+    final_ln = None
+    for i, st in enumerate(s["stages"]):
+        res, ws = cfg.stage_res(i), cfg.window(i)
+        heads = cfg.num_heads[i]
+        sqs = qstate["stages"][i]
+        nblk = len(st["blocks"])
+        last_stage = i == len(s["stages"]) - 1
+        h_ln = None  # norm1 codes carried out of the fc2 junction
+        for j, sb in enumerate(st["blocks"]):
+            bq = sqs["blocks"][j]
+            aq = bq["attn"]
+            shift = cfg.shift(i, j)
+            bs, l, c = xc.shape
+            hd = c // heads
+            shortcut = xc
+            h = _iln(xc, s_prev, sb["norm1"], bq["qact1"]["scale"], use_kernels=use_kernels) \
+                if h_ln is None else h_ln
+            hw = window_partition(_roll(h.reshape(bs, res, res, c), -shift), ws)
+            hw = mm(hw.reshape(-1, c), sb["qkv"]["w_q"],
+                    bq["qact1"]["scale"] * sb["qkv"]["sw"] / aq["qact1"]["scale"],
+                    sb["qkv_b"] / aq["qact1"]["scale"]).reshape(-1, ws * ws, 3 * c)
+            hw = attn(hw, sb["bias_val"], sb["mask_s2"], heads, (res // ws) ** 2,
+                      aq["qact1"]["scale"] ** 2 * hd**-0.5 / aq["qact_attn1"]["scale"],
+                      aq["qact_attn1"]["scale"], aq["qact2"]["scale"],
+                      aq["qact1"]["scale"] / aq["qact3"]["scale"], lis=lis)
+            hw = mm(hw.reshape(-1, c), sb["proj"]["w_q"],
+                    aq["qact3"]["scale"] * sb["proj"]["sw"] / aq["qact4"]["scale"],
+                    sb["proj_b"] / aq["qact4"]["scale"])
+            h = _roll(window_reverse(hw.reshape(-1, ws * ws, c), ws, res, res), shift)
+            # residual requant-add → block qact2 codes, and their norm2 codes
+            xc, h = res_ln(shortcut.reshape(-1, c), s_prev, h.reshape(-1, c).contiguous(),
+                           aq["qact4"]["scale"], bq["qact2"]["scale"], sb["norm2"]["w"],
+                           sb["norm2"]["b"], bq["qact3"]["scale"], 1.0)
+            h = mm(h, sb["fc1"]["w_q"], bq["qact3"]["scale"] * sb["fc1"]["sw"], sb["fc1_b"],
+                   out_inv=1.0 / bq["mlp_qact1"]["scale"], gelu=True)
+            fc2 = sb["fc2"]
+            r_fc2 = bq["mlp_qact1"]["scale"] * fc2["sw"] / bq["mlp_qact2"]["scale"]
+            b_fc2 = sb["fc2_b"] / bq["mlp_qact2"]["scale"]
+            if j + 1 < nblk or last_stage:
+                # fc2 + residual + the LN that follows in the same token
+                # layout: the next block's norm1, or the final norm
+                if j + 1 < nblk:
+                    ln_p = st["blocks"][j + 1]["norm1"]
+                    ln_out = sqs["blocks"][j + 1]["qact1"]["scale"]
+                else:
+                    ln_p, ln_out = s["norm"], qstate["qact2"]["scale"]
+                xc, h_f = mm_res_ln(h, fc2["w_q"], r_fc2, b_fc2, xc, bq["mlp_qact2"]["scale"],
+                                    bq["qact2"]["scale"], bq["qact4"]["scale"], ln_p["w"],
+                                    ln_p["b"], ln_out, 1.0)
+                if j + 1 < nblk:
+                    h_ln = h_f.reshape(bs, l, c)
+                else:
+                    final_ln = h_f.reshape(bs, l, c)
+            else:
+                # the block before a PatchMerging: plain fc2, then the
+                # residual requant-add
+                h = mm(h, fc2["w_q"], r_fc2, b_fc2)
+                val = (xc.to(torch.float32) * bq["qact2"]["scale"]
+                       + h.to(torch.float32) * bq["mlp_qact2"]["scale"])
+                xc = torch.clamp(torch.round(val / bq["qact4"]["scale"]), *_I8).to(torch.int8)
+            xc = xc.reshape(bs, l, c)
+            s_prev = bq["qact4"]["scale"]
+        if "downsample" in st:
+            dq = sqs["downsample"]
+            red = st["downsample"]["red"]
+            xc = _iln(_merge_patches(xc, res), s_prev, st["downsample"]["norm"], dq["qact1"]["scale"],
+                      expand=4, use_kernels=use_kernels)
+            c2 = xc.shape[-1]
+            xc = mm(xc.reshape(-1, c2), red["w_q"], dq["qact1"]["scale"] * red["sw"] / dq["qact2"]["scale"],
+                    0.0).reshape(b, -1, c2 // 2)
+            s_prev = dq["qact2"]["scale"]
+
+    c3 = _mean_codes(final_ln, qstate["qact2"]["scale"], qstate["qact3"]["scale"])
+    logits_c = mm(c3, s["head"]["w_q"],
+                  qstate["qact3"]["scale"] * s["head"]["sw"] / qstate["act_out"]["scale"],
+                  s["head_b"] / qstate["act_out"]["scale"])
+    return logits_c.to(torch.float32) * qstate["act_out"]["scale"]

@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain PyTorch versions, on the card.
+"""The seven CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: they skip without a CUDA device (decided inside the
 fixture, never at import). Run them on a GPU machine with
@@ -13,11 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from p2vit_tpu_torch import serving
+from p2vit_tpu_torch import serving, serving_swin
 from p2vit_tpu_torch.config import make_policy
-from p2vit_tpu_torch.models import VIT_ZOO, vit
+from p2vit_tpu_torch.models import SWIN_ZOO, VIT_ZOO, swin, vit
 from p2vit_tpu_torch.ops import (
-    attention_lis, embed_fused, launch_counts, matmul_int8, matmul_ln, reset_launch_counts,
+    attention_lis, embed_fused, intln, launch_counts, matmul_int8, matmul_ln, reset_launch_counts,
 )
 
 pytestmark = pytest.mark.cuda
@@ -121,7 +121,9 @@ def test_serving_forward_small_model(dev):
     reset_launch_counts()
     got = serving.serving_forward(s, cfg, x)
     assert launch_counts() == {"fused_patch_embed": 1, "lis_attention_qkv_fused": 2,
-                               "int8_matmul_res_ln": 4, "int8_matmul_requant": 3}
+                               "int8_matmul_res_ln": 4, "int8_matmul_requant": 3,
+                               "int_ln_requant": 0, "int_res_ln_requant": 0,
+                               "swin_lis_attention": 0}
     want = serving.serving_forward(s, cfg, x, use_kernels=False)
     assert torch.equal(got, want) and bool(torch.isfinite(got).all())
     # embed kernel alone, on the serving path's arguments
@@ -131,3 +133,96 @@ def test_serving_forward_small_model(dev):
     patches = extract_patches(serving._input_codes(s, x), cfg.patch_size).contiguous()
     _same(embed_fused.fused_patch_embed(patches, s["patch"]["w_q"], **k),
           embed_fused.fused_patch_embed_plain(patches, s["patch"]["w_q"], **k))
+
+
+def _ptf(rng, n, base):
+    """A PTF scale vector: base·2^k, k ∈ {0..3}, so the LN mask is {1, 2, 4, 8}."""
+    return torch.from_numpy((base * 2.0 ** rng.randint(0, 4, n)).astype(np.float32))
+
+
+@pytest.mark.parametrize("m,c", [(2 * 3136 + 5, 96), (2 * 196, 384), (2 * 49, 1536), (50, 3072)])
+def test_int_ln_requant_kernel(dev, m, c):
+    """Swin-T's int-LN rows (patch norm C = 96, norm1 C = 384, the 4C = 1536
+    PatchMerging row) and swin_base's widest 3072 row, ragged M."""
+    rng = np.random.RandomState(c)
+    s_in = _ptf(rng, c, 0.013)
+    args = [_i8(rng, (m, c)), torch.round(s_in / s_in.min()), s_in.min(),
+            torch.from_numpy(rng.randn(c).astype(np.float32)),
+            torch.from_numpy((rng.randn(c) * 0.1).astype(np.float32)),
+            torch.from_numpy((np.abs(rng.randn(c)) * 0.03 + 0.01).astype(np.float32)), 1.0]
+    args = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
+    _same(intln.int_ln_requant(*args), intln.int_ln_requant_plain(*args))
+
+
+@pytest.mark.parametrize("c", [96, 768])
+def test_int_res_ln_requant_kernel(dev, c):
+    rng = np.random.RandomState(c + 1)
+    m = 2 * 3136 if c == 96 else 2 * 49
+    args = [_i8(rng, (m, c)), _ptf(rng, c, 0.011), _i8(rng, (m, c)), torch.tensor(2.0**-5),
+            _ptf(rng, c, 0.017), torch.from_numpy(rng.randn(c).astype(np.float32)),
+            torch.from_numpy((rng.randn(c) * 0.1).astype(np.float32)), torch.tensor(2.0**-4), 1.0]
+    args = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
+    _same(intln.int_res_ln_requant(*args), intln.int_res_ln_requant_plain(*args))
+
+
+def _swin_attn_args(rng, windows, n_win, heads, masked, distinct_masks=False):
+    c = 32 * heads
+    qkv = _i8(rng, (windows, 49, 3 * c))
+    bias = torch.from_numpy((rng.randn(heads, 49, 49) * 0.3).astype(np.float32))
+    s2 = 2.0**-4
+    mask = None
+    if masked:
+        if distinct_masks:
+            m = -100.0 * (rng.rand(n_win, 49, 49) < 0.3)
+        else:
+            res = int(round(n_win**0.5)) * 7
+            m = swin.shift_attn_mask(res, res, 7, 3)
+        mask = torch.from_numpy((m / s2).astype(np.float32))
+    return qkv, bias, mask, heads, n_win, 2.0**-9, 2.0**-4, s2, 2.0**-2
+
+
+@pytest.mark.parametrize("case", ["stage0", "stage0_shifted", "stage2_shifted", "mask_chunks"])
+def test_swin_lis_attention_kernel(dev, case):
+    """Swin-T shapes: stage 0 (64 windows per image, 3 heads) plain and
+    shifted, stage 2 (4 windows, 12 heads) shifted, and 64 distinct masks per
+    image, so a wrong ``w % n_windows`` index changes the output."""
+    rng = np.random.RandomState(3)
+    windows, n_win, heads = {"stage0": (128, 64, 3), "stage0_shifted": (128, 64, 3),
+                             "stage2_shifted": (8, 4, 12), "mask_chunks": (128, 64, 2)}[case]
+    a = _swin_attn_args(rng, windows, n_win, heads, case != "stage0", case == "mask_chunks")
+    a = tuple(t.to(dev) if isinstance(t, torch.Tensor) else t for t in a)
+    _same(attention_lis.swin_lis_attention(*a), attention_lis.swin_lis_attention_plain(*a))
+
+
+def test_swin_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    rng = np.random.RandomState(4)
+    a = tuple(t.to(dev) if isinstance(t, torch.Tensor) else t
+              for t in _swin_attn_args(rng, 4, 4, 2, False))
+    with pytest.raises(ValueError, match="LIS"):
+        attention_lis.swin_lis_attention(*a, lis=False)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention_lis.swin_lis_attention(a[0], a[1][:1], None, 1, *a[4:])
+    x = torch.zeros(8, 3074, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="C % 4"):
+        intln.int_ln_requant(x, 1.0, 1.0, 1.0, 0.0, 1.0, 1.0)
+
+
+def test_swin_serving_forward_small_model(dev):
+    """A narrow two-stage Swin with head_dim 32: the whole serving path through
+    the kernels equals the plain path bit for bit, with the expected launches."""
+    cfg = dataclasses.replace(SWIN_ZOO["swin_tiny_patch4_window7_224"], img_size=112, embed_dim=64,
+                              depths=(2, 2), num_heads=(2, 4), num_classes=10)
+    policy = make_policy()
+    params = swin.init_params(0, cfg, device=dev)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((3, 3, 112, 112), generator=gen).to(dev)
+    calib = swin.calibrate(params, cfg, policy, x)
+    s = serving_swin.convert(params, calib.qstate, cfg, policy, 4)
+    reset_launch_counts()
+    got = serving_swin.serving_forward(s, calib.qstate, cfg, policy, x)
+    assert launch_counts() == {"fused_patch_embed": 0, "lis_attention_qkv_fused": 0,
+                               "int8_matmul_res_ln": 3, "int8_matmul_requant": 15,
+                               "int_ln_requant": 4, "int_res_ln_requant": 4,
+                               "swin_lis_attention": 4}
+    want = serving_swin.serving_forward(s, calib.qstate, cfg, policy, x, use_kernels=False)
+    assert torch.equal(got, want) and bool(torch.isfinite(got).all())
