@@ -1,41 +1,53 @@
 """Drive the PyTorch/CUDA port's int8 serving paths once on one GPU.
 
-    python3 chip_smoke.py            # DeiT-S then Swin-T, batches 1, 8, 64
+    python3 chip_smoke.py            # six paths, batches 1, 8, 64
 
-Builds the seven CUDA kernels from ``p2vit_tpu_torch/csrc`` (one nvcc per
-source, in parallel, sm_90a), then drives two models at full width and
-depth with seeded random weights and images:
+Builds the nine CUDA kernels from ``p2vit_tpu_torch/csrc`` (one nvcc per
+source, in parallel, sm_90a), then drives six serving paths of two models at
+full width and depth, with seeded random weights and images:
 
 * DeiT-S (``deit_small_patch16_224``: C=384, 6 heads, 197 tokens): seeded
-  init → calibrate (one batch) → convert(W4A8, [4]*50) → serving_forward;
+  init → calibrate (one batch) → convert(W4A8, [4]*50) → serving_forward,
+  at the default flags (``deit``) and staged (``deit_staged``:
+  ``fuse_embed=False, fuse_qkv=False``);
+* DeiT-S LIS off: make_policy(lis=False) → calibrate → convert(W4A8) →
+  attach_u8_ingest → serving_forward(lis=False) on uint8 images, fused
+  (``deit_lisoff``) and staged (``deit_staged_lisoff``);
 * Swin-T (``swin_tiny_patch4_window7_224``: C=96, depths (2,2,6,2), heads
   (3,6,12,24), 7×7 windows): seeded init → calibrate (one batch) →
-  convert(4) → serving_forward.
+  convert(4) → serving_forward (``swin``), and the same under
+  make_policy(lis=False) on uint8 images (``swin_lisoff``).
 
-Phases, one line each, per model:
+Phases, one line each, per path:
 
   1. each kernel of the path against its plain PyTorch version, on the card,
      on the arguments the path gives it (captured from a plain forward at
-     batch 8 and 64): mismatch counts; must be 0.
+     batch 8 and 64): mismatch counts; must be 0. The staged path also holds
+     ``lis_attention`` against its plain version, on the captured qkv codes
+     split to (B·H, N, 64).
   2. the path: launch counts reset, serving_forward through the kernels on
      every request batch, counts read. Its logits must equal the plain
-     path's (``use_kernels=False``) bit for bit.
-  3. the launch counts of that run: the model's per-forward counts
-     (DeiT-S 1 embed, depth attention, 2·depth res-LN, depth+1 requant;
-     Swin-T 8 int-LN, 12 attention, 12 res-LN junctions, 9 matmul res-LN,
-     43 requant) and 0 for the other model's kernels.
+     path's (``use_kernels=False``) bit for bit. uint8 paths: the logits must
+     equal those of the same images normalized on the host (numpy float32,
+     the literal sequence), and ``u8_ingest_exact`` must hold for the
+     literal form (the fused affine form is reported).
+  3. the launch counts of that run: the path's per-forward counts
+     (``serving.launches_per_forward``, ``serving_swin.launches_per_forward``)
+     and 0 for every other kernel.
   4. logits finite, of shape (B, 1000); relative error, share of equal
      logits and argmax agreement against the fake-quant simulation, and the
      number of distinct predicted classes (reported, not checked).
   5. timing with CUDA events after warm-up: img/s at the largest batch for
-     serving with kernels, the plain path, and a bf16 ``fp_forward``; each
-     kernel against its plain version at that batch's shapes.
+     serving with kernels, the plain path, a bf16 ``fp_forward`` (default
+     paths) and float32 input (uint8 paths); each kernel against its plain
+     version at that batch's shapes. Then staged against fused, LIS off
+     against LIS on, and uint8 against float32 img/s, each on one line.
 
 Then the card's name and power limit, one JSON line of per-kernel results
-(``launches`` summed over both paths' phase-2 runs, ``ms``/``plain_ms`` per
-forward at the largest batch summed over the models that run the kernel,
-``per_model`` the breakdown), and last ``{"ok": true, "device": {...}}``.
-Any failure raises (exit 1, no result line). There is no CPU path.
+(``launches`` summed over the paths' phase-2 runs, ``ms``/``plain_ms`` per
+forward at the largest batch summed over the paths that run the kernel,
+``per_model`` the breakdown by path), and last ``{"ok": true, "device":
+{...}}``. Any failure raises (exit 1, no result line). There is no CPU path.
 """
 
 from __future__ import annotations
@@ -47,6 +59,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # kernel → (plain version's module, its name, CUDA source, the TPU kernel it replaces)
@@ -64,7 +77,13 @@ SOURCES = {
                            "p2vit_tpu/ops/intln.py:187"),
     "swin_lis_attention": ("attention_lis", "swin_lis_attention_plain", "swin_attention.cu",
                            "p2vit_tpu/ops/attention_lis.py:596"),
+    "lis_attention_fused": ("attention_lis", "lis_attention_fused_plain", "attention_lis.cu",
+                            "p2vit_tpu/ops/attention_lis.py:228"),
+    "lis_attention": ("attention_lis", "lis_attention_plain", "attention_lis.cu",
+                      "p2vit_tpu/ops/attention_lis.py:143"),
 }
+PATHS = ("deit", "deit_staged", "deit_lisoff", "deit_staged_lisoff", "swin", "swin_lisoff")
+MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 
 
 def _fail(msg: str) -> None:
@@ -124,36 +143,67 @@ def _shape_key(a, k):
     return tuple(t.shape if isinstance(t, torch.Tensor) else t is None for t in a) + (bool(k.get("gelu")),)
 
 
+def host_normalize(u8: torch.Tensor) -> torch.Tensor:
+    """uint8 images → (u/255 − mean)/std in float32 on the host (numpy), the
+    op sequence of the data pipeline, then back to the images' device."""
+    mean = np.asarray(MEAN, np.float32).reshape(3, 1, 1)
+    std = np.asarray(STD, np.float32).reshape(3, 1, 1)
+    x = (u8.cpu().numpy().astype(np.float32) / np.float32(255.0) - mean) / std
+    return torch.from_numpy(x).to(u8.device)
+
+
 @dataclasses.dataclass
 class Path:
-    """One model's serving path as chip_smoke drives it."""
+    """One serving path as chip_smoke drives it."""
 
     name: str
     kernels: tuple  # kernel names the path runs
     per_forward: dict  # expected launches per forward
     forward: object  # (x, use_kernels) -> logits
-    simulate: object  # x -> fake-quant logits
-    bf16: object  # x -> bf16 fp logits
+    simulate: object  # float32 x -> fake-quant logits
+    bf16: object  # float32 x -> bf16 fp logits, or None
     num_classes: int
     img_size: int
+    u8_state: dict | None = None  # the serving state of a uint8 path
+    split_check: bool = False  # hold lis_attention on lis_attention_fused's arguments
+
+
+def _split_calls(calls):
+    """lis_attention_fused_plain's captured calls → lis_attention arguments:
+    the (B, N, 3C) qkv codes split to contiguous (B·H, N, 64) q, k, v."""
+    out = []
+    for a, k in calls:
+        qkv, heads = a[0], a[1]
+        b, n, c3 = qkv.shape
+        parts = qkv.reshape(b, n, 3, heads, c3 // 3 // heads).permute(2, 0, 3, 1, 4)
+        q, kk, v = (parts[i].reshape(b * heads, n, -1).contiguous() for i in range(3))
+        out.append(((q, kk, v) + tuple(a[2:]), k))
+    return out
 
 
 def run_path(path: Path, batches, reps, img, ops, counts_api):
-    """Phases 1–5 of one path; returns {kernel: launches, max error, ms and plain ms}."""
+    """Phases 1–5 of one path; returns ({kernel: launches, max error, ms and
+    plain ms}, {"ms": ms/forward at the largest batch, "f32_ms": the same on
+    float32 input})."""
     reset_launch_counts, launch_counts = counts_api
-    requests = {b: img(b, path.img_size) for b in batches}
+    u8 = path.u8_state is not None
+    requests = {b: img(b, path.img_size, u8) for b in batches}
     bt = max(batches)
     plain = {n: (getattr(ops, SOURCES[n][0]), SOURCES[n][1], getattr(ops, n)) for n in path.kernels}
     mods = [v[0] for v in plain.values()]
     pnames = [v[1] for v in plain.values()]
+    if path.split_check:
+        plain["lis_attention"] = (ops.attention_lis, "lis_attention_plain", ops.lis_attention)
 
     # ---- phase 1: each kernel vs its plain version on the path's arguments --
     worst = {k: 0 for k in plain}
     mismatches = {k: 0 for k in plain}
     timing_calls = {}
     for b in sorted({8, bt}):
-        x = requests[b] if b in requests else img(b, path.img_size)
+        x = requests[b] if b in requests else img(b, path.img_size, u8)
         calls = _capture(mods, pnames, lambda: path.forward(x, False))
+        if path.split_check:
+            calls["lis_attention_plain"] = _split_calls(calls["lis_attention_fused_plain"])
         for name, (mod, pname, kern) in plain.items():
             seen = {}
             for a, k in calls[pname]:
@@ -184,6 +234,19 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
     print(f"{path.name} phase 2 batches {batches}: logits != plain path: {json.dumps(neq)}", flush=True)
     if any(neq.values()):
         _fail(f"{path.name}: serving logits differ from the plain path: {neq}")
+    if u8:
+        from p2vit_tpu_torch import serving
+
+        exact = serving.u8_ingest_exact(path.u8_state)
+        affine = (serving.u8_ingest_exact(path.u8_state, affine=True) if "lut" in path.u8_state["u8"]
+                  else "n/a (no input codes)")
+        neq = {b: int((logits[b] != path.forward(host_normalize(x), True)).sum())
+               for b, x in requests.items()}
+        print(f"{path.name} phase 2 u8_ingest_exact: exact {exact}, affine {affine}; uint8 logits "
+              f"!= host-normalized float32 logits: {json.dumps(neq)}", flush=True)
+        if not exact or any(neq.values()):
+            _fail(f"{path.name}: uint8 ingest is not exact on this card ({exact}) or its logits "
+                  f"differ from float32 ingest: {neq}")
 
     # ---- phase 3: every kernel of the path ran, as often as it should ------
     nb = len(batches)
@@ -197,7 +260,7 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
     for b, lg in logits.items():
         if tuple(lg.shape) != (b, path.num_classes) or not bool(torch.isfinite(lg).all()):
             _fail(f"{path.name} batch {b}: logits shape {tuple(lg.shape)} or non-finite values")
-        sim = path.simulate(requests[b])
+        sim = path.simulate(host_normalize(requests[b]) if u8 else requests[b])
         rel = float((lg - sim).norm() / sim.norm().clamp_min(1e-9))
         same = float((lg == sim).float().mean())
         agree = float((lg.argmax(1) == sim.argmax(1)).float().mean())
@@ -207,16 +270,23 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
 
     # ---- phase 5: timing ----------------------------------------------------
     x = requests[bt]
-    for label, fn in (
-        ("int8 kernels", lambda: path.forward(x, True)),
-        ("int8 plain", lambda: path.forward(x, False)),
-        ("bf16 fp_forward", lambda: path.bf16(x)),
-        ("int8 kernels again", lambda: path.forward(x, True)),
-    ):
+    xf = host_normalize(x) if u8 else x
+    runs = [("int8 kernels", lambda: path.forward(x, True)),
+            ("int8 plain", lambda: path.forward(x, False))]
+    if path.bf16 is not None:
+        runs.append(("bf16 fp_forward", lambda: path.bf16(xf)))
+    if u8:
+        runs.append(("int8 kernels, float32 input", lambda: path.forward(xf, True)))
+    runs.append(("int8 kernels again", lambda: path.forward(x, True)))
+    times = {}
+    for label, fn in runs:
         with torch.no_grad():
             ms = _time_ms(fn, max(2, reps // 4))
+        times[label] = ms
         print(f"{path.name} phase 5 batch {bt} {label}: {ms:.4f} ms/forward, {bt / ms * 1e3:.1f} img/s",
               flush=True)
+    ms = min(times["int8 kernels"], times["int8 kernels again"])
+    summary = {"ms": ms, "f32_ms": times.get("int8 kernels, float32 input", ms)}
     results = {}
     for name, (mod, pname, kern) in plain.items():
         k_ms = p_ms = 0.0
@@ -230,12 +300,36 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
             p_ms += t_p * count
         results[name] = {"launches": counts[name], "max_abs_err": worst[name],
                          "ms": k_ms, "plain_ms": p_ms}
-    return results
+    return results, summary
+
+
+def _img_s(bt, ms):
+    return f"{bt / ms * 1e3:.1f} img/s ({ms:.4f} ms)"
+
+
+def print_comparisons(summary, bt):
+    """Staged against fused and LIS off against LIS on, both on float32
+    input, then uint8 against float32: img/s at batch ``bt`` through the
+    kernels, one pair per line."""
+    pairs = (("staged vs fused", "DeiT-S staged", "DeiT-S"),
+             ("staged vs fused, LIS off", "DeiT-S staged LIS-off", "DeiT-S LIS-off"),
+             ("LIS off vs LIS on", "DeiT-S LIS-off", "DeiT-S"),
+             ("LIS off vs LIS on, staged", "DeiT-S staged LIS-off", "DeiT-S staged"),
+             ("LIS off vs LIS on", "Swin-T LIS-off", "Swin-T"))
+    for label, a, b in pairs:
+        if a in summary and b in summary:
+            print(f"phase 5 compare {label}, batch {bt}, float32 input: {a} "
+                  f"{_img_s(bt, summary[a]['f32_ms'])} vs {b} {_img_s(bt, summary[b]['f32_ms'])}")
+    for name, t in summary.items():
+        if t["f32_ms"] != t["ms"]:
+            print(f"phase 5 compare uint8 vs float32 input, batch {bt}: {name} uint8 "
+                  f"{_img_s(bt, t['ms'])} vs float32 {_img_s(bt, t['f32_ms'])}")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--models", default="deit,swin", help="paths to drive: deit, swin or both")
+    ap.add_argument("--models", default=",".join(PATHS),
+                    help=f"paths to drive, any of {', '.join(PATHS)} (default all)")
     ap.add_argument("--depth", type=int, default=12, help="DeiT-S encoder depth (12 in the model)")
     ap.add_argument("--batches", default="1,8,64", help="request batch sizes")
     ap.add_argument("--calib", type=int, default=32, help="calibration images")
@@ -244,6 +338,8 @@ def main() -> None:
     args = ap.parse_args()
     batches = [int(b) for b in args.batches.split(",")]
     models = args.models.split(",")
+    if set(models) - set(PATHS):
+        _fail(f"unknown paths {sorted(set(models) - set(PATHS))}; choose from {PATHS}")
 
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false; this script needs one CUDA GPU")
@@ -265,62 +361,90 @@ def main() -> None:
     for ln in regs:
         print(f"  ptxas {ln}")
 
-    policy = make_policy()
     gen = torch.Generator().manual_seed(args.seed + 1)
-    img = lambda b, size: torch.randn((b, 3, size, size), generator=gen).to(dev)  # noqa: E731
-    paths = []
-    if "deit" in models:
-        cfg = dataclasses.replace(VIT_ZOO["deit_small_patch16_224"], depth=args.depth)
-        t0 = time.time()
-        params = vit.init_params(args.seed, cfg, device=dev)
-        calib = vit.calibrate(params, cfg, policy, img(args.calib, cfg.img_size))
-        bits = [4] * cfg.num_matmuls
-        s = serving.convert(params, calib.qstate, cfg, policy, bits)
-        idx = vit.bits_to_idx(bits)
-        pbf = _cast_tree(params, torch.bfloat16)
-        torch.cuda.synchronize()
-        print(f"DeiT-S setup: calibrate({args.calib} images) + convert(W4A8) {time.time() - t0:.1f} s")
-        paths.append(Path(
-            "DeiT-S", ("fused_patch_embed", "lis_attention_qkv_fused", "int8_matmul_res_ln",
-                       "int8_matmul_requant"),
-            {"fused_patch_embed": 1, "lis_attention_qkv_fused": cfg.depth,
-             "int8_matmul_res_ln": 2 * cfg.depth, "int8_matmul_requant": cfg.depth + 1},
-            lambda x, k, s=s, cfg=cfg: serving.serving_forward(s, cfg, x, use_kernels=k),
-            lambda x, p=params, q=calib.qstate, cfg=cfg, idx=idx: vit.quant_forward(p, q, cfg, policy, x, idx),
-            lambda x, p=pbf, cfg=cfg: vit.fp_forward(p, cfg, x.to(torch.bfloat16)),
-            cfg.num_classes, cfg.img_size))
-    if "swin" in models:
-        cfg = SWIN_ZOO["swin_tiny_patch4_window7_224"]
-        t0 = time.time()
-        params = swin.init_params(args.seed, cfg, device=dev)
-        calib = swin.calibrate(params, cfg, policy, img(args.calib, cfg.img_size))
-        s = serving_swin.convert(params, calib.qstate, cfg, policy, 4)
-        pbf = _cast_tree(params, torch.bfloat16)
-        torch.cuda.synchronize()
-        print(f"Swin-T setup: calibrate({args.calib} images) + convert(4) {time.time() - t0:.1f} s")
-        paths.append(Path(
-            "Swin-T", ("int_ln_requant", "swin_lis_attention", "int_res_ln_requant",
-                       "int8_matmul_res_ln", "int8_matmul_requant"),
-            serving_swin.launches_per_forward(cfg),
-            lambda x, k, s=s, q=calib.qstate, cfg=cfg: serving_swin.serving_forward(
-                s, q, cfg, policy, x, use_kernels=k),
-            lambda x, p=params, q=calib.qstate, cfg=cfg: swin.quant_forward(p, q, cfg, policy, x, 4),
-            lambda x, p=pbf, cfg=cfg: swin.fp_forward(p, cfg, x.to(torch.bfloat16)),
-            cfg.num_classes, cfg.img_size))
-    if not paths:
-        _fail(f"no path selected by --models {args.models}")
 
-    per_model = {}
+    def img(b, size, u8=False):
+        """Seeded request images: float32 normal, or uint8 uniform."""
+        if u8:
+            return torch.randint(0, 256, (b, 3, size, size), generator=gen, dtype=torch.uint8).to(dev)
+        return torch.randn((b, 3, size, size), generator=gen).to(dev)
+
+    def setup(name, model, cfg, lis, convert):
+        """Seeded init → calibrate on one batch (uint8 images normalized on
+        the host when LIS is off, float32 otherwise) → convert; returns
+        (params, qstate, policy, serving state)."""
+        t0 = time.time()
+        policy = make_policy(lis=lis)
+        params = model.init_params(args.seed, cfg, device=dev)
+        x = img(args.calib, cfg.img_size, not lis)
+        calib = model.calibrate(params, cfg, policy, host_normalize(x) if not lis else x)
+        s = convert(params, calib.qstate, cfg, policy)
+        torch.cuda.synchronize()
+        print(f"{name} setup: calibrate({args.calib} images) + convert {time.time() - t0:.1f} s")
+        return params, calib.qstate, policy, s
+
+    paths = []
+    deit = [m for m in models if m.startswith("deit")]
+    if deit:
+        cfg = dataclasses.replace(VIT_ZOO["deit_small_patch16_224"], depth=args.depth)
+        bits = [4] * cfg.num_matmuls
+        idx = vit.bits_to_idx(bits)
+        vit_convert = lambda p, q, c, pol: serving.convert(p, q, c, pol, bits)  # noqa: E731
+        for lis in (True, False):
+            if not any(m.endswith("lisoff") != lis for m in deit):
+                continue
+            suffix = "" if lis else " LIS-off"
+            params, qstate, policy, s = setup("DeiT-S" + suffix, vit, cfg, lis, vit_convert)
+            if not lis:
+                serving.attach_u8_ingest(s, MEAN, STD)
+            for staged in (False, True):
+                key = "deit" + ("_staged" if staged else "") + ("" if lis else "_lisoff")
+                if key not in models:
+                    continue
+                flags = dict(fuse_embed=not staged, fuse_qkv=not staged)
+                per_forward = serving.launches_per_forward(cfg, **flags)
+                pbf = _cast_tree(params, torch.bfloat16) if key == "deit" else None
+                paths.append(Path(
+                    "DeiT-S" + (" staged" if staged else "") + suffix, tuple(per_forward), per_forward,
+                    lambda x, k, s=s, cfg=cfg, lis=lis, flags=flags: serving.serving_forward(
+                        s, cfg, x, use_kernels=k, lis=lis, **flags),
+                    lambda x, p=params, q=qstate, cfg=cfg, pol=policy: vit.quant_forward(
+                        p, q, cfg, pol, x, idx),
+                    None if pbf is None else lambda x, p=pbf, cfg=cfg: vit.fp_forward(
+                        p, cfg, x.to(torch.bfloat16)),
+                    cfg.num_classes, cfg.img_size, u8_state=None if lis else s, split_check=staged))
+    for lis in (True, False):
+        key = "swin" if lis else "swin_lisoff"
+        if key not in models:
+            continue
+        cfg = SWIN_ZOO["swin_tiny_patch4_window7_224"]
+        params, qstate, policy, s = setup("Swin-T" + ("" if lis else " LIS-off"), swin, cfg, lis,
+                                          lambda p, q, c, pol: serving_swin.convert(p, q, c, pol, 4))
+        if not lis:
+            serving_swin.attach_u8_ingest(s, MEAN, STD)
+        pbf = _cast_tree(params, torch.bfloat16) if lis else None
+        per_forward = serving_swin.launches_per_forward(cfg)
+        paths.append(Path(
+            "Swin-T" + ("" if lis else " LIS-off"), tuple(per_forward), per_forward,
+            lambda x, k, s=s, q=qstate, cfg=cfg, pol=policy: serving_swin.serving_forward(
+                s, q, cfg, pol, x, use_kernels=k),
+            lambda x, p=params, q=qstate, cfg=cfg, pol=policy: swin.quant_forward(p, q, cfg, pol, x, 4),
+            None if pbf is None else lambda x, p=pbf, cfg=cfg: swin.fp_forward(
+                p, cfg, x.to(torch.bfloat16)),
+            cfg.num_classes, cfg.img_size, u8_state=None if lis else s))
+
+    per_model, summary = {}, {}
     for path in paths:
-        per_model[path.name] = run_path(path, batches, args.reps, img, ops,
-                                        (reset_launch_counts, launch_counts))
+        per_model[path.name], summary[path.name] = run_path(
+            path, batches, args.reps, img, ops, (reset_launch_counts, launch_counts))
+    print_comparisons(summary, max(batches))
 
     results = []
     for k in KERNELS:
         name = k.__name__
         runs = {m: r[name] for m, r in per_model.items() if name in r}
-        if not runs and len(paths) == 2:
-            _fail(f"kernel {name} ran on no path")
+        if not runs and len(paths) == len(PATHS):
+            _fail(f"kernel {name} was held on no path")
         if not runs:
             continue
         _, _, src, rep = SOURCES[name]
@@ -333,8 +457,8 @@ def main() -> None:
             "per_model": {m: {kk: (round(v, 6) if isinstance(v, float) else v) for kk, v in r.items()}
                           for m, r in runs.items()},
         })
-    print(f"(kernel ms / plain_ms: per forward at batch {max(batches)}, summed over the models "
-          f"that run the kernel; card {smi})")
+    print(f"(kernel ms / plain_ms: per forward at batch {max(batches)}, summed over the paths "
+          f"that run the kernel; lis_attention timed at lis_attention_fused's calls; card {smi})")
     print(smi)
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,7 @@
 // * the A&S 7.1.26 erf-GELU, as ops/matmul_int8.py gelu_as;
 // * the serving integer-LN chain, as ops/intln.py ln_mn_chain;
 // * the Log-Int-Softmax row chain of both attention kernels, as
-//   ops/attention_lis.py lis_codes;
+//   ops/attention_lis.py lis_codes, and the LIS-off fp32 softmax row;
 // * Gemm: a tiled int8 x int8 -> int32 matrix product on mma.sync.m16n8k32,
 //   shared by the four GEMM kernels.
 //
@@ -272,6 +272,40 @@ __device__ __forceinline__ void lis_row(const float (&ac)[JT], int n, float x0, 
       wt[t] = big < 16 ? (1 << (15 - big)) : 0;
     }
   }
+}
+
+// The LIS-off fp32 softmax of one attention row held by a warp
+// (ops/attention_lis.py _attend with lis=False, op for op), in lis_row's lane
+// layout. logit = code·s; e = exp(logit − rowmax) through float64, rounded
+// once; the row sum S in float64, rounded once; p = e / S. Slots past n get
+// p = 0. The float64 sum is exact while every term lies within ~2^20 of the
+// row's largest (e ≤ 1, 24-bit mantissas, n ≤ 256); beyond that the order can
+// change only the last float64 bit, which reaches S only on an exact float32
+// rounding tie, so the butterfly order here needs no match in the plain version.
+template <int JT>
+__device__ __forceinline__ void softmax_row(const float (&ac)[JT], int n, float s, float (&p)[JT]) {
+  const int lane = threadIdx.x & 31;
+  float lg[JT];
+  float mx = __int_as_float(0xff800000);  // -inf
+#pragma unroll
+  for (int t = 0; t < JT; ++t) {
+    lg[t] = __fmul_rn(ac[t], s);
+    if (lane + 32 * t < n) mx = fmaxf(mx, lg[t]);
+  }
+  mx = warp_max(mx);
+  double sum = 0.0;
+#pragma unroll
+  for (int t = 0; t < JT; ++t) {
+    p[t] = 0.f;
+    if (lane + 32 * t < n) {
+      p[t] = static_cast<float>(exp(static_cast<double>(__fsub_rn(lg[t], mx))));
+      sum = __dadd_rn(sum, static_cast<double>(p[t]));
+    }
+  }
+  const float S = __double2float_rn(warp_sum(sum));
+#pragma unroll
+  for (int t = 0; t < JT; ++t)
+    if (lane + 32 * t < n) p[t] = __fdiv_rn(p[t], S);
 }
 
 // Launch helper: raise the dynamic shared-memory limit when a kernel needs

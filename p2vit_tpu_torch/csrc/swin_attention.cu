@@ -1,5 +1,5 @@
-// Windowed int8 attention with Log-Int-Softmax for Swin (ops/attention_lis.py
-// swin_lis_attention).
+// Windowed int8 attention with Log-Int-Softmax, or the LIS-off fp32 softmax,
+// for Swin (ops/attention_lis.py swin_lis_attention).
 //
 // Replaces the Pallas kernel p2vit_tpu/ops/attention_lis.py:swin_lis_attention
 // (_swin_kernel -> _swin_head_loop). One block per (window, head), head_dim
@@ -13,14 +13,15 @@
 // 2. Each warp owns query rows i. Lane l holds keys l and l + 32: dp4a scores
 //    → attn1 codes clip(round(acc·rq)) → clip(round((attn1·s1 + bias[h,i,j])
 //    ·inv_s2)) (qact2 codes) → + mask[w mod nW, i, j] (already divided by s2,
-//    added unrounded) → p2v::lis_row (common.cuh, shared with the ViT
-//    kernel): the int-exp, the exact two-limb exp_sum, integer weights
-//    2^(15−q).
-// 3. attn@v as the shift-accumulate: lane l is output dim l, accumulating
-//    Σ_j w_j·v[j][l] in int32 over warp-shuffled weights; out =
-//    clip(round(av·2^-15·ro)).
+//    added unrounded) → with LIS, p2v::lis_row (common.cuh, shared with the
+//    ViT kernel): the int-exp, the exact two-limb exp_sum, integer weights
+//    2^(15−q); with LIS off, p2v::softmax_row at scale s2.
+// 3. attn@v: lane l is output dim l. LIS: the shift-accumulate Σ_j w_j·v[j][l]
+//    in int32 over warp-shuffled weights, out = clip(round(av·2^-15·ro)).
+//    LIS off: Σ_j p_j·v[j][l] in float64 (exact products), rounded once,
+//    out = clip(round(av·ro)).
 //
-// Bound: the per-score LIS chain (an IEEE divide per score and per weight)
+// Bound: the per-score softmax chain (an IEEE divide per score and per weight)
 // and the bias/mask reads from L2 (2 × N² floats per block); the dp4a work
 // is 8 instructions per score. At Swin-T batch 64, stage 0 launches
 // 64·64·3 = 12,288 blocks.
@@ -33,7 +34,8 @@ constexpr int NMAX = 64;
 constexpr int JT = NMAX / 32;  // key slots per lane
 constexpr int QROW = 36;       // smem bytes per q/k/v row
 
-// scal: rq, s1, inv_s2, ro, x0_int, b_int, c_int
+// scal: rq, s1, inv_s2, ro, x0_int, b_int, c_int, s2
+template <bool LIS>
 __global__ void __launch_bounds__(p2v::kThreads)
     swin_attention_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ bias,
                           const float* __restrict__ mask, const float* __restrict__ scal,
@@ -79,21 +81,37 @@ __global__ void __launch_bounds__(p2v::kThreads)
         ac[t] = a2;
       }
     }
-    int wt[JT];
-    p2v::lis_row<JT>(ac, N, x0, b_int, c_int, wt);
-
-    int acc = 0;
+    float o;
+    if constexpr (LIS) {
+      int wt[JT];
+      p2v::lis_row<JT>(ac, N, x0, b_int, c_int, wt);
+      int acc = 0;
 #pragma unroll
-    for (int t = 0; t < JT; ++t) {
-      for (int src = 0; src < 32; ++src) {
-        const int j = 32 * t + src;
-        if (j >= N) break;
-        const int wj = __shfl_sync(0xffffffffu, wt[t], src);
-        acc += wj * static_cast<int>(vs[j * QROW + lane]);
+      for (int t = 0; t < JT; ++t) {
+        for (int src = 0; src < 32; ++src) {
+          const int j = 32 * t + src;
+          if (j >= N) break;
+          const int wj = __shfl_sync(0xffffffffu, wt[t], src);
+          acc += wj * static_cast<int>(vs[j * QROW + lane]);
+        }
       }
+      o = __fmul_rn(__fmul_rn(__int2float_rn(acc), 0x1p-15f), ro);
+    } else {
+      float p[JT];
+      p2v::softmax_row<JT>(ac, N, scal[7], p);
+      double acc = 0.0;
+#pragma unroll
+      for (int t = 0; t < JT; ++t) {
+        for (int src = 0; src < 32; ++src) {
+          const int j = 32 * t + src;
+          if (j >= N) break;
+          const double pj = static_cast<double>(__shfl_sync(0xffffffffu, p[t], src));
+          acc = __dadd_rn(acc, __dmul_rn(pj, static_cast<double>(vs[j * QROW + lane])));
+        }
+      }
+      o = __fmul_rn(__double2float_rn(acc), ro);
     }
-    const float o = p2v::requant(__fmul_rn(__fmul_rn(__int2float_rn(acc), 0x1p-15f), ro), -128.f, 127.f);
-    out[((size_t)win * N + i) * C + head * D + lane] = p2v::to_i8(o);
+    out[((size_t)win * N + i) * C + head * D + lane] = p2v::to_i8(p2v::requant(o, -128.f, 127.f));
   }
 }
 
@@ -101,9 +119,10 @@ __global__ void __launch_bounds__(p2v::kThreads)
 
 extern "C" int p2v_swin_lis_attention(const void* qkv, const void* bias, const void* mask,
                                       const void* scal, void* out, int W, int N, int C, int H,
-                                      int nW, void* stream) {
+                                      int nW, int lis, void* stream) {
   if (W == 0) return 0;
-  swin_attention_kernel<<<W * H, p2v::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = lis ? swin_attention_kernel<true> : swin_attention_kernel<false>;
+  kernel<<<W * H, p2v::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(qkv), static_cast<const float*>(bias),
       static_cast<const float*>(mask), static_cast<const float*>(scal), static_cast<int8_t*>(out),
       N, C, H, nW);

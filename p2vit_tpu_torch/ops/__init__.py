@@ -3,14 +3,20 @@
 versions and the constants both share. CPU tensors run the plain version;
 CUDA tensors launch the kernel or raise."""
 
-from .attention_lis import lis_attention_qkv_fused, swin_lis_attention
+from .attention_lis import (
+    lis_attention,
+    lis_attention_fused,
+    lis_attention_qkv_fused,
+    swin_lis_attention,
+)
 from .embed_fused import fused_patch_embed
 from .intln import int_ln_requant, int_res_ln_requant
 from .matmul_int8 import int8_matmul_requant
 from .matmul_ln import int8_matmul_res_ln
 
 KERNELS = (fused_patch_embed, lis_attention_qkv_fused, int8_matmul_res_ln, int8_matmul_requant,
-           int_ln_requant, int_res_ln_requant, swin_lis_attention)
+           int_ln_requant, int_res_ln_requant, swin_lis_attention, lis_attention_fused,
+           lis_attention)
 
 
 def reset_launch_counts() -> None:

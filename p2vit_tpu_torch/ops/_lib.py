@@ -39,11 +39,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "p2v_int8_matmul_requant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "p2v_int8_matmul_res_ln": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "p2v_lis_attention_qkv_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "p2v_lis_attention_qkv_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "p2v_lis_attention_fused": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "p2v_lis_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "p2v_fused_patch_embed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "p2v_int_ln_requant": [_P, _P, _P, _P, _I, _I, _P],
     "p2v_int_res_ln_requant": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "p2v_swin_lis_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "p2v_swin_lis_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,13 +1,15 @@
-"""int8 attention with Log-Int-Softmax (counterpart of
-``p2vit_tpu/ops/attention_lis.py``): the ViT qkv projection + attention
-``lis_attention_qkv_fused``, and the Swin windowed ``swin_lis_attention``.
+"""int8 attention with Log-Int-Softmax or the LIS-off fp32 softmax
+(counterpart of ``p2vit_tpu/ops/attention_lis.py``): the ViT qkv projection
++ attention ``lis_attention_qkv_fused``, the attention over (B, N, 3C) qkv
+codes ``lis_attention_fused`` and over split q/k/v ``lis_attention``, and
+the Swin windowed ``swin_lis_attention``.
 
 Per image and head: qkv codes = clip(round(h·W_qkvᵀ·r + b)); scores
 acc = q·kᵀ (int32) → attn codes clip(round(acc·rq)); LIS: I-BERT int-exp,
 round(Σ/exp), ⌊log2⌋ with ties up → weight 2^-q (q ≤ 15) or 0 on overflow;
 av = Σ_j w_j·v_j; out = clip(round(av·ro)).
 
-Two sums are made exact and order-free, in the kernel AND the plain version:
+Two sums are made exact and order-free, in the kernels AND the plain versions:
 
 * ``exp_sum`` is summed exactly and rounded to float32 once
   (``exact_sum_f32``). Its terms reach c_int·2^32 ≈ 2.8·2^32/s² (the row
@@ -23,23 +25,35 @@ Two sums are made exact and order-free, in the kernel AND the plain version:
   The JAX twin's float32 product is exact in the same range, so the two
   agree bit for bit there.
 
-CUDA kernel (``csrc/attention_lis.cu``) replaces the Pallas kernel
-``p2vit_tpu/ops/attention_lis.py:lis_attention_qkv_fused``
-(``_qkv_fused_kernel`` → ``heads_attention``). One block per (image, head):
-the head's 3·d qkv columns are computed with ``mma.sync`` int8 tiles into
-shared memory (N·3d bytes, 42 KB at DeiT-S), then each warp owns query rows:
-dp4a scores, warp-shuffle max and the exact two-limb sum, and the shift-accumulate
-attn@v from warp-shuffled weights. Bound on the card: the per-element LIS
-chain (a divide and an exponent extraction per score) and shared-memory
-reads, not the tensor cores. The LIS-off fp softmax arm runs only in the
-plain versions; both kernels raise on ``lis=False`` (ROADMAP.md).
+LIS off (the reference's ``Config(lis=False)``): logits = code·s, e =
+exp(logit − rowmax) through float64 rounded once (``fastmath.exp_rn``), the
+row sum S and attn@v Σ_j p_j·v_j in float64, each rounded once to float32,
+p = e / S. Each product p_j·v_j of a float32 and an int8 is exact in
+float64, and both float64 sums are exact while every term of a row lies
+within ~2^20 of the row's largest (24-bit mantissas, at most 256 terms of
+magnitude ≤ 2^7). Beyond that the order can change only the last float64
+bit, which reaches the float32 result only on an exact rounding tie. So the
+kernels sum in any order and the plain version is a plain ``torch``
+expression, and the two agree bit for bit. JAX sums in float32 in its own
+order and its float32 ``exp`` is not correctly rounded, so against JAX the
+LIS-off arm is held to |Δcode| ≤ 1 on a stated share of codes.
+
+CUDA kernels (``csrc/attention_lis.cu``, head_dim 64, N ≤ 256, one block per
+(image, head), q/k/v rows in shared memory, warps own query rows: dp4a
+scores, then ``p2v::lis_row`` and the shift-accumulate, or
+``p2v::softmax_row`` and the float64 attn@v, in one per-row body) replace
+the Pallas kernels ``lis_attention_qkv_fused`` (``_qkv_fused_kernel``, the
+head's qkv columns computed with ``mma.sync`` int8 tiles into shared memory,
+42 KB at DeiT-S), ``lis_attention_fused`` (``_fused_kernel``) and
+``lis_attention`` (``_kernel``). Bound on the card: the per-score softmax
+chain and shared-memory reads, not the tensor cores.
 
 CUDA kernel (``csrc/swin_attention.cu``) replaces the Pallas kernel
 ``p2vit_tpu/ops/attention_lis.py:swin_lis_attention`` (``_swin_kernel`` →
 ``_swin_head_loop``), on (B·nW, 49, 3C) window panels with d = 32: per
 head, q·kᵀ → attn1 codes → + rel-pos bias → ·1/s2 round/clip (qact2
-codes) → + the shift mask/s2, unrounded → LIS → shift-accumulate @v →
-qact3 codes. One block per (window, head) holds the head's q/k/v rows in
+codes) → + the shift mask/s2, unrounded → LIS or the fp softmax at s2 → @v
+→ qact3 codes. One block per (window, head) holds the head's q/k/v rows in
 shared memory; warps own query rows, lanes own keys, then output dims.
 The JAX kernel pads rows 49 → 56 and keys to 64 and parks padded keys at
 −2^30; neither the kernel nor the plain version pads.
@@ -50,7 +64,7 @@ from __future__ import annotations
 import torch
 
 from ._lib import check_cuda_operand, device_of, f32_scalars, f32_vec, launch
-from .fastmath import exp2i, floor_log2i
+from .fastmath import exp2i, exp_rn, floor_log2i
 from .matmul_int8 import int8_matmul_requant_plain
 
 EXP_N = 32  # range-reduction steps of the int-exp
@@ -125,7 +139,8 @@ def _scores(q_q, k_q, score_requant):
 def _attend(scores, v_q, s_attn, out_requant, lis_bits, lis):
     """Softmax of score codes ``scores`` (scale ``s_attn``) @ v codes →
     clip(round(av·ro)) int8. LIS: integer weights 2^(15−q) and the exact
-    shift-accumulate; otherwise the fp32 softmax of the dequantized scores."""
+    shift-accumulate; otherwise the fp32 softmax of the dequantized scores
+    with float64 sums, each rounded once (module docstring)."""
     if lis:
         if lis_bits > 4:
             raise ValueError(f"lis_bits={lis_bits}: the LIS codes are uint4 (lis_bits <= 4)")
@@ -136,17 +151,117 @@ def _attend(scores, v_q, s_attn, out_requant, lis_bits, lis):
         av = av_int.to(torch.float32) * 2.0**-AV_SHIFT
     else:
         logits = scores * s_attn
-        e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-        av = (e / e.sum(dim=-1, keepdim=True)) @ v_q.to(torch.float32)
+        e = exp_rn(logits - logits.amax(dim=-1, keepdim=True))
+        p = e / e.to(torch.float64).sum(dim=-1, keepdim=True).to(torch.float32)
+        av = (p.to(torch.float64) @ v_q.to(torch.float64)).to(torch.float32)
     ro = torch.as_tensor(out_requant, dtype=torch.float32, device=scores.device)
     return torch.clamp(torch.round(av * ro), -128, 127).to(torch.int8)
 
 
+HEAD_DIM = 64  # the ViT attention kernels' head_dim (every ViT/DeiT in the zoo)
+MAX_N = 256  # tokens the ViT attention kernels take (197 at 224²/16²)
+
+
+def _check_lis_bits(lis, lis_bits):
+    if lis and lis_bits != 4:
+        raise ValueError(f"the CUDA attention kernels implement LIS with uint4 codes "
+                         f"(lis_bits=4); got lis_bits={lis_bits}")
+
+
+def _vit_scalars(score_requant, attn_scale, out_requant, device):
+    """The ViT kernels' scalars: rq, s_attn, ro, x0_int, b_int, c_int."""
+    sa = torch.as_tensor(attn_scale, dtype=torch.float32, device=device)
+    return f32_scalars(score_requant, sa, out_requant, *int_exp_consts(sa), device=device)
+
+
 def lis_attention_plain(q_q, k_q, v_q, score_requant, attn_scale, out_requant,
                         lis_bits=4, lis=True):
-    """Attention on (..., N, d) int8 q/k/v codes → (..., N, d) int8 codes."""
+    """Attention on (..., N, d) int8 q/k/v codes → (..., N, d) int8 codes;
+    the plain version of ``lis_attention``."""
     sa = torch.as_tensor(attn_scale, dtype=torch.float32, device=q_q.device)
     return _attend(_scores(q_q, k_q, score_requant), v_q, sa, out_requant, lis_bits, lis)
+
+
+def lis_attention(q_q, k_q, v_q, score_requant, attn_scale, out_requant, lis_bits=4, lis=True):
+    """Attention per (batch·head) over split codes.
+
+    Args:
+      q_q/k_q/v_q: (BH, N, d) int8 codes of the qact1 node.
+      score_requant: s_qkv²·head_scale/s_attn; attn_scale: s_attn (the
+        softmax input scale); out_requant: s_qkv/s_out.
+    Returns (BH, N, d) int8 codes of the qact2 node. CPU tensors take the
+    plain version; CUDA tensors launch the kernel (d = 64, N ≤ 256) or raise.
+    """
+    dev = device_of(q_q, k_q, v_q)
+    if dev.type == "cpu":
+        return lis_attention_plain(q_q, k_q, v_q, score_requant, attn_scale, out_requant,
+                                   lis_bits, lis)
+    bh, n, d = q_q.shape
+    for name, t in (("q_q", q_q), ("k_q", k_q), ("v_q", v_q)):
+        check_cuda_operand(t, name, torch.int8, (bh, n, d))
+    _check_lis_bits(lis, lis_bits)
+    if d != HEAD_DIM or n > MAX_N:
+        raise ValueError(f"attention kernel needs head_dim {HEAD_DIM} and N <= {MAX_N}; "
+                         f"got d={d}, N={n}")
+    out = torch.empty((bh, n, d), dtype=torch.int8, device=dev)
+    launch("p2v_lis_attention", q_q, k_q, v_q,
+           _vit_scalars(score_requant, attn_scale, out_requant, dev), out, bh, n, int(bool(lis)))
+    lis_attention.launches += 1
+    return out
+
+
+lis_attention.launches = 0
+
+
+def _split_heads(qkv, num_heads):
+    """(B, N, 3C) → q, k, v of (B, H, N, d)."""
+    b, n, c3 = qkv.shape
+    return qkv.reshape(b, n, 3, num_heads, c3 // (3 * num_heads)).permute(2, 0, 3, 1, 4)
+
+
+def _merge_heads(av):
+    """(B, H, N, d) → (B, N, H·d)."""
+    b, h, n, d = av.shape
+    return av.permute(0, 2, 1, 3).reshape(b, n, h * d)
+
+
+def lis_attention_fused_plain(qkv_q, num_heads, score_requant, attn_scale, out_requant,
+                              lis_bits=4, lis=True):
+    """Plain PyTorch version of the kernel."""
+    q, k, v = _split_heads(qkv_q, num_heads)
+    return _merge_heads(lis_attention_plain(q, k, v, score_requant, attn_scale, out_requant,
+                                            lis_bits, lis))
+
+
+def lis_attention_fused(qkv_q, num_heads, score_requant, attn_scale, out_requant,
+                        lis_bits=4, lis=True):
+    """Attention over the (B, N, 3C) fused-qkv codes: the heads are sliced
+    inside the kernel, so no head split or merge is materialized.
+
+    Args as ``lis_attention``. Returns (B, N, C) int8 codes of the qact2
+    node. CPU tensors take the plain version; CUDA tensors launch the kernel
+    (head_dim 64, N ≤ 256) or raise.
+    """
+    dev = qkv_q.device
+    if dev.type == "cpu":
+        return lis_attention_fused_plain(qkv_q, num_heads, score_requant, attn_scale,
+                                         out_requant, lis_bits, lis)
+    b, n, c3 = qkv_q.shape
+    c = c3 // 3
+    check_cuda_operand(qkv_q, "qkv_q", torch.int8)
+    _check_lis_bits(lis, lis_bits)
+    if c3 != 3 * c or c != HEAD_DIM * num_heads or n > MAX_N:
+        raise ValueError(f"attention kernel needs head_dim {HEAD_DIM} and N <= {MAX_N}; "
+                         f"got C={c}, heads={num_heads}, N={n}")
+    out = torch.empty((b, n, c), dtype=torch.int8, device=dev)
+    launch("p2v_lis_attention_fused", qkv_q,
+           _vit_scalars(score_requant, attn_scale, out_requant, dev), out, b, n, c, num_heads,
+           int(bool(lis)))
+    lis_attention_fused.launches += 1
+    return out
+
+
+lis_attention_fused.launches = 0
 
 
 def lis_attention_qkv_fused_plain(h_q, w_q, requant_vec, bias_vec, num_heads,
@@ -154,27 +269,24 @@ def lis_attention_qkv_fused_plain(h_q, w_q, requant_vec, bias_vec, num_heads,
                                   lis_bits=4, lis=True):
     """Plain PyTorch version of the kernel."""
     b, n, c_in = h_q.shape
-    c = w_q.shape[0] // 3
-    d = c // num_heads
     qkv = int8_matmul_requant_plain(h_q.reshape(-1, c_in), w_q, requant_vec, bias_vec)
-    qkv = qkv.reshape(b, n, 3, num_heads, d).permute(2, 0, 3, 1, 4)
-    av = lis_attention_plain(qkv[0], qkv[1], qkv[2], score_requant, attn_scale,
-                             out_requant, lis_bits, lis)
-    return av.permute(0, 2, 1, 3).reshape(b, n, c)
+    return lis_attention_fused_plain(qkv.reshape(b, n, -1), num_heads, score_requant, attn_scale,
+                                     out_requant, lis_bits, lis)
 
 
 def lis_attention_qkv_fused(h_q, w_q, requant_vec, bias_vec, num_heads,
                             score_requant, attn_scale, out_requant,
                             lis_bits=4, lis=True):
-    """qkv projection + LIS attention over the attention input codes.
+    """qkv projection + attention over the attention input codes.
 
     Args:
       h_q: (B, N, C_in) int8 codes (qact0 node). w_q: (3C, C_in) int8.
       requant_vec/bias_vec: (3C,) float32 = s_act·s_w/s_qact1, bias/s_qact1.
-      score_requant: s_qact1²·head_scale/s_attn; attn_scale: s_attn (LIS
-        input); out_requant: s_qact1/s_out.
-    Returns (B, N, C) int8 codes of the qact2 node. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (LIS on, head_dim 64,
+      score_requant: s_qact1²·head_scale/s_attn; attn_scale: s_attn (the
+        softmax input scale); out_requant: s_qact1/s_out.
+    Returns (B, N, C) int8 codes of the qact2 node, bit for bit those of
+    ``int8_matmul_requant`` followed by ``lis_attention_fused``. CPU tensors
+    take the plain version; CUDA tensors launch the kernel (head_dim 64,
     C_in % 16 == 0, N ≤ 256) or raise.
     """
     dev = device_of(h_q, w_q)
@@ -187,20 +299,16 @@ def lis_attention_qkv_fused(h_q, w_q, requant_vec, bias_vec, num_heads,
     c = c3 // 3
     check_cuda_operand(h_q, "h_q", torch.int8)
     check_cuda_operand(w_q, "w_q", torch.int8, (c3, c_in))
-    if not lis or lis_bits != 4:
-        raise ValueError("the CUDA attention kernel implements LIS with uint4 codes only "
-                         "(lis=True, lis_bits=4); the LIS-off arm is not ported yet")
-    if c3 != 3 * c or c != 64 * num_heads or c_in % 16 or n > 256:
-        raise ValueError(f"attention kernel needs head_dim 64, C_in % 16 == 0 and N <= 256; "
-                         f"got C={c}, heads={num_heads}, C_in={c_in}, N={n}")
-    sa = torch.as_tensor(attn_scale, dtype=torch.float32, device=dev)
-    x0_int, b_int, c_int = int_exp_consts(sa)
-    scal = f32_scalars(score_requant, sa, out_requant, x0_int, b_int, c_int, device=dev)
+    _check_lis_bits(lis, lis_bits)
+    if c3 != 3 * c or c != HEAD_DIM * num_heads or c_in % 16 or n > MAX_N:
+        raise ValueError(f"attention kernel needs head_dim {HEAD_DIM}, C_in % 16 == 0 and "
+                         f"N <= {MAX_N}; got C={c}, heads={num_heads}, C_in={c_in}, N={n}")
+    scal = _vit_scalars(score_requant, attn_scale, out_requant, dev)
     r = f32_vec(requant_vec, c3, dev)
     bias = f32_vec(bias_vec, c3, dev)
     out = torch.empty((b, n, c), dtype=torch.int8, device=dev)
     launch("p2v_lis_attention_qkv_fused", h_q, w_q, r, bias, scal, out,
-           b, n, c_in, c, num_heads)
+           b, n, c_in, c, num_heads, int(bool(lis)))
     lis_attention_qkv_fused.launches += 1
     return out
 
@@ -217,13 +325,14 @@ SWIN_MAX_N = 64  # tokens per window the kernel takes (49 for 7×7 windows)
 
 
 def swin_attention_scalars(score_requant, attn_scale, s2, out_requant, device, lis=True):
-    """The kernel's scalars (rq, s1, 1/s2, ro, x0_int, b_int, c_int); LIS runs
-    at the qact2 scale s2, which must clear the exact-sum bound."""
+    """The kernel's scalars (rq, s1, 1/s2, ro, x0_int, b_int, c_int, s2); the
+    softmax runs at the qact2 scale s2, which with LIS must clear the
+    exact-sum bound."""
     s2t = torch.as_tensor(s2, dtype=torch.float32, device=device)
     if lis:
         check_lis_scale(s2t)
     inv_s2 = torch.ones_like(s2t) / s2t
-    return f32_scalars(score_requant, attn_scale, inv_s2, out_requant, *int_exp_consts(s2t),
+    return f32_scalars(score_requant, attn_scale, inv_s2, out_requant, *int_exp_consts(s2t), s2t,
                        device=device)
 
 
@@ -259,8 +368,8 @@ def swin_lis_attention(qkv_q, bias, mask, num_heads, n_windows, score_requant, a
       score_requant: s_qkv²·d^-0.5/s_attn1; attn_scale: s_attn1;
       s2: the qact2 scale (LIS input); out_requant: s_qkv/s_qact3.
     Returns (W, N, C) int8 codes of the qact3 node. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (LIS on with uint4 codes,
-    head_dim 32, N ≤ 64) or raise.
+    plain version; CUDA tensors launch the kernel (head_dim 32, N ≤ 64) or
+    raise.
     """
     dev = device_of(qkv_q, bias, *(() if mask is None else (mask,)))
     if dev.type == "cpu":
@@ -269,9 +378,7 @@ def swin_lis_attention(qkv_q, bias, mask, num_heads, n_windows, score_requant, a
     w, n, c3 = qkv_q.shape
     c = c3 // 3
     check_cuda_operand(qkv_q, "qkv_q", torch.int8)
-    if not lis or lis_bits != 4:
-        raise ValueError("the CUDA Swin attention kernel implements LIS with uint4 codes only "
-                         "(lis=True, lis_bits=4); the LIS-off arm is not ported yet")
+    _check_lis_bits(lis, lis_bits)
     if c3 != 3 * c or c != SWIN_HEAD_DIM * num_heads or n > SWIN_MAX_N:
         raise ValueError(f"Swin attention kernel needs head_dim {SWIN_HEAD_DIM} and "
                          f"N <= {SWIN_MAX_N}; got C={c}, heads={num_heads}, N={n}")
@@ -282,10 +389,10 @@ def swin_lis_attention(qkv_q, bias, mask, num_heads, n_windows, score_requant, a
         check_cuda_operand(mask, "mask", torch.float32, (n_windows, n, n))
         if w % n_windows:
             raise ValueError(f"{w} windows are not whole images of {n_windows} windows")
-    scal = swin_attention_scalars(score_requant, attn_scale, s2, out_requant, dev)
+    scal = swin_attention_scalars(score_requant, attn_scale, s2, out_requant, dev, lis)
     out = torch.empty((w, n, c), dtype=torch.int8, device=dev)
     launch("p2v_swin_lis_attention", qkv_q, bias, mask, scal, out, w, n, c, num_heads,
-           n_windows if mask is not None else 1)
+           n_windows if mask is not None else 1, int(bool(lis)))
     swin_lis_attention.launches += 1
     return out
 

@@ -2,17 +2,24 @@
 
 ``convert`` specializes (params, QuantState, bit_config) into a serving
 state of int8 weight codes and requant constants; ``serving_forward`` runs
-the network on int8 codes through four kernels:
+the network on int8 codes. The default flags (``fuse_embed=True,
+fuse_qkv=True``, the JAX package's default, unrolled) run four kernels:
 
   * ``ops/embed_fused.fused_patch_embed``: image codes → block-0 inputs,
-  * ``ops/attention_lis.lis_attention_qkv_fused``: qkv + LIS attention,
+  * ``ops/attention_lis.lis_attention_qkv_fused``: qkv + attention,
   * ``ops/matmul_ln.int8_matmul_res_ln``: proj / fc2 + residual + next LN,
   * ``ops/matmul_int8.int8_matmul_requant``: fc1 + GELU, and the head.
 
-This is the JAX package's default path (``fuse_embed=True, fuse_qkv=True,
-fuse_layer=False``, unrolled). Not ported yet: uint8 ingest,
-``weight_only_params``, the fused-layer kernel, and the TPU-only arms
-(``scan_layers``, the ``resln`` and ``lis="bypass"`` timing probes).
+The staged flags run the same codes through more, smaller steps:
+``fuse_embed=False`` the patch GEMM (``int8_matmul_requant``), the [CLS] and
+position add in PyTorch and block 0's LN1 (``ops/intln.int_ln_requant``);
+``fuse_qkv=False`` the qkv GEMM (``int8_matmul_requant``) and
+``ops/attention_lis.lis_attention_fused`` over the (B, N, 3C) codes. Both
+give the default path's logits bit for bit. ``lis=False`` runs every
+attention kernel's fp32 softmax arm. ``attach_u8_ingest`` lets the forward
+take raw uint8 images. Not ported: ``weight_only_params``, the fused-layer
+kernel, and the TPU-only arms (``scan_layers``, the ``resln`` and
+``lis="bypass"`` timing probes).
 
 Numerics: every requant scale the PoT search produces is a power of two,
 so the requant multiplies are exact; serving is compared with the
@@ -21,11 +28,12 @@ simulation statistically, and with the JAX serving path code for code.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .config import QuantPolicy
 from .models.common import ViTConfig, extract_patches
-from .ops import attention_lis, embed_fused, matmul_int8, matmul_ln
+from .ops import attention_lis, embed_fused, intln, matmul_int8, matmul_ln
 
 _I8 = (-128, 127)
 
@@ -39,10 +47,95 @@ def _bit_bounds(bit):
     return (-8, 7) if bit == 4 else (-128, 127)
 
 
-def _input_codes(s, x):
-    """float32 normalized image batch → qact_input int8 codes."""
+# ---------------------------------------------------------------------------
+# uint8 image ingestion
+# ---------------------------------------------------------------------------
+
+
+def u8_ingest_consts(mean, std, s_input=None, device=None):
+    """Constants for ingesting raw uint8 images instead of host-normalized
+    float32 (a quarter of the host → device bytes; the host skips the
+    normalize).
+
+    The host pipeline emits ``x = (u/255 − mean)/std`` in float32; the
+    device replays that op sequence (``_u8_normalize``), so a uint8 batch
+    gives the host-normalized batch bit for bit. ``host`` is that sequence's
+    (256, 3) table, computed on the host in numpy float32 as the JAX package
+    computes its tables. With ``s_input`` (the ViT qact_input scale) also the
+    fused affine ``clip(round(u·a + b))`` and the golden codes ``lut``, so
+    that ``u8_ingest_exact`` can prove either form on the serving device.
+    The tensors go to ``s_input``'s device, else to ``device``."""
+    mean = np.asarray(mean, np.float32).reshape(3)
+    std = np.asarray(std, np.float32).reshape(3)
+    dev = device if s_input is None else torch.as_tensor(s_input).device
+    v = np.arange(256, dtype=np.float32)[:, None]  # (256, 1)
+    x = (v / np.float32(255.0) - mean[None]) / std[None]  # the host sequence
+    out = {"mean": mean, "std": std, "host": x}
+    if s_input is not None:
+        s_in = np.float32(torch.as_tensor(s_input).detach().cpu().numpy().reshape(()))
+        out["lut"] = np.clip(np.round(x / s_in), -128, 127).astype(np.int8)
+        out["a"] = np.float32(1.0) / (np.float32(255.0) * std * s_in)
+        out["b"] = -mean / (std * s_in)
+    return {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev) for k, a in out.items()}
+
+
+def attach_u8_ingest(s, mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225)):
+    """Enable uint8 ingestion on a converted serving state (in place).
+    ``mean``/``std`` are the host pipeline's normalization."""
+    s["u8"] = u8_ingest_consts(mean, std, s_input=s["s_input"])
+    return s
+
+
+def _u8_normalize(x, u8):
+    """(B, 3, H, W) uint8 → (u/255 − mean)/std in float32, op for op as the
+    host does. Every divide is tensor by tensor: PyTorch's CUDA division by
+    a Python scalar multiplies by the reciprocal."""
+    f = x.to(torch.float32) / torch.full((), 255.0, dtype=torch.float32, device=x.device)
+    return (f - u8["mean"][:, None, None]) / u8["std"][:, None, None]
+
+
+def _u8_exact_codes(x, u8, s_input):
+    """uint8 images → input codes by the literal host sequence, then the
+    input quantizer: bit for bit the codes of float32 ingestion."""
+    return torch.clamp(torch.round(_u8_normalize(x, u8) / s_input), *_I8).to(torch.int8)
+
+
+def _u8_affine_codes(x, u8):
+    """uint8 images → input codes through the fused affine u·a + b. Use only
+    after ``u8_ingest_exact(s, affine=True)`` returned True on this device."""
+    f = x.to(torch.float32) * u8["a"][:, None, None] + u8["b"][:, None, None]
+    return torch.clamp(torch.round(f), *_I8).to(torch.int8)
+
+
+def u8_ingest_exact(s, affine: bool = False) -> bool:
+    """Prove by enumeration that device-side uint8 ingestion gives the host's
+    results for every uint8 value and channel, 768 cases, on the device the
+    serving state lives on: the input codes against ``lut`` (ViT; with
+    ``affine=True`` through the fused multiply-add), or, for a state without
+    ``lut`` (Swin), the normalized values against ``host``."""
+    u8 = s["u8"]
+    v = torch.arange(256, dtype=torch.uint8, device=u8["host"].device)[None, None, :, None]
+    v = v.expand(1, 3, 256, 1)
+    if "lut" not in u8:
+        if affine:
+            raise ValueError("the fused affine needs the input quantizer's scale (ViT states)")
+        return bool((_u8_normalize(v, u8) == u8["host"].T[None, :, :, None]).all())
+    got = _u8_affine_codes(v, u8) if affine else _u8_exact_codes(v, u8, s["s_input"])
+    return bool((got == u8["lut"].T[None, :, :, None]).all())
+
+
+def _input_codes(s, x, u8_affine: bool = False):
+    """Image batch (float32 normalized, or raw uint8 once the state carries
+    the ingestion constants) → qact_input int8 codes."""
+    if x.dtype == torch.uint8:
+        if "u8" not in s:
+            raise ValueError("uint8 batch but no ingestion constants: call "
+                             "serving.attach_u8_ingest(s, mean, std) after convert()")
+        if u8_affine:
+            return _u8_affine_codes(x, s["u8"])
+        return _u8_exact_codes(x, s["u8"], s["s_input"])
     if x.dtype != torch.float32:
-        raise TypeError(f"serving takes float32 images; {x.dtype} ingest is not ported yet")
+        raise TypeError(f"serving takes float32 or uint8 images, got {x.dtype}")
     return torch.clamp(torch.round(x / s["s_input"]), *_I8).to(torch.int8)
 
 
@@ -147,13 +240,45 @@ def _embed_fused_consts(s, cfg: ViTConfig):
     )
 
 
-def embed_codes(s, cfg: ViTConfig, x, use_kernels: bool = True):
+def _int_ln_codes(c_in, s_in, w, b, out_scale, ratio, use_kernels=True):
+    """Integer LN on codes (..., C) at the producer's scale ``s_in`` → codes
+    of the consumer node through ``int_ln_requant`` (or its plain version)."""
+    c = c_in.shape[-1]
+    s_in_v = torch.broadcast_to(torch.as_tensor(s_in, dtype=torch.float32, device=c_in.device), (c,))
+    s1 = s_in_v.min()
+    fn = intln.int_ln_requant if use_kernels else intln.int_ln_requant_plain
+    out = fn(c_in.reshape(-1, c).contiguous(), torch.round(s_in_v / s1), s1, w, b, out_scale, ratio)
+    return out.reshape(c_in.shape)
+
+
+def embed_codes(s, cfg: ViTConfig, x, use_kernels: bool = True, fuse_embed: bool = True,
+                u8_affine: bool = False):
     """The serving prologue: image → (h, xc), block 0's LN1 codes and the
     qact1 residual codes. Quantizes BEFORE extracting patches (the two
-    commute), so the patch reorder moves int8 codes."""
-    fn = embed_fused.fused_patch_embed if use_kernels else embed_fused.fused_patch_embed_plain
-    patches = extract_patches(_input_codes(s, x), cfg.patch_size).contiguous()
-    xc, h = fn(patches, s["patch"]["w_q"], **_embed_fused_consts(s, cfg))
+    commute), so the patch reorder moves int8 codes.
+
+    ``fuse_embed``: the whole prologue in ``fused_patch_embed``; False runs
+    it staged (patch GEMM, [CLS] and position add, block 0's LN1), bit for
+    bit the same codes. ``x``: float32, or uint8 after ``attach_u8_ingest``."""
+    patches = extract_patches(_input_codes(s, x, u8_affine), cfg.patch_size).contiguous()
+    if fuse_embed:
+        fn = embed_fused.fused_patch_embed if use_kernels else embed_fused.fused_patch_embed_plain
+        xc, h = fn(patches, s["patch"]["w_q"], **_embed_fused_consts(s, cfg))
+        return h, xc
+    mm = matmul_int8.int8_matmul_requant if use_kernels else matmul_int8.int8_matmul_requant_plain
+    b = x.shape[0]
+    c = cfg.embed_dim
+    p = s["patch"]
+    c1 = mm(patches.reshape(-1, patches.shape[-1]), p["w_q"], s["s_input"] * p["sw"] / p["s_out"],
+            p["bias"] / p["s_out"]).reshape(b, -1, c)
+    # [cls; patches] at the embed scale, + positional codes → qact1 codes
+    c1 = torch.clamp(torch.round(c1.to(torch.float32) * (p["s_out"] / s["s_embed"])), *_I8)
+    c_cls = s["cls_codes"].to(torch.float32).expand(b, 1, c)
+    val = torch.cat([c_cls, c1], dim=1) * s["s_embed"] + s["pos_codes"] * s["s_pos"]
+    xc = torch.clamp(torch.round(val / s["s_qact1"]), *_I8).to(torch.int8)
+    qkv0 = s["blocks"][0]["qkv"]
+    h = _int_ln_codes(xc, s["s_qact1"], s["blocks"][0]["norm1_w"], s["blocks"][0]["norm1_b"],
+                      qkv0["s_act"] * qkv0["cs"], 1.0, use_kernels)
     return h, xc
 
 
@@ -167,43 +292,50 @@ def head_logits(s, h, use_kernels: bool = True):
 
 
 @torch.no_grad()
-def serving_forward(s, cfg: ViTConfig, x, use_kernels: bool = True, lis: bool = True):
-    """Run the int8 pipeline on a float32 image batch (B, 3, H, W); returns
-    float32 logits (B, num_classes).
+def serving_forward(s, cfg: ViTConfig, x, use_kernels: bool = True, lis: bool = True,
+                    fuse_embed: bool = True, fuse_qkv: bool = True, u8_affine: bool = False):
+    """Run the int8 pipeline on an image batch (B, 3, H, W), float32
+    normalized or raw uint8 after ``attach_u8_ingest``; returns float32
+    logits (B, num_classes).
 
-    ``use_kernels``: the four kernel wrappers (CUDA kernels on CUDA tensors,
+    ``use_kernels``: the kernel wrappers (CUDA kernels on CUDA tensors,
     their plain versions on CPU tensors). False calls the plain versions
     directly on any device: the reference the kernels are held against.
-    ``lis``: Log-Int-Softmax on (the reference default); off runs the fp
-    softmax, which only the plain attention implements so far.
+    ``lis``: Log-Int-Softmax on (the reference default) or the LIS-off fp32
+    softmax over the dequantized attention codes, in the kernels as in the
+    plain versions. ``fuse_embed`` / ``fuse_qkv``: the fused prologue and the
+    qkv-fused attention (default), or their staged forms (module docstring).
+    ``u8_affine``: ingest uint8 through the fused affine; prove it first with
+    ``u8_ingest_exact(s, affine=True)``.
     """
     if use_kernels:
-        attn = attention_lis.lis_attention_qkv_fused
+        attn_qkv = attention_lis.lis_attention_qkv_fused
+        attn = attention_lis.lis_attention_fused
         res_ln = matmul_ln.int8_matmul_res_ln
         mm = matmul_int8.int8_matmul_requant
     else:
-        attn = attention_lis.lis_attention_qkv_fused_plain
+        attn_qkv = attention_lis.lis_attention_qkv_fused_plain
+        attn = attention_lis.lis_attention_fused_plain
         res_ln = matmul_ln.int8_matmul_res_ln_plain
         mm = matmul_int8.int8_matmul_requant_plain
 
     b = x.shape[0]
     c = cfg.embed_dim
     n_tok = cfg.seq_len
-    h, xc = embed_codes(s, cfg, x, use_kernels)
+    h, xc = embed_codes(s, cfg, x, use_kernels, fuse_embed, u8_affine)
     s_prev = s["s_qact1"]
     n_blocks = len(s["blocks"])
     for bi, sb in enumerate(s["blocks"]):
         qkv = sb["qkv"]
-        h = attn(
-            h, qkv["w_q"],
-            qkv["s_act"] * qkv["sw"] / sb["s_qact1"],
-            qkv["bias"] / sb["s_qact1"],
-            cfg.num_heads,
-            sb["s_qact1"] ** 2 * cfg.attn_scale / sb["s_attn1"],
-            sb["s_attn1"],
-            sb["s_qact1"] / sb["s_qact2a"],
-            lis=lis,
-        )
+        qkv_r = qkv["s_act"] * qkv["sw"] / sb["s_qact1"]
+        qkv_b = qkv["bias"] / sb["s_qact1"]
+        attn_args = (sb["s_qact1"] ** 2 * cfg.attn_scale / sb["s_attn1"], sb["s_attn1"],
+                     sb["s_qact1"] / sb["s_qact2a"])
+        if fuse_qkv:
+            h = attn_qkv(h, qkv["w_q"], qkv_r, qkv_b, cfg.num_heads, *attn_args, lis=lis)
+        else:
+            h = mm(h.reshape(-1, c), qkv["w_q"], qkv_r, qkv_b).reshape(b, n_tok, 3 * c)
+            h = attn(h, cfg.num_heads, *attn_args, lis=lis)
         pr = sb["proj"]
         fc1 = sb["mlp_fc1"]
         # proj + residual junction + int-LN2: the qact2 residual carrier and
@@ -241,3 +373,19 @@ def serving_forward(s, cfg: ViTConfig, x, use_kernels: bool = True, lis: bool = 
         h = h.reshape(b, n_tok, c)
         s_prev = sb["s_res2"]
     return head_logits(s, h, use_kernels)
+
+
+def launches_per_forward(cfg: ViTConfig, fuse_embed: bool = True, fuse_qkv: bool = True) -> dict:
+    """Kernel launches of one ``serving_forward`` at these flags: the
+    prologue (one fused kernel, or the patch GEMM and LN1), per block the
+    attention (with its qkv GEMM when staged), two junctions and fc1, and
+    the head."""
+    depth = cfg.depth
+    counts = {"int8_matmul_res_ln": 2 * depth,
+              "int8_matmul_requant": depth + 1 + (0 if fuse_embed else 1) + (0 if fuse_qkv else depth)}
+    if fuse_embed:
+        counts["fused_patch_embed"] = 1
+    else:
+        counts["int_ln_requant"] = 1
+    counts["lis_attention_qkv_fused" if fuse_qkv else "lis_attention_fused"] = depth
+    return counts

@@ -19,9 +19,10 @@ runs through five kernels:
 This is the JAX package's default path (``pallas_attn=True, fuse_res=True,
 fuse_stem=False, int_stem=False, fold_windows=False, reorder="real"``). The
 XLA window-attention twin ``_window_attention_codes{,_vals}`` is the plain
-version of the attention kernel (``swin_lis_attention_plain``). Not ported
-(ROADMAP.md): the other flag settings, uint8 ingest and
-``weight_only_params``.
+version of the attention kernel (``swin_lis_attention_plain``). ``lis=False``
+runs the attention kernel's fp32 softmax arm; ``attach_u8_ingest`` lets the
+forward take raw uint8 images. Not ported (ROADMAP.md): the other flag
+settings and ``weight_only_params``.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from .models.swin import (
     window_reverse,
 )
 from .ops import attention_lis, intln, matmul_int8, matmul_ln
+from .serving import _int_ln_codes, _u8_normalize, u8_ingest_consts
 
 _I8 = (-128, 127)
 _ROW = {4: 2, 8: 3}  # weight-scale row of each eval bit
@@ -139,22 +141,34 @@ def launches_per_forward(cfg: SwinConfig) -> dict:
 def _iln(codes, s_in, lnp, out_scale, expand=1, use_kernels=True):
     """Integer LN on codes; ``expand`` tiles the input scale over a
     PatchMerging concat of ``expand`` copies."""
-    c = codes.shape[-1]
     s_in_v = torch.broadcast_to(torch.as_tensor(s_in, dtype=torch.float32, device=codes.device),
-                                (c // expand,))
-    if expand != 1:
-        s_in_v = s_in_v.repeat(expand)
-    s1 = s_in_v.min()
-    fn = intln.int_ln_requant if use_kernels else intln.int_ln_requant_plain
-    out = fn(codes.reshape(-1, c), torch.round(s_in_v / s1), s1, lnp["w"], lnp["b"], out_scale, 1.0)
-    return out.reshape(codes.shape)
+                                (codes.shape[-1] // expand,)).repeat(expand)
+    return _int_ln_codes(codes, s_in_v, lnp["w"], lnp["b"], out_scale, 1.0, use_kernels)
+
+
+def attach_u8_ingest(s, mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225)):
+    """Enable raw uint8 image ingestion on a converted Swin serving state (in
+    place): the forward replays the host normalize ``(u/255 − mean)/std`` in
+    the host's float32 op order, bit for bit the host-normalized batch; the
+    qact_input fake-quant then applies as for float32 images."""
+    s["u8"] = u8_ingest_consts(mean, std, device=s["s_input"].device)
+    return s
+
+
+def _u8_dequant(s, x):
+    if "u8" not in s:
+        raise ValueError("uint8 batch but no ingestion constants: call "
+                         "serving_swin.attach_u8_ingest(s, mean, std) after convert()")
+    return _u8_normalize(x, s["u8"])
 
 
 def _input_dequant(s, x):
-    """float32 image → its qact_input fake-quant (the simulation's formula)."""
-    if x.dtype != torch.float32:
-        raise TypeError(f"Swin serving takes float32 images; {x.dtype} ingest is not ported yet "
-                        f"(ROADMAP.md)")
+    """Image (float32 normalized, or raw uint8 after ``attach_u8_ingest``) →
+    its qact_input fake-quant (the simulation's formula)."""
+    if x.dtype == torch.uint8:
+        x = _u8_dequant(s, x)
+    elif x.dtype != torch.float32:
+        raise TypeError(f"Swin serving takes float32 or uint8 images, got {x.dtype}")
     q0 = torch.clamp(torch.round(x / s["s_input"] + s["zp_input"]), *_I8)
     return (q0 - s["zp_input"]) * s["s_input"]
 
@@ -189,14 +203,15 @@ def stem_codes(s, qstate, cfg: SwinConfig, x, use_kernels: bool = True):
 @torch.no_grad()
 def serving_forward(s, qstate, cfg: SwinConfig, policy: QuantPolicy, x, use_kernels: bool = True,
                     lis: bool | None = None):
-    """Run the Swin int8 pipeline on a float32 image batch (B, 3, H, W);
-    returns float32 logits (B, num_classes).
+    """Run the Swin int8 pipeline on an image batch (B, 3, H, W), float32
+    normalized or raw uint8 after ``attach_u8_ingest``; returns float32
+    logits (B, num_classes).
 
     ``use_kernels``: the kernel wrappers (CUDA kernels on CUDA tensors, their
     plain versions on CPU tensors). False calls the plain versions directly
     on any device: the reference the kernels are held against.
-    ``lis``: override the policy's Log-Int-Softmax switch; off runs the fp
-    softmax, which only the plain attention implements so far.
+    ``lis``: override the policy's Log-Int-Softmax switch; off runs the
+    LIS-off fp32 softmax, in the kernel as in the plain version.
     """
     if use_kernels:
         attn = attention_lis.swin_lis_attention

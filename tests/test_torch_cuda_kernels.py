@@ -1,4 +1,4 @@
-"""The seven CUDA kernels against their plain PyTorch versions, on the card.
+"""The nine CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: they skip without a CUDA device (decided inside the
 fixture, never at import). Run them on a GPU machine with
@@ -79,15 +79,40 @@ def test_int8_matmul_res_ln_kernel(dev, k):
     _same(matmul_ln.int8_matmul_res_ln(*args), matmul_ln.int8_matmul_res_ln_plain(*args))
 
 
+@pytest.mark.parametrize("lis", [True, False])
 @pytest.mark.parametrize("s_attn", [2.0**-11, 2.0**-5])
-def test_lis_attention_qkv_fused_kernel(dev, s_attn):
+def test_lis_attention_qkv_fused_kernel(dev, s_attn, lis):
     rng = np.random.RandomState(2)
     b, n, c, heads = 3, 197, 384, 6
     h, w = _i8(rng, (b, n, c)).to(dev), _i8(rng, (3 * c, c)).to(dev)
     rv = _pot(rng, 3 * c, -13, -10).to(dev)
     bv = torch.from_numpy(rng.randn(3 * c).astype(np.float32)).to(dev)
     a = (h, w, rv, bv, heads, 2.0**-12, s_attn, 0.5)
-    _same(attention_lis.lis_attention_qkv_fused(*a), attention_lis.lis_attention_qkv_fused_plain(*a))
+    _same(attention_lis.lis_attention_qkv_fused(*a, lis=lis),
+          attention_lis.lis_attention_qkv_fused_plain(*a, lis=lis))
+
+
+@pytest.mark.parametrize("lis", [True, False])
+@pytest.mark.parametrize("n", [197, 256, 5])
+def test_lis_attention_fused_kernel(dev, n, lis):
+    """(B, N, 3C) qkv codes at DeiT-S width; N = 256 needs more than 48 KB of
+    shared memory, N = 5 leaves most lanes without a key."""
+    rng = np.random.RandomState(n)
+    qkv = _i8(rng, (3, n, 3 * 384)).to(dev)
+    a = (qkv, 6, 2.0**-11, 2.0**-11 if lis else 2.0**-4, 2.0)
+    _same(attention_lis.lis_attention_fused(*a, lis=lis), attention_lis.lis_attention_fused_plain(*a, lis=lis))
+
+
+@pytest.mark.parametrize("lis", [True, False])
+def test_lis_attention_kernel(dev, lis):
+    """Split (B·H, N, 64) q/k/v; another head_dim raises."""
+    rng = np.random.RandomState(5)
+    q, k, v = (_i8(rng, (18, 197, 64)).to(dev) for _ in range(3))
+    a = (q, k, v, 2.0**-11, 2.0**-4, 2.0)
+    _same(attention_lis.lis_attention(*a, lis=lis), attention_lis.lis_attention_plain(*a, lis=lis))
+    with pytest.raises(ValueError, match="head_dim"):
+        attention_lis.lis_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                                    v[..., :32].contiguous(), *a[3:], lis=lis)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -100,11 +125,18 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         matmul_int8.int8_matmul_requant(x[:, ::2], w[:, :192], v, v)
     with pytest.raises(ValueError, match="K % 16"):
         matmul_int8.int8_matmul_requant(x[:, :40].contiguous(), w[:, :40].contiguous(), v, v)
-    h = torch.zeros(1, 197, 384, dtype=torch.int8, device=dev)
-    wq = torch.zeros(1152, 384, dtype=torch.int8, device=dev)
-    with pytest.raises(ValueError, match="LIS"):
-        attention_lis.lis_attention_qkv_fused(h, wq, torch.ones(1152, device=dev),
-                                              torch.zeros(1152, device=dev), 6, 1.0, 1.0, 1.0, lis=False)
+    rng = np.random.RandomState(6)
+    h = _i8(rng, (1, 197, 384)).to(dev)
+    wq = _i8(rng, (1152, 384), -8, 8).to(dev)
+    a = (h, wq, torch.full((1152,), 2.0**-10, device=dev), torch.zeros(1152, device=dev), 6,
+         2.0**-11, 2.0**-4, 1.0)
+    # LIS off launches the kernel's fp softmax arm, equal to the plain version
+    before = attention_lis.lis_attention_qkv_fused.launches
+    _same(attention_lis.lis_attention_qkv_fused(*a, lis=False),
+          attention_lis.lis_attention_qkv_fused_plain(*a, lis=False))
+    assert attention_lis.lis_attention_qkv_fused.launches == before + 1
+    with pytest.raises(ValueError, match="lis_bits"):
+        attention_lis.lis_attention_qkv_fused(*a, lis_bits=8)
 
 
 def test_serving_forward_small_model(dev):
@@ -123,7 +155,8 @@ def test_serving_forward_small_model(dev):
     assert launch_counts() == {"fused_patch_embed": 1, "lis_attention_qkv_fused": 2,
                                "int8_matmul_res_ln": 4, "int8_matmul_requant": 3,
                                "int_ln_requant": 0, "int_res_ln_requant": 0,
-                               "swin_lis_attention": 0}
+                               "swin_lis_attention": 0, "lis_attention_fused": 0,
+                               "lis_attention": 0}
     want = serving.serving_forward(s, cfg, x, use_kernels=False)
     assert torch.equal(got, want) and bool(torch.isfinite(got).all())
     # embed kernel alone, on the serving path's arguments
@@ -133,6 +166,36 @@ def test_serving_forward_small_model(dev):
     patches = extract_patches(serving._input_codes(s, x), cfg.patch_size).contiguous()
     _same(embed_fused.fused_patch_embed(patches, s["patch"]["w_q"], **k),
           embed_fused.fused_patch_embed_plain(patches, s["patch"]["w_q"], **k))
+
+
+@pytest.mark.parametrize("lis", [True, False])
+def test_serving_forward_staged_u8_small_model(dev, lis):
+    """The staged flags (fuse_embed=False, fuse_qkv=False) on uint8 images,
+    LIS on and off: the kernels equal the plain path, the staged path equals
+    the fused one, uint8 equals host-normalized float32, and the launches
+    are ``launches_per_forward``'s."""
+    cfg = dataclasses.replace(VIT_ZOO["deit_small_patch16_224"], img_size=64, depth=2,
+                              embed_dim=128, num_heads=2, num_classes=10)
+    policy = make_policy(lis=lis)
+    params = vit.init_params(0, cfg, device=dev)
+    u8 = torch.from_numpy(np.random.RandomState(7).randint(0, 256, (5, 3, 64, 64), dtype=np.uint8))
+    mean = torch.tensor([0.485, 0.456, 0.406]).reshape(3, 1, 1)
+    std = torch.tensor([0.229, 0.224, 0.225]).reshape(3, 1, 1)
+    xf = ((u8.to(torch.float32) / torch.tensor(255.0) - mean) / std).to(dev)
+    calib = vit.calibrate(params, cfg, policy, xf)
+    s = serving.attach_u8_ingest(serving.convert(params, calib.qstate, cfg, policy,
+                                                 [4] * cfg.num_matmuls))
+    assert serving.u8_ingest_exact(s)
+    u8 = u8.to(dev)
+    staged = dict(fuse_embed=False, fuse_qkv=False, lis=lis)
+    reset_launch_counts()
+    got = serving.serving_forward(s, cfg, u8, **staged)
+    want_counts = {k: 0 for k in launch_counts()}
+    want_counts.update(serving.launches_per_forward(cfg, fuse_embed=False, fuse_qkv=False))
+    assert launch_counts() == want_counts
+    assert torch.equal(got, serving.serving_forward(s, cfg, u8, use_kernels=False, **staged))
+    assert torch.equal(got, serving.serving_forward(s, cfg, u8, lis=lis))
+    assert torch.equal(got, serving.serving_forward(s, cfg, xf, **staged))
 
 
 def _ptf(rng, n, base):
@@ -181,8 +244,9 @@ def _swin_attn_args(rng, windows, n_win, heads, masked, distinct_masks=False):
     return qkv, bias, mask, heads, n_win, 2.0**-9, 2.0**-4, s2, 2.0**-2
 
 
+@pytest.mark.parametrize("lis", [True, False])
 @pytest.mark.parametrize("case", ["stage0", "stage0_shifted", "stage2_shifted", "mask_chunks"])
-def test_swin_lis_attention_kernel(dev, case):
+def test_swin_lis_attention_kernel(dev, case, lis):
     """Swin-T shapes: stage 0 (64 windows per image, 3 heads) plain and
     shifted, stage 2 (4 windows, 12 heads) shifted, and 64 distinct masks per
     image, so a wrong ``w % n_windows`` index changes the output."""
@@ -191,15 +255,19 @@ def test_swin_lis_attention_kernel(dev, case):
                              "stage2_shifted": (8, 4, 12), "mask_chunks": (128, 64, 2)}[case]
     a = _swin_attn_args(rng, windows, n_win, heads, case != "stage0", case == "mask_chunks")
     a = tuple(t.to(dev) if isinstance(t, torch.Tensor) else t for t in a)
-    _same(attention_lis.swin_lis_attention(*a), attention_lis.swin_lis_attention_plain(*a))
+    _same(attention_lis.swin_lis_attention(*a, lis=lis), attention_lis.swin_lis_attention_plain(*a, lis=lis))
 
 
 def test_swin_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     rng = np.random.RandomState(4)
     a = tuple(t.to(dev) if isinstance(t, torch.Tensor) else t
               for t in _swin_attn_args(rng, 4, 4, 2, False))
-    with pytest.raises(ValueError, match="LIS"):
-        attention_lis.swin_lis_attention(*a, lis=False)
+    # LIS off launches the kernel's fp softmax arm and skips the LIS scale bound
+    low = a[:7] + (2.0**-21,) + a[8:]
+    _same(attention_lis.swin_lis_attention(*low, lis=False),
+          attention_lis.swin_lis_attention_plain(*low, lis=False))
+    with pytest.raises(ValueError, match="2\\^-20"):
+        attention_lis.swin_lis_attention(*low)
     with pytest.raises(ValueError, match="head_dim"):
         attention_lis.swin_lis_attention(a[0], a[1][:1], None, 1, *a[4:])
     x = torch.zeros(8, 3074, dtype=torch.int8, device=dev)
@@ -223,6 +291,7 @@ def test_swin_serving_forward_small_model(dev):
     assert launch_counts() == {"fused_patch_embed": 0, "lis_attention_qkv_fused": 0,
                                "int8_matmul_res_ln": 3, "int8_matmul_requant": 15,
                                "int_ln_requant": 4, "int_res_ln_requant": 4,
-                               "swin_lis_attention": 4}
+                               "swin_lis_attention": 4, "lis_attention_fused": 0,
+                               "lis_attention": 0}
     want = serving_swin.serving_forward(s, calib.qstate, cfg, policy, x, use_kernels=False)
     assert torch.equal(got, want) and bool(torch.isfinite(got).all())

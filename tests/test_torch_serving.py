@@ -89,9 +89,10 @@ def test_kernel_and_plain_paths_agree_on_cpu(state):
 
 
 def test_lis_off_plain_path_runs_and_stays_close_to_jax(state):
-    """The LIS-off fp softmax exists in the plain attention only (the CUDA
-    kernel raises on it). Float softmax sums differ in order between the
-    frameworks, so this is held to the statistical envelope."""
+    """The LIS-off fp softmax: the port sums in float64 and rounds once, JAX
+    in float32 in its own order with a float32 exp, so this is held to the
+    statistical envelope (tests/test_torch_staged_lisoff.py counts the
+    flipped codes)."""
     bc = _bit_config("w8")
     js = jserving.convert(state["params"], state["calib"].qstate, TINY, make_policy(), bc)
     j = np.asarray(jserving.serving_forward(js, TINY, jnp.asarray(state["x"]), use_pallas=False,
@@ -103,6 +104,10 @@ def test_lis_off_plain_path_runs_and_stays_close_to_jax(state):
 
 
 def test_serving_rejects_unported_ingest(state):
+    """uint8 needs ``attach_u8_ingest`` first (ValueError, as in JAX); other
+    image types are not taken."""
     ts = tserving.convert(state["tp"], state["tq"], TTINY, tmake_policy(), _bit_config("w8"))
-    with pytest.raises(TypeError, match="not ported"):
+    with pytest.raises(ValueError, match="attach_u8_ingest"):
         tserving.serving_forward(ts, TTINY, torch.zeros(1, 3, 32, 32, dtype=torch.uint8))
+    with pytest.raises(TypeError, match="float32 or uint8"):
+        tserving.serving_forward(ts, TTINY, torch.zeros(1, 3, 32, 32, dtype=torch.float16))

@@ -330,8 +330,8 @@ def test_token_mean_codes_vs_jax():
 
 
 def test_serving_lis_off_plain_path_vs_jax(state):
-    """The LIS-off fp softmax (plain attention only; the kernel raises on
-    it): equal to JAX's at this seed."""
+    """The LIS-off fp softmax (float64 exp and sums, each rounded once, in
+    the plain version and the kernel): equal to JAX's at this seed."""
     js, ts = _converted(state, "w8")
     j = np.asarray(jss.serving_forward(js, state["calib"].qstate, TINY, make_policy(),
                                        jnp.asarray(state["x"]), use_pallas=False, lis=False))
@@ -381,7 +381,7 @@ def test_kernel_and_plain_paths_agree_on_cpu_with_the_stated_calls(state, monkey
 
 def test_unported_inputs_and_settings_raise(state):
     ts = tss.convert(state["tp"], state["tq"], TTINY, tmake_policy(), 8)
-    with pytest.raises(TypeError, match="not ported"):
+    with pytest.raises(ValueError, match="attach_u8_ingest"):
         tss.serving_forward(ts, state["tq"], TTINY, tmake_policy(),
                             torch.zeros(1, 3, 32, 32, dtype=torch.uint8))
     with pytest.raises(ValueError, match="integer-LN"):
