@@ -1,9 +1,9 @@
 """Drive the PyTorch/CUDA port's int8 serving paths once on one GPU.
 
-    python3 chip_smoke.py            # six paths, batches 1, 8, 64
+    python3 chip_smoke.py            # ten paths, batches 1, 8, 64
 
-Builds the nine CUDA kernels from ``p2vit_tpu_torch/csrc`` (one nvcc per
-source, in parallel, sm_90a), then drives six serving paths of two models at
+Builds the eleven CUDA kernels from ``p2vit_tpu_torch/csrc`` (one nvcc per
+source, in parallel, sm_90a), then drives ten serving paths of two models at
 full width and depth, with seeded random weights and images:
 
 * DeiT-S (``deit_small_patch16_224``: C=384, 6 heads, 197 tokens): seeded
@@ -15,8 +15,12 @@ full width and depth, with seeded random weights and images:
   (``deit_lisoff``) and staged (``deit_staged_lisoff``);
 * Swin-T (``swin_tiny_patch4_window7_224``: C=96, depths (2,2,6,2), heads
   (3,6,12,24), 7×7 windows): seeded init → calibrate (one batch) →
-  convert(4) → serving_forward (``swin``), and the same under
-  make_policy(lis=False) on uint8 images (``swin_lisoff``).
+  convert(4) → serving_forward at the defaults (``swin``), and the same
+  under make_policy(lis=False) on uint8 images (``swin_lisoff``). On the
+  same two states, the serving flags: ``swin_fold`` and
+  ``swin_fold_lisoff`` (``fold_windows=True``), ``swin_stem``
+  (``fuse_stem=True``) and ``swin_int_stem_unfused`` (``int_stem=True,
+  fuse_res=False``).
 
 Phases, one line each, per path:
 
@@ -30,24 +34,33 @@ Phases, one line each, per path:
      path's (``use_kernels=False``) bit for bit. uint8 paths: the logits must
      equal those of the same images normalized on the host (numpy float32,
      the literal sequence), and ``u8_ingest_exact`` must hold for the
-     literal form (the fused affine form is reported).
+     literal form (the fused affine form is reported). Flag paths: the
+     logits against the default Swin-T path's on the same state and
+     requests, which ``fold_windows`` must equal bit for bit, and
+     ``fuse_stem`` too unless s_bn is not a power of two; the int stem with
+     unfused junctions is reported (rel error, argmax agreement).
   3. the launch counts of that run: the path's per-forward counts
-     (``serving.launches_per_forward``, ``serving_swin.launches_per_forward``)
-     and 0 for every other kernel.
+     (``serving.launches_per_forward``, ``serving_swin.launches_per_forward``
+     with the path's flags) and 0 for every other kernel.
   4. logits finite, of shape (B, 1000); relative error, share of equal
      logits and argmax agreement against the fake-quant simulation, and the
      number of distinct predicted classes (reported, not checked).
   5. timing with CUDA events after warm-up: img/s at the largest batch for
      serving with kernels, the plain path, a bf16 ``fp_forward`` (default
-     paths) and float32 input (uint8 paths); each kernel against its plain
-     version at that batch's shapes. Then staged against fused, LIS off
-     against LIS on, and uint8 against float32 img/s, each on one line.
+     paths) and float32 input (uint8 paths); the device ms per forward from
+     ``torch.profiler`` (the port's kernels and the other PyTorch kernels);
+     each kernel against its plain version at that batch's shapes, beside
+     its bound (the larger of its bytes over 3.35 TB/s and its products over
+     the int8 or float32 peak). Then staged against fused, LIS off against
+     LIS on, uint8 against float32, and each Swin-T flag path against the
+     default, each on one line.
 
 Then the card's name and power limit, one JSON line of per-kernel results
-(``launches`` summed over the paths' phase-2 runs, ``ms``/``plain_ms`` per
-forward at the largest batch summed over the paths that run the kernel,
-``per_model`` the breakdown by path), and last ``{"ok": true, "device":
-{...}}``. Any failure raises (exit 1, no result line). There is no CPU path.
+(``launches`` summed over the paths' phase-2 runs, ``ms``/``plain_ms``/
+``bound_ms`` per forward at the largest batch summed over the paths that run
+the kernel, ``per_model`` the breakdown by path), and last ``{"ok": true,
+"device": {...}}``. Any failure raises (exit 1, no result line). There is no
+CPU path.
 """
 
 from __future__ import annotations
@@ -81,8 +94,24 @@ SOURCES = {
                             "p2vit_tpu/ops/attention_lis.py:228"),
     "lis_attention": ("attention_lis", "lis_attention_plain", "attention_lis.cu",
                       "p2vit_tpu/ops/attention_lis.py:143"),
+    "fused_swin_stem": ("swin_stem", "fused_swin_stem_plain", "swin_stem.cu",
+                        "p2vit_tpu/ops/swin_stem.py:60"),
+    "swin_lis_attention_folded": ("attention_lis", "swin_lis_attention_folded_plain",
+                                  "swin_attention.cu", "p2vit_tpu/ops/attention_lis.py:693"),
 }
-PATHS = ("deit", "deit_staged", "deit_lisoff", "deit_staged_lisoff", "swin", "swin_lisoff")
+PATHS = ("deit", "deit_staged", "deit_lisoff", "deit_staged_lisoff", "swin", "swin_lisoff",
+         "swin_fold", "swin_fold_lisoff", "swin_stem", "swin_int_stem_unfused")
+# Swin-T paths beyond the defaults: (LIS on, serving flags, check against the
+# default path on the same state and requests: "bitwise", "stem" (bitwise
+# unless s_bn is not a power of two) or "report")
+SWIN_FLAGS = {"swin": (True, {}, None), "swin_lisoff": (False, {}, None),
+              "swin_fold": (True, dict(fold_windows=True), "bitwise"),
+              "swin_fold_lisoff": (False, dict(fold_windows=True), "bitwise"),
+              "swin_stem": (True, dict(fuse_stem=True), "stem"),
+              "swin_int_stem_unfused": (True, dict(int_stem=True, fuse_res=False), "report")}
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense)
+HBM_BYTES_S, INT8_OPS_S, F32_FLOPS_S = 3.35e12, 1979e12, 67e12
+
 MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 
 
@@ -101,6 +130,76 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, reps: int):
+    """Device time per call from ``torch.profiler`` after one warm-up: (all
+    device kernels, the port's kernels, {kernel name: ms}), in ms; (None,
+    None, {}) if the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {e.key: e.self_device_time_total / reps / 1e3 for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    if not by_name:
+        return None, None, {}
+    port = sum(v for k, v in by_name.items() if "anonymous namespace" in k)  # the csrc kernels
+    return sum(by_name.values()), port, by_name
+
+
+def _ops(name, a):
+    """(operations, peak op/s) of one call: the kernel's products, counted
+    as the int8 (or, for the stem, float32) operations they are; the
+    epilogues' and the softmax's elementwise work is left out."""
+    if name in ("int8_matmul_requant", "int8_matmul_res_ln"):
+        (m, k), n = a[0].shape, a[1].shape[0]
+        return 2 * m * n * k, INT8_OPS_S
+    if name == "fused_patch_embed":
+        (b, np_, k), c = a[0].shape, a[1].shape[0]
+        return 2 * b * np_ * k * c, INT8_OPS_S
+    if name == "fused_swin_stem":
+        (m, k), c = a[0].shape, a[1].shape[0]
+        return 2 * m * k * c, F32_FLOPS_S
+    if name == "lis_attention_qkv_fused":
+        (b, n, c_in), c3 = a[0].shape, a[1].shape[0]
+        return 2 * b * n * c_in * c3 + 4 * b * n * n * (c3 // 3), INT8_OPS_S
+    if name == "lis_attention_fused":
+        b, n, c3 = a[0].shape
+        return 4 * b * n * n * (c3 // 3), INT8_OPS_S
+    if name == "lis_attention":
+        bh, n, d = a[0].shape
+        return 4 * bh * n * n * d, INT8_OPS_S
+    if name == "swin_lis_attention":
+        w, n, c3 = a[0].shape
+        return 4 * w * n * n * (c3 // 3), INT8_OPS_S
+    if name == "swin_lis_attention_folded":
+        b, res, _, c3 = a[0].shape
+        n = a[4] * a[4]
+        return 4 * b * res * res * n * (c3 // 3), INT8_OPS_S
+    return 0, INT8_OPS_S  # the int-LN kernels: elementwise only
+
+
+def _bound(name, a, outs):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for one call, the larger of its bytes (each tensor input read once, each
+    output written once) over the HBM rate and its operations over their
+    peak."""
+    nbytes = sum(t.numel() * t.element_size() for t in list(a) + list(outs)
+                 if isinstance(t, torch.Tensor))
+    ops, peak = _ops(name, a)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _is_pot(t) -> bool:
+    mant, _ = torch.frexp(torch.as_tensor(t, dtype=torch.float32))
+    return bool((mant.abs() == 0.5).all())
 
 
 def _capture(modules, names, run):
@@ -166,6 +265,10 @@ class Path:
     img_size: int
     u8_state: dict | None = None  # the serving state of a uint8 path
     split_check: bool = False  # hold lis_attention on lis_attention_fused's arguments
+    base: object = None  # (x, use_kernels) -> the default flags' logits on the same state
+    base_name: str | None = None  # that default path's name
+    vs_base: str | None = None  # "bitwise", "stem" or "report" (SWIN_FLAGS)
+    s_bn: object = None  # the state's patch_qact_bn scale ("stem")
 
 
 def _split_calls(calls):
@@ -217,7 +320,7 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
                     worst[name] = max(worst[name], int(diff.max()))
                 if b == bt:
                     count = sum(1 for a2, k2 in calls[pname] if _shape_key(a2, k2) == key)
-                    timing_calls.setdefault(name, []).append((a, k, count))
+                    timing_calls.setdefault(name, []).append((a, k, count, _bound(name, a, want)))
     torch.cuda.synchronize()
     print(f"{path.name} phase 1 kernels vs plain (batch 8 and {bt}, path arguments): "
           f"mismatches {json.dumps(mismatches)}", flush=True)
@@ -234,6 +337,22 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
     print(f"{path.name} phase 2 batches {batches}: logits != plain path: {json.dumps(neq)}", flush=True)
     if any(neq.values()):
         _fail(f"{path.name}: serving logits differ from the plain path: {neq}")
+    if path.base is not None:
+        base = {b: path.base(x, True) for b, x in requests.items()}
+        neq = {b: int((logits[b] != base[b]).sum()) for b in batches}
+        rel = {b: float((logits[b] - base[b]).norm() / base[b].norm().clamp_min(1e-9)) for b in batches}
+        agree = {b: float((logits[b].argmax(1) == base[b].argmax(1)).float().mean()) for b in batches}
+        print(f"{path.name} phase 2 against {path.base_name} on the same requests: logits != "
+              f"{json.dumps(neq)}, rel {json.dumps(rel)}, argmax agreement {json.dumps(agree)}",
+              flush=True)
+        if path.vs_base == "stem" and any(neq.values()):
+            pot = _is_pot(path.s_bn)
+            print(f"{path.name} phase 2: the fused stem moved {sum(neq.values())} logits; s_bn is "
+                  f"{'' if pot else 'not '}a power of two", flush=True)
+            if pot:
+                _fail(f"{path.name}: fused stem differs from the fp stem at a power-of-two s_bn")
+        if path.vs_base == "bitwise" and any(neq.values()):
+            _fail(f"{path.name}: logits differ from {path.base_name}'s: {neq}")
     if u8:
         from p2vit_tpu_torch import serving
 
@@ -286,20 +405,35 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
         print(f"{path.name} phase 5 batch {bt} {label}: {ms:.4f} ms/forward, {bt / ms * 1e3:.1f} img/s",
               flush=True)
     ms = min(times["int8 kernels"], times["int8 kernels again"])
-    summary = {"ms": ms, "f32_ms": times.get("int8 kernels, float32 input", ms)}
+    with torch.no_grad():
+        dev_ms, port_ms, by_name = _device_ms(lambda: path.forward(x, True), 5)
+    if dev_ms is None:
+        print(f"{path.name} phase 5 batch {bt} device ms: not measured (the profiler saw no device time)")
+    else:
+        print(f"{path.name} phase 5 batch {bt} device ms/forward (profiler): {dev_ms:.4f}, of which "
+              f"the port's kernels {port_ms:.4f} and other PyTorch kernels {dev_ms - port_ms:.4f}",
+              flush=True)
+        for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"{path.name} phase 5 batch {bt} device ms/forward {t:.4f} {name[:110]}")
+    summary = {"ms": ms, "f32_ms": times.get("int8 kernels, float32 input", ms), "device_ms": dev_ms,
+               "other_ms": None if dev_ms is None else dev_ms - port_ms}
     results = {}
     for name, (mod, pname, kern) in plain.items():
         k_ms = p_ms = 0.0
-        for a, k, count in timing_calls[name]:
+        by = {"bytes": 0.0, "operations": 0.0}
+        for a, k, count, (b_ms, b_by) in timing_calls[name]:
             t_k = _time_ms(lambda: kern(*a, **k), reps)
             t_p = _time_ms(lambda: getattr(mod, pname)(*a, **k), reps)
             shapes = [tuple(t.shape) for t in a if isinstance(t, torch.Tensor) and t.dim() >= 2]
             print(f"{path.name} phase 5 kernel {name} {shapes}{' gelu' if k.get('gelu') else ''}: "
-                  f"{t_k:.4f} ms vs plain {t_p:.4f} ms per call, x{count} per forward")
+                  f"{t_k:.4f} ms vs plain {t_p:.4f} ms per call, bound {b_ms:.6f} ms ({b_by}), "
+                  f"x{count} per forward")
             k_ms += t_k * count
             p_ms += t_p * count
-        results[name] = {"launches": counts[name], "max_abs_err": worst[name],
-                         "ms": k_ms, "plain_ms": p_ms}
+            by[b_by] += b_ms * count
+        results[name] = {"launches": counts[name], "max_abs_err": worst[name], "ms": k_ms,
+                         "plain_ms": p_ms, "bound_ms": by["bytes"] + by["operations"],
+                         "bound_by": max(by, key=by.get)}
     return results, summary
 
 
@@ -324,6 +458,22 @@ def print_comparisons(summary, bt):
         if t["f32_ms"] != t["ms"]:
             print(f"phase 5 compare uint8 vs float32 input, batch {bt}: {name} uint8 "
                   f"{_img_s(bt, t['ms'])} vs float32 {_img_s(bt, t['f32_ms'])}")
+
+
+def print_flag_comparisons(paths, summary, bt):
+    """Each Swin-T flag path against the default path on the same state and
+    requests: img/s at batch ``bt`` (CUDA events), and device ms per forward
+    with the other PyTorch kernels' share (profiler)."""
+    def dev(t):
+        if t["device_ms"] is None:
+            return "device ms not measured"
+        return f"device {t['device_ms']:.4f} ms (other PyTorch {t['other_ms']:.4f})"
+
+    for p in paths:
+        if p.base_name in summary:
+            a, b = summary[p.name], summary[p.base_name]
+            print(f"phase 5 compare {p.name} vs {p.base_name}, batch {bt}: {_img_s(bt, a['ms'])}, "
+                  f"{dev(a)} vs {_img_s(bt, b['ms'])}, {dev(b)}")
 
 
 def main() -> None:
@@ -413,31 +563,44 @@ def main() -> None:
                     None if pbf is None else lambda x, p=pbf, cfg=cfg: vit.fp_forward(
                         p, cfg, x.to(torch.bfloat16)),
                     cfg.num_classes, cfg.img_size, u8_state=None if lis else s, split_check=staged))
+    swin_names = {"swin": "Swin-T", "swin_lisoff": "Swin-T LIS-off", "swin_fold": "Swin-T fold",
+                  "swin_fold_lisoff": "Swin-T fold LIS-off", "swin_stem": "Swin-T fused stem",
+                  "swin_int_stem_unfused": "Swin-T int stem unfused"}
     for lis in (True, False):
-        key = "swin" if lis else "swin_lisoff"
-        if key not in models:
+        keys = [m for m in SWIN_FLAGS if m in models and SWIN_FLAGS[m][0] == lis]
+        if not keys:
             continue
         cfg = SWIN_ZOO["swin_tiny_patch4_window7_224"]
-        params, qstate, policy, s = setup("Swin-T" + ("" if lis else " LIS-off"), swin, cfg, lis,
+        base_key = "swin" if lis else "swin_lisoff"
+        params, qstate, policy, s = setup(swin_names[base_key], swin, cfg, lis,
                                           lambda p, q, c, pol: serving_swin.convert(p, q, c, pol, 4))
         if not lis:
             serving_swin.attach_u8_ingest(s, MEAN, STD)
-        pbf = _cast_tree(params, torch.bfloat16) if lis else None
-        per_forward = serving_swin.launches_per_forward(cfg)
-        paths.append(Path(
-            "Swin-T" + ("" if lis else " LIS-off"), tuple(per_forward), per_forward,
-            lambda x, k, s=s, q=qstate, cfg=cfg, pol=policy: serving_swin.serving_forward(
-                s, q, cfg, pol, x, use_kernels=k),
-            lambda x, p=params, q=qstate, cfg=cfg, pol=policy: swin.quant_forward(p, q, cfg, pol, x, 4),
-            None if pbf is None else lambda x, p=pbf, cfg=cfg: swin.fp_forward(
-                p, cfg, x.to(torch.bfloat16)),
-            cfg.num_classes, cfg.img_size, u8_state=None if lis else s))
+
+        def fwd(x, k, s=s, q=qstate, cfg=cfg, pol=policy, **flags):
+            return serving_swin.serving_forward(s, q, cfg, pol, x, use_kernels=k, **flags)
+
+        for key in keys:
+            _, flags, vs_base = SWIN_FLAGS[key]
+            pbf = _cast_tree(params, torch.bfloat16) if key == "swin" else None
+            per_forward = serving_swin.launches_per_forward(cfg, **flags)
+            paths.append(Path(
+                swin_names[key], tuple(per_forward), per_forward,
+                lambda x, k, flags=flags, fwd=fwd: fwd(x, k, **flags),
+                lambda x, p=params, q=qstate, cfg=cfg, pol=policy: swin.quant_forward(p, q, cfg, pol, x, 4),
+                None if pbf is None else lambda x, p=pbf, cfg=cfg: swin.fp_forward(
+                    p, cfg, x.to(torch.bfloat16)),
+                cfg.num_classes, cfg.img_size, u8_state=None if lis else s,
+                base=None if vs_base is None else fwd,
+                base_name=None if vs_base is None else swin_names[base_key], vs_base=vs_base,
+                s_bn=qstate["patch_qact_bn"]["scale"]))
 
     per_model, summary = {}, {}
     for path in paths:
         per_model[path.name], summary[path.name] = run_path(
             path, batches, args.reps, img, ops, (reset_launch_counts, launch_counts))
     print_comparisons(summary, max(batches))
+    print_flag_comparisons(paths, summary, max(batches))
 
     results = []
     for k in KERNELS:
@@ -454,11 +617,16 @@ def main() -> None:
             "max_abs_err": max(r["max_abs_err"] for r in runs.values()),
             "ms": round(sum(r["ms"] for r in runs.values()), 6),
             "plain_ms": round(sum(r["plain_ms"] for r in runs.values()), 6),
+            "bound_ms": round(sum(r["bound_ms"] for r in runs.values()), 6),
+            "bound_by": max(("bytes", "operations"),
+                            key=lambda b: sum(r["bound_ms"] for r in runs.values() if r["bound_by"] == b)),
+            "library_ms": None,
             "per_model": {m: {kk: (round(v, 6) if isinstance(v, float) else v) for kk, v in r.items()}
                           for m, r in runs.items()},
         })
-    print(f"(kernel ms / plain_ms: per forward at batch {max(batches)}, summed over the paths "
-          f"that run the kernel; lis_attention timed at lis_attention_fused's calls; card {smi})")
+    print(f"(kernel ms / plain_ms / bound_ms: per forward at batch {max(batches)}, summed over the "
+          f"paths that run the kernel; lis_attention timed at lis_attention_fused's calls; "
+          f"library_ms null: no single PyTorch call computes these quantized functions; card {smi})")
     print(smi)
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,26 @@
 // Windowed int8 attention with Log-Int-Softmax, or the LIS-off fp32 softmax,
-// for Swin (ops/attention_lis.py swin_lis_attention).
+// for Swin (ops/attention_lis.py swin_lis_attention and
+// swin_lis_attention_folded).
 //
-// Replaces the Pallas kernel p2vit_tpu/ops/attention_lis.py:swin_lis_attention
-// (_swin_kernel -> _swin_head_loop). One block per (window, head), head_dim
-// D = 32, N ≤ 64 tokens per window (49 for 7×7 windows), no padding: rows and
-// keys past N are never read, so nothing has to be parked out of the row max
-// or the sum.
+// Replaces the Pallas kernels p2vit_tpu/ops/attention_lis.py:swin_lis_attention
+// (_swin_kernel -> _swin_head_loop) and swin_lis_attention_folded
+// (_swin_folded_kernel). One block per (window, head), head_dim D = 32, N ≤ 64
+// tokens per window (49 for 7×7 windows), no padding: rows and keys past N are
+// never read, so nothing has to be parked out of the row max or the sum.
 //
-// 1. The head's q, k, v rows (N × 32 bytes each) are copied from the
-//    (W, N, 3C) qkv codes into shared memory, rows of 36 bytes (9 words) so
-//    that lanes reading consecutive key rows hit distinct banks.
+// The two entries differ only in where a window's rows live (token_of):
+// p2v_swin_lis_attention reads (W, N, 3C) window panels, row i of window w at
+// w·N + i; p2v_swin_lis_attention_folded reads the (B, res, res, 3C) raster
+// qkv grid, row i of window (b, wy, wx) at pixel (b, wy·ws + i/ws,
+// wx·ws + i%ws), and writes its output at the same pixel of (B, res, res, C).
+// So window_partition and window_reverse are index arithmetic in the loads
+// and the store, and the folded entry equals partition → the panel entry →
+// reverse bit for bit, LIS on and off, by construction.
+//
+// 1. The head's q, k, v rows (N × 32 bytes each) are copied from the qkv
+//    codes into shared memory, a thread per row (its address computed once,
+//    two 16-byte loads), rows of 36 bytes (9 words) so that lanes reading
+//    consecutive key rows hit distinct banks.
 // 2. Each warp owns query rows i. Lane l holds keys l and l + 32: dp4a scores
 //    → attn1 codes clip(round(acc·rq)) → clip(round((attn1·s1 + bias[h,i,j])
 //    ·inv_s2)) (qact2 codes) → + mask[w mod nW, i, j] (already divided by s2,
@@ -24,7 +35,8 @@
 // Bound: the per-score softmax chain (an IEEE divide per score and per weight)
 // and the bias/mask reads from L2 (2 × N² floats per block); the dp4a work
 // is 8 instructions per score. At Swin-T batch 64, stage 0 launches
-// 64·64·3 = 12,288 blocks.
+// 64·64·3 = 12,288 blocks. The folded entry reads 32-byte row pieces from
+// raster rows instead of panel rows: the same bytes, no partition copies.
 #include "common.cuh"
 
 namespace {
@@ -34,20 +46,37 @@ constexpr int NMAX = 64;
 constexpr int JT = NMAX / 32;  // key slots per lane
 constexpr int QROW = 36;       // smem bytes per q/k/v row
 
+// Token index of row i of window `win`: the panel row, or (FOLD) the raster
+// pixel of a (B, res, res) grid of ws×ws windows in (b, wy, wx) order.
+template <bool FOLD>
+__device__ __forceinline__ size_t token_of(int win, int i, int N, int res, int ws) {
+  if constexpr (FOLD) {
+    const int g = res / ws, wpi = g * g;
+    const int b = win / wpi, wy = (win % wpi) / g, wx = win % g;
+    return ((size_t)b * res + wy * ws + i / ws) * res + wx * ws + i % ws;
+  } else {
+    return (size_t)win * N + i;
+  }
+}
+
 // scal: rq, s1, inv_s2, ro, x0_int, b_int, c_int, s2
-template <bool LIS>
+template <bool LIS, bool FOLD>
 __global__ void __launch_bounds__(p2v::kThreads)
     swin_attention_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ bias,
                           const float* __restrict__ mask, const float* __restrict__ scal,
-                          int8_t* __restrict__ out, int N, int C, int H, int nW) {
+                          int8_t* __restrict__ out, int N, int C, int H, int nW, int res, int ws) {
   __shared__ __align__(16) int8_t sm[3 * NMAX * QROW];
   const int win = blockIdx.x / H, head = blockIdx.x % H;
-  const int8_t* base = qkv + (size_t)win * N * 3 * C + head * D;
-  for (int idx = threadIdx.x; idx < 3 * N * (D / 4); idx += p2v::kThreads) {
-    const int r = idx / (D / 4), u = idx % (D / 4);
+  // a thread per q/k/v row: its token's address once, two 16-byte loads
+  const int8_t* base = qkv + head * D;
+  for (int r = threadIdx.x; r < 3 * N; r += p2v::kThreads) {
     const int which = r / N, i = r % N;  // which: 0 q, 1 k, 2 v
-    *reinterpret_cast<uint32_t*>(sm + (which * NMAX + i) * QROW + 4 * u) =
-        p2v::ld32(base + (size_t)i * 3 * C + which * C + 4 * u);
+    const uint4* src =
+        reinterpret_cast<const uint4*>(base + token_of<FOLD>(win, i, N, res, ws) * 3 * C + which * C);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(sm + (which * NMAX + i) * QROW);
+    const uint4 lo = src[0], hi = src[1];
+    dst[0] = lo.x, dst[1] = lo.y, dst[2] = lo.z, dst[3] = lo.w;
+    dst[4] = hi.x, dst[5] = hi.y, dst[6] = hi.z, dst[7] = hi.w;
   }
   __syncthreads();
   const int8_t* qs = sm;
@@ -111,8 +140,21 @@ __global__ void __launch_bounds__(p2v::kThreads)
       }
       o = __fmul_rn(__double2float_rn(acc), ro);
     }
-    out[((size_t)win * N + i) * C + head * D + lane] = p2v::to_i8(p2v::requant(o, -128.f, 127.f));
+    out[token_of<FOLD>(win, i, N, res, ws) * C + head * D + lane] =
+        p2v::to_i8(p2v::requant(o, -128.f, 127.f));
   }
+}
+
+template <bool FOLD>
+int launch_swin(const void* qkv, const void* bias, const void* mask, const void* scal, void* out,
+                int W, int N, int C, int H, int nW, int res, int ws, int lis, void* stream) {
+  if (W == 0) return 0;
+  auto kernel = lis ? swin_attention_kernel<true, FOLD> : swin_attention_kernel<false, FOLD>;
+  kernel<<<W * H, p2v::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(qkv), static_cast<const float*>(bias),
+      static_cast<const float*>(mask), static_cast<const float*>(scal), static_cast<int8_t*>(out),
+      N, C, H, nW, res, ws);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -120,11 +162,14 @@ __global__ void __launch_bounds__(p2v::kThreads)
 extern "C" int p2v_swin_lis_attention(const void* qkv, const void* bias, const void* mask,
                                       const void* scal, void* out, int W, int N, int C, int H,
                                       int nW, int lis, void* stream) {
-  if (W == 0) return 0;
-  auto kernel = lis ? swin_attention_kernel<true> : swin_attention_kernel<false>;
-  kernel<<<W * H, p2v::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(qkv), static_cast<const float*>(bias),
-      static_cast<const float*>(mask), static_cast<const float*>(scal), static_cast<int8_t*>(out),
-      N, C, H, nW);
-  return static_cast<int>(cudaGetLastError());
+  return launch_swin<false>(qkv, bias, mask, scal, out, W, N, C, H, nW, 0, 1, lis, stream);
+}
+
+// (B, res, res, 3C) raster qkv codes → (B, res, res, C); mask: (g², N, N) or null
+extern "C" int p2v_swin_lis_attention_folded(const void* qkv, const void* bias, const void* mask,
+                                             const void* scal, void* out, int B, int res, int ws,
+                                             int C, int H, int lis, void* stream) {
+  const int g = res / ws;
+  return launch_swin<true>(qkv, bias, mask, scal, out, B * g * g, ws * ws, C, H, g * g, res, ws,
+                           lis, stream);
 }

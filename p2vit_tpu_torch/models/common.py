@@ -101,6 +101,17 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 1, 3).reshape(b, n, h * d)
 
 
+def target_device(device) -> torch.device:
+    """``device`` as a ``torch.device``. The entry points default to the card
+    ("cuda"); without a CUDA device that default raises instead of running
+    on the CPU, which callers ask for with ``device="cpu"``."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} needs a CUDA device and none is available; "
+                           f"pass device='cpu' to build on the CPU")
+    return dev
+
+
 def trunc_normal(gen: torch.Generator, shape, std=0.02, device=None):
     """Truncated normal (±2σ) from a ``torch.Generator``."""
     t = torch.empty(shape, dtype=torch.float32, device=device)

@@ -30,7 +30,7 @@ from ..quant.bit_type import BIT_TYPE_DICT
 from ..quant.fake_quant import fake_quant
 from ..quant.intops import int_layernorm, log_int_softmax
 from ..quant.solve import accumulate_act_stats, solve_act, solve_weight_all_bits
-from .common import gelu, layer_norm, linear, trunc_normal
+from .common import gelu, layer_norm, linear, target_device, trunc_normal
 from .vit import _fq_weight, bits_to_idx
 
 INT8 = BIT_TYPE_DICT["int8"]
@@ -208,11 +208,13 @@ def _roll(h, shift):
 # ---------------------------------------------------------------------------
 
 
-def init_params(seed: int, cfg: SwinConfig, device=None) -> dict:
+def init_params(seed: int, cfg: SwinConfig, device="cuda") -> dict:
     """Random init from a seeded ``torch.Generator`` (trunc normal σ=0.02 for
     weights and bias tables, zero biases, unit LN weights, no reduction
-    bias). The numbers differ from the JAX package's init for the same
-    seed; tests hand both packages the same numpy params."""
+    bias), on the card unless ``device`` says otherwise. The numbers differ
+    from the JAX package's init for the same seed; tests hand both packages
+    the same numpy params."""
+    device = target_device(device)
     gen = torch.Generator(device="cpu").manual_seed(seed)
     n_bias = (2 * cfg.window_size - 1) ** 2
 

@@ -35,6 +35,7 @@ from .common import (
     linear,
     merge_heads,
     split_qkv,
+    target_device,
     trunc_normal,
     vit_flops,
 )
@@ -64,11 +65,13 @@ def bits_to_idx(bit_config) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def init_params(seed: int, cfg: ViTConfig, device=None) -> dict:
+def init_params(seed: int, cfg: ViTConfig, device="cuda") -> dict:
     """Random init from a seeded ``torch.Generator`` (trunc normal σ=0.02,
-    zero biases, unit LN weights). The numbers differ from the JAX package's
-    init for the same seed; tests hand both packages the same numpy params
-    through ``interop.params_from_numpy``."""
+    zero biases, unit LN weights), on the card unless ``device`` says
+    otherwise. The numbers differ from the JAX package's init for the same
+    seed; tests hand both packages the same numpy params through
+    ``interop.params_from_numpy``."""
+    device = target_device(device)
     gen = torch.Generator(device="cpu").manual_seed(seed)
     c, h, p = cfg.embed_dim, cfg.hidden_dim, cfg.patch_size
 

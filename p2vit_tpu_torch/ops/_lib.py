@@ -46,6 +46,8 @@ SIGNATURES = {
     "p2v_int_ln_requant": [_P, _P, _P, _P, _I, _I, _P],
     "p2v_int_res_ln_requant": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "p2v_swin_lis_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "p2v_swin_lis_attention_folded": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "p2v_fused_swin_stem": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -48,15 +48,19 @@ head's qkv columns computed with ``mma.sync`` int8 tiles into shared memory,
 ``lis_attention`` (``_kernel``). Bound on the card: the per-score softmax
 chain and shared-memory reads, not the tensor cores.
 
-CUDA kernel (``csrc/swin_attention.cu``) replaces the Pallas kernel
+CUDA kernels (``csrc/swin_attention.cu``) replace the Pallas kernels
 ``p2vit_tpu/ops/attention_lis.py:swin_lis_attention`` (``_swin_kernel`` →
-``_swin_head_loop``), on (B·nW, 49, 3C) window panels with d = 32: per
-head, q·kᵀ → attn1 codes → + rel-pos bias → ·1/s2 round/clip (qact2
-codes) → + the shift mask/s2, unrounded → LIS or the fp softmax at s2 → @v
-→ qact3 codes. One block per (window, head) holds the head's q/k/v rows in
-shared memory; warps own query rows, lanes own keys, then output dims.
-The JAX kernel pads rows 49 → 56 and keys to 64 and parks padded keys at
-−2^30; neither the kernel nor the plain version pads.
+``_swin_head_loop``), on (B·nW, 49, 3C) window panels with d = 32, and
+``swin_lis_attention_folded`` (``_swin_folded_kernel``), on the (B, res,
+res, 3C) raster qkv grid: per head, q·kᵀ → attn1 codes → + rel-pos bias →
+·1/s2 round/clip (qact2 codes) → + the shift mask/s2, unrounded → LIS or
+the fp softmax at s2 → @v → qact3 codes. One block per (window, head) holds
+the head's q/k/v rows in shared memory; warps own query rows, lanes own
+keys, then output dims. The two entries share that body and differ only in
+the address of a window's rows: the folded one reads and writes raster
+pixels, so window_partition and window_reverse never run as copies. The
+JAX kernels pad rows 49 → 56 and keys to 64 and park padded keys at −2^30;
+neither the kernels nor the plain versions pad.
 """
 
 from __future__ import annotations
@@ -327,20 +331,24 @@ SWIN_MAX_N = 64  # tokens per window the kernel takes (49 for 7×7 windows)
 def swin_attention_scalars(score_requant, attn_scale, s2, out_requant, device, lis=True):
     """The kernel's scalars (rq, s1, 1/s2, ro, x0_int, b_int, c_int, s2); the
     softmax runs at the qact2 scale s2, which with LIS must clear the
-    exact-sum bound."""
+    exact-sum bound. That check reads s2 on the host, so it runs here only
+    for a host value (a number or a CPU tensor): for a serving state on the
+    card, ``serving_swin.serving_forward`` checks the smallest s2 that
+    ``convert`` recorded, with no read from the card per call."""
+    if lis and not (isinstance(s2, torch.Tensor) and s2.device.type != "cpu"):
+        check_lis_scale(s2)
     s2t = torch.as_tensor(s2, dtype=torch.float32, device=device)
-    if lis:
-        check_lis_scale(s2t)
     inv_s2 = torch.ones_like(s2t) / s2t
     return f32_scalars(score_requant, attn_scale, inv_s2, out_requant, *int_exp_consts(s2t), s2t,
                        device=device)
 
 
-def swin_lis_attention_plain(qkv_q, bias, mask, num_heads, n_windows, score_requant,
-                             attn_scale, s2, out_requant, lis_bits=4, lis=True):
-    """Plain PyTorch version of the kernel, the twin of the JAX package's
-    ``serving_swin._window_attention_codes_vals``. s2 is a power of two
-    (a minmax PoT node), so the multiply by 1/s2 equals the twin's divide."""
+def _swin_windows_plain(qkv_q, bias, mask, num_heads, n_windows, score_requant, attn_scale, s2,
+                        out_requant, lis_bits, lis):
+    """The windowed attention over (W, N, 3C) panels, shared by both plain
+    versions. The folded one calls this and not ``swin_lis_attention_plain``,
+    so that a recorder of the panel version's calls (``chip_smoke.py``, the
+    launch-count tests) sees the panel kernel's calls only."""
     w, n, c3 = qkv_q.shape
     c = c3 // 3
     d = c // num_heads
@@ -352,9 +360,34 @@ def swin_lis_attention_plain(qkv_q, bias, mask, num_heads, n_windows, score_requ
     if mask is not None:
         attn2 = (attn2.reshape(w // n_windows, n_windows, num_heads, n, n)
                  + mask.to(torch.float32)[None, :, None]).reshape(w, num_heads, n, n)
-    s2t = torch.as_tensor(s2, dtype=torch.float32, device=qkv_q.device)
-    out = _attend(attn2, qkv[2], s2t, ro, lis_bits, lis)
+    out = _attend(attn2, qkv[2], scal[7], ro, lis_bits, lis)
     return out.permute(0, 2, 1, 3).reshape(w, n, c)
+
+
+def swin_lis_attention_plain(qkv_q, bias, mask, num_heads, n_windows, score_requant,
+                             attn_scale, s2, out_requant, lis_bits=4, lis=True):
+    """Plain PyTorch version of the kernel, the twin of the JAX package's
+    ``serving_swin._window_attention_codes_vals``. s2 is a power of two
+    (a minmax PoT node), so the multiply by 1/s2 equals the twin's divide."""
+    return _swin_windows_plain(qkv_q, bias, mask, num_heads, n_windows, score_requant,
+                               attn_scale, s2, out_requant, lis_bits, lis)
+
+
+def _check_swin_operands(qkv, bias, mask, c3, n, num_heads, n_windows, lis, lis_bits):
+    """The Swin kernels' operand checks; returns (C, bias, mask) as the
+    kernels take them."""
+    c = c3 // 3
+    check_cuda_operand(qkv, "qkv", torch.int8)
+    _check_lis_bits(lis, lis_bits)
+    if c3 != 3 * c or c != SWIN_HEAD_DIM * num_heads or n > SWIN_MAX_N:
+        raise ValueError(f"Swin attention kernel needs head_dim {SWIN_HEAD_DIM} and "
+                         f"N <= {SWIN_MAX_N}; got C={c}, heads={num_heads}, N={n}")
+    bias = bias.to(torch.float32).contiguous()
+    check_cuda_operand(bias, "bias", torch.float32, (num_heads, n, n))
+    if mask is not None:
+        mask = mask.to(torch.float32).contiguous()
+        check_cuda_operand(mask, "mask", torch.float32, (n_windows, n, n))
+    return c, bias, mask
 
 
 def swin_lis_attention(qkv_q, bias, mask, num_heads, n_windows, score_requant, attn_scale,
@@ -376,19 +409,10 @@ def swin_lis_attention(qkv_q, bias, mask, num_heads, n_windows, score_requant, a
         return swin_lis_attention_plain(qkv_q, bias, mask, num_heads, n_windows, score_requant,
                                         attn_scale, s2, out_requant, lis_bits, lis)
     w, n, c3 = qkv_q.shape
-    c = c3 // 3
-    check_cuda_operand(qkv_q, "qkv_q", torch.int8)
-    _check_lis_bits(lis, lis_bits)
-    if c3 != 3 * c or c != SWIN_HEAD_DIM * num_heads or n > SWIN_MAX_N:
-        raise ValueError(f"Swin attention kernel needs head_dim {SWIN_HEAD_DIM} and "
-                         f"N <= {SWIN_MAX_N}; got C={c}, heads={num_heads}, N={n}")
-    bias = bias.to(torch.float32).contiguous()
-    check_cuda_operand(bias, "bias", torch.float32, (num_heads, n, n))
-    if mask is not None:
-        mask = mask.to(torch.float32).contiguous()
-        check_cuda_operand(mask, "mask", torch.float32, (n_windows, n, n))
-        if w % n_windows:
-            raise ValueError(f"{w} windows are not whole images of {n_windows} windows")
+    c, bias, mask = _check_swin_operands(qkv_q, bias, mask, c3, n, num_heads, n_windows, lis,
+                                         lis_bits)
+    if mask is not None and w % n_windows:
+        raise ValueError(f"{w} windows are not whole images of {n_windows} windows")
     scal = swin_attention_scalars(score_requant, attn_scale, s2, out_requant, dev, lis)
     out = torch.empty((w, n, c), dtype=torch.int8, device=dev)
     launch("p2v_swin_lis_attention", qkv_q, bias, mask, scal, out, w, n, c, num_heads,
@@ -398,3 +422,63 @@ def swin_lis_attention(qkv_q, bias, mask, num_heads, n_windows, score_requant, a
 
 
 swin_lis_attention.launches = 0
+
+
+def _folded_geometry(qkv_r, mask, window):
+    """The JAX kernel's guards on the raster layout; returns (B, res, g, N)."""
+    b, res, res2, _ = qkv_r.shape
+    ws = window
+    if not (res == res2 and res % ws == 0 and res > ws):
+        raise ValueError(f"folded layout needs a square grid of >1 whole windows: "
+                         f"res={res}x{res2}, window={ws}")
+    g, n = res // ws, ws * ws
+    if mask is not None and tuple(mask.shape) != (g * g, n, n):
+        raise ValueError(f"mask shape {tuple(mask.shape)} != expected {(g * g, n, n)} "
+                         f"(one (n,n) mask per window of the {g}x{g} grid)")
+    return b, res, g, n
+
+
+def swin_lis_attention_folded_plain(qkv_r, bias, mask, num_heads, window, score_requant,
+                                    attn_scale, s2, out_requant, lis_bits=4, lis=True):
+    """Plain PyTorch version of the kernel: window partition → the panel
+    attention → window reverse."""
+    b, res, g, n = _folded_geometry(qkv_r, mask, window)
+    ws, c3 = window, qkv_r.shape[-1]
+    hw = qkv_r.reshape(b, g, ws, g, ws, c3).permute(0, 1, 3, 2, 4, 5).reshape(b * g * g, n, c3)
+    out = _swin_windows_plain(hw, bias, mask, num_heads, g * g, score_requant, attn_scale, s2,
+                              out_requant, lis_bits, lis)
+    return out.reshape(b, g, g, ws, ws, -1).permute(0, 1, 3, 2, 4, 5).reshape(b, res, res, -1)
+
+
+def swin_lis_attention_folded(qkv_r, bias, mask, num_heads, window, score_requant, attn_scale,
+                              s2, out_requant, lis_bits=4, lis=True):
+    """Windowed attention over the raster-layout qkv codes, no partition copies.
+
+    Args:
+      qkv_r: (B, res, res, 3C) int8 qkv codes in image-raster layout, rolled
+        already for a shifted block; res a multiple of ``window``, > window.
+      bias: (H, N, N) float32, N = window². mask: (g·g, N, N) float32 shift
+        mask already divided by s2 (window (wy, wx) takes mask[wy·g + wx]),
+        or None. Scales as ``swin_lis_attention``.
+    Returns (B, res, res, C) int8 qact3 codes in raster layout, bit for bit
+    window_reverse of ``swin_lis_attention`` on the partitioned panels. CPU
+    tensors take the plain version; CUDA tensors launch the kernel (head_dim
+    32, N ≤ 64) or raise.
+    """
+    dev = device_of(qkv_r, bias, *(() if mask is None else (mask,)))
+    if dev.type == "cpu":
+        return swin_lis_attention_folded_plain(qkv_r, bias, mask, num_heads, window,
+                                               score_requant, attn_scale, s2, out_requant,
+                                               lis_bits, lis)
+    b, res, g, n = _folded_geometry(qkv_r, mask, window)
+    c, bias, mask = _check_swin_operands(qkv_r, bias, mask, qkv_r.shape[-1], n, num_heads, g * g,
+                                         lis, lis_bits)
+    scal = swin_attention_scalars(score_requant, attn_scale, s2, out_requant, dev, lis)
+    out = torch.empty((b, res, res, c), dtype=torch.int8, device=dev)
+    launch("p2v_swin_lis_attention_folded", qkv_r, bias, mask, scal, out, b, res, window, c,
+           num_heads, int(bool(lis)))
+    swin_lis_attention_folded.launches += 1
+    return out
+
+
+swin_lis_attention_folded.launches = 0

@@ -1,4 +1,4 @@
-"""The nine CUDA kernels against their plain PyTorch versions, on the card.
+"""The eleven CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: they skip without a CUDA device (decided inside the
 fixture, never at import). Run them on a GPU machine with
@@ -18,6 +18,7 @@ from p2vit_tpu_torch.config import make_policy
 from p2vit_tpu_torch.models import SWIN_ZOO, VIT_ZOO, swin, vit
 from p2vit_tpu_torch.ops import (
     attention_lis, embed_fused, intln, launch_counts, matmul_int8, matmul_ln, reset_launch_counts,
+    swin_stem,
 )
 
 pytestmark = pytest.mark.cuda
@@ -156,7 +157,8 @@ def test_serving_forward_small_model(dev):
                                "int8_matmul_res_ln": 4, "int8_matmul_requant": 3,
                                "int_ln_requant": 0, "int_res_ln_requant": 0,
                                "swin_lis_attention": 0, "lis_attention_fused": 0,
-                               "lis_attention": 0}
+                               "lis_attention": 0, "fused_swin_stem": 0,
+                               "swin_lis_attention_folded": 0}
     want = serving.serving_forward(s, cfg, x, use_kernels=False)
     assert torch.equal(got, want) and bool(torch.isfinite(got).all())
     # embed kernel alone, on the serving path's arguments
@@ -292,6 +294,103 @@ def test_swin_serving_forward_small_model(dev):
                                "int8_matmul_res_ln": 3, "int8_matmul_requant": 15,
                                "int_ln_requant": 4, "int_res_ln_requant": 4,
                                "swin_lis_attention": 4, "lis_attention_fused": 0,
-                               "lis_attention": 0}
+                               "lis_attention": 0, "fused_swin_stem": 0,
+                               "swin_lis_attention_folded": 0}
     want = serving_swin.serving_forward(s, calib.qstate, cfg, policy, x, use_kernels=False)
     assert torch.equal(got, want) and bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("case", ["randn", "pot"])
+def test_fused_swin_stem_kernel(dev, case):
+    """Swin-T's stem (K = 48, C = 96), ragged M: random-normal inputs, where
+    only the fixed summation order makes the dot agree, and a calibrated
+    state's kinds (PoT scales, PTF s_bn), where every partial sum is exact."""
+    rng = np.random.RandomState(8)
+    m, k, c = 2 * 3136 + 5, 48, 96
+    bias = torch.from_numpy((rng.randn(c) * 0.05).astype(np.float32))
+    ln_w = torch.from_numpy(rng.randn(c).astype(np.float32))
+    ln_b = torch.from_numpy((rng.randn(c) * 0.1).astype(np.float32))
+    if case == "randn":
+        px = torch.from_numpy(rng.randn(m, k).astype(np.float32))
+        w = torch.from_numpy((rng.randn(c, k) * 0.2).astype(np.float32))
+        s_bn, s_out = torch.tensor(0.04), torch.tensor(0.03)
+    else:
+        px = _i8(rng, (m, k)).to(torch.float32) * 2.0**-5
+        w = _i8(rng, (c, k), -8, 8).to(torch.float32) * _pot(rng, c, -9, -6)[:, None]
+        s_bn, s_out = _ptf(rng, c, 2.0**-3), torch.tensor(2.0**-4)
+    args = [t.to(dev) for t in (px, w, bias, s_bn, ln_w, ln_b, s_out)]
+    before = swin_stem.fused_swin_stem.launches
+    _same(swin_stem.fused_swin_stem(*args), swin_stem.fused_swin_stem_plain(*args))
+    assert swin_stem.fused_swin_stem.launches == before + 1
+    with pytest.raises(ValueError, match="C <= 256"):
+        swin_stem.fused_swin_stem(args[0], torch.zeros(300, k, device=dev), *args[2:])
+
+
+@pytest.mark.parametrize("lis", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("stage", [0, 1, 2])
+def test_swin_lis_attention_folded_kernel(dev, stage, masked, lis):
+    """Swin-T's folded stages (res 56/28/14, heads 3/6/12, 7×7 windows),
+    with and without the shift mask, against the plain version and against
+    window_reverse of the panel kernel on the partitioned windows."""
+    rng = np.random.RandomState(10 + stage)
+    res, heads = 56 >> stage, 3 << stage
+    c = 32 * heads
+    qkv = _i8(rng, (2, res, res, 3 * c)).to(dev)
+    bias = torch.from_numpy((rng.randn(heads, 49, 49) * 0.3).astype(np.float32)).to(dev)
+    mask = (torch.from_numpy(swin.shift_attn_mask(res, res, 7, 3) / 2.0**-4).to(dev)
+            if masked else None)
+    a = (qkv, bias, mask, heads, 7, 2.0**-9, 2.0**-4, 2.0**-4, 2.0**-2)
+    got = attention_lis.swin_lis_attention_folded(*a, lis=lis)
+    _same(got, attention_lis.swin_lis_attention_folded_plain(*a, lis=lis))
+    panels = swin.window_partition(qkv, 7).contiguous()
+    two_step = attention_lis.swin_lis_attention(panels, bias, mask, heads, (res // 7) ** 2, *a[5:],
+                                                lis=lis)
+    _same(got, swin.window_reverse(two_step, 7, res, res).contiguous())
+
+
+def test_swin_folded_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    bias = torch.zeros(2, 49, 49, device=dev)
+    sc = (1.0, 2.0**-4, 1.0, 1.0)
+    with pytest.raises(ValueError, match="square grid"):
+        attention_lis.swin_lis_attention_folded(torch.zeros(1, 14, 7, 192, dtype=torch.int8, device=dev),
+                                                bias, None, 2, 7, *sc)
+    with pytest.raises(ValueError, match="square grid"):
+        attention_lis.swin_lis_attention_folded(torch.zeros(1, 7, 7, 192, dtype=torch.int8, device=dev),
+                                                bias, None, 2, 7, *sc)
+    qkv = torch.zeros(1, 14, 14, 192, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="mask shape"):
+        attention_lis.swin_lis_attention_folded(qkv, bias, torch.zeros(3, 49, 49, device=dev), 2, 7,
+                                                *sc)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention_lis.swin_lis_attention_folded(qkv, bias[:1], None, 1, 7, *sc)
+    with pytest.raises(ValueError, match="2\\^-20"):
+        attention_lis.swin_lis_attention_folded(qkv, bias, None, 2, 7, 1.0, 2.0**-4, 2.0**-21, 1.0)
+
+
+@pytest.mark.parametrize("flags", [dict(fold_windows=True), dict(fuse_stem=True),
+                                   dict(int_stem=True, fuse_res=False),
+                                   dict(fold_windows=True, fuse_stem=True, lis=False)])
+def test_swin_serving_flags_small_model(dev, flags):
+    """The serving flags on a narrow two-stage Swin (7×7 windows, stage 0
+    folded, stage 1 one window): kernels equal the plain path bit for bit,
+    with ``launches_per_forward``'s counts; fold_windows and (PoT s_bn)
+    fuse_stem equal the default path."""
+    cfg = dataclasses.replace(SWIN_ZOO["swin_tiny_patch4_window7_224"], img_size=56, embed_dim=64,
+                              depths=(2, 2), num_heads=(2, 4), num_classes=10)
+    policy = make_policy()
+    params = swin.init_params(0, cfg, device=dev)
+    x = torch.randn((3, 3, 56, 56), generator=torch.Generator().manual_seed(1)).to(dev)
+    calib = swin.calibrate(params, cfg, policy, x)
+    s = serving_swin.convert(params, calib.qstate, cfg, policy, 4)
+    lis = flags.pop("lis", None)
+    reset_launch_counts()
+    got = serving_swin.serving_forward(s, calib.qstate, cfg, policy, x, lis=lis, **flags)
+    want_counts = {k: 0 for k in launch_counts()}
+    want_counts.update(serving_swin.launches_per_forward(cfg, **flags))
+    assert launch_counts() == want_counts
+    want = serving_swin.serving_forward(s, calib.qstate, cfg, policy, x, use_kernels=False, lis=lis,
+                                        **flags)
+    assert torch.equal(got, want) and bool(torch.isfinite(got).all())
+    if "int_stem" not in flags:
+        assert torch.equal(got, serving_swin.serving_forward(s, calib.qstate, cfg, policy, x, lis=lis))

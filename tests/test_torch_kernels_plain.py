@@ -199,8 +199,8 @@ def converted():
     bits = [4] * TINY.num_matmuls
     js = jserving.convert(params, calib.qstate, TINY, policy, bits)
     tcfg = tcommon.ViTConfig(**dataclasses.asdict(TINY))
-    ts = tserving.convert(interop.params_from_numpy(jax.tree.map(np.asarray, params)),
-                          interop.qstate_from_numpy(jax.tree.map(np.asarray, calib.qstate)),
+    ts = tserving.convert(interop.params_from_numpy(jax.tree.map(np.asarray, params), device="cpu"),
+                          interop.qstate_from_numpy(jax.tree.map(np.asarray, calib.qstate), device="cpu"),
                           tcfg, tmake_policy(), bits)
     return js, ts, tcfg, x
 

@@ -116,7 +116,7 @@ def test_log2_sites_see_only_agreeing_values(monkeypatch):
                         lambda s0: (seen.append(torch.clamp(s0, min=tobs.EPS).reshape(-1)), orig_cand(s0))[1])
     cfg = dataclasses.replace(tmodels.ViTConfig(), img_size=32, patch_size=8, num_classes=16,
                               embed_dim=32, depth=2, num_heads=2)
-    params = tvit.init_params(0, cfg)
+    params = tvit.init_params(0, cfg, device="cpu")
     x = T(np.random.RandomState(0).randn(4, 3, 32, 32).astype(np.float32))
     policy = tmake_policy()
     calib = tvit.calibrate(params, cfg, policy, x)

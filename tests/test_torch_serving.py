@@ -32,8 +32,8 @@ def state():
     params = vit.init_params(jax.random.PRNGKey(0), TINY)
     x = np.random.RandomState(11).randn(4, 3, 32, 32).astype(np.float32)
     calib = vit.calibrate(params, TINY, make_policy(), jnp.asarray(x))
-    tp = interop.params_from_numpy(jax.tree.map(np.asarray, params))
-    tq = interop.qstate_from_numpy(jax.tree.map(np.asarray, calib.qstate))
+    tp = interop.params_from_numpy(jax.tree.map(np.asarray, params), device="cpu")
+    tq = interop.qstate_from_numpy(jax.tree.map(np.asarray, calib.qstate), device="cpu")
     return dict(params=params, calib=calib, tp=tp, tq=tq, x=x)
 
 

@@ -199,8 +199,8 @@ def vit_state():
     params = vit.init_params(jax.random.PRNGKey(0), TINY)
     x = np.random.RandomState(11).randn(4, 3, 32, 32).astype(np.float32)
     calib = vit.calibrate(params, TINY, make_policy(), jnp.asarray(x))
-    tp = interop.params_from_numpy(jax.tree.map(np.asarray, params))
-    tq = interop.qstate_from_numpy(jax.tree.map(np.asarray, calib.qstate))
+    tp = interop.params_from_numpy(jax.tree.map(np.asarray, params), device="cpu")
+    tq = interop.qstate_from_numpy(jax.tree.map(np.asarray, calib.qstate), device="cpu")
     return dict(params=params, calib=calib, tp=tp, tq=tq, x=x)
 
 
@@ -298,7 +298,7 @@ def test_lisoff_vit_serving_end_to_end(vit_state, vit_lisoff, flags):
     x = vit_state["x"]
     js = jserving.convert(vit_state["params"], jcal.qstate, TINY, make_policy(lis=False), bc)
     j = np.asarray(jserving.serving_forward(js, TINY, jnp.asarray(x), interpret=True, lis=False, **kw))
-    tq = interop.qstate_from_numpy(jax.tree.map(np.asarray, jcal.qstate))
+    tq = interop.qstate_from_numpy(jax.tree.map(np.asarray, jcal.qstate), device="cpu")
     ts = tserving.convert(vit_state["tp"], tq, TTINY, tmake_policy(lis=False), bc)
     t = tserving.serving_forward(ts, TTINY, T(x), lis=False, **kw).numpy()
     ts2 = tserving.convert(vit_state["tp"], tcal.qstate, TTINY, tmake_policy(lis=False), bc)
@@ -316,7 +316,7 @@ def swin_lisoff():
     params = swin.init_params(jax.random.PRNGKey(0), STINY)
     x = np.random.RandomState(11).randn(4, 3, 32, 32).astype(np.float32)
     jcal = swin.calibrate(params, STINY, make_policy(lis=False), jnp.asarray(x))
-    tp = interop.params_from_numpy(jax.tree.map(np.asarray, params))
+    tp = interop.params_from_numpy(jax.tree.map(np.asarray, params), device="cpu")
     tcal = tswin.calibrate(tp, TSTINY, tmake_policy(lis=False), T(x))
     return dict(params=params, tp=tp, x=x, jcal=jcal, tcal=tcal)
 
@@ -335,7 +335,7 @@ def test_lisoff_swin_serving_end_to_end(swin_lisoff):
     js = jss.convert(st["params"], st["jcal"].qstate, STINY, pol, 4)
     j = np.asarray(jss.serving_forward(js, st["jcal"].qstate, STINY, pol, jnp.asarray(x),
                                        interpret=True))
-    tq = interop.qstate_from_numpy(jax.tree.map(np.asarray, st["jcal"].qstate))
+    tq = interop.qstate_from_numpy(jax.tree.map(np.asarray, st["jcal"].qstate), device="cpu")
     t = tss.serving_forward(tss.convert(st["tp"], tq, TSTINY, tpol, 4), tq, TSTINY, tpol, T(x)).numpy()
     tcal = st["tcal"]
     srv = tss.serving_forward(tss.convert(st["tp"], tcal.qstate, TSTINY, tpol, 4), tcal.qstate,

@@ -32,7 +32,7 @@ def setup():
     x = np.random.RandomState(1).randn(3, 3, 32, 32).astype(np.float32)
     calib = swin.calibrate(params, TINY, make_policy(), jnp.asarray(x))
     pn = jax.tree.map(np.asarray, params)
-    tp = interop.params_from_numpy(pn)
+    tp = interop.params_from_numpy(pn, device="cpu")
     tcal = tswin.calibrate(tp, TTINY, tmake_policy(), torch.from_numpy(x))
     return dict(params=params, pn=pn, tp=tp, x=x, calib=calib, tcal=tcal)
 
@@ -74,7 +74,7 @@ def test_interop_swin_trees(setup):
     for (_, a), (_, b) in zip(jl, tl):
         np.testing.assert_array_equal(a, b.numpy())
     assert setup["tp"]["stages"][0]["downsample"]["reduction"]["b"] is None
-    qs = interop.qstate_from_numpy(jax.tree.map(np.asarray, setup["calib"].qstate))
+    qs = interop.qstate_from_numpy(jax.tree.map(np.asarray, setup["calib"].qstate), device="cpu")
     assert len(_leaves(qs)) == len(_leaves(setup["calib"].qstate)) == 144
 
 
@@ -114,7 +114,7 @@ def test_quant_forward_matches_jax(setup, bits):
     """Same qstate (JAX's, through interop) in both packages: the simulated
     logits agree within 1e-5 relative (measured: equal)."""
     x = setup["x"]
-    tq = interop.qstate_from_numpy(jax.tree.map(np.asarray, setup["calib"].qstate))
+    tq = interop.qstate_from_numpy(jax.tree.map(np.asarray, setup["calib"].qstate), device="cpu")
     if bits == "mixed":
         j = swin.quant_forward_mixed(setup["params"], setup["calib"].qstate, TINY, make_policy(),
                                      jnp.asarray(x), bits_to_idx(MIXED))
@@ -131,8 +131,8 @@ def test_quant_forward_matches_jax(setup, bits):
 
 
 def test_init_params_seeded():
-    a = tswin.init_params(3, TTINY)
-    b = tswin.init_params(3, TTINY)
+    a = tswin.init_params(3, TTINY, device="cpu")
+    b = tswin.init_params(3, TTINY, device="cpu")
     for (_, u), (_, v) in zip(_leaves(a), _leaves(b)):
         assert torch.equal(u, v)
     blk = a["stages"][1]["blocks"][0]

@@ -230,8 +230,8 @@ def state():
     params = swin.init_params(jax.random.PRNGKey(0), TINY)
     x = np.random.RandomState(11).randn(4, 3, 32, 32).astype(np.float32)
     calib = swin.calibrate(params, TINY, make_policy(), jnp.asarray(x))
-    tp = interop.params_from_numpy(jax.tree.map(np.asarray, params))
-    tq = interop.qstate_from_numpy(jax.tree.map(np.asarray, calib.qstate))
+    tp = interop.params_from_numpy(jax.tree.map(np.asarray, params), device="cpu")
+    tq = interop.qstate_from_numpy(jax.tree.map(np.asarray, calib.qstate), device="cpu")
     return dict(params=params, calib=calib, tp=tp, tq=tq, x=x)
 
 
@@ -300,8 +300,8 @@ def test_serving_bitwise_vs_jax_at_window7():
     js = jss.convert(params, calib.qstate, cfg, make_policy(), 4)
     j = np.asarray(jss.serving_forward(js, calib.qstate, cfg, make_policy(), jnp.asarray(x),
                                        interpret=True))
-    tq = interop.qstate_from_numpy(jax.tree.map(np.asarray, calib.qstate))
-    ts = tss.convert(interop.params_from_numpy(jax.tree.map(np.asarray, params)), tq, tcfg,
+    tq = interop.qstate_from_numpy(jax.tree.map(np.asarray, calib.qstate), device="cpu")
+    ts = tss.convert(interop.params_from_numpy(jax.tree.map(np.asarray, params), device="cpu"), tq, tcfg,
                      tmake_policy(), 4)
     stem = np.asarray(_jax_stem(js, calib.qstate, jnp.asarray(x), cfg))
     assert n_diff(stem, tss.stem_codes(ts, tq, tcfg, T(x))) == 0

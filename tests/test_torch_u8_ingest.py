@@ -61,8 +61,8 @@ def vit_setup():
     bits = [8] * TINY.num_matmuls
     js = jserving.attach_u8_ingest(jserving.convert(params, calib.qstate, TINY, make_policy(), bits),
                                    MEAN, STD)
-    tq = interop.qstate_from_numpy(jax.tree.map(np.asarray, calib.qstate))
-    ts = tserving.convert(interop.params_from_numpy(jax.tree.map(np.asarray, params)), tq, TTINY,
+    tq = interop.qstate_from_numpy(jax.tree.map(np.asarray, calib.qstate), device="cpu")
+    ts = tserving.convert(interop.params_from_numpy(jax.tree.map(np.asarray, params), device="cpu"), tq, TTINY,
                           tmake_policy(), bits)
     tserving.attach_u8_ingest(ts, MEAN, STD)
     return js, ts
@@ -136,8 +136,8 @@ def test_u8_without_attach_raises():
     params = vit.init_params(jax.random.PRNGKey(0), TINY)
     x = np.random.RandomState(1).randn(2, 3, 32, 32).astype(np.float32)
     calib = vit.calibrate(params, TINY, make_policy(), jnp.asarray(x))
-    ts = tserving.convert(interop.params_from_numpy(jax.tree.map(np.asarray, params)),
-                          interop.qstate_from_numpy(jax.tree.map(np.asarray, calib.qstate)), TTINY,
+    ts = tserving.convert(interop.params_from_numpy(jax.tree.map(np.asarray, params), device="cpu"),
+                          interop.qstate_from_numpy(jax.tree.map(np.asarray, calib.qstate), device="cpu"), TTINY,
                           tmake_policy(), [8] * TINY.num_matmuls)
     with pytest.raises(ValueError, match="attach_u8_ingest"):
         tserving.serving_forward(ts, TTINY, torch.from_numpy(_u8_batch((1, 3, 32, 32))))
@@ -149,8 +149,8 @@ def swin_setup():
     x = np.random.RandomState(1).randn(2, 3, 32, 32).astype(np.float32)
     calib = swin.calibrate(params, STINY, make_policy(), jnp.asarray(x))
     js = jss.attach_u8_ingest(jss.convert(params, calib.qstate, STINY, make_policy(), 8), MEAN, STD)
-    tq = interop.qstate_from_numpy(jax.tree.map(np.asarray, calib.qstate))
-    ts = tss.convert(interop.params_from_numpy(jax.tree.map(np.asarray, params)), tq, TSTINY,
+    tq = interop.qstate_from_numpy(jax.tree.map(np.asarray, calib.qstate), device="cpu")
+    ts = tss.convert(interop.params_from_numpy(jax.tree.map(np.asarray, params), device="cpu"), tq, TSTINY,
                      tmake_policy(), 8)
     return js, ts, calib.qstate, tq
 

@@ -28,7 +28,7 @@ def setup():
     x = np.random.RandomState(1).randn(4, 3, 32, 32).astype(np.float32)
     calib = vit.calibrate(params, TINY, make_policy(), jnp.asarray(x))
     pn = jax.tree.map(np.asarray, params)
-    tp = interop.params_from_numpy(pn)
+    tp = interop.params_from_numpy(pn, device="cpu")
     tcal = tvit.calibrate(tp, TTINY, tmake_policy(), torch.from_numpy(x))
     return dict(params=params, pn=pn, tp=tp, x=x, calib=calib, tcal=tcal)
 
@@ -44,7 +44,7 @@ def test_interop_params(setup):
     for (_, a), (_, b) in zip(jl, tl):
         assert isinstance(b, torch.Tensor) and b.dtype == torch.float32
         np.testing.assert_array_equal(a, b.numpy())
-    qs = interop.qstate_from_numpy(jax.tree.map(np.asarray, setup["calib"].qstate))
+    qs = interop.qstate_from_numpy(jax.tree.map(np.asarray, setup["calib"].qstate), device="cpu")
     assert len(_leaves(qs)) == len(_leaves(setup["calib"].qstate))
 
 
@@ -102,7 +102,7 @@ def test_quant_forward_matches_jax(setup, bits):
     bc = (bits * n)[:n]
     j = np.asarray(vit.quant_forward(setup["params"], setup["calib"].qstate, TINY, make_policy(),
                                      jnp.asarray(setup["x"]), vit.bits_to_idx(bc)))
-    tq = interop.qstate_from_numpy(jax.tree.map(np.asarray, setup["calib"].qstate))
+    tq = interop.qstate_from_numpy(jax.tree.map(np.asarray, setup["calib"].qstate), device="cpu")
     t = tvit.quant_forward(setup["tp"], tq, TTINY, tmake_policy(), torch.from_numpy(setup["x"]),
                            tvit.bits_to_idx(bc)).numpy()
     rel = np.linalg.norm(t - j) / max(np.linalg.norm(j), 1e-9)
@@ -117,8 +117,8 @@ def test_bits_to_idx():
 
 
 def test_init_params_seeded():
-    a = tvit.init_params(3, TTINY)
-    b = tvit.init_params(3, TTINY)
+    a = tvit.init_params(3, TTINY, device="cpu")
+    b = tvit.init_params(3, TTINY, device="cpu")
     torch.testing.assert_close(a["blocks"][1]["fc2"]["w"], b["blocks"][1]["fc2"]["w"], rtol=0, atol=0)
     w = a["blocks"][0]["qkv"]["w"]
     assert w.shape == (96, 32) and float(w.abs().max()) <= 0.04 + 1e-7
