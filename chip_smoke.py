@@ -1,18 +1,20 @@
 """Drive the PyTorch/CUDA port's int8 serving paths once on one GPU.
 
-    python3 chip_smoke.py            # ten paths, batches 1, 8, 64
+    python3 chip_smoke.py            # twelve paths, batches 1, 8, 64
 
-Builds the eleven CUDA kernels from ``p2vit_tpu_torch/csrc`` (one nvcc per
-source, in parallel, sm_90a), then drives ten serving paths of two models at
-full width and depth, with seeded random weights and images:
+Builds the twelve CUDA kernels from ``p2vit_tpu_torch/csrc`` (one nvcc per
+source, in parallel, sm_90a), then drives twelve serving paths of two models
+at full width and depth, with seeded random weights and images:
 
 * DeiT-S (``deit_small_patch16_224``: C=384, 6 heads, 197 tokens): seeded
   init → calibrate (one batch) → convert(W4A8, [4]*50) → serving_forward,
-  at the default flags (``deit``) and staged (``deit_staged``:
-  ``fuse_embed=False, fuse_qkv=False``);
+  at the default flags (``deit``), staged (``deit_staged``:
+  ``fuse_embed=False, fuse_qkv=False``) and one kernel per encoder layer
+  (``deit_layer``: ``fuse_layer=True``);
 * DeiT-S LIS off: make_policy(lis=False) → calibrate → convert(W4A8) →
   attach_u8_ingest → serving_forward(lis=False) on uint8 images, fused
-  (``deit_lisoff``) and staged (``deit_staged_lisoff``);
+  (``deit_lisoff``), staged (``deit_staged_lisoff``) and per layer
+  (``deit_layer_lisoff``);
 * Swin-T (``swin_tiny_patch4_window7_224``: C=96, depths (2,2,6,2), heads
   (3,6,12,24), 7×7 windows): seeded init → calibrate (one batch) →
   convert(4) → serving_forward at the defaults (``swin``), and the same
@@ -35,10 +37,11 @@ Phases, one line each, per path:
      equal those of the same images normalized on the host (numpy float32,
      the literal sequence), and ``u8_ingest_exact`` must hold for the
      literal form (the fused affine form is reported). Flag paths: the
-     logits against the default Swin-T path's on the same state and
-     requests, which ``fold_windows`` must equal bit for bit, and
-     ``fuse_stem`` too unless s_bn is not a power of two; the int stem with
-     unfused junctions is reported (rel error, argmax agreement).
+     logits against the default path's on the same state and requests,
+     which ``fuse_layer`` (against ``deit`` / ``deit_lisoff``) and
+     ``fold_windows`` must equal bit for bit, and ``fuse_stem`` too unless
+     s_bn is not a power of two; the int stem with unfused junctions is
+     reported (rel error, argmax agreement).
   3. the launch counts of that run: the path's per-forward counts
      (``serving.launches_per_forward``, ``serving_swin.launches_per_forward``
      with the path's flags) and 0 for every other kernel.
@@ -53,7 +56,10 @@ Phases, one line each, per path:
      its bound (the larger of its bytes over 3.35 TB/s and its products over
      the int8 or float32 peak). Then staged against fused, LIS off against
      LIS on, uint8 against float32, and each Swin-T flag path against the
-     default, each on one line.
+     default, each on one line; ``deit_layer`` against ``deit`` at every
+     batch (img/s, device ms, the other PyTorch kernels' and the idle
+     share). The fused layer's phase 5 line also splits one call into its
+     qkv GEMM, attention and row-tile phases (block 0's clock).
 
 Then the card's name and power limit, one JSON line of per-kernel results
 (``launches`` summed over the paths' phase-2 runs, ``ms``/``plain_ms``/
@@ -98,9 +104,15 @@ SOURCES = {
                         "p2vit_tpu/ops/swin_stem.py:60"),
     "swin_lis_attention_folded": ("attention_lis", "swin_lis_attention_folded_plain",
                                   "swin_attention.cu", "p2vit_tpu/ops/attention_lis.py:693"),
+    "fused_vit_layer": ("layer_fused", "fused_vit_layer_plain", "layer_fused.cu",
+                        "p2vit_tpu/ops/layer_fused.py:125"),
 }
-PATHS = ("deit", "deit_staged", "deit_lisoff", "deit_staged_lisoff", "swin", "swin_lisoff",
-         "swin_fold", "swin_fold_lisoff", "swin_stem", "swin_int_stem_unfused")
+PATHS = ("deit", "deit_staged", "deit_layer", "deit_lisoff", "deit_staged_lisoff", "deit_layer_lisoff",
+         "swin", "swin_lisoff", "swin_fold", "swin_fold_lisoff", "swin_stem", "swin_int_stem_unfused")
+# DeiT-S paths by key suffix: (display name suffix, serving flags)
+DEIT_FLAGS = {"": ("", dict(fuse_embed=True, fuse_qkv=True)),
+              "_staged": (" staged", dict(fuse_embed=False, fuse_qkv=False)),
+              "_layer": (" fused layer", dict(fuse_layer=True))}
 # Swin-T paths beyond the defaults: (LIS on, serving flags, check against the
 # default path on the same state and requests: "bitwise", "stem" (bitwise
 # unless s_bn is not a power of two) or "report")
@@ -182,6 +194,9 @@ def _ops(name, a):
         b, res, _, c3 = a[0].shape
         n = a[4] * a[4]
         return 4 * b * res * res * n * (c3 // 3), INT8_OPS_S
+    if name == "fused_vit_layer":
+        (b, n, c), hid = a[0].shape, a[19].shape[0]
+        return 2 * b * n * c * (3 * c + c) + 2 * b * n * c * hid * 2 + 4 * b * n * n * c, INT8_OPS_S
     return 0, INT8_OPS_S  # the int-LN kernels: elementwise only
 
 
@@ -256,6 +271,7 @@ class Path:
     """One serving path as chip_smoke drives it."""
 
     name: str
+    key: str  # the path's name in --models
     kernels: tuple  # kernel names the path runs
     per_forward: dict  # expected launches per forward
     forward: object  # (x, use_kernels) -> logits
@@ -267,7 +283,8 @@ class Path:
     split_check: bool = False  # hold lis_attention on lis_attention_fused's arguments
     base: object = None  # (x, use_kernels) -> the default flags' logits on the same state
     base_name: str | None = None  # that default path's name
-    vs_base: str | None = None  # "bitwise", "stem" or "report" (SWIN_FLAGS)
+    base_key: str | None = None  # and its key
+    vs_base: str | None = None  # "bitwise", "stem" or "report" (SWIN_FLAGS; fuse_layer bitwise)
     s_bn: object = None  # the state's patch_qact_bn scale ("stem")
 
 
@@ -428,6 +445,8 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
             print(f"{path.name} phase 5 kernel {name} {shapes}{' gelu' if k.get('gelu') else ''}: "
                   f"{t_k:.4f} ms vs plain {t_p:.4f} ms per call, bound {b_ms:.6f} ms ({b_by}), "
                   f"x{count} per forward")
+            if name == "fused_vit_layer":
+                print(f"{path.name} phase 5 kernel fused_vit_layer phases: {_layer_phases(kern, a, k)}")
             k_ms += t_k * count
             p_ms += t_p * count
             by[b_by] += b_ms * count
@@ -435,6 +454,18 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
                          "plain_ms": p_ms, "bound_ms": by["bytes"] + by["operations"],
                          "bound_by": max(by, key=by.get)}
     return results, summary
+
+
+def _layer_phases(kern, a, k, reps=5):
+    """The fused layer's three phases (qkv GEMM, attention, row tiles), ms
+    per call by block 0's %globaltimer, mean of ``reps`` calls."""
+    stamps = torch.zeros((reps, 4), dtype=torch.int64, device=a[0].device)
+    for r in range(reps):
+        kern(*a, **k, phase_ns=stamps[r])
+    torch.cuda.synchronize()
+    ms = (stamps[:, 1:] - stamps[:, :-1]).double().mean(0).tolist()
+    return (f"qkv GEMM {ms[0] / 1e6:.4f} ms, attention {ms[1] / 1e6:.4f} ms, "
+            f"row tiles {ms[2] / 1e6:.4f} ms per call (block 0's clock, mean of {reps})")
 
 
 def _img_s(bt, ms):
@@ -470,10 +501,40 @@ def print_flag_comparisons(paths, summary, bt):
         return f"device {t['device_ms']:.4f} ms (other PyTorch {t['other_ms']:.4f})"
 
     for p in paths:
-        if p.base_name in summary:
+        if p.base_name in summary and not p.key.startswith("deit"):
             a, b = summary[p.name], summary[p.base_name]
             print(f"phase 5 compare {p.name} vs {p.base_name}, batch {bt}: {_img_s(bt, a['ms'])}, "
                   f"{dev(a)} vs {_img_s(bt, b['ms'])}, {dev(b)}")
+
+
+def print_layer_comparisons(paths, summary, batches, img, reps):
+    """``deit_layer`` against ``deit`` on the same requests, at every batch:
+    img/s (CUDA events around whole forwards, host gaps included), device ms
+    per forward (profiler), the other PyTorch kernels' ms and the idle share
+    (1 − device ms / event ms). The largest batch reuses phase 5's readings
+    of both paths."""
+    bt = max(batches)
+    for p in paths:
+        if p.key != "deit_layer":
+            continue
+        for b in batches:
+            x = img(b, p.img_size, p.u8_state is not None)
+            parts = []
+            for name, key, fwd in ((p.name, p.key, p.forward), (p.base_name, p.base_key, p.base)):
+                if b == bt and name in summary:
+                    t = summary[name]
+                    ms, dev_ms, other = t["ms"], t["device_ms"], t["other_ms"]
+                else:
+                    with torch.no_grad():
+                        ms = _time_ms(lambda: fwd(x, True), max(2, reps // 4))
+                        dev_ms, port_ms, _ = _device_ms(lambda: fwd(x, True), 5)
+                    other = None if dev_ms is None else dev_ms - port_ms
+                dev = ("device ms not measured" if dev_ms is None else
+                       f"device {dev_ms:.4f} ms, other PyTorch {other:.4f} ms, "
+                       f"idle share {1 - dev_ms / ms:.3f}")
+                parts.append(f"{key} {_img_s(b, ms)}, {dev}")
+            print(f"phase 5 compare {p.key} vs {p.base_key}, batch {b}: {parts[0]} vs {parts[1]}",
+                  flush=True)
 
 
 def main() -> None:
@@ -547,22 +608,28 @@ def main() -> None:
             params, qstate, policy, s = setup("DeiT-S" + suffix, vit, cfg, lis, vit_convert)
             if not lis:
                 serving.attach_u8_ingest(s, MEAN, STD)
-            for staged in (False, True):
-                key = "deit" + ("_staged" if staged else "") + ("" if lis else "_lisoff")
+            base_fwd = lambda x, k, s=s, cfg=cfg, lis=lis: serving.serving_forward(  # noqa: E731
+                s, cfg, x, use_kernels=k, lis=lis)
+            for var, (label, flags) in DEIT_FLAGS.items():
+                key = "deit" + var + ("" if lis else "_lisoff")
                 if key not in models:
                     continue
-                flags = dict(fuse_embed=not staged, fuse_qkv=not staged)
                 per_forward = serving.launches_per_forward(cfg, **flags)
                 pbf = _cast_tree(params, torch.bfloat16) if key == "deit" else None
+                layer = var == "_layer"
                 paths.append(Path(
-                    "DeiT-S" + (" staged" if staged else "") + suffix, tuple(per_forward), per_forward,
+                    "DeiT-S" + label + suffix, key, tuple(per_forward), per_forward,
                     lambda x, k, s=s, cfg=cfg, lis=lis, flags=flags: serving.serving_forward(
                         s, cfg, x, use_kernels=k, lis=lis, **flags),
                     lambda x, p=params, q=qstate, cfg=cfg, pol=policy: vit.quant_forward(
                         p, q, cfg, pol, x, idx),
                     None if pbf is None else lambda x, p=pbf, cfg=cfg: vit.fp_forward(
                         p, cfg, x.to(torch.bfloat16)),
-                    cfg.num_classes, cfg.img_size, u8_state=None if lis else s, split_check=staged))
+                    cfg.num_classes, cfg.img_size, u8_state=None if lis else s,
+                    split_check=var == "_staged", base=base_fwd if layer else None,
+                    base_name="DeiT-S" + suffix if layer else None,
+                    base_key="deit" + ("" if lis else "_lisoff") if layer else None,
+                    vs_base="bitwise" if layer else None))
     swin_names = {"swin": "Swin-T", "swin_lisoff": "Swin-T LIS-off", "swin_fold": "Swin-T fold",
                   "swin_fold_lisoff": "Swin-T fold LIS-off", "swin_stem": "Swin-T fused stem",
                   "swin_int_stem_unfused": "Swin-T int stem unfused"}
@@ -585,22 +652,28 @@ def main() -> None:
             pbf = _cast_tree(params, torch.bfloat16) if key == "swin" else None
             per_forward = serving_swin.launches_per_forward(cfg, **flags)
             paths.append(Path(
-                swin_names[key], tuple(per_forward), per_forward,
+                swin_names[key], key, tuple(per_forward), per_forward,
                 lambda x, k, flags=flags, fwd=fwd: fwd(x, k, **flags),
                 lambda x, p=params, q=qstate, cfg=cfg, pol=policy: swin.quant_forward(p, q, cfg, pol, x, 4),
                 None if pbf is None else lambda x, p=pbf, cfg=cfg: swin.fp_forward(
                     p, cfg, x.to(torch.bfloat16)),
                 cfg.num_classes, cfg.img_size, u8_state=None if lis else s,
                 base=None if vs_base is None else fwd,
-                base_name=None if vs_base is None else swin_names[base_key], vs_base=vs_base,
+                base_name=None if vs_base is None else swin_names[base_key],
+                base_key=None if vs_base is None else base_key, vs_base=vs_base,
                 s_bn=qstate["patch_qact_bn"]["scale"]))
 
     per_model, summary = {}, {}
     for path in paths:
+        t0 = time.time()
         per_model[path.name], summary[path.name] = run_path(
             path, batches, args.reps, img, ops, (reset_launch_counts, launch_counts))
+        print(f"{path.name}: phases 1-5 in {time.time() - t0:.1f} s", flush=True)
     print_comparisons(summary, max(batches))
     print_flag_comparisons(paths, summary, max(batches))
+    t0 = time.time()
+    print_layer_comparisons(paths, summary, batches, img, args.reps)
+    print(f"fused-layer comparisons in {time.time() - t0:.1f} s", flush=True)
 
     results = []
     for k in KERNELS:

@@ -12,13 +12,14 @@ from .attention_lis import (
 )
 from .embed_fused import fused_patch_embed
 from .intln import int_ln_requant, int_res_ln_requant
+from .layer_fused import fused_vit_layer
 from .matmul_int8 import int8_matmul_requant
 from .matmul_ln import int8_matmul_res_ln
 from .swin_stem import fused_swin_stem
 
 KERNELS = (fused_patch_embed, lis_attention_qkv_fused, int8_matmul_res_ln, int8_matmul_requant,
            int_ln_requant, int_res_ln_requant, swin_lis_attention, lis_attention_fused,
-           lis_attention, fused_swin_stem, swin_lis_attention_folded)
+           lis_attention, fused_swin_stem, swin_lis_attention_folded, fused_vit_layer)
 
 
 def reset_launch_counts() -> None:

@@ -48,6 +48,7 @@ SIGNATURES = {
     "p2v_swin_lis_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "p2v_swin_lis_attention_folded": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "p2v_fused_swin_stem": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "p2v_fused_vit_layer": [_P] * 15 + [_I] * 6 + [_P],
 }
 
 

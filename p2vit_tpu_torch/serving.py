@@ -3,7 +3,8 @@
 ``convert`` specializes (params, QuantState, bit_config) into a serving
 state of int8 weight codes and requant constants; ``serving_forward`` runs
 the network on int8 codes. The default flags (``fuse_embed=True,
-fuse_qkv=True``, the JAX package's default, unrolled) run four kernels:
+fuse_qkv=True, fuse_layer=False``, the JAX package's default, unrolled) run
+four kernels:
 
   * ``ops/embed_fused.fused_patch_embed``: image codes → block-0 inputs,
   * ``ops/attention_lis.lis_attention_qkv_fused``: qkv + attention,
@@ -14,12 +15,16 @@ The staged flags run the same codes through more, smaller steps:
 ``fuse_embed=False`` the patch GEMM (``int8_matmul_requant``), the [CLS] and
 position add in PyTorch and block 0's LN1 (``ops/intln.int_ln_requant``);
 ``fuse_qkv=False`` the qkv GEMM (``int8_matmul_requant``) and
-``ops/attention_lis.lis_attention_fused`` over the (B, N, 3C) codes. Both
-give the default path's logits bit for bit. ``lis=False`` runs every
-attention kernel's fp32 softmax arm. ``attach_u8_ingest`` lets the forward
-take raw uint8 images. Not ported: ``weight_only_params``, the fused-layer
-kernel, and the TPU-only arms (``scan_layers``, the ``resln`` and
-``lis="bypass"`` timing probes).
+``ops/attention_lis.lis_attention_fused`` over the (B, N, 3C) codes.
+``fuse_layer=True`` runs each encoder layer in one launch
+(``ops/layer_fused.fused_vit_layer``; it overrides ``fuse_qkv``). All give
+the default path's logits bit for bit. Every layer is driven from its 29
+constants (``layer_consts``; ``stack_layer_consts`` stacks them over depth)
+by ``apply_unfused_layer`` or ``apply_fused_layer``. ``lis=False`` runs
+every attention kernel's fp32 softmax arm. ``attach_u8_ingest`` lets the
+forward take raw uint8 images. Not ported: ``weight_only_params``, and the
+TPU-only arms (``scan_layers``, the ``resln`` and ``lis="bypass"`` timing
+probes).
 
 Numerics: every requant scale the PoT search produces is a power of two,
 so the requant multiplies are exact; serving is compared with the
@@ -33,7 +38,7 @@ import torch
 
 from .config import QuantPolicy
 from .models.common import ViTConfig, extract_patches
-from .ops import attention_lis, embed_fused, intln, matmul_int8, matmul_ln
+from .ops import attention_lis, embed_fused, intln, layer_fused, matmul_int8, matmul_ln
 
 _I8 = (-128, 127)
 
@@ -291,9 +296,99 @@ def head_logits(s, h, use_kernels: bool = True):
     return logits_c.to(torch.float32) * s["s_out"]
 
 
+def layer_consts(s, cfg: ViTConfig, bi: int) -> tuple:
+    """The 29 constants of encoder layer ``bi`` in ``stack_layer_consts``'s
+    order, unbroadcast, as the four-kernel pipeline forms them: the qkv
+    weight and epilogue and the attention's three scalars; the proj weight
+    and epilogue, the junction's s_mid, s_res_prev and s_res1, and LN2's w,
+    b, out-scale and ratio; the fc1 weight, epilogue and 1/s_mq1; the fc2
+    weight and epilogue, s_mid2, s_res2, and the LN fused after fc2 (the
+    next block's LN1, or the final norm after the last block)."""
+    blocks = s["blocks"]
+    sb = blocks[bi]
+    qkv, pr, fc1, fc2 = sb["qkv"], sb["proj"], sb["mlp_fc1"], sb["fc2"]
+    s_prev = s["s_qact1"] if bi == 0 else blocks[bi - 1]["s_res2"]
+    if bi + 1 < len(blocks):
+        nb = blocks[bi + 1]
+        lnn = (nb["norm1_w"], nb["norm1_b"], nb["qkv"]["s_act"] * nb["qkv"]["cs"], 1.0)
+    else:
+        lnn = (s["norm_w"], s["norm_b"], s["s_qact2"], 1.0)
+    return (
+        qkv["w_q"], qkv["s_act"] * qkv["sw"] / sb["s_qact1"], qkv["bias"] / sb["s_qact1"],
+        sb["s_qact1"] ** 2 * cfg.attn_scale / sb["s_attn1"], sb["s_attn1"],
+        sb["s_qact1"] / sb["s_qact2a"],
+        pr["w_q"], sb["s_qact2a"] * pr["sw"] / sb["s_qact3"], pr["bias"] / sb["s_qact3"],
+        sb["s_qact3"], s_prev, sb["s_res1"],
+        sb["norm2_w"], sb["norm2_b"], fc1["s_act"] * sb["norm2_cs"], sb["norm2_ratio"],
+        fc1["w_q"], fc1["s_act"] * fc1["sw"], fc1["bias"], 1.0 / sb["s_mq1"],
+        fc2["w_q"], sb["s_mq1"] * fc2["sw"] / sb["s_mq2"], fc2["bias"] / sb["s_mq2"],
+        sb["s_mq2"], sb["s_res2"], *lnn,
+    )
+
+
+def stack_layer_consts(s, cfg: ViTConfig) -> tuple:
+    """Every per-layer constant of the fused-layer kernel stacked along a
+    leading depth axis, in ``apply_fused_layer``'s order (the JAX package's
+    29-tuple): the three int8 weights as they are, the rest float32
+    broadcast to (3C,), (C,), (hid,) or ()."""
+    c = cfg.embed_dim
+    hid = s["blocks"][0]["mlp_fc1"]["w_q"].shape[0]
+    dev = s["blocks"][0]["qkv"]["w_q"].device
+    shapes = (None, (3 * c,), (3 * c,), (), (), (), None, *[(c,)] * 9, None, (hid,), (hid,), (),
+              None, *[(c,)] * 8)
+    per = [layer_consts(s, cfg, bi) for bi in range(len(s["blocks"]))]
+
+    def entry(v, shape):
+        if shape is None:
+            return v
+        return torch.broadcast_to(torch.as_tensor(v, dtype=torch.float32, device=dev), shape)
+
+    return tuple(torch.stack([entry(layer[i], shape) for layer in per]) for i, shape in enumerate(shapes))
+
+
+def apply_unfused_layer(cfg: ViTConfig, layer, h, xc, lis=True, fuse_qkv=True, use_kernels=True):
+    """ONE encoder layer on (B, N, C) codes from ``layer_consts`` (or a
+    ``stack_layer_consts`` slice) through the four-kernel pipeline: the
+    attention (qkv-fused, or the qkv GEMM then the attention over the qkv
+    codes), the proj junction with LN2, fc1 + GELU, and the fc2 junction with
+    the next LN. Returns (h', xc')."""
+    (w_qkv, qr, qb, srq, sat, oro, w_proj, prr, prb, smid, sprev, sres1, ln2w, ln2b, ln2o, ln2r,
+     w_fc1, f1r, f1b, f1inv, w_fc2, f2r, f2b, smid2, sres2, lnnw, lnnb, lnno, lnnr) = layer
+    if use_kernels:
+        res_ln, mm = matmul_ln.int8_matmul_res_ln, matmul_int8.int8_matmul_requant
+    else:
+        res_ln, mm = matmul_ln.int8_matmul_res_ln_plain, matmul_int8.int8_matmul_requant_plain
+    b, n_tok, c = h.shape
+    if fuse_qkv:
+        attn_qkv = (attention_lis.lis_attention_qkv_fused if use_kernels
+                    else attention_lis.lis_attention_qkv_fused_plain)
+        h = attn_qkv(h, w_qkv, qr, qb, cfg.num_heads, srq, sat, oro, lis=lis)
+    else:
+        attn = attention_lis.lis_attention_fused if use_kernels else attention_lis.lis_attention_fused_plain
+        h = mm(h.reshape(-1, c), w_qkv, qr, qb).reshape(b, n_tok, 3 * c)
+        h = attn(h, cfg.num_heads, srq, sat, oro, lis=lis)
+    # proj + residual junction + int-LN2: the qact2 residual carrier and
+    # the mlp's qact0 input codes
+    xc2, h = res_ln(h.reshape(-1, c), w_proj, prr, prb, xc.reshape(-1, c), smid, sprev, sres1,
+                    ln2w, ln2b, ln2o, ln2r)
+    h = mm(h, w_fc1, f1r, f1b, out_inv=f1inv, gelu=True)
+    # fc2 + residual + the NEXT LayerNorm
+    xc2, h = res_ln(h, w_fc2, f2r, f2b, xc2, smid2, sres1, sres2, lnnw, lnnb, lnno, lnnr)
+    return h.reshape(b, n_tok, c), xc2.reshape(b, n_tok, c)
+
+
+def apply_fused_layer(cfg: ViTConfig, layer, h, xc, lis=True, use_kernels=True):
+    """ONE encoder layer on (B, N, C) codes from ``layer_consts`` (or a
+    ``stack_layer_consts`` slice) in one ``fused_vit_layer`` launch (its
+    plain version with ``use_kernels=False``). Returns (h', xc')."""
+    fn = layer_fused.fused_vit_layer if use_kernels else layer_fused.fused_vit_layer_plain
+    return fn(h, xc, *layer[:3], cfg.num_heads, *layer[3:], lis=lis)
+
+
 @torch.no_grad()
 def serving_forward(s, cfg: ViTConfig, x, use_kernels: bool = True, lis: bool = True,
-                    fuse_embed: bool = True, fuse_qkv: bool = True, u8_affine: bool = False):
+                    fuse_embed: bool = True, fuse_qkv: bool = True, fuse_layer: bool = False,
+                    u8_affine: bool = False):
     """Run the int8 pipeline on an image batch (B, 3, H, W), float32
     normalized or raw uint8 after ``attach_u8_ingest``; returns float32
     logits (B, num_classes).
@@ -305,87 +400,38 @@ def serving_forward(s, cfg: ViTConfig, x, use_kernels: bool = True, lis: bool = 
     softmax over the dequantized attention codes, in the kernels as in the
     plain versions. ``fuse_embed`` / ``fuse_qkv``: the fused prologue and the
     qkv-fused attention (default), or their staged forms (module docstring).
+    ``fuse_layer``: each encoder layer in one ``fused_vit_layer`` launch,
+    bit for bit the four-kernel path; takes precedence over ``fuse_qkv``.
+    On the card it raises ValueError for a model the kernel does not fit
+    (``layer_fused.check_fits``).
     ``u8_affine``: ingest uint8 through the fused affine; prove it first with
     ``u8_ingest_exact(s, affine=True)``.
     """
-    if use_kernels:
-        attn_qkv = attention_lis.lis_attention_qkv_fused
-        attn = attention_lis.lis_attention_fused
-        res_ln = matmul_ln.int8_matmul_res_ln
-        mm = matmul_int8.int8_matmul_requant
-    else:
-        attn_qkv = attention_lis.lis_attention_qkv_fused_plain
-        attn = attention_lis.lis_attention_fused_plain
-        res_ln = matmul_ln.int8_matmul_res_ln_plain
-        mm = matmul_int8.int8_matmul_requant_plain
-
-    b = x.shape[0]
-    c = cfg.embed_dim
-    n_tok = cfg.seq_len
+    if fuse_layer and use_kernels and x.device.type != "cpu":
+        layer_fused.check_fits(cfg.seq_len, cfg.embed_dim, cfg.num_heads, cfg.hidden_dim)
     h, xc = embed_codes(s, cfg, x, use_kernels, fuse_embed, u8_affine)
-    s_prev = s["s_qact1"]
-    n_blocks = len(s["blocks"])
-    for bi, sb in enumerate(s["blocks"]):
-        qkv = sb["qkv"]
-        qkv_r = qkv["s_act"] * qkv["sw"] / sb["s_qact1"]
-        qkv_b = qkv["bias"] / sb["s_qact1"]
-        attn_args = (sb["s_qact1"] ** 2 * cfg.attn_scale / sb["s_attn1"], sb["s_attn1"],
-                     sb["s_qact1"] / sb["s_qact2a"])
-        if fuse_qkv:
-            h = attn_qkv(h, qkv["w_q"], qkv_r, qkv_b, cfg.num_heads, *attn_args, lis=lis)
+    for bi in range(len(s["blocks"])):
+        layer = layer_consts(s, cfg, bi)
+        if fuse_layer:
+            h, xc = apply_fused_layer(cfg, layer, h, xc, lis, use_kernels)
         else:
-            h = mm(h.reshape(-1, c), qkv["w_q"], qkv_r, qkv_b).reshape(b, n_tok, 3 * c)
-            h = attn(h, cfg.num_heads, *attn_args, lis=lis)
-        pr = sb["proj"]
-        fc1 = sb["mlp_fc1"]
-        # proj + residual junction + int-LN2: the qact2 residual carrier and
-        # the mlp's qact0 input codes
-        xc2, h = res_ln(
-            h.reshape(-1, c), pr["w_q"],
-            sb["s_qact2a"] * pr["sw"] / sb["s_qact3"],
-            pr["bias"] / sb["s_qact3"],
-            xc.reshape(-1, c),
-            sb["s_qact3"], s_prev, sb["s_res1"],
-            sb["norm2_w"], sb["norm2_b"],
-            fc1["s_act"] * sb["norm2_cs"], sb["norm2_ratio"],
-        )
-        h = mm(h, fc1["w_q"], fc1["s_act"] * fc1["sw"], fc1["bias"],
-               out_inv=1.0 / sb["s_mq1"], gelu=True)
-        # fc2 + residual + the NEXT LayerNorm (next block's LN1, or the
-        # final encoder norm after the last block)
-        if bi + 1 < n_blocks:
-            nb = s["blocks"][bi + 1]
-            ln_w, ln_b = nb["norm1_w"], nb["norm1_b"]
-            ln_out = nb["qkv"]["s_act"] * nb["qkv"]["cs"]
-        else:
-            ln_w, ln_b = s["norm_w"], s["norm_b"]
-            ln_out = s["s_qact2"]
-        fc2 = sb["fc2"]
-        xc2, h = res_ln(
-            h, fc2["w_q"],
-            sb["s_mq1"] * fc2["sw"] / sb["s_mq2"],
-            fc2["bias"] / sb["s_mq2"],
-            xc2,
-            sb["s_mq2"], sb["s_res1"], sb["s_res2"],
-            ln_w, ln_b, ln_out, 1.0,
-        )
-        xc = xc2.reshape(b, n_tok, c)
-        h = h.reshape(b, n_tok, c)
-        s_prev = sb["s_res2"]
+            h, xc = apply_unfused_layer(cfg, layer, h, xc, lis, fuse_qkv, use_kernels)
     return head_logits(s, h, use_kernels)
 
 
-def launches_per_forward(cfg: ViTConfig, fuse_embed: bool = True, fuse_qkv: bool = True) -> dict:
+def launches_per_forward(cfg: ViTConfig, fuse_embed: bool = True, fuse_qkv: bool = True,
+                         fuse_layer: bool = False) -> dict:
     """Kernel launches of one ``serving_forward`` at these flags: the
-    prologue (one fused kernel, or the patch GEMM and LN1), per block the
-    attention (with its qkv GEMM when staged), two junctions and fc1, and
-    the head."""
+    prologue (one fused kernel, or the patch GEMM and LN1), per block either
+    one fused layer or the attention (with its qkv GEMM when staged), two
+    junctions and fc1, and the head."""
     depth = cfg.depth
-    counts = {"int8_matmul_res_ln": 2 * depth,
-              "int8_matmul_requant": depth + 1 + (0 if fuse_embed else 1) + (0 if fuse_qkv else depth)}
-    if fuse_embed:
-        counts["fused_patch_embed"] = 1
+    staged_embed = 0 if fuse_embed else 1
+    if fuse_layer:
+        counts = {"fused_vit_layer": depth, "int8_matmul_requant": 1 + staged_embed}
     else:
-        counts["int_ln_requant"] = 1
-    counts["lis_attention_qkv_fused" if fuse_qkv else "lis_attention_fused"] = depth
+        counts = {"int8_matmul_res_ln": 2 * depth,
+                  "int8_matmul_requant": depth + 1 + staged_embed + (0 if fuse_qkv else depth),
+                  "lis_attention_qkv_fused" if fuse_qkv else "lis_attention_fused": depth}
+    counts["fused_patch_embed" if fuse_embed else "int_ln_requant"] = 1
     return counts

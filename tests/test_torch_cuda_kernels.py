@@ -1,4 +1,4 @@
-"""The eleven CUDA kernels against their plain PyTorch versions, on the card.
+"""The twelve CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: they skip without a CUDA device (decided inside the
 fixture, never at import). Run them on a GPU machine with
@@ -17,8 +17,8 @@ from p2vit_tpu_torch import serving, serving_swin
 from p2vit_tpu_torch.config import make_policy
 from p2vit_tpu_torch.models import SWIN_ZOO, VIT_ZOO, swin, vit
 from p2vit_tpu_torch.ops import (
-    attention_lis, embed_fused, intln, launch_counts, matmul_int8, matmul_ln, reset_launch_counts,
-    swin_stem,
+    attention_lis, embed_fused, intln, launch_counts, layer_fused, matmul_int8, matmul_ln,
+    reset_launch_counts, swin_stem,
 )
 
 pytestmark = pytest.mark.cuda
@@ -158,7 +158,7 @@ def test_serving_forward_small_model(dev):
                                "int_ln_requant": 0, "int_res_ln_requant": 0,
                                "swin_lis_attention": 0, "lis_attention_fused": 0,
                                "lis_attention": 0, "fused_swin_stem": 0,
-                               "swin_lis_attention_folded": 0}
+                               "swin_lis_attention_folded": 0, "fused_vit_layer": 0}
     want = serving.serving_forward(s, cfg, x, use_kernels=False)
     assert torch.equal(got, want) and bool(torch.isfinite(got).all())
     # embed kernel alone, on the serving path's arguments
@@ -295,7 +295,7 @@ def test_swin_serving_forward_small_model(dev):
                                "int_ln_requant": 4, "int_res_ln_requant": 4,
                                "swin_lis_attention": 4, "lis_attention_fused": 0,
                                "lis_attention": 0, "fused_swin_stem": 0,
-                               "swin_lis_attention_folded": 0}
+                               "swin_lis_attention_folded": 0, "fused_vit_layer": 0}
     want = serving_swin.serving_forward(s, calib.qstate, cfg, policy, x, use_kernels=False)
     assert torch.equal(got, want) and bool(torch.isfinite(got).all())
 
@@ -394,3 +394,75 @@ def test_swin_serving_flags_small_model(dev, flags):
     assert torch.equal(got, want) and bool(torch.isfinite(got).all())
     if "int_stem" not in flags:
         assert torch.equal(got, serving_swin.serving_forward(s, calib.qstate, cfg, policy, x, lis=lis))
+
+
+def _layer_args(dev, b, seed=11, dead=False):
+    """One encoder layer's arguments at DeiT-S width (N = 197, C = 384, 6
+    heads, hid 1536): int8 codes, W4 weights, PoT requants, PTF residual
+    scales; ``dead`` zeroes LN2's out-scale in channel 0."""
+    rng = np.random.RandomState(seed)
+    n, c, hid, heads = 197, 384, 1536, 6
+
+    def f(a):
+        return torch.from_numpy(np.asarray(a, np.float32))
+
+    ln_out = (np.abs(rng.randn(c)) * 0.03 + 0.01).astype(np.float32)
+    if dead:
+        ln_out[0] = 0.0
+    args = [_i8(rng, (b, n, c)), _i8(rng, (b, n, c)), _i8(rng, (3 * c, c), -8, 8), _pot(rng, 3 * c, -8, -6),
+            f(rng.randn(3 * c)), heads, 2.0**-9, 2.0**-4, 4.0,
+            _i8(rng, (c, c), -8, 8), _pot(rng, c, -8, -6), f(rng.randn(c)), 2.0**-5, _ptf(rng, c, 0.011),
+            _ptf(rng, c, 0.03), f(rng.randn(c)), f(rng.randn(c) * 0.1), f(ln_out), _pot(rng, c, -1, 2),
+            _i8(rng, (hid, c), -8, 8), _pot(rng, hid, -10, -8), f(rng.randn(hid) * 0.5), 16.0,
+            _i8(rng, (c, hid), -8, 8), _pot(rng, c, -10, -8), f(rng.randn(c)), 2.0**-4, _ptf(rng, c, 0.04),
+            f(rng.randn(c)), f(rng.randn(c) * 0.1), f(np.abs(rng.randn(c)) * 0.03 + 0.01), 1.0]
+    return [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
+
+
+@pytest.mark.parametrize("lis", [True, False])
+@pytest.mark.parametrize("b,dead", [(1, False), (3, False), (64, False), (3, True)])
+def test_fused_vit_layer_kernel(dev, b, dead, lis):
+    """One launch per layer, equal to the four-kernel pipeline's plain
+    versions bit for bit, at DeiT-S width; batch 64 runs every phase over
+    more work items than the grid has blocks."""
+    a = _layer_args(dev, b, dead=dead)
+    before = layer_fused.fused_vit_layer.launches
+    got = layer_fused.fused_vit_layer(*a, lis=lis)
+    assert layer_fused.fused_vit_layer.launches == before + 1
+    want = layer_fused.fused_vit_layer_plain(*a, lis=lis)
+    _same(got, want)
+    assert len(torch.unique(got[0])) > 200 and len(torch.unique(got[1])) > 200
+
+
+def test_fused_vit_layer_raises_where_it_does_not_fit(dev):
+    """head_dim 16 (a TINY layer) on the card: ValueError naming fuse_layer=False."""
+    rng = np.random.RandomState(12)
+    c, hid = 32, 128
+    v = lambda n: torch.ones(n, device=dev)  # noqa: E731
+    args = [_i8(rng, (1, 17, c)).to(dev), _i8(rng, (1, 17, c)).to(dev), _i8(rng, (3 * c, c)).to(dev),
+            v(3 * c), v(3 * c), 2, 1.0, 0.0625, 1.0, _i8(rng, (c, c)).to(dev), v(c), v(c), 1.0, v(c),
+            v(c), v(c), v(c), v(c), 1.0, _i8(rng, (hid, c)).to(dev), v(hid), v(hid), 1.0,
+            _i8(rng, (c, hid)).to(dev), v(c), v(c), 1.0, v(c), v(c), v(c), v(c), 1.0]
+    with pytest.raises(ValueError, match="head_dim 16.*fuse_layer=False"):
+        layer_fused.fused_vit_layer(*args)
+
+
+@pytest.mark.parametrize("lis", [True, False])
+def test_serving_forward_fuse_layer_small_model(dev, lis):
+    """``fuse_layer=True`` on a small ViT with head_dim 64: the kernels equal
+    the plain path and the default four-kernel path bit for bit, with
+    ``launches_per_forward(fuse_layer=True)``'s launches."""
+    cfg = dataclasses.replace(VIT_ZOO["deit_small_patch16_224"], img_size=64, depth=2,
+                              embed_dim=128, num_heads=2, num_classes=10)
+    policy = make_policy(lis=lis)
+    params = vit.init_params(0, cfg, device=dev)
+    x = torch.randn((6, 3, 64, 64), generator=torch.Generator().manual_seed(1)).to(dev)
+    calib = vit.calibrate(params, cfg, policy, x)
+    s = serving.convert(params, calib.qstate, cfg, policy, [4] * cfg.num_matmuls)
+    reset_launch_counts()
+    got = serving.serving_forward(s, cfg, x, lis=lis, fuse_layer=True)
+    want_counts = {k: 0 for k in launch_counts()}
+    want_counts.update(serving.launches_per_forward(cfg, fuse_layer=True))
+    assert launch_counts() == want_counts
+    assert torch.equal(got, serving.serving_forward(s, cfg, x, lis=lis, fuse_layer=True, use_kernels=False))
+    assert torch.equal(got, serving.serving_forward(s, cfg, x, lis=lis))
