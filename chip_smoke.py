@@ -1,10 +1,12 @@
-"""Drive the PyTorch/CUDA port's int8 serving paths once on one GPU.
+"""Drive the PyTorch/CUDA port's serving paths and weight-store tools once
+on one GPU.
 
-    python3 chip_smoke.py            # twelve paths, batches 1, 8, 64
+    python3 chip_smoke.py            # sixteen paths, batches 1, 8, 64
 
-Builds the twelve CUDA kernels from ``p2vit_tpu_torch/csrc`` (one nvcc per
-source, in parallel, sm_90a), then drives twelve serving paths of two models
-at full width and depth, with seeded random weights and images:
+Builds the fourteen CUDA kernels from ``p2vit_tpu_torch/csrc`` (one nvcc per
+source, in parallel, sm_90a), then drives twelve int8 serving paths of two
+models at full width and depth, with seeded random weights and images, then
+weight-only serving of both models and the two weight-store GEMM tools:
 
 * DeiT-S (``deit_small_patch16_224``: C=384, 6 heads, 197 tokens): seeded
   init → calibrate (one batch) → convert(W4A8, [4]*50) → serving_forward,
@@ -23,8 +25,24 @@ at full width and depth, with seeded random weights and images:
   ``swin_fold_lisoff`` (``fold_windows=True``), ``swin_stem``
   (``fuse_stem=True``) and ``swin_int_stem_unfused`` (``int_stem=True,
   fuse_res=False``).
+* ``deit_wonly`` / ``swin_wonly``: ``weight_only_params`` of the DeiT-S and
+  Swin-T states, requantized on the card to ``convert``'s codes (must be
+  bit for bit), cast to bf16 and served by ``fp_forward``: launches of the
+  port's kernels (0), argmax agreement with the int8 path and the
+  simulation (report), img/s and device ms beside the bf16 forward of the
+  unquantized params. ``deit_wonly``'s phase 1 holds ``wstream_matmul`` in
+  all four stores against its plain version on blocks 0 and 11's GEMMs,
+  with the activations of the weight-only forward (1/cs folded into x).
+* ``w4pack`` / ``wstream``: the ported tools (``p2vit_tpu_torch/tools``) at
+  the DeiT-S GEMMs, M = 197·batch, depth 12. Phase 1: ``int4_matmul_requant``
+  against its plain version and the int8 kernel (also on the ``deit``
+  path's fc1 and head arguments, packed), ``wstream_matmul`` in each store
+  against its plain version; phase 2/3: one depth-12 chain per arm and M,
+  4·12 launches each; phase 5: the tools' lines (ms per GEMM and chain) and
+  each kernel's ms against its plain version, its bound and, for
+  ``wstream_matmul``, the bf16 ``torch.matmul`` over the same codes.
 
-Phases, one line each, per path:
+Phases of the int8 serving paths, one line each, per path:
 
   1. each kernel of the path against its plain PyTorch version, on the card,
      on the arguments the path gives it (captured from a plain forward at
@@ -54,7 +72,7 @@ Phases, one line each, per path:
      ``torch.profiler`` (the port's kernels and the other PyTorch kernels);
      each kernel against its plain version at that batch's shapes, beside
      its bound (the larger of its bytes over 3.35 TB/s and its products over
-     the int8 or float32 peak). Then staged against fused, LIS off against
+     the int8, float32 or bf16 peak). Then staged against fused, LIS off against
      LIS on, uint8 against float32, and each Swin-T flag path against the
      default, each on one line; ``deit_layer`` against ``deit`` at every
      batch (img/s, device ms, the other PyTorch kernels' and the idle
@@ -64,7 +82,8 @@ Phases, one line each, per path:
 Then the card's name and power limit, one JSON line of per-kernel results
 (``launches`` summed over the paths' phase-2 runs, ``ms``/``plain_ms``/
 ``bound_ms`` per forward at the largest batch summed over the paths that run
-the kernel, ``per_model`` the breakdown by path), and last ``{"ok": true,
+the kernel, for the weight-store kernels per chain; ``library_ms`` for
+``wstream_matmul``; ``per_model`` the breakdown by path), and last ``{"ok": true,
 "device": {...}}``. Any failure raises (exit 1, no result line). There is no
 CPU path.
 """
@@ -106,9 +125,14 @@ SOURCES = {
                                   "swin_attention.cu", "p2vit_tpu/ops/attention_lis.py:693"),
     "fused_vit_layer": ("layer_fused", "fused_vit_layer_plain", "layer_fused.cu",
                         "p2vit_tpu/ops/layer_fused.py:125"),
+    "int4_matmul_requant": ("matmul_int8", "int4_matmul_requant_plain", "matmul_int8.cu",
+                            "p2vit_tpu/ops/matmul_int8.py:256"),
+    "wstream_matmul": ("matmul_wstream", "wstream_matmul_plain", "matmul_wstream.cu",
+                       "p2vit_tpu/ops/matmul_wstream.py:174"),
 }
 PATHS = ("deit", "deit_staged", "deit_layer", "deit_lisoff", "deit_staged_lisoff", "deit_layer_lisoff",
-         "swin", "swin_lisoff", "swin_fold", "swin_fold_lisoff", "swin_stem", "swin_int_stem_unfused")
+         "swin", "swin_lisoff", "swin_fold", "swin_fold_lisoff", "swin_stem", "swin_int_stem_unfused",
+         "deit_wonly", "swin_wonly", "w4pack", "wstream")
 # DeiT-S paths by key suffix: (display name suffix, serving flags)
 DEIT_FLAGS = {"": ("", dict(fuse_embed=True, fuse_qkv=True)),
               "_staged": (" staged", dict(fuse_embed=False, fuse_qkv=False)),
@@ -122,7 +146,7 @@ SWIN_FLAGS = {"swin": (True, {}, None), "swin_lisoff": (False, {}, None),
               "swin_stem": (True, dict(fuse_stem=True), "stem"),
               "swin_int_stem_unfused": (True, dict(int_stem=True, fuse_res=False), "report")}
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense)
-HBM_BYTES_S, INT8_OPS_S, F32_FLOPS_S = 3.35e12, 1979e12, 67e12
+HBM_BYTES_S, INT8_OPS_S, F32_FLOPS_S, BF16_FLOPS_S = 3.35e12, 1979e12, 67e12, 989e12
 
 MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 
@@ -167,11 +191,14 @@ def _device_ms(fn, reps: int):
 
 def _ops(name, a):
     """(operations, peak op/s) of one call: the kernel's products, counted
-    as the int8 (or, for the stem, float32) operations they are; the
-    epilogues' and the softmax's elementwise work is left out."""
-    if name in ("int8_matmul_requant", "int8_matmul_res_ln"):
+    as the int8 (for the stem float32, for wstream bf16) operations they
+    are; the epilogues' and the softmax's elementwise work is left out."""
+    if name in ("int8_matmul_requant", "int8_matmul_res_ln", "int4_matmul_requant"):
         (m, k), n = a[0].shape, a[1].shape[0]
         return 2 * m * n * k, INT8_OPS_S
+    if name == "wstream_matmul":
+        (m, k), n = a[0].shape, a[2].shape[0]
+        return 2 * m * n * k, BF16_FLOPS_S
     if name == "fused_patch_embed":
         (b, np_, k), c = a[0].shape, a[1].shape[0]
         return 2 * b * np_ * k * c, INT8_OPS_S
@@ -537,6 +564,346 @@ def print_layer_comparisons(paths, summary, batches, img, reps):
                   flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Weight-only serving and the two weight-store tools
+# ---------------------------------------------------------------------------
+
+
+def _diff(got, want):
+    """(elements that differ bit for bit, max |got − want|) of a kernel's
+    output against its plain version's."""
+    if got.dtype == torch.bfloat16:
+        n = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+        return n, float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+    d = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    return int((d != 0).sum()), int(d.max()) if got.numel() else 0
+
+
+def _bf16_ulp(a, b):
+    """Per-element bf16 ulp distance (0 == bitwise)."""
+    def key(x):
+        u = x.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+        return torch.where(u >= 0x8000, 0x8000 - (u & 0x7FFF) - 1, u + 0x8000)
+
+    return (key(a) - key(b)).abs()
+
+
+def _wonly_pairs_vit(pw, s):
+    """(name, effective weight, serving layer, SmoothQuant-folded) of every
+    weight of a ViT weight-only tree."""
+    yield "patch_embed", pw["patch_embed"]["w"], s["patch"], False
+    yield "head", pw["head"]["w"], s["head"], False
+    for i, (nb, sb) in enumerate(zip(pw["blocks"], s["blocks"])):
+        for key, lk, smooth in (("qkv", "qkv", True), ("proj", "proj", False), ("fc1", "mlp_fc1", True),
+                                ("fc2", "fc2", False)):
+            yield f"blocks.{i}.{key}", nb[key]["w"], sb[lk], smooth
+
+
+def _wonly_pairs_swin(pw, s):
+    yield "patch_embed", pw["patch_embed"]["w"], s["patch"], False
+    yield "head", pw["head"]["w"], s["head"], False
+    for i, (stage, st) in enumerate(zip(pw["stages"], s["stages"])):
+        for j, (blk, sb) in enumerate(zip(stage["blocks"], st["blocks"])):
+            for key in ("qkv", "proj", "fc1", "fc2"):
+                yield f"stages.{i}.blocks.{j}.{key}", blk[key]["w"], sb[key], False
+        if "downsample" in stage:
+            yield f"stages.{i}.reduction", stage["downsample"]["reduction"]["w"], st["downsample"]["red"], False
+
+
+def _roundtrip(pairs):
+    """(codes that differ, codes) after requantizing each effective weight
+    with the serving scales (× cs on the folded layers)."""
+    bad = total = 0
+    for _, w_eff, layer, smooth in pairs:
+        w = w_eff * layer["cs"][None, :] if smooth else w_eff
+        bad += int((torch.round(w / layer["sw"][:, None]) != layer["w_q"].to(w.dtype)).sum())
+        total += w.numel()
+    return bad, total
+
+
+def wstream_on_forward(name, vit, s, fwd, xs, blocks, mw):
+    """Phase 1 of ``deit_wonly``: ``wstream_matmul`` in every store against
+    its plain version on the four GEMMs of ``blocks``, with the activations
+    the weight-only forward gives them (1/cs folded into x on qkv and fc1),
+    the codes, sw and the bias of the serving state; and the ulp distance
+    of the gelu=False output to the forward's own bf16 linear (report)."""
+    from p2vit_tpu_torch.tools.wstream_bench import PACK
+
+    mism = {f: 0 for f in mw.FORMATS}
+    ulp_max, ulp_sum, n_out = 0, 0, 0
+    pot_cs = True
+    for x in xs:
+        calls = _capture([vit], ["linear"], lambda: fwd(x))["linear"]
+        for bi in blocks:
+            sb = s["blocks"][bi]
+            for j, (lk, smooth, gelu) in enumerate((("qkv", True, False), ("proj", False, False),
+                                                    ("mlp_fc1", True, True), ("fc2", False, False))):
+                a, _ = calls[1 + 4 * bi + j]
+                y_lin = vit.linear(*a)
+                layer = sb[lk]
+                x2 = a[0].reshape(-1, a[0].shape[-1])
+                if smooth:
+                    pot_cs = pot_cs and _is_pot(layer["cs"])
+                    x2 = (x2.to(torch.float32) / layer["cs"][None, :]).to(torch.bfloat16)
+                for fmt in mw.FORMATS:
+                    store = PACK[fmt](layer["w_q"])
+                    for g in sorted({False, gelu}):
+                        got = mw.wstream_matmul(x2, store, layer["sw"], layer["bias"], fmt, g)
+                        mism[fmt] += _diff(got, mw.wstream_matmul_plain(x2, store, layer["sw"], layer["bias"],
+                                                                        fmt, g))[0]
+                        if not g:
+                            u = _bf16_ulp(got, y_lin.reshape(got.shape))
+                            ulp_max, ulp_sum, n_out = max(ulp_max, int(u.max())), ulp_sum + int(u.sum()), n_out + u.numel()
+    torch.cuda.synchronize()
+    print(f"{name} phase 1 wstream_matmul vs plain on blocks {list(blocks)}' GEMMs (batch "
+          f"{', '.join(str(x.shape[0]) for x in xs)}, 1/cs folded into x, cs a power of two: {pot_cs}): "
+          f"mismatches {json.dumps(mism)}; ulp distance to the forward's bf16 linear: max {ulp_max}, "
+          f"mean {ulp_sum / max(n_out, 1):.6g} (report only)", flush=True)
+    if any(mism.values()):
+        _fail(f"{name}: wstream_matmul disagrees with its plain version: {mism}")
+
+
+def run_wonly(name, model, cfg, params, pw, pairs, int8_fwd, simulate, batches, reps, img, counts_api,
+              wstream=None):
+    """``deit_wonly`` / ``swin_wonly``: the round trip to convert's codes,
+    the bf16 weight-only forward (launching no kernel of the port), its
+    agreement with the int8 path and the simulation, and its time beside
+    the bf16 forward of the unquantized params. ``wstream``: (s, blocks, mw)
+    for the phase-1 hold of ``wstream_matmul`` on its GEMMs."""
+    reset_launch_counts, launch_counts = counts_api
+    bad, total = _roundtrip(pairs)
+    print(f"{name} phase 2 round trip: requantized effective weights != convert's codes: {bad} of "
+          f"{total}", flush=True)
+    if bad:
+        _fail(f"{name}: weight_only_params does not round-trip to convert's codes ({bad} of {total})")
+    pw16, pbf = _cast_tree(pw, torch.bfloat16), _cast_tree(params, torch.bfloat16)
+
+    def fwd(x):
+        return model.fp_forward(pw16, cfg, x.to(torch.bfloat16))
+
+    def base(x):
+        return model.fp_forward(pbf, cfg, x.to(torch.bfloat16))
+
+    requests = {b: img(b, cfg.img_size) for b in batches}
+    if wstream is not None:
+        s, blocks, mw = wstream
+        with torch.no_grad():
+            wstream_on_forward(name, model, s, fwd, [requests.get(8, img(8, cfg.img_size)),
+                                                     requests[max(batches)]], blocks, mw)
+    reset_launch_counts()
+    with torch.no_grad():
+        logits = {b: fwd(x) for b, x in requests.items()}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"{name} phase 3 launches over {len(batches)} forwards: {json.dumps(counts)} (the weight-only "
+          f"forward runs PyTorch's bf16 GEMMs: 0 expected)", flush=True)
+    if any(counts.values()):
+        _fail(f"{name}: the weight-only forward launched a kernel of the port: {counts}")
+    for b, lg in logits.items():
+        lg = lg.float()
+        if tuple(lg.shape) != (b, cfg.num_classes) or not bool(torch.isfinite(lg).all()):
+            _fail(f"{name} batch {b}: logits shape {tuple(lg.shape)} or non-finite values")
+        with torch.no_grad():
+            i8, sim, fp = int8_fwd(requests[b]), simulate(requests[b]), base(requests[b]).float()
+        agree = {k: float((lg.argmax(1) == v.argmax(1)).float().mean()) for k, v in
+                 (("int8 path", i8), ("quant_forward", sim), ("unquantized bf16", fp))}
+        rel = float((lg - sim).norm() / sim.norm().clamp_min(1e-9))
+        print(f"{name} phase 4 batch {b}: logits finite {tuple(lg.shape)}; argmax agreement "
+              f"{json.dumps(agree)}; vs quant_forward rel {rel:.6g} (report only)")
+    for b, x in requests.items():
+        parts = []
+        for label, fn in (("weight-only bf16", fwd), ("unquantized bf16", base)):
+            with torch.no_grad():
+                ms = _time_ms(lambda: fn(x), max(2, reps // 4))
+                dev_ms, _, _ = _device_ms(lambda: fn(x), 5)
+            dev = "device ms not measured" if dev_ms is None else f"device {dev_ms:.4f} ms"
+            parts.append(f"{label} {_img_s(b, ms)}, {dev}")
+        print(f"{name} phase 5 batch {b}: {parts[0]} vs {parts[1]}", flush=True)
+
+
+def _timed_rows(name, rows, reps):
+    """ms, plain ms, bound ms and library ms per chain from (kernel, plain,
+    args, kwargs, count, label, library call or None) rows, each timed with
+    CUDA events; library ms is None where no row has a library call."""
+    k_ms = p_ms = l_ms = 0.0
+    by = {"bytes": 0.0, "operations": 0.0}
+    for kern, plain, a, k, count, label, library in rows:
+        t_k = _time_ms(lambda: kern(*a, **k), reps)
+        t_p = _time_ms(lambda: plain(*a, **k), reps)
+        b_ms, b_by = _bound(name, a, [plain(*a, **k)])
+        line = f"{label}: {t_k:.4f} ms vs plain {t_p:.4f} ms per call, bound {b_ms:.6f} ms ({b_by})"
+        if library is not None:
+            t_l = _time_ms(library, reps)
+            l_ms += t_l * count
+            line += f", library bf16 GEMM {t_l:.4f} ms"
+        print(f"{line}, x{count} per chain")
+        k_ms, p_ms = k_ms + t_k * count, p_ms + t_p * count
+        by[b_by] += b_ms * count
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": by["bytes"] + by["operations"],
+            "bound_by": max(by, key=by.get), "library_ms": l_ms if any(r[-1] for r in rows) else None}
+
+
+def run_w4pack(batches, reps, depth, dev, deit, ops, counts_api):
+    """The ported w4pack_latency tool at the DeiT-S GEMMs, M = 197·batch."""
+    from p2vit_tpu_torch import serving
+    from p2vit_tpu_torch.tools import _gemm_bench as gb
+    from p2vit_tpu_torch.tools import w4pack_latency as wl
+
+    reset_launch_counts, launch_counts = counts_api
+    mi, name = ops.matmul_int8, "w4pack"
+    ms = [197 * b for b in batches]
+    mism = {"vs plain": 0, "vs int8 kernel": 0}
+    worst = 0
+
+    def hold(a, k):
+        nonlocal worst
+        x, w = a[0], a[1]
+        got = mi.int4_matmul_requant(x, mi.pack_int4(w), *a[2:], **k)
+        n, e = _diff(got, mi.int4_matmul_requant_plain(x, mi.pack_int4(w), *a[2:], **k))
+        mism["vs plain"] += n
+        worst = max(worst, e)
+        mism["vs int8 kernel"] += _diff(got, mi.int8_matmul_requant(x, w, *a[2:], **k))[0]
+
+    rows = []
+    for m in ms:
+        rng = np.random.RandomState(m)
+        for gname, k, n, gelu in (*gb.DEIT_S_GEMMS, gb.CONTROL):
+            x, stores, r, b, kw = wl.gemm_case(m, k, n, gelu, rng, dev)
+            hold((x, stores["i8"], r, b), kw)
+            if m == ms[-1] and gname != gb.CONTROL[0]:
+                rows.append((mi.int4_matmul_requant, mi.int4_matmul_requant_plain, (x, stores["w4p"], r, b),
+                             kw, depth, f"{name} phase 5 kernel int4_matmul_requant {gname} M={m}", None))
+    s, cfg = deit["s"], deit["cfg"]
+    seen = {}
+    for bsz in sorted({8, max(batches)}):
+        calls = _capture([mi], ["int8_matmul_requant_plain"], lambda: serving.serving_forward(
+            s, cfg, deit["img"](bsz), use_kernels=False))
+        for a, k in calls["int8_matmul_requant_plain"]:
+            seen.setdefault(_shape_key(a, k), (a, k))
+    for a, k in seen.values():
+        hold(a, k)
+    torch.cuda.synchronize()
+    print(f"{name} phase 1 int4_matmul_requant (the tool's constants at M={ms}, and the deit path's "
+          f"{len(seen)} fc1/head argument shapes, codes packed with pack_int4): mismatches "
+          f"{json.dumps(mism)}", flush=True)
+    if any(mism.values()):
+        _fail(f"{name}: int4_matmul_requant disagrees: {mism}")
+
+    cases = [wl.chain_case(m, m + 1, depth, dev) for m in ms]
+    reset_launch_counts()
+    outs = [(wl.chain("i8", *c), wl.chain("w4p", *c)) for c in cases]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    same = all(torch.equal(a, b) for a, b in outs)
+    print(f"{name} phase 2 depth-{depth} chain at M={ms}: i8 store == packed store: {same}", flush=True)
+    per_chain = 4 * depth
+    want = {kk: 0 for kk in counts}
+    want.update(int8_matmul_requant=per_chain * len(ms), int4_matmul_requant=per_chain * len(ms))
+    print(f"{name} phase 3 launches over {len(ms)} chain calls per arm: {json.dumps(counts)} "
+          f"({per_chain} per chain call)", flush=True)
+    if not same or counts != want:
+        _fail(f"{name}: chain pin {same} or launch counts {counts} != {want}")
+
+    for m in ms:
+        print(f"{name} phase 5 DeiT-S GEMMs at M={m} (tool lines)")
+        rng = np.random.RandomState(m)
+        for gname, k, n, gelu in (*gb.DEIT_S_GEMMS, gb.CONTROL):
+            wl.run_gemm(gname, m, k, n, gelu, rng, reps, dev)
+        wl.run_depth_chain(m, m + 1, max(2, reps // 4), depth, dev)
+    res = _timed_rows("int4_matmul_requant", rows, reps)
+    res.update(launches=counts["int4_matmul_requant"], max_abs_err=worst,
+               device_ms=_chain_device_ms(name, ("i8", "w4p"), lambda arm: wl.chain(arm, *cases[-1]),
+                                          depth, ms[-1])["w4p"])
+    return {"int4_matmul_requant": res}
+
+
+def _chain_device_ms(name, arms, run, depth, m):
+    """Device ms per chain call of each arm (profiler, 3 calls), printed with
+    its largest kernels; returns {arm: ms or None}."""
+    out = {}
+    for arm in arms:
+        with torch.no_grad():
+            dev_ms, port_ms, by_name = _device_ms(lambda: run(arm), 3)
+        out[arm] = dev_ms
+        if dev_ms is None:
+            print(f"{name} phase 5 device ms per depth-{depth} chain at M={m}, {arm}: not measured")
+            continue
+        top = ", ".join(f"{t:.4f} {k[:60]}" for k, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:3])
+        print(f"{name} phase 5 device ms per depth-{depth} chain at M={m}, {arm}: {dev_ms:.4f} (the port's "
+              f"kernels {port_ms:.4f}; largest: {top})", flush=True)
+    return out
+
+
+def run_wstream(batches, reps, depth, dev, ops, counts_api):
+    """The ported wstream_bench tool at the DeiT-S GEMMs, M = 197·batch."""
+    from p2vit_tpu_torch.tools import _gemm_bench as gb
+    from p2vit_tpu_torch.tools import wstream_bench as wsb
+
+    reset_launch_counts, launch_counts = counts_api
+    mw, name = ops.matmul_wstream, "wstream"
+    ms = [197 * b for b in batches]
+    mism = {f: 0 for f in mw.FORMATS}
+    worst = 0.0
+    rows = []
+    for m in ms:
+        rng = np.random.RandomState(m)
+        for gname, k, n, gelu in (*gb.DEIT_S_GEMMS, gb.CONTROL):
+            x, w, r, b = wsb.gemm_case(m, k, n, rng, dev)
+            wb = w.to(torch.bfloat16)
+            for fmt in mw.FORMATS:
+                store = wsb.PACK[fmt](w)
+                nn, e = _diff(mw.wstream_matmul(x, store, r, b, fmt, gelu),
+                              mw.wstream_matmul_plain(x, store, r, b, fmt, gelu))
+                mism[fmt] += nn
+                worst = max(worst, e)
+                if m == ms[-1] and gname != gb.CONTROL[0]:
+                    rows.append((mw.wstream_matmul, mw.wstream_matmul_plain, (x, store, r, b),
+                                 dict(w_format=fmt, gelu=gelu), depth,
+                                 f"{name} phase 5 kernel wstream_matmul {fmt} {gname} M={m}",
+                                 # the one PyTorch call: the bf16 GEMM over the same codes
+                                 lambda x=x, wb=wb: torch.matmul(x, wb.T)))
+    torch.cuda.synchronize()
+    print(f"{name} phase 1 wstream_matmul vs plain (the tool's constants at M={ms}, 5 GEMMs): "
+          f"mismatches {json.dumps(mism)}", flush=True)
+    if any(mism.values()):
+        _fail(f"{name}: wstream_matmul disagrees with its plain version: {mism}")
+
+    cases = [wsb.chain_case(m, m + 1, depth, dev) for m in ms]
+    reset_launch_counts()
+    outs = {fmt: [wsb.chain(fmt, x, layers, wsb.chain_stores(fmt, layers)) for x, layers in cases]
+            for fmt in mw.FORMATS}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    lib = [wsb.chain("library", x, layers, wsb.chain_stores("library", layers)) for x, layers in cases]
+    agree = {fmt: [round(float((o.argmax(1) == l.argmax(1)).float().mean()), 4) for o, l in zip(outs[fmt], lib)]
+             for fmt in mw.FORMATS}
+    print(f"{name} phase 2 depth-{depth} chain at M={ms}: per-row argmax agreement with the library "
+          f"chain {json.dumps(agree)}", flush=True)
+    per_chain = 4 * depth
+    want = {kk: 0 for kk in counts}
+    want["wstream_matmul"] = per_chain * len(ms) * len(mw.FORMATS)
+    print(f"{name} phase 3 launches over {len(ms)} chain calls per store: {json.dumps(counts)} "
+          f"({per_chain} per chain call)", flush=True)
+    if counts != want:
+        _fail(f"{name}: launch counts {counts} != {want}")
+
+    for m in ms:
+        print(f"{name} phase 5 DeiT-S GEMMs at M={m} (tool lines)")
+        rng = np.random.RandomState(m)
+        for gname, k, n, gelu in (*gb.DEIT_S_GEMMS, gb.CONTROL):
+            wsb.run_gemm(gname, m, k, n, gelu, rng, reps, dev)
+        wsb.run_depth_chain(m, m + 1, max(2, reps // 4), depth, dev)
+
+    res = _timed_rows("wstream_matmul", rows, reps)
+    x, layers = cases[-1]
+    stores = {arm: wsb.chain_stores(arm, layers) for arm in ("library", *mw.FORMATS)}
+    dev_ms = _chain_device_ms(name, ("library", *mw.FORMATS),
+                              lambda arm: wsb.chain(arm, x, layers, stores[arm]), depth, ms[-1])
+    res.update(launches=counts["wstream_matmul"], max_abs_err=worst,
+               device_ms=None if None in dev_ms.values() else sum(dev_ms[f] for f in mw.FORMATS))
+    return {"wstream_matmul": res}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--models", default=",".join(PATHS),
@@ -595,7 +962,8 @@ def main() -> None:
         return params, calib.qstate, policy, s
 
     paths = []
-    deit = [m for m in models if m.startswith("deit")]
+    states = {}  # the LIS-on DeiT-S and Swin-T states, for the weight-only and w4pack paths
+    deit = [m for m in models if m.startswith("deit") or m == "w4pack"]
     if deit:
         cfg = dataclasses.replace(VIT_ZOO["deit_small_patch16_224"], depth=args.depth)
         bits = [4] * cfg.num_matmuls
@@ -608,6 +976,9 @@ def main() -> None:
             params, qstate, policy, s = setup("DeiT-S" + suffix, vit, cfg, lis, vit_convert)
             if not lis:
                 serving.attach_u8_ingest(s, MEAN, STD)
+            else:
+                states["deit"] = dict(params=params, qstate=qstate, policy=policy, s=s, cfg=cfg, bits=bits,
+                                      idx=idx, img=lambda b, cfg=cfg: img(b, cfg.img_size))
             base_fwd = lambda x, k, s=s, cfg=cfg, lis=lis: serving.serving_forward(  # noqa: E731
                 s, cfg, x, use_kernels=k, lis=lis)
             for var, (label, flags) in DEIT_FLAGS.items():
@@ -635,7 +1006,7 @@ def main() -> None:
                   "swin_int_stem_unfused": "Swin-T int stem unfused"}
     for lis in (True, False):
         keys = [m for m in SWIN_FLAGS if m in models and SWIN_FLAGS[m][0] == lis]
-        if not keys:
+        if not keys and not (lis and "swin_wonly" in models):
             continue
         cfg = SWIN_ZOO["swin_tiny_patch4_window7_224"]
         base_key = "swin" if lis else "swin_lisoff"
@@ -643,6 +1014,8 @@ def main() -> None:
                                           lambda p, q, c, pol: serving_swin.convert(p, q, c, pol, 4))
         if not lis:
             serving_swin.attach_u8_ingest(s, MEAN, STD)
+        else:
+            states["swin"] = dict(params=params, qstate=qstate, policy=policy, s=s, cfg=cfg)
 
         def fwd(x, k, s=s, q=qstate, cfg=cfg, pol=policy, **flags):
             return serving_swin.serving_forward(s, q, cfg, pol, x, use_kernels=k, **flags)
@@ -669,6 +1042,33 @@ def main() -> None:
         per_model[path.name], summary[path.name] = run_path(
             path, batches, args.reps, img, ops, (reset_launch_counts, launch_counts))
         print(f"{path.name}: phases 1-5 in {time.time() - t0:.1f} s", flush=True)
+    counts_api = (reset_launch_counts, launch_counts)
+    if "deit_wonly" in models:
+        t0, st = time.time(), states["deit"]
+        pw = serving.weight_only_params(st["params"], st["qstate"], st["cfg"], st["policy"], st["bits"])
+        depth = st["cfg"].depth
+        run_wonly(
+            "DeiT-S weight-only", vit, st["cfg"], st["params"], pw, list(_wonly_pairs_vit(pw, st["s"])),
+            lambda x: serving.serving_forward(st["s"], st["cfg"], x),
+            lambda x: vit.quant_forward(st["params"], st["qstate"], st["cfg"], st["policy"], x, st["idx"]),
+            batches, args.reps, img, counts_api, wstream=(st["s"], sorted({0, depth - 1}), ops.matmul_wstream))
+        print(f"DeiT-S weight-only: phases 1-5 in {time.time() - t0:.1f} s", flush=True)
+    if "swin_wonly" in models:
+        t0, st = time.time(), states["swin"]
+        pw = serving_swin.weight_only_params(st["params"], st["qstate"], st["cfg"], st["policy"], 4)
+        run_wonly("Swin-T weight-only", swin, st["cfg"], st["params"], pw, list(_wonly_pairs_swin(pw, st["s"])),
+                  lambda x: serving_swin.serving_forward(st["s"], st["qstate"], st["cfg"], st["policy"], x),
+                  lambda x: swin.quant_forward(st["params"], st["qstate"], st["cfg"], st["policy"], x, 4),
+                  batches, args.reps, img, counts_api)
+        print(f"Swin-T weight-only: phases 1-5 in {time.time() - t0:.1f} s", flush=True)
+    for key, run in (("w4pack", lambda: run_w4pack(batches, args.reps, args.depth, dev, states.get("deit"),
+                                                   ops, counts_api)),
+                     ("wstream", lambda: run_wstream(batches, args.reps, args.depth, dev, ops, counts_api))):
+        if key in models:
+            t0 = time.time()
+            per_model[key] = run()
+            print(f"{key}: phases 1-5 in {time.time() - t0:.1f} s", flush=True)
+
     print_comparisons(summary, max(batches))
     print_flag_comparisons(paths, summary, max(batches))
     t0 = time.time()
@@ -679,7 +1079,7 @@ def main() -> None:
     for k in KERNELS:
         name = k.__name__
         runs = {m: r[name] for m, r in per_model.items() if name in r}
-        if not runs and len(paths) == len(PATHS):
+        if not runs and set(models) == set(PATHS):
             _fail(f"kernel {name} was held on no path")
         if not runs:
             continue
@@ -693,13 +1093,16 @@ def main() -> None:
             "bound_ms": round(sum(r["bound_ms"] for r in runs.values()), 6),
             "bound_by": max(("bytes", "operations"),
                             key=lambda b: sum(r["bound_ms"] for r in runs.values() if r["bound_by"] == b)),
-            "library_ms": None,
+            "library_ms": (None if all(r.get("library_ms") is None for r in runs.values())
+                           else round(sum(r.get("library_ms") or 0.0 for r in runs.values()), 6)),
             "per_model": {m: {kk: (round(v, 6) if isinstance(v, float) else v) for kk, v in r.items()}
                           for m, r in runs.items()},
         })
     print(f"(kernel ms / plain_ms / bound_ms: per forward at batch {max(batches)}, summed over the "
-          f"paths that run the kernel; lis_attention timed at lis_attention_fused's calls; "
-          f"library_ms null: no single PyTorch call computes these quantized functions; card {smi})")
+          f"paths that run the kernel; lis_attention timed at lis_attention_fused's calls; the weight-store "
+          f"kernels per depth-{args.depth} chain at M = 197·{max(batches)}, wstream_matmul summed over its "
+          f"four stores, its library_ms the bf16 torch.matmul over the same codes; library_ms null: no "
+          f"single PyTorch call computes these quantized functions; card {smi})")
     print(smi)
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

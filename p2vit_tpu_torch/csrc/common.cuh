@@ -6,7 +6,8 @@
 // * the Log-Int-Softmax row chain of both attention kernels, as
 //   ops/attention_lis.py lis_codes, and the LIS-off fp32 softmax row;
 // * Gemm: a tiled int8 x int8 -> int32 matrix product on mma.sync.m16n8k32,
-//   shared by the four GEMM kernels.
+//   shared by the five GEMM kernels; its B operand comes from int8 rows or,
+//   for the int4 kernel, from a nibble-packed store (PackedInt4Rows).
 //
 // Every float32 operation that a plain PyTorch version rounds on its own is
 // written with an explicit round-to-nearest intrinsic (__fmul_rn, __fadd_rn,
@@ -19,6 +20,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace p2v {
 
@@ -109,6 +112,36 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Sign-extend one nibble per byte (values 0..15 in the low half of each
+// byte) into int8 codes: bit 3 set → high half 0xF. No byte carries into the
+// next: 8·0x1E = 0xF0.
+__device__ __forceinline__ uint32_t nib_sext(uint32_t x) { return x | ((x & 0x08080808u) * 0x1Eu); }
+
+// Gemm B rows from an int4-packed store (ops/matmul_int8.pack_int4): byte j
+// of row n holds code (n, j) in its low nibble and code (n, j + khalf) in its
+// high nibble. khalf % 16 == 0 (the wrapper pads both halves), so a 16-code
+// chunk [k, k + 16) lies wholly in one half: one 16-byte load of packed
+// bytes, unpacked in registers to 16 int8 codes of the stage. Codes at
+// k >= K, and rows past N, are zeros.
+struct PackedInt4Rows {
+  const int8_t* w;
+  int n0, N, khalf;
+
+  __device__ __forceinline__ void load16(int r, int k, int K, int8_t* dst) const {
+    int4 out = make_int4(0, 0, 0, 0);
+    if (n0 + r < N && k < K) {
+      const bool hi = k >= khalf;
+      const int4 v = __ldg(reinterpret_cast<const int4*>(w + (size_t)(n0 + r) * khalf + (hi ? k - khalf : k)));
+      const int sh = hi ? 4 : 0;
+      out.x = static_cast<int>(nib_sext((static_cast<uint32_t>(v.x) >> sh) & 0x0F0F0F0Fu));
+      out.y = static_cast<int>(nib_sext((static_cast<uint32_t>(v.y) >> sh) & 0x0F0F0F0Fu));
+      out.z = static_cast<int>(nib_sext((static_cast<uint32_t>(v.z) >> sh) & 0x0F0F0F0Fu));
+      out.w = static_cast<int>(nib_sext((static_cast<uint32_t>(v.w) >> sh) & 0x0F0F0F0Fu));
+    }
+    *reinterpret_cast<int4*>(dst) = out;
+  }
+};
+
 // acc[BM][BN] = A_tile · B_tileᵀ over K, both operands int8 with K contiguous.
 // a_row(r) / b_row(r) return the global address of tile row r, or nullptr
 // for a row outside the matrix (loaded as zeros), so callers can gather rows
@@ -124,6 +157,10 @@ __device__ __forceinline__ void cp_async_wait() {
 // run_resident takes an A tile that already lies in shared memory (row r at
 // sa + r·lda, K % 64 == 0) and stages only B; the fused layer feeds its
 // MLP input and GELU tiles that way.
+//
+// b_row may instead be a PackedInt4Rows: B rows are then unpacked from the
+// int4 store by plain loads into the stage (no cp.async); the stage is read
+// only after the __syncthreads that follows the wait, as for the copies.
 template <int BM, int BN, int WM, int WN>
 struct Gemm {
   static constexpr int BK = 64;
@@ -141,8 +178,17 @@ struct Gemm {
   __device__ static void load(ARow& a_row, BRow& b_row, int K, int k0, int8_t* stage) {
     for (int idx = threadIdx.x + (RESIDENT ? BM * 4 : 0); idx < (BM + BN) * 4; idx += kThreads) {
       const int r = idx >> 2, k = k0 + (idx & 3) * 16;
-      const int8_t* p = r < BM ? a_row(r) : b_row(r - BM);
       int8_t* dst = stage + r * LDS + (idx & 3) * 16;
+      const int8_t* p;
+      if constexpr (std::is_same<BRow, PackedInt4Rows>::value) {
+        if (r >= BM) {
+          b_row.load16(r - BM, k, K, dst);
+          continue;
+        }
+        p = a_row(r);
+      } else {
+        p = r < BM ? a_row(r) : b_row(r - BM);
+      }
       if (p != nullptr && k < K)
         cp_async16(dst, p + k);
       else

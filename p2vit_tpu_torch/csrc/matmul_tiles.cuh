@@ -1,4 +1,4 @@
-// Per-tile bodies of the two int8 matmul kernels (csrc/matmul_int8.cu,
+// Per-tile bodies of the int8 and int4 matmul kernels (csrc/matmul_int8.cu,
 // csrc/matmul_ln.cu), shared with the fused encoder layer
 // (csrc/layer_fused.cu): each path runs the same arithmetic, so the fused
 // layer equals the four-kernel path bit for bit by construction.
@@ -18,17 +18,17 @@ __device__ __forceinline__ float requant_epilogue(int acc, float r, float b, flo
 
 using RequantGemm = Gemm<128, 128, 2, 4>;
 
-// Output tile (m0, n0) of out[M, N] = requant_epilogue(x[M, K] · w[N, K]ᵀ);
-// edges are masked in the loads and the stores.
-__device__ __forceinline__ void matmul_requant_tile(const int8_t* x, const int8_t* w, const float* r,
-                                                    const float* b, float out_inv, int8_t* out,
-                                                    int M, int N, int K, float lo, float hi,
-                                                    bool gelu, int m0, int n0, int8_t* smem) {
+// Output tile (m0, n0) of out[M, N] = requant_epilogue(x[M, K] · Bᵀ), B's
+// rows from b_row (int8 rows, or a PackedInt4Rows store); edges are masked in
+// the loads and the stores.
+template <class BRow>
+__device__ __forceinline__ void requant_tile(const int8_t* x, BRow b_row, const float* r, const float* b,
+                                             float out_inv, int8_t* out, int M, int N, int K, float lo,
+                                             float hi, bool gelu, int m0, int n0, int8_t* smem) {
   using G = RequantGemm;
   int acc[G::MT][G::NT][4];
   G::run([&](int rr) -> const int8_t* { return m0 + rr < M ? x + (size_t)(m0 + rr) * K : nullptr; },
-         [&](int rr) -> const int8_t* { return n0 + rr < N ? w + (size_t)(n0 + rr) * K : nullptr; },
-         K, smem, acc);
+         b_row, K, smem, acc);
 #pragma unroll
   for (int i = 0; i < G::MT; ++i)
 #pragma unroll
@@ -39,6 +39,15 @@ __device__ __forceinline__ void matmul_requant_tile(const int8_t* x, const int8_
         if (m >= M || n >= N) continue;
         out[(size_t)m * N + n] = to_i8(requant_epilogue(acc[i][j][e], r[n], b[n], out_inv, gelu, lo, hi));
       }
+}
+
+// out[M, N] = requant_epilogue(x[M, K] · w[N, K]ᵀ), tile (m0, n0)
+__device__ __forceinline__ void matmul_requant_tile(const int8_t* x, const int8_t* w, const float* r,
+                                                    const float* b, float out_inv, int8_t* out,
+                                                    int M, int N, int K, float lo, float hi,
+                                                    bool gelu, int m0, int n0, int8_t* smem) {
+  requant_tile(x, [&](int rr) -> const int8_t* { return n0 + rr < N ? w + (size_t)(n0 + rr) * K : nullptr; },
+               r, b, out_inv, out, M, N, K, lo, hi, gelu, m0, n0, smem);
 }
 
 // The junction kernels own 32 whole rows of the output.

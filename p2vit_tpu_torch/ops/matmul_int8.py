@@ -1,5 +1,5 @@
-"""int8 matmul with the fused PoT requant epilogue (counterpart of
-``p2vit_tpu/ops/matmul_int8.py``).
+"""int8 matmul with the fused PoT requant epilogue, over an int8 or an
+int4-packed weight store (counterpart of ``p2vit_tpu/ops/matmul_int8.py``).
 
   plain: out = clip(round(acc·r[n] + b[n]))                 r = s_x·s_w/s_out
   gelu:  out = clip(round(GELU(acc·r[n] + b[n])·out_inv))   r = s_x·s_w
@@ -16,6 +16,15 @@ the head is launch-bound. Design: 128×128 output tiles, 8 warps of
 ``mma.sync.m16n8k32`` s8×s8→s32, K staged in 64-byte slices through
 shared memory, edges masked (no padding copies), and the epilogue applied to
 the accumulator registers before the one int8 store.
+
+``int4_matmul_requant`` (the same CUDA source) replaces the Pallas kernel
+``p2vit_tpu/ops/matmul_int8.py:int4_matmul_requant`` (``_packed_kernel``):
+the weights come as ``pack_int4``'s store, two int4 codes per byte (half the
+bytes). The kernel unpacks each 16-code chunk of a B row into the same int8
+shared-memory stage and runs the int8 kernel's tile and epilogue; the
+accumulation is exact, so kernel, plain version (unpack, then
+``int8_matmul_requant_plain``) and JAX kernel agree bit for bit. Bound on
+the card: the weight bytes only at small M; the int8 products above.
 """
 
 from __future__ import annotations
@@ -102,3 +111,85 @@ def int8_matmul_requant(x_q, w_q, requant_scale, bias_scaled, out_inv=1.0,
 
 
 int8_matmul_requant.launches = 0
+
+
+def pack_int4(w_q: torch.Tensor) -> torch.Tensor:
+    """Pack int4-valued int8 weight codes two per byte: byte j of row n holds
+    w[n, j] in its LOW nibble and w[n, j + K/2] in its HIGH nibble (two
+    contiguous half-K panels). K must be even; codes outside [-8, 7] raise."""
+    n, k = w_q.shape
+    if k % 2:
+        raise ValueError(f"pack_int4 needs an even K, got K={k}")
+    if w_q.numel():
+        lo, hi = int(w_q.min()), int(w_q.max())
+        if lo < -8 or hi > 7:
+            raise ValueError(
+                f"pack_int4 expects int4 codes in [-8, 7]; got [{lo}, {hi}] — `& 0xF` would "
+                f"silently corrupt out-of-range values (w=-100 packs as 12)")
+    w32 = w_q.to(torch.int32)
+    v = (w32[:, : k // 2] & 0xF) | ((w32[:, k // 2:] & 0xF) << 4)  # 0..255
+    return (v - ((v >> 7) << 8)).to(torch.int8)  # two's complement byte
+
+
+def unpack_int4(w_packed: torch.Tensor) -> torch.Tensor:
+    """``pack_int4``'s store → the (N, K) int8 codes: the low nibble
+    sign-extended by (v ^ 8) − 8, the high one by an arithmetic shift."""
+    w32 = w_packed.to(torch.int32)
+    return torch.cat([((w32 & 0xF) ^ 8) - 8, w32 >> 4], dim=1).to(torch.int8)
+
+
+def _check_packed(x_q, w_packed) -> None:
+    k = x_q.shape[1]
+    if k % 2 or w_packed.shape[1] != k // 2:
+        raise ValueError(f"int4_matmul_requant: x has K={k}; the packed store needs an even K and "
+                         f"K/2 bytes per row, got {tuple(w_packed.shape)}")
+
+
+def int4_matmul_requant_plain(x_q, w_packed, requant_scale, bias_scaled, out_inv=1.0,
+                              qmin=-128, qmax=127, gelu=False):
+    """Plain PyTorch version of the int4-store kernel: unpack, then the int8
+    plain version (the accumulation is exact, so this is the kernel's
+    result bit for bit)."""
+    _check_packed(x_q, w_packed)
+    return int8_matmul_requant_plain(x_q, unpack_int4(w_packed), requant_scale, bias_scaled,
+                                     out_inv, qmin, qmax, gelu)
+
+
+def int4_matmul_requant(x_q, w_packed, requant_scale, bias_scaled, out_inv=1.0,
+                        qmin=-128, qmax=127, gelu=False):
+    """``int8_matmul_requant`` over the int4-packed store ``pack_int4(w_q)``.
+
+    Args:
+      x_q: (M, K) int8 activation codes, K even. w_packed: (N, K/2) int8.
+      requant_scale, bias_scaled, out_inv, qmin, qmax, gelu: as
+        ``int8_matmul_requant``.
+    Returns (M, N) int8. CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise. Where K/2 is not a multiple of 16 the wrapper
+    pads both halves of x and the store with zero codes, as the JAX wrapper
+    pads them to its lane width (zeros add nothing to the exact sum).
+    """
+    dev = device_of(x_q, w_packed)
+    _check_packed(x_q, w_packed)
+    if dev.type == "cpu":
+        return int4_matmul_requant_plain(x_q, w_packed, requant_scale, bias_scaled,
+                                         out_inv, qmin, qmax, gelu)
+    m, k = x_q.shape
+    n, kh = w_packed.shape
+    check_cuda_operand(x_q, "x_q", torch.int8)
+    check_cuda_operand(w_packed, "w_packed", torch.int8, (n, kh))
+    pad = (-kh) % 16
+    if pad:
+        x_q = torch.cat([torch.nn.functional.pad(x_q[:, :kh], (0, pad)),
+                         torch.nn.functional.pad(x_q[:, kh:], (0, pad))], dim=1)
+        w_packed = torch.nn.functional.pad(w_packed, (0, pad))
+    r = f32_vec(requant_scale, n, dev)
+    b = f32_vec(bias_scaled, n, dev)
+    s = f32_scalars(out_inv, device=dev)
+    out = torch.empty((m, n), dtype=torch.int8, device=dev)
+    launch("p2v_int4_matmul_requant", x_q, w_packed, r, b, s, out, m, n, 2 * (kh + pad),
+           qmin, qmax, int(bool(gelu)))
+    int4_matmul_requant.launches += 1
+    return out
+
+
+int4_matmul_requant.launches = 0

@@ -22,9 +22,10 @@ the default path's logits bit for bit. Every layer is driven from its 29
 constants (``layer_consts``; ``stack_layer_consts`` stacks them over depth)
 by ``apply_unfused_layer`` or ``apply_fused_layer``. ``lis=False`` runs
 every attention kernel's fp32 softmax arm. ``attach_u8_ingest`` lets the
-forward take raw uint8 images. Not ported: ``weight_only_params``, and the
-TPU-only arms (``scan_layers``, the ``resln`` and ``lis="bypass"`` timing
-probes).
+forward take raw uint8 images. ``weight_only_params`` dequantizes the same
+weight codes into float32 params for a bf16 ``fp_forward`` (weight-only
+serving). Not ported: the TPU-only arms (``scan_layers``, the ``resln`` and
+``lis="bypass"`` timing probes).
 
 Numerics: every requant scale the PoT search produces is a power of two,
 so the requant multiplies are exact; serving is compared with the
@@ -215,6 +216,51 @@ def convert(params, qstate, cfg: ViTConfig, policy: QuantPolicy, bit_config) -> 
     s["bits"] = tuple(bits)
     s["lis"] = 1 if policy.int_softmax else 0
     return s
+
+
+def weight_only_params(params, qstate, cfg: ViTConfig, policy: QuantPolicy, bit_config) -> dict:
+    """Weight-only quantized serving (W4/W8, float activations): the exact
+    weight codes the int8 pipeline serves, dequantized back into a copy of
+    ``params`` (float32, on the params' device) for ``vit.fp_forward``.
+
+    On the SmoothQuant layers (qkv, fc1) the int8 path serves fq(w·cs)
+    against activations smoothed by 1/cs; weight-only serving takes the
+    unsmoothed activations, so the effective weight is w_q·sw/cs. Every
+    other weight, the patch embed and the head included, is w_q·sw. sw and
+    cs are powers of two, so requantizing the result with the serving scales
+    gives ``convert``'s codes bit for bit. Every non-weight leaf is the
+    caller's own tensor. Cast and serve::
+
+        pw = serving.weight_only_params(params, qstate, cfg, policy, bits)
+        pw16 = {bf16 copy of pw}
+        logits = vit.fp_forward(pw16, cfg, x.to(torch.bfloat16))
+    """
+    if not policy.int_norm:
+        raise ValueError(
+            "weight-only serving freezes convert()'s weight codes, which are defined by the PTF "
+            "integer-LN calibration pipeline (policy.int_norm=True): ptf=False changes the LN-output "
+            "observers and therefore the SmoothQuant channel scales the codes are built from. "
+            "Recalibrate with ptf=True, or run the simulation path for ptf=False ablations.")
+    s = convert(params, qstate, cfg, policy, bit_config)
+
+    def smooth_eff(layer):
+        return layer["w_q"].to(torch.float32) * layer["sw"][:, None] / layer["cs"][None, :]
+
+    def plain_eff(layer):
+        return layer["w_q"].to(torch.float32) * layer["sw"][:, None]
+
+    new = dict(params)
+    new["patch_embed"] = {**params["patch_embed"], "w": plain_eff(s["patch"])}
+    new["head"] = {**params["head"], "w": plain_eff(s["head"])}
+    new["blocks"] = [
+        {**blk,
+         "qkv": {**blk["qkv"], "w": smooth_eff(sb["qkv"])},
+         "proj": {**blk["proj"], "w": plain_eff(sb["proj"])},
+         "fc1": {**blk["fc1"], "w": smooth_eff(sb["mlp_fc1"])},
+         "fc2": {**blk["fc2"], "w": plain_eff(sb["fc2"])}}
+        for blk, sb in zip(params["blocks"], s["blocks"])
+    ]
+    return new
 
 
 def _embed_fused_consts(s, cfg: ViTConfig):

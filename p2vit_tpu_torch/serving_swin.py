@@ -28,8 +28,9 @@ every LN in ``int_ln_requant``. The XLA window-attention twin
 kernel (``swin_lis_attention_plain``), so ``pallas_attn=False`` and
 ``use_pallas=False`` are ``use_kernels=False`` here. ``lis=False`` runs the
 attention kernels' fp32 softmax arm; ``attach_u8_ingest`` lets the forward
-take raw uint8 images. Not ported (ROADMAP.md): the timing probes
-``reorder="bypass"`` and ``lis="bypass"`` and ``weight_only_params``.
+take raw uint8 images. ``weight_only_params`` dequantizes the serving
+codes into float32 params for a bf16 ``fp_forward``. Not ported
+(ROADMAP.md): the timing probes ``reorder="bypass"`` and ``lis="bypass"``.
 """
 
 from __future__ import annotations
@@ -136,6 +137,36 @@ def convert(params, qstate, cfg: SwinConfig, policy: QuantPolicy, bit_config=8) 
     s["patch_norm"] = params["patch_norm"]
     s["norm"] = params["norm"]
     return s
+
+
+def weight_only_params(params, qstate, cfg: SwinConfig, policy: QuantPolicy, bit_config=8) -> dict:
+    """Weight-only quantized Swin serving: ``convert``'s exact weight codes
+    dequantized back into a copy of ``params`` (float32, on the params'
+    device) for ``swin.fp_forward``. Swin's serving weights carry no
+    SmoothQuant fold, so every effective weight, the PatchMerging reductions
+    included, is w_q·sw. Inherits ``convert``'s preconditions
+    (``policy.int_norm``, a qstate with ``qact_input``)."""
+    s = convert(params, qstate, cfg, policy, bit_config)
+
+    def eff(layer):
+        return layer["w_q"].to(torch.float32) * layer["sw"][:, None]
+
+    new = dict(params)
+    new["patch_embed"] = {**params["patch_embed"], "w": eff(s["patch"])}
+    new["head"] = {**params["head"], "w": eff(s["head"])}
+    stages = []
+    for stage, st in zip(params["stages"], s["stages"]):
+        ns = dict(stage)
+        ns["blocks"] = [
+            {**blk, **{key: {**blk[key], "w": eff(sb[key])} for key in ("qkv", "proj", "fc1", "fc2")}}
+            for blk, sb in zip(stage["blocks"], st["blocks"])
+        ]
+        if "downsample" in stage:
+            ds = stage["downsample"]
+            ns["downsample"] = {**ds, "reduction": {**ds["reduction"], "w": eff(st["downsample"]["red"])}}
+        stages.append(ns)
+    new["stages"] = stages
+    return new
 
 
 def launches_per_forward(cfg: SwinConfig, fuse_stem: bool = False, int_stem: bool = False,

@@ -1,4 +1,4 @@
-"""The twelve CUDA kernels against their plain PyTorch versions, on the card.
+"""The fourteen CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: they skip without a CUDA device (decided inside the
 fixture, never at import). Run them on a GPU machine with
@@ -18,7 +18,7 @@ from p2vit_tpu_torch.config import make_policy
 from p2vit_tpu_torch.models import SWIN_ZOO, VIT_ZOO, swin, vit
 from p2vit_tpu_torch.ops import (
     attention_lis, embed_fused, intln, launch_counts, layer_fused, matmul_int8, matmul_ln,
-    reset_launch_counts, swin_stem,
+    matmul_wstream, reset_launch_counts, swin_stem,
 )
 
 pytestmark = pytest.mark.cuda
@@ -158,7 +158,8 @@ def test_serving_forward_small_model(dev):
                                "int_ln_requant": 0, "int_res_ln_requant": 0,
                                "swin_lis_attention": 0, "lis_attention_fused": 0,
                                "lis_attention": 0, "fused_swin_stem": 0,
-                               "swin_lis_attention_folded": 0, "fused_vit_layer": 0}
+                               "swin_lis_attention_folded": 0, "fused_vit_layer": 0,
+                               "int4_matmul_requant": 0, "wstream_matmul": 0}
     want = serving.serving_forward(s, cfg, x, use_kernels=False)
     assert torch.equal(got, want) and bool(torch.isfinite(got).all())
     # embed kernel alone, on the serving path's arguments
@@ -295,7 +296,8 @@ def test_swin_serving_forward_small_model(dev):
                                "int_ln_requant": 4, "int_res_ln_requant": 4,
                                "swin_lis_attention": 4, "lis_attention_fused": 0,
                                "lis_attention": 0, "fused_swin_stem": 0,
-                               "swin_lis_attention_folded": 0, "fused_vit_layer": 0}
+                               "swin_lis_attention_folded": 0, "fused_vit_layer": 0,
+                               "int4_matmul_requant": 0, "wstream_matmul": 0}
     want = serving_swin.serving_forward(s, calib.qstate, cfg, policy, x, use_kernels=False)
     assert torch.equal(got, want) and bool(torch.isfinite(got).all())
 
@@ -466,3 +468,69 @@ def test_serving_forward_fuse_layer_small_model(dev, lis):
     assert launch_counts() == want_counts
     assert torch.equal(got, serving.serving_forward(s, cfg, x, lis=lis, fuse_layer=True, use_kernels=False))
     assert torch.equal(got, serving.serving_forward(s, cfg, x, lis=lis))
+
+
+@pytest.mark.parametrize("gelu", [False, True])
+@pytest.mark.parametrize("m,k,n", [(1576, 384, 1536), (197, 1536, 384), (77, 384, 1000), (70, 260, 33),
+                                   (64, 96, 48)])
+def test_int4_matmul_requant_kernel(dev, m, k, n, gelu):
+    """Against its plain version and the int8 kernel on the unpacked codes;
+    K = 260 and 96 take the wrapper's half-K pad."""
+    rng = np.random.RandomState(k + n)
+    x, w = _i8(rng, (m, k)).to(dev), _i8(rng, (n, k), -8, 8).to(dev)
+    r = _pot(rng, n, -14, -10).to(dev)
+    b = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
+    kw = dict(out_inv=8.0, gelu=True) if gelu else {}
+    wp = matmul_int8.pack_int4(w)
+    before = matmul_int8.int4_matmul_requant.launches
+    got = matmul_int8.int4_matmul_requant(x, wp, r, b, **kw)
+    assert matmul_int8.int4_matmul_requant.launches == before + 1
+    _same(got, matmul_int8.int4_matmul_requant_plain(x, wp, r, b, **kw))
+    if k % 16 == 0:
+        _same(got, matmul_int8.int8_matmul_requant(x, w, r, b, **kw))
+
+
+@pytest.mark.parametrize("gelu", [False, True])
+@pytest.mark.parametrize("fmt", ["bf16", "i8", "w8p", "w4p"])
+@pytest.mark.parametrize("m,k,n", [(197, 384, 1152), (1576, 1536, 384), (5, 200, 70), (12608, 384, 1536)])
+def test_wstream_matmul_kernel(dev, m, k, n, fmt, gelu):
+    """Bit for bit against the plain version (exact panel sums)."""
+    rng = np.random.RandomState(m + k + n)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(dev).to(torch.bfloat16)
+    w = _i8(rng, (n, k), -8, 8).to(dev)
+    r = _pot(rng, n, -9, -5).to(dev)
+    b = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
+    store = {"bf16": w.to(torch.bfloat16), "i8": w, "w8p": matmul_wstream.pack_w8(w),
+             "w4p": matmul_wstream.pack_w4(w)}[fmt]
+    before = matmul_wstream.wstream_matmul.launches
+    got = matmul_wstream.wstream_matmul(x, store, r, b, w_format=fmt, gelu=gelu)
+    assert matmul_wstream.wstream_matmul.launches == before + 1
+    want = matmul_wstream.wstream_matmul_plain(x, store, r, b, w_format=fmt, gelu=gelu)
+    _same(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_wstream_w8p_full_range_codes_kernel(dev):
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.randn(33, 384).astype(np.float32)).to(dev).to(torch.bfloat16)
+    w = _i8(rng, (256, 384)).to(dev)
+    r, b = torch.full((256,), 2.0**-7, device=dev), torch.zeros(256, device=dev)
+    store = matmul_wstream.pack_w8(w)
+    _same(matmul_wstream.wstream_matmul(x, store, r, b, w_format="w8p").view(torch.int16),
+          matmul_wstream.wstream_matmul_plain(x, store, r, b, w_format="w8p").view(torch.int16))
+
+
+def test_weight_store_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    x = torch.zeros(64, 384, dtype=torch.int8, device=dev)
+    wp = torch.zeros(128, 192, dtype=torch.int8, device=dev)
+    v = torch.ones(128, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        matmul_int8.int4_matmul_requant(torch.zeros(64, 768, dtype=torch.int8, device=dev)[:, ::2], wp, v, v)
+    with pytest.raises(TypeError):
+        matmul_int8.int4_matmul_requant(x, wp.int(), v, v)
+    xb = torch.zeros(64, 768, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        matmul_wstream.wstream_matmul(xb[:, ::2], torch.zeros(128, 384, dtype=torch.int8, device=dev), v, v,
+                                      w_format="i8")
+    with pytest.raises(TypeError):
+        matmul_wstream.wstream_matmul(xb[:, :384].contiguous(), torch.zeros(128, 128, dtype=torch.int8,
+                                                                            device=dev), v, v, w_format="w8p")
