@@ -32,15 +32,20 @@ weight-only serving of both models and the two weight-store GEMM tools:
   simulation (report), img/s and device ms beside the bf16 forward of the
   unquantized params. ``deit_wonly``'s phase 1 holds ``wstream_matmul`` in
   all four stores against its plain version on blocks 0 and 11's GEMMs,
-  with the activations of the weight-only forward (1/cs folded into x).
+  with the activations of the weight-only forward (1/cs folded into x) and
+  with a draw of the same shapes whose rows span 25 binades.
 * ``w4pack`` / ``wstream``: the ported tools (``p2vit_tpu_torch/tools``) at
   the DeiT-S GEMMs, M = 197·batch, depth 12. Phase 1: ``int4_matmul_requant``
   against its plain version and the int8 kernel (also on the ``deit``
   path's fc1 and head arguments, packed), ``wstream_matmul`` in each store
-  against its plain version; phase 2/3: one depth-12 chain per arm and M,
-  4·12 launches each; phase 5: the tools' lines (ms per GEMM and chain) and
-  each kernel's ms against its plain version, its bound and, for
-  ``wstream_matmul``, the bf16 ``torch.matmul`` over the same codes.
+  against its plain version (also on x rows spanning 25 binades); phase
+  2/3: one depth-12 chain per arm and M, 4·12 launches each; phase 5: the
+  tools' lines (ms per GEMM and chain) and each kernel's ms against its
+  plain version, its bound and, for ``wstream_matmul``, the bf16
+  ``torch.matmul`` over the same codes, its TFLOP/s and share of the float64
+  tensor-core peak (fc1 at M = 12608, and per chain), and its blocks at
+  M = 197. After the build, the DMMA instructions in the built
+  ``wstream_matmul`` kernels (``cuobjdump -sass``, report only).
 
 Phases of the int8 serving paths, one line each, per path:
 
@@ -147,6 +152,8 @@ SWIN_FLAGS = {"swin": (True, {}, None), "swin_lisoff": (False, {}, None),
               "swin_int_stem_unfused": (True, dict(int_stem=True, fuse_res=False), "report")}
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense)
 HBM_BYTES_S, INT8_OPS_S, F32_FLOPS_S, BF16_FLOPS_S = 3.35e12, 1979e12, 67e12, 989e12
+F64_TC_FLOPS_S = 67e12  # float64 tensor cores (DMMA), the ceiling of wstream_matmul's exact sums
+WIDE_SPAN = 25  # binades spanned by each row of the wide-span draw (the numerics contract's limit)
 
 MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 
@@ -627,11 +634,13 @@ def wstream_on_forward(name, vit, s, fwd, xs, blocks, mw):
     the weight-only forward gives them (1/cs folded into x on qkv and fc1),
     the codes, sw and the bias of the serving state; and the ulp distance
     of the gelu=False output to the forward's own bf16 linear (report)."""
-    from p2vit_tpu_torch.tools.wstream_bench import PACK
+    from p2vit_tpu_torch.tools.wstream_bench import PACK, wide_span_x
 
     mism = {f: 0 for f in mw.FORMATS}
+    wide = {f: 0 for f in mw.FORMATS}
     ulp_max, ulp_sum, n_out = 0, 0, 0
     pot_cs = True
+    rng = np.random.RandomState(WIDE_SPAN)
     for x in xs:
         calls = _capture([vit], ["linear"], lambda: fwd(x))["linear"]
         for bi in blocks:
@@ -645,22 +654,27 @@ def wstream_on_forward(name, vit, s, fwd, xs, blocks, mw):
                 if smooth:
                     pot_cs = pot_cs and _is_pot(layer["cs"])
                     x2 = (x2.to(torch.float32) / layer["cs"][None, :]).to(torch.bfloat16)
+                xw = wide_span_x(*x2.shape, WIDE_SPAN, rng, x2.device)
                 for fmt in mw.FORMATS:
                     store = PACK[fmt](layer["w_q"])
                     for g in sorted({False, gelu}):
                         got = mw.wstream_matmul(x2, store, layer["sw"], layer["bias"], fmt, g)
                         mism[fmt] += _diff(got, mw.wstream_matmul_plain(x2, store, layer["sw"], layer["bias"],
                                                                         fmt, g))[0]
+                        wide[fmt] += _diff(mw.wstream_matmul(xw, store, layer["sw"], layer["bias"], fmt, g),
+                                           mw.wstream_matmul_plain(xw, store, layer["sw"], layer["bias"], fmt,
+                                                                   g))[0]
                         if not g:
                             u = _bf16_ulp(got, y_lin.reshape(got.shape))
                             ulp_max, ulp_sum, n_out = max(ulp_max, int(u.max())), ulp_sum + int(u.sum()), n_out + u.numel()
     torch.cuda.synchronize()
     print(f"{name} phase 1 wstream_matmul vs plain on blocks {list(blocks)}' GEMMs (batch "
           f"{', '.join(str(x.shape[0]) for x in xs)}, 1/cs folded into x, cs a power of two: {pot_cs}): "
-          f"mismatches {json.dumps(mism)}; ulp distance to the forward's bf16 linear: max {ulp_max}, "
+          f"mismatches {json.dumps(mism)}; on a {WIDE_SPAN}-binade x of the same shapes {json.dumps(wide)}; "
+          f"ulp distance to the forward's bf16 linear: max {ulp_max}, "
           f"mean {ulp_sum / max(n_out, 1):.6g} (report only)", flush=True)
-    if any(mism.values()):
-        _fail(f"{name}: wstream_matmul disagrees with its plain version: {mism}")
+    if any(mism.values()) or any(wide.values()):
+        _fail(f"{name}: wstream_matmul disagrees with its plain version: {mism}, wide-span {wide}")
 
 
 def run_wonly(name, model, cfg, params, pw, pairs, int8_fwd, simulate, batches, reps, img, counts_api,
@@ -813,18 +827,19 @@ def run_w4pack(batches, reps, depth, dev, deit, ops, counts_api):
     res = _timed_rows("int4_matmul_requant", rows, reps)
     res.update(launches=counts["int4_matmul_requant"], max_abs_err=worst,
                device_ms=_chain_device_ms(name, ("i8", "w4p"), lambda arm: wl.chain(arm, *cases[-1]),
-                                          depth, ms[-1])["w4p"])
+                                          depth, ms[-1])["w4p"][0])
     return {"int4_matmul_requant": res}
 
 
 def _chain_device_ms(name, arms, run, depth, m):
     """Device ms per chain call of each arm (profiler, 3 calls), printed with
-    its largest kernels; returns {arm: ms or None}."""
+    its largest kernels; returns {arm: (all kernels' ms, the port's kernels'
+    ms) or (None, None)}."""
     out = {}
     for arm in arms:
         with torch.no_grad():
             dev_ms, port_ms, by_name = _device_ms(lambda: run(arm), 3)
-        out[arm] = dev_ms
+        out[arm] = (dev_ms, port_ms)
         if dev_ms is None:
             print(f"{name} phase 5 device ms per depth-{depth} chain at M={m}, {arm}: not measured")
             continue
@@ -843,12 +858,14 @@ def run_wstream(batches, reps, depth, dev, ops, counts_api):
     mw, name = ops.matmul_wstream, "wstream"
     ms = [197 * b for b in batches]
     mism = {f: 0 for f in mw.FORMATS}
+    wide = {f: 0 for f in mw.FORMATS}
     worst = 0.0
     rows = []
     for m in ms:
         rng = np.random.RandomState(m)
         for gname, k, n, gelu in (*gb.DEIT_S_GEMMS, gb.CONTROL):
             x, w, r, b = wsb.gemm_case(m, k, n, rng, dev)
+            xw = wsb.wide_span_x(m, k, WIDE_SPAN, rng, dev)
             wb = w.to(torch.bfloat16)
             for fmt in mw.FORMATS:
                 store = wsb.PACK[fmt](w)
@@ -856,6 +873,8 @@ def run_wstream(batches, reps, depth, dev, ops, counts_api):
                               mw.wstream_matmul_plain(x, store, r, b, fmt, gelu))
                 mism[fmt] += nn
                 worst = max(worst, e)
+                wide[fmt] += _diff(mw.wstream_matmul(xw, store, r, b, fmt, gelu),
+                                   mw.wstream_matmul_plain(xw, store, r, b, fmt, gelu))[0]
                 if m == ms[-1] and gname != gb.CONTROL[0]:
                     rows.append((mw.wstream_matmul, mw.wstream_matmul_plain, (x, store, r, b),
                                  dict(w_format=fmt, gelu=gelu), depth,
@@ -864,9 +883,9 @@ def run_wstream(batches, reps, depth, dev, ops, counts_api):
                                  lambda x=x, wb=wb: torch.matmul(x, wb.T)))
     torch.cuda.synchronize()
     print(f"{name} phase 1 wstream_matmul vs plain (the tool's constants at M={ms}, 5 GEMMs): "
-          f"mismatches {json.dumps(mism)}", flush=True)
-    if any(mism.values()):
-        _fail(f"{name}: wstream_matmul disagrees with its plain version: {mism}")
+          f"mismatches {json.dumps(mism)}; on a {WIDE_SPAN}-binade x {json.dumps(wide)}", flush=True)
+    if any(mism.values()) or any(wide.values()):
+        _fail(f"{name}: wstream_matmul disagrees with its plain version: {mism}, wide-span {wide}")
 
     cases = [wsb.chain_case(m, m + 1, depth, dev) for m in ms]
     reset_launch_counts()
@@ -899,9 +918,70 @@ def run_wstream(batches, reps, depth, dev, ops, counts_api):
     stores = {arm: wsb.chain_stores(arm, layers) for arm in ("library", *mw.FORMATS)}
     dev_ms = _chain_device_ms(name, ("library", *mw.FORMATS),
                               lambda arm: wsb.chain(arm, x, layers, stores[arm]), depth, ms[-1])
+    print_wstream_rates(name, mw, wsb, gb, dev_ms, depth, ms, reps, dev)
     res.update(launches=counts["wstream_matmul"], max_abs_err=worst,
-               device_ms=None if None in dev_ms.values() else sum(dev_ms[f] for f in mw.FORMATS))
+               device_ms=None if any(v[0] is None for v in dev_ms.values())
+               else sum(dev_ms[f][0] for f in mw.FORMATS))
     return {"wstream_matmul": res}
+
+
+def print_wstream_rates(name, mw, wsb, gb, dev_ms, depth, ms, reps, dev):
+    """wstream_matmul's rate against the float64 tensor-core peak: fc1 at
+    the largest M per store (CUDA events), each store's chain (the port's
+    kernels' device ms), and the blocks each GEMM launches at M = 197."""
+    from p2vit_tpu_torch.ops import _lib
+
+    rates = []
+    probe_out = torch.empty(132 * 4 * 256, dtype=torch.float64, device=dev)
+    for label, shape, mnk, iters in (("m8n8k4", 884, 8 * 8 * 4, 2000), ("m16n8k16", 16816, 16 * 8 * 16, 500)):
+        t = _time_ms(lambda: _lib.launch("p2v_dmma_rate_probe", shape, probe_out, 132 * 4, iters), 3)
+        rates.append(f"{label} {132 * 4 * 8 * iters * 8 * 2 * mnk / t / 1e9:.2f} TFLOP/s")
+    print(f"{name} phase 5 float64 tensor-core throughput (csrc/dmma_probe.cu, register operands): "
+          f"{', '.join(rates)}", flush=True)
+    m = ms[-1]
+    _, k, n, gelu = next(g for g in gb.DEIT_S_GEMMS if g[0] == "fc1")
+    x, w, r, b = wsb.gemm_case(m, k, n, np.random.RandomState(m), dev)
+    flops = 2 * m * k * n
+    parts = []
+    for fmt in mw.FORMATS:
+        store = wsb.PACK[fmt](w)
+        t = _time_ms(lambda: mw.wstream_matmul(x, store, r, b, fmt, gelu), reps)
+        parts.append(f"{fmt} {t:.4f} ms {flops / t / 1e9:.2f} TFLOP/s ({flops / t / 1e9 / (F64_TC_FLOPS_S / 1e12):.3f} "
+                     f"of peak)")
+    print(f"{name} phase 5 wstream_matmul fc1 at M={m} ({flops / 1e9:.2f} GFLOP) against the "
+          f"{F64_TC_FLOPS_S / 1e12:.0f} TFLOP/s float64 tensor-core peak: {'; '.join(parts)}", flush=True)
+    chain_flops = depth * sum(2 * m * kk * nn for _, kk, nn, _ in gb.DEIT_S_GEMMS)
+    ceiling = chain_flops / F64_TC_FLOPS_S * 1e3
+    parts = [f"{fmt} not measured" if dev_ms[fmt][1] is None else
+             f"{fmt} {dev_ms[fmt][1]:.4f} ms {chain_flops / dev_ms[fmt][1] / 1e9:.2f} TFLOP/s "
+             f"({ceiling / dev_ms[fmt][1]:.3f} of peak)" for fmt in mw.FORMATS]
+    print(f"{name} phase 5 wstream_matmul per depth-{depth} chain at M={m} ({chain_flops / 1e9:.1f} GFLOP, "
+          f"float64 tensor-core ceiling {ceiling:.4f} ms): {'; '.join(parts)}", flush=True)
+    blocks = {g: mw.wstream_blocks(197, nn) for g, _, nn, _ in (*gb.DEIT_S_GEMMS, gb.CONTROL)}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"{name} phase 5 wstream_matmul blocks at M=197 on {sms} SMs: {json.dumps(blocks)}", flush=True)
+
+
+def sass_dmma_count(lib_path: str) -> str:
+    """The DMMA instructions in the built wstream_matmul kernels
+    (cuobjdump -sass; report only)."""
+    import os
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                                                     "cuobjdump")
+    try:
+        sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, timeout=120).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"not measured ({e})"
+    fns, dmma, cur = 0, 0, False
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            cur = "wstream_matmul_kernel" in ln
+            fns += cur
+        elif cur and "DMMA" in ln:
+            dmma += 1
+    return f"{dmma} in {fns} wstream_matmul_kernel instances"
 
 
 def main() -> None:
@@ -938,6 +1018,7 @@ def main() -> None:
     print(f"build: {time.time() - t0:.1f} s ({len(regs)} ptxas lines)")
     for ln in regs:
         print(f"  ptxas {ln}")
+    print(f"sass: DMMA instructions {sass_dmma_count(_lib.library()[0]._name)}", flush=True)
 
     gen = torch.Generator().manual_seed(args.seed + 1)
 

@@ -99,6 +99,20 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], cons
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// c += a·b on the float64 tensor cores, one 16×8×16 product per warp
+// (sm_90 m16n8k16 fragments, g = lane/4, t = lane%4: lo[q] = A[g][t + 4q],
+// hi[q] = A[g + 8][t + 4q], b[q] = B[t + 4q][g]; c_lo = C[g][2t + {0, 1}],
+// c_hi = C[g + 8][2t + {0, 1}]). m8n8k4, the sm_80 shape, runs at half
+// this shape's rate on Hopper.
+__device__ __forceinline__ void mma_f64(double (&c_lo)[2], double (&c_hi)[2], const double (&lo)[4],
+                                        const double (&hi)[4], const double (&b)[4]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5,%6,%7,%8,%9,%10,%11}, "
+      "{%12,%13,%14,%15}, {%0,%1,%2,%3};\n"
+      : "+d"(c_lo[0]), "+d"(c_lo[1]), "+d"(c_hi[0]), "+d"(c_hi[1])
+      : "d"(lo[0]), "d"(hi[0]), "d"(lo[1]), "d"(hi[1]), "d"(lo[2]), "d"(hi[2]), "d"(lo[3]), "d"(hi[3]),
+        "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+}
+
 __device__ __forceinline__ uint32_t ld32(const int8_t* p) { return *reinterpret_cast<const uint32_t*>(p); }
 
 // 16-byte global → shared copy that bypasses registers (cp.async, sm_80+)

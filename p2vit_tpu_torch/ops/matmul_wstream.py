@@ -24,25 +24,25 @@ two separately rounded float32 operations and the bf16 rounding to nearest
 even. A_p is exact because every bf16 × code product has at most 16
 significant bits: a float64 sum of them is exact, in any order, while the
 products of a row span ≤ 25 binades (true of every input the tests and
-``chip_smoke.py`` draw). The CUDA kernel accumulates A_p with float64 FMAs,
-the plain version with one float64 matmul per panel. Against the JAX kernel
-this lies within its own envelope, ≤ 1 bf16 ulp of the panel-matched
-float32 twin (≤ 2 with GELU); ``tests/test_torch_wstream.py`` states the
-measured maxima.
+``chip_smoke.py`` draw). The CUDA kernel accumulates A_p on the float64
+tensor cores (``mma.sync.m16n8k16.f64``), the plain version with one float64
+matmul per panel. Against the JAX kernel this lies within its own
+envelope, ≤ 1 bf16 ulp of the panel-matched float32 twin (≤ 2 with GELU);
+``tests/test_torch_wstream.py`` states the measured maxima.
 
 CUDA kernel (``csrc/matmul_wstream.cu``) replaces the Pallas kernel
 ``p2vit_tpu/ops/matmul_wstream.py:wstream_matmul`` (``_kernel``). Bound on
 the card: the bound counts the bf16 tensor-core peak, but this design runs
-the products as float64 FMAs (exact, order-free sums), so it sits far above
-its bound and behind the bf16 library GEMM; the weight bytes it saves
-matter only once the products are cheap.
+the products as float64 DMMAs (exact, order-free sums, at most the 67
+TFLOP/s of the float64 tensor cores), so it stays behind the bf16 library
+GEMM; the weight bytes it saves matter only once the products are cheap.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ._lib import check_cuda_operand, device_of, f32_vec, launch
+from ._lib import check_cuda_operand, device_of, f32_vec, launch, library
 from .matmul_int8 import gelu_as
 
 LANE = 128
@@ -121,12 +121,11 @@ def unpack_store(w: torch.Tensor, w_format: str) -> torch.Tensor:
     return torch.cat(parts, dim=1).to(torch.float64)
 
 
-def wstream_matmul_plain(x, w_store, row_scale, bias, w_format="w8p", gelu=False):
-    """Plain PyTorch version of the kernel: one exact float64 matmul per
-    panel, each rounded once to float32, summed in panel order, then the
-    float32 epilogue and the bf16 rounding (module docstring)."""
-    panels, pk = _check(x, w_store, row_scale, w_format)
-    m, k = x.shape
+def panel_sums(x, w_store, w_format="w8p"):
+    """S = Σ_p fl32(A_p) in float32 (M, N): each panel's exact float64 sum
+    (one float64 matmul per panel), rounded once, added in panel order.
+    ``w_store`` as ``wstream_matmul_plain`` checks it."""
+    panels, k = PANELS[w_format], x.shape[1]
     codes = unpack_store(w_store, w_format)
     span = codes.shape[1] // panels
     xd = torch.nn.functional.pad(x.to(torch.bfloat16).to(torch.float64), (0, codes.shape[1] - k))
@@ -135,6 +134,14 @@ def wstream_matmul_plain(x, w_store, row_scale, bias, w_format="w8p", gelu=False
         # + 0.0: an all-zero panel sums to +0, as the kernel's accumulator does
         acc = (xd[:, p * span:(p + 1) * span] @ codes[:, p * span:(p + 1) * span].T + 0.0).to(torch.float32)
         s = acc if s is None else s + acc
+    return s
+
+
+def wstream_matmul_plain(x, w_store, row_scale, bias, w_format="w8p", gelu=False):
+    """Plain PyTorch version of the kernel: the panel sums (``panel_sums``),
+    then the float32 epilogue and the bf16 rounding (module docstring)."""
+    _check(x, w_store, row_scale, w_format)
+    s = panel_sums(x, w_store, w_format)
     n = row_scale.shape[0]
     y = s * f32_vec(row_scale, n, x.device)[None, :] + f32_vec(bias, n, x.device)[None, :]
     if gelu:
@@ -171,3 +178,10 @@ def wstream_matmul(x, w_store, row_scale, bias, w_format="w8p", gelu=False):
 
 
 wstream_matmul.launches = 0
+
+
+def wstream_blocks(m: int, n: int) -> int:
+    """The number of blocks the CUDA kernel launches for an (m, n) output
+    (its tile is chosen by m, n and the card's SM count); needs the card."""
+    lib, _ = library()
+    return int(lib.p2v_wstream_matmul_blocks(m, n))

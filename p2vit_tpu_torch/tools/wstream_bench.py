@@ -65,6 +65,19 @@ def gemm_case(m, k, n, rng, device):
     return x, w, r, b
 
 
+def wide_span_x(m, k, span, rng, device):
+    """(m, k) bf16 activations whose rows each span ``span`` binades: entry
+    ±(i/128)·2^e, i in [128, 256), e in [e0, e0 + span) with e0 drawn per
+    row (columns 0 and 1 pin both ends). Exact panel sums hold while span ≤
+    26 at K ≤ 3072 with int8 codes (module ops/matmul_wstream.py)."""
+    e0 = rng.randint(-4, 5, (m, 1)) - span // 2
+    e = e0 + rng.randint(0, span, (m, k))
+    e[:, 0], e[:, min(1, k - 1)] = e0[:, 0], e0[:, 0] + span - 1
+    mant = rng.randint(128, 256, (m, k)) * rng.choice([-1.0, 1.0], (m, k))
+    x = np.ldexp(mant / 128.0, e).astype(np.float32)  # 8 significant bits: exact in bf16
+    return torch.from_numpy(x).to(device).to(torch.bfloat16)
+
+
 def _agree(out, ref) -> float:
     return float((out.argmax(1) == ref.argmax(1)).float().mean())
 

@@ -492,9 +492,12 @@ def test_int4_matmul_requant_kernel(dev, m, k, n, gelu):
 
 @pytest.mark.parametrize("gelu", [False, True])
 @pytest.mark.parametrize("fmt", ["bf16", "i8", "w8p", "w4p"])
-@pytest.mark.parametrize("m,k,n", [(197, 384, 1152), (1576, 1536, 384), (5, 200, 70), (12608, 384, 1536)])
+@pytest.mark.parametrize("m,k,n", [(197, 384, 1152), (1576, 1536, 384), (5, 200, 70), (12608, 384, 1536),
+                                   (1, 3072, 1152), (8, 3072, 1536), (197, 3072, 1536)])
 def test_wstream_matmul_kernel(dev, m, k, n, fmt, gelu):
-    """Bit for bit against the plain version (exact panel sums)."""
+    """Bit for bit against the plain version (exact panel sums), on every
+    block tile the kernel picks by M and N (M = 1, 8, 197 take the small
+    tiles)."""
     rng = np.random.RandomState(m + k + n)
     x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(dev).to(torch.bfloat16)
     w = _i8(rng, (n, k), -8, 8).to(dev)
@@ -507,6 +510,37 @@ def test_wstream_matmul_kernel(dev, m, k, n, fmt, gelu):
     assert matmul_wstream.wstream_matmul.launches == before + 1
     want = matmul_wstream.wstream_matmul_plain(x, store, r, b, w_format=fmt, gelu=gelu)
     _same(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("gelu", [False, True])
+@pytest.mark.parametrize("fmt", ["bf16", "i8", "w8p", "w4p"])
+@pytest.mark.parametrize("m,k,n", [(197, 3072, 1152), (12608, 384, 1536), (9, 203, 70)])
+def test_wstream_matmul_wide_span_and_misaligned_kernel(dev, m, k, n, fmt, gelu):
+    """Rows of x spanning 25 binades, full-range codes (int4 for w4p), and x
+    and the store as .contiguous() copies of column slices: at K = 203 their
+    rows are not 16-byte aligned, so the kernel stages them by elements."""
+    from p2vit_tpu_torch.tools.wstream_bench import PACK, wide_span_x
+
+    rng = np.random.RandomState(m + k + n + 25)
+    x = wide_span_x(m, k + 3, 25, rng, dev)[:, 3:].contiguous()
+    lo, hi = (-8, 8) if fmt == "w4p" else (-128, 128)
+    w = _i8(rng, (n, k + 1), lo, hi)[:, 1:].contiguous().to(dev)
+    r = _pot(rng, n, -16, -12).to(dev)
+    b = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
+    store = PACK[fmt](w)
+    got = matmul_wstream.wstream_matmul(x, store, r, b, w_format=fmt, gelu=gelu)
+    want = matmul_wstream.wstream_matmul_plain(x, store, r, b, w_format=fmt, gelu=gelu)
+    assert bool(torch.isfinite(want.float()).all())
+    _same(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_wstream_blocks_fill_the_card_at_batch_1(dev):
+    """The tile is picked by M and N: at M = 197 the qkv and fc1 GEMMs put
+    about a block on every SM (126 and 168 on 132 SMs)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n in (1152, 1536):
+        assert matmul_wstream.wstream_blocks(197, n) >= 0.95 * sms
+    assert matmul_wstream.wstream_blocks(12608, 1536) == 99 * 24
 
 
 def test_wstream_w8p_full_range_codes_kernel(dev):

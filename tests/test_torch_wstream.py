@@ -176,3 +176,64 @@ def test_wrapper_takes_the_plain_version_on_cpu():
         assert torch.equal(got.view(torch.int16),
                            tws.wstream_matmul_plain(x, store, r, b, fmt, True).view(torch.int16))
     assert tws.wstream_matmul.launches == 0
+
+
+def _exact_panel_sums(x, codes, fmt):
+    """Σ_p fl32(A_p) from exact integer arithmetic: each row of x scaled by
+    a power of two to integers, each panel summed in int64 (every sum stays
+    below 2^53, so the int → float64 step is exact), rounded once to float32,
+    scaled back (exact), the panels added in order in float32."""
+    m, k = x.shape
+    panels = dict(FORMATS)[fmt]
+    span = tws.panel_len(k, panels) if panels > 1 else k
+    _, ex = np.frexp(np.where(x == 0, 1.0, x).astype(np.float64))
+    shift = 8 - ex.min(axis=1, keepdims=True)  # x·2^shift: integers (8 significant bits)
+    xi = np.ldexp(x.astype(np.float64), shift).astype(np.int64)
+    assert (np.ldexp(xi.astype(np.float64), -shift) == x).all()
+    ci = codes.astype(np.int64)
+    s = np.zeros((m, codes.shape[0]), np.float32)
+    for p in range(panels):
+        a = xi[:, p * span:(p + 1) * span] @ ci[:, p * span:(p + 1) * span].T
+        assert np.abs(a).max() < 2 ** 53
+        s = s + np.ldexp(a.astype(np.float64).astype(np.float32), -shift).astype(np.float32)
+    return s + np.float32(0.0)
+
+
+@pytest.mark.parametrize("fmt", [f for f, _ in FORMATS])
+@pytest.mark.parametrize("span", [1, 12, 25])
+def test_panel_sums_equal_the_rounded_exact_sums(span, fmt):
+    """The contract the kernel leans on: the plain version's fl32(A_p) is the
+    exact panel sum rounded once, for rows spanning 1, 12 and 25 binades,
+    with full-range codes of each store, at K = 3072 (8 panels of 384 for
+    w4p) and at K = 200 (pad panels)."""
+    from p2vit_tpu_torch.tools.wstream_bench import wide_span_x
+
+    rng = np.random.RandomState(100 * span + len(fmt))
+    lo, hi = (-8, 8) if fmt == "w4p" else (-128, 128)
+    for m, k, n in ((7, 3072, 24), (5, 200, 9)):
+        x = wide_span_x(m, k, span, rng, "cpu")
+        xf = x.float().numpy()
+        _, ex = np.frexp(xf)
+        assert (ex.max(1) - ex.min(1) == span - 1).all()
+        codes = rng.randint(lo, hi, (n, k)).astype(np.int8)
+        got = tws.panel_sums(x, T_PACK[fmt](codes), fmt).numpy()
+        np.testing.assert_array_equal(got.view(np.int32), _exact_panel_sums(xf, codes, fmt).view(np.int32))
+
+
+@pytest.mark.parametrize("fmt", [f for f, _ in FORMATS])
+def test_all_signed_zero_products_give_plus_zero(fmt):
+    """A panel whose products are all −0 or +0 sums to +0 (the kernel's
+    accumulators start at +0.0), and so does the output at b = −0."""
+    k, n = 384, 16
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(np.where(rng.rand(4, k) < 0.5, -0.0, 0.0).astype(np.float32)).to(torch.bfloat16)
+    x[1] = torch.from_numpy(rng.randn(k).astype(np.float32))  # against zero codes below
+    codes = rng.randint(-8, 8, (n, k)).astype(np.int8)
+    codes[:, :] = np.where(np.arange(n)[:, None] < 8, codes, 0)
+    store = T_PACK[fmt](codes)
+    s = tws.panel_sums(x, store, fmt)
+    zero = torch.ones(4, n, dtype=torch.bool)
+    zero[1, :8] = False
+    assert bool((s[zero] == 0).all()) and not bool(torch.signbit(s[zero]).any())
+    out = tws.wstream_matmul_plain(x, store, torch.full((n,), 2.0 ** -7), torch.full((n,), -0.0), fmt)
+    assert not bool(torch.signbit(out[zero]).any()) and bool((out[zero] == 0).all())
