@@ -45,7 +45,8 @@ weight-only serving of both models and the two weight-store GEMM tools:
   ``torch.matmul`` over the same codes, its TFLOP/s and share of the float64
   tensor-core peak (fc1 at M = 12608, and per chain), and its blocks at
   M = 197. After the build, the DMMA instructions in the built
-  ``wstream_matmul`` kernels (``cuobjdump -sass``, report only).
+  ``wstream_matmul`` kernels and the IMMA instructions in the cluster
+  attention kernel (``cuobjdump -sass``, report only).
 
 Phases of the int8 serving paths, one line each, per path:
 
@@ -82,7 +83,12 @@ Phases of the int8 serving paths, one line each, per path:
      default, each on one line; ``deit_layer`` against ``deit`` at every
      batch (img/s, device ms, the other PyTorch kernels' and the idle
      share). The fused layer's phase 5 line also splits one call into its
-     qkv GEMM, attention and row-tile phases (block 0's clock).
+     qkv GEMM, attention and row-tile phases (block 0's clock); the
+     qkv-fused attention's line gives its cluster launch (registers, shared
+     memory per CTA, CTAs per SM, resident clusters), the five phases of
+     one CTA in the middle of the launch and its ms per forward beside the
+     staged pair on the same arguments (the qkv ``int8_matmul_requant``
+     then ``lis_attention_fused``).
 
 Then the card's name and power limit, one JSON line of per-kernel results
 (``launches`` summed over the paths' phase-2 runs, ``ms``/``plain_ms``/
@@ -481,6 +487,9 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
                   f"x{count} per forward")
             if name == "fused_vit_layer":
                 print(f"{path.name} phase 5 kernel fused_vit_layer phases: {_layer_phases(kern, a, k)}")
+            if name == "lis_attention_qkv_fused":
+                print(f"{path.name} phase 5 kernel lis_attention_qkv_fused cluster: "
+                      f"{_qkv_cluster_report(ops, a, k, count, reps)}", flush=True)
             k_ms += t_k * count
             p_ms += t_p * count
             by[b_by] += b_ms * count
@@ -500,6 +509,38 @@ def _layer_phases(kern, a, k, reps=5):
     ms = (stamps[:, 1:] - stamps[:, :-1]).double().mean(0).tolist()
     return (f"qkv GEMM {ms[0] / 1e6:.4f} ms, attention {ms[1] / 1e6:.4f} ms, "
             f"row tiles {ms[2] / 1e6:.4f} ms per call (block 0's clock, mean of {reps})")
+
+
+def _qkv_cluster_report(ops, a, k, count, reps):
+    """The cluster kernel's launch facts (CUDA runtime) and its ms per
+    forward beside the staged pair on the same arguments: the qkv
+    ``int8_matmul_requant`` then ``lis_attention_fused`` (CUDA events, and
+    device ms from the profiler)."""
+    al, mi = ops.attention_lis, ops.matmul_int8
+    h, w, rv, bv, heads = a[:5]
+    b, n, c_in = h.shape
+    info = al.qkv_kernel_info(n, k.get("lis", True))
+
+    def staged():
+        qkv = mi.int8_matmul_requant(h.reshape(-1, c_in), w, rv, bv)
+        return al.lis_attention_fused(qkv.reshape(b, n, -1), heads, *a[5:], **k)
+
+    parts = []
+    for label, fn in (("cluster kernel", lambda: al.lis_attention_qkv_fused(*a, **k)), ("staged pair", staged)):
+        t = _time_ms(fn, reps)
+        dev_ms, _, _ = _device_ms(fn, 5)
+        dev = "device not measured" if dev_ms is None else f"device {dev_ms * count:.4f}"
+        parts.append(f"{label} {t * count:.4f} ms ({dev}) per forward")
+    stamps = torch.zeros((5, 6), dtype=torch.int64, device=h.device)
+    for row in stamps:
+        al.lis_attention_qkv_fused(*a, **k, phase_ns=row)
+    torch.cuda.synchronize()
+    us = ((stamps[:, 1:] - stamps[:, :-1]).double().mean(0) / 1e3).tolist()
+    phases = ", ".join(f"{name} {t:.2f}" for name, t in zip(al.QKV_PHASES, us))
+    return (f"cluster {info['cluster']} CTAs, {info['smem_bytes']} B shared memory per CTA, "
+            f"{info['registers']} registers ({info['spill_bytes']} B spilled), {info['ctas_per_sm']} CTAs per SM, "
+            f"max active clusters {info['max_active_clusters']}; {'; '.join(parts)} (x{count}); "
+            f"the middle cluster's rank-0 CTA's phases (us, mean of 5 calls): {phases}")
 
 
 def _img_s(bt, ms):
@@ -962,10 +1003,11 @@ def print_wstream_rates(name, mw, wsb, gb, dev_ms, depth, ms, reps, dev):
     print(f"{name} phase 5 wstream_matmul blocks at M=197 on {sms} SMs: {json.dumps(blocks)}", flush=True)
 
 
-def sass_dmma_count(lib_path: str) -> str:
-    """The DMMA instructions in the built wstream_matmul kernels
-    (cuobjdump -sass; report only)."""
+def sass_count(lib_path: str, kernel: str, opcode: str) -> str:
+    """The instructions whose opcode starts with ``opcode`` in the built
+    instances of ``kernel``, by opcode (cuobjdump -sass; report only)."""
     import os
+    import re
     import shutil
 
     tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
@@ -974,14 +1016,15 @@ def sass_dmma_count(lib_path: str) -> str:
         sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, timeout=120).stdout
     except (OSError, subprocess.SubprocessError) as e:
         return f"not measured ({e})"
-    fns, dmma, cur = 0, 0, False
+    fns, cur, found = 0, False, {}
+    pat = re.compile(rf"\b({re.escape(opcode)}[\w.]*)")
     for ln in sass.splitlines():
         if "Function :" in ln:
-            cur = "wstream_matmul_kernel" in ln
+            cur = kernel in ln
             fns += cur
-        elif cur and "DMMA" in ln:
-            dmma += 1
-    return f"{dmma} in {fns} wstream_matmul_kernel instances"
+        elif cur and (m := pat.search(ln)):
+            found[m.group(1)] = found.get(m.group(1), 0) + 1
+    return f"{sum(found.values())} {json.dumps(found)} in {fns} {kernel} instances"
 
 
 def main() -> None:
@@ -1018,7 +1061,9 @@ def main() -> None:
     print(f"build: {time.time() - t0:.1f} s ({len(regs)} ptxas lines)")
     for ln in regs:
         print(f"  ptxas {ln}")
-    print(f"sass: DMMA instructions {sass_dmma_count(_lib.library()[0]._name)}", flush=True)
+    so = _lib.library()[0]._name
+    print(f"sass: DMMA instructions {sass_count(so, 'wstream_matmul_kernel', 'DMMA')}", flush=True)
+    print(f"sass: IMMA instructions {sass_count(so, 'lis_attention_qkv_kernel', 'IMMA')}", flush=True)
 
     gen = torch.Generator().manual_seed(args.seed + 1)
 

@@ -1,0 +1,238 @@
+// Per-tile bodies of the cluster attention kernel (csrc/attention_lis.cu,
+// p2v_lis_attention_qkv_fused): one (image, head) of head_dim 64 and N ≤ 256
+// tokens, its query rows split across a cluster of ceil(N/64) CTAs.
+//
+// * QkvPlan: the cluster size, each CTA's 16-row query groups and the
+//   shared-memory layout (ops/attention_lis.py qkv_cluster_plan mirrors it).
+// * scores_mma: q·kᵀ of a CTA's query groups against every key on
+//   mma.sync m16n8k32 s8·s8 (|q·k| ≤ 64·128² < 2^20: exact int32 in any
+//   order, so equal to a dp4a sum), epilogue clip(round(acc·rq)) into an int8
+//   score tile.
+// * lis_weight_rows: one warp per query row reads its scores into the lane
+//   layout of p2v::lis_row (common.cuh, unchanged), and writes each weight
+//   w = 2^(15−q) ∈ {0, 1, …, 2^15} as two u8 planes hi = w >> 8, lo = w & 0xFF
+//   (both ≤ 128), over the score row in place (each lane writes only the
+//   bytes it read).
+// * av_mma: attn@v as 256·(hi·V) + lo·V on mma.sync m16n8k32 u8·s8 against
+//   V transposed (d × keys, keys contiguous: the col B operand). Each partial
+//   sum is ≤ 256·128·128 = 2^22 in magnitude, so av_int is the exact integer
+//   Σ_j w_j·v_j, the scalar shift-accumulate's bit for bit; out =
+//   clip(round(av_int·2^-15·ro)).
+// * softmax_av_rows (LIS off): p2v::softmax_row and the float64 Σ_j p_j·v_j of
+//   attend_rows (attention_rows.cuh), bit for bit, on the score tile and
+//   row-major V: an exact product makes each fma round as attend_rows'
+//   multiply-then-add, and v reaches float64 by integer ops and a DADD.
+//
+// Keys past N carry weight 0 and zero q/k/v codes (padded to a multiple of
+// 32), never garbage.
+#pragma once
+
+#include "attention_rows.cuh"
+
+namespace p2v {
+namespace vit_attn {
+
+constexpr int ROWS_PER_CTA = 64;  // token rows whose q/k/v codes a CTA computes
+constexpr int QGROUP = 16;        // query rows per MMA row tile
+constexpr int KLD = D + 16;       // bytes per K / q row in the gathered tiles (conflict-free fragments)
+constexpr int OWN_BYTES = 3 * ROWS_PER_CTA * D;  // a CTA's own q, k, v tiles (64 B rows)
+
+// The launch plan for N tokens. Byte offsets into dynamic shared memory;
+// the same in every CTA of a cluster, so a peer's tile lies at the same
+// offset of its shared memory.
+struct QkvPlan {
+  int cs;       // CTAs per cluster, ceil(N/64) ≤ 4
+  int groups;   // 16-row query groups, ceil(N/16)
+  int kpad;     // keys padded to a multiple of 32 (the MMA depth)
+  int vld;      // kpad + 16: bytes per row of V transposed, the scores and the weight planes
+  int rows;     // query rows of the CTA with the most groups: 16·ceil(groups/cs)
+  int k_all, v_all, q_mine, w_hi, w_lo, smem;
+
+  // first group and number of groups of CTA r: 16-row groups balanced
+  // across the cluster (13 groups at N = 197 split 4/3/3/3)
+  __host__ __device__ int first_group(int r) const {
+    return r * (groups / cs) + (r < groups % cs ? r : groups % cs);
+  }
+  __host__ __device__ int n_groups(int r) const { return groups / cs + (r < groups % cs ? 1 : 0); }
+};
+
+template <int GEMM_BYTES>
+__host__ __device__ inline QkvPlan qkv_plan(int n) {
+  QkvPlan p;
+  p.cs = (n + ROWS_PER_CTA - 1) / ROWS_PER_CTA;
+  p.groups = (n + QGROUP - 1) / QGROUP;
+  p.kpad = (n + 31) / 32 * 32;
+  p.vld = p.kpad + 16;
+  p.rows = QGROUP * ((p.groups + p.cs - 1) / p.cs);
+  p.k_all = OWN_BYTES;  // the own tiles [0, OWN_BYTES) overlay the GEMM's stages
+  p.v_all = p.k_all + p.kpad * KLD;
+  p.q_mine = p.v_all + D * p.vld;
+  p.w_hi = p.q_mine + p.rows * KLD;  // the score tile, then the hi plane
+  p.w_lo = p.w_hi + p.rows * p.vld;
+  const int end = p.w_lo + p.rows * p.vld;
+  p.smem = end > GEMM_BYTES ? end : GEMM_BYTES;
+  return p;
+}
+
+// 16-byte copies idx = 0 … total−1, four loads in flight per thread before
+// their stores (the loads cross the SM-to-SM network for peer tiles).
+template <class Src, class Dst>
+__device__ __forceinline__ void copy16(int total, Src src, Dst dst) {
+  for (int base = threadIdx.x; base < total; base += 4 * kThreads) {
+    int4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (base + u * kThreads < total) v[u] = *reinterpret_cast<const int4*>(src(base + u * kThreads));
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (base + u * kThreads < total) *reinterpret_cast<int4*>(dst(base + u * kThreads)) = v[u];
+  }
+}
+
+// Scores of ng query groups (q rows qm + r·KLD) against keys [0, kpad) (k
+// rows ka + j·KLD) → int8 attention codes s[r·ld + j]. Warps take
+// (group, 8-key tile) pairs in turn.
+__device__ __forceinline__ void scores_mma(const int8_t* qm, const int8_t* ka, int ng, int kpad, float rq,
+                                           int8_t* s, int ld) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int ntn = kpad / 8;
+  for (int p = warp; p < ng * ntn; p += kThreads / 32) {
+    const int r0 = (p / ntn) * QGROUP, n0 = (p % ntn) * 8;
+    int c[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 32) {
+      const int8_t* qa = qm + (r0 + g) * KLD + kk + 4 * t;
+      const int8_t* kb = ka + (n0 + g) * KLD + kk + 4 * t;
+      const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * KLD), ld32(qa + 16), ld32(qa + 8 * KLD + 16)};
+      const uint32_t b[2] = {ld32(kb), ld32(kb + 16)};
+      mma_s8(c, a, b);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      char2 o;
+      o.x = to_i8(requant(__fmul_rn(__int2float_rn(c[2 * h]), rq), -128.f, 127.f));
+      o.y = to_i8(requant(__fmul_rn(__int2float_rn(c[2 * h + 1]), rq), -128.f, 127.f));
+      *reinterpret_cast<char2*>(s + (r0 + g + 8 * h) * ld + n0 + 2 * t) = o;
+    }
+  }
+}
+
+// A warp's score row (int8 codes s[j], j < n) in lis_row's lane layout.
+__device__ __forceinline__ void load_scores(const int8_t* s, int n, float (&ac)[JT]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int t = 0; t < JT; ++t) {
+    const int j = lane + 32 * t;
+    ac[t] = j < n ? static_cast<float>(s[j]) : 0.f;
+  }
+}
+
+// LIS weights of query rows r = 0 … nrows−1 (global row row0 + r; rows
+// ≥ n get weight 0): scores s[r·ld + j] → hi plane over them in place, lo
+// plane lo[r·ld + j], for keys j < kpad.
+__device__ __forceinline__ void lis_weight_rows(int8_t* s, int8_t* lo, int ld, int nrows, int row0, int n,
+                                                int kpad, const float* __restrict__ scal) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < nrows; r += kThreads / 32) {
+    int wt[JT];
+    if (row0 + r < n) {
+      float ac[JT];
+      load_scores(s + r * ld, n, ac);
+      lis_row<JT>(ac, n, scal[3], scal[4], scal[5], wt);
+    } else {
+#pragma unroll
+      for (int t = 0; t < JT; ++t) wt[t] = 0;
+    }
+#pragma unroll
+    for (int t = 0; t < JT; ++t) {
+      const int j = lane + 32 * t;
+      if (j < kpad) {
+        reinterpret_cast<uint8_t*>(s)[r * ld + j] = static_cast<uint8_t>(wt[t] >> 8);
+        reinterpret_cast<uint8_t*>(lo)[r * ld + j] = static_cast<uint8_t>(wt[t] & 0xFF);
+      }
+    }
+  }
+}
+
+// attn@v of ng query groups: weight planes hi/lo (row r at r·ld) against V
+// transposed (dim d at vt + d·ld), keys [0, kpad). Warp w owns output dims
+// [8w, 8w + 8). Output row r (global row0 + r < n) at out + (row0 + r)·out_ld.
+__device__ __forceinline__ void av_mma(const int8_t* hi, const int8_t* lo, const int8_t* vt, int ld, int ng,
+                                       int kpad, int row0, int n, float ro, int8_t* out, size_t out_ld) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int n0 = 8 * warp;
+  static_assert(D == 8 * (kThreads / 32), "one 8-dim MMA tile per warp");
+  for (int gi = 0; gi < ng; ++gi) {
+    const int r0 = gi * QGROUP;
+    int ch[4] = {0, 0, 0, 0}, cl[4] = {0, 0, 0, 0};
+    for (int kk = 0; kk < kpad; kk += 32) {
+      const int8_t* ah = hi + (r0 + g) * ld + kk + 4 * t;
+      const int8_t* al = lo + (r0 + g) * ld + kk + 4 * t;
+      const int8_t* vb = vt + (n0 + g) * ld + kk + 4 * t;
+      const uint32_t a_hi[4] = {ld32(ah), ld32(ah + 8 * ld), ld32(ah + 16), ld32(ah + 8 * ld + 16)};
+      const uint32_t a_lo[4] = {ld32(al), ld32(al + 8 * ld), ld32(al + 16), ld32(al + 8 * ld + 16)};
+      const uint32_t b[2] = {ld32(vb), ld32(vb + 16)};
+      mma_u8s8(ch, a_hi, b);
+      mma_u8s8(cl, a_lo, b);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + r0 + g + 8 * h;
+      if (row >= n) continue;
+      char2 o;
+      const int a0 = ch[2 * h] * 256 + cl[2 * h], a1 = ch[2 * h + 1] * 256 + cl[2 * h + 1];
+      o.x = to_i8(requant(__fmul_rn(__fmul_rn(__int2float_rn(a0), 0x1p-15f), ro), -128.f, 127.f));
+      o.y = to_i8(requant(__fmul_rn(__fmul_rn(__int2float_rn(a1), 0x1p-15f), ro), -128.f, 127.f));
+      *reinterpret_cast<char2*>(out + row * out_ld + n0 + 2 * t) = o;
+    }
+  }
+}
+
+// The exact double of an int8 code given as its byte: 2^52 + (byte ^ 0x80)
+// is exact, and so is subtracting 2^52 + 128 (an integer add and a DADD, not
+// a quarter-rate int → double conversion).
+__device__ __forceinline__ double i8_to_f64(uint32_t byte) {
+  return __dsub_rn(__hiloint2double(0x43300000, static_cast<int>((byte & 0xFFu) ^ 0x80u)), 4503599627370624.0);
+}
+
+// LIS off: query rows r < nrows with global row row0 + r < n: the scores
+// s[r·ld + j] → p2v::softmax_row → Σ_j p_j·v_j in float64 over row-major v
+// rows (v + j·D, zeros from n to the next multiple of 32), keys in order,
+// as attend_rows. Each product p_j·v_j is
+// exact in float64 (24 + 8 bits), so fma(p_j, v_j, a) rounds exactly as
+// attend_rows' a + p_j·v_j; p_j goes to double once, by the lane that holds
+// it. Output row at out + (row0 + r)·out_ld.
+__device__ __forceinline__ void softmax_av_rows(const int8_t* s, int ld, const int8_t* v, int nrows, int row0,
+                                                int n, const float* __restrict__ scal, int8_t* out,
+                                                size_t out_ld) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float s_attn = scal[1], ro = scal[2];
+  for (int r = warp; r < nrows && row0 + r < n; r += kThreads / 32) {
+    float ac[JT], p[JT];
+    load_scores(s + r * ld, n, ac);
+    softmax_row<JT>(ac, n, s_attn, p);
+    double a0 = 0.0, a1 = 0.0;
+#pragma unroll
+    for (int t = 0; t < JT; ++t) {
+      if (32 * t >= n) break;
+      // keys 32t … 32t + 31, unrolled: past n, p = 0 and the v rows are
+      // zeros, and a + (+0) = a (a is never −0), so the sum is attend_rows'
+      const double pt = static_cast<double>(p[t]);
+      const int8_t* vt = v + 32 * t * D + 2 * lane;
+#pragma unroll
+      for (int src = 0; src < 32; ++src) {
+        const double pj = __shfl_sync(0xffffffffu, pt, src);
+        const uint32_t v2 = *reinterpret_cast<const uint16_t*>(vt + src * D);
+        a0 = __fma_rn(pj, i8_to_f64(v2), a0);
+        a1 = __fma_rn(pj, i8_to_f64(v2 >> 8), a1);
+      }
+    }
+    char2 o;
+    o.x = to_i8(requant(__fmul_rn(__double2float_rn(a0), ro), -128.f, 127.f));
+    o.y = to_i8(requant(__fmul_rn(__double2float_rn(a1), ro), -128.f, 127.f));
+    *reinterpret_cast<char2*>(out + (row0 + r) * out_ld + 2 * lane) = o;
+  }
+}
+
+}  // namespace vit_attn
+}  // namespace p2v

@@ -99,6 +99,16 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], cons
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// The same shape with an unsigned A operand (u8 × s8, sm_80+): the LIS
+// weight planes of the qkv-fused attention against its v codes.
+__device__ __forceinline__ void mma_u8s8(int (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // c += a·b on the float64 tensor cores, one 16×8×16 product per warp
 // (sm_90 m16n8k16 fragments, g = lane/4, t = lane%4: lo[q] = A[g][t + 4q],
 // hi[q] = A[g + 8][t + 4q], b[q] = B[t + 4q][g]; c_lo = C[g][2t + {0, 1}],

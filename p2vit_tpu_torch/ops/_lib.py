@@ -40,6 +40,8 @@ SIGNATURES = {
     "p2v_int8_matmul_requant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "p2v_int8_matmul_res_ln": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "p2v_lis_attention_qkv_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "p2v_lis_attention_qkv_fused_timed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "p2v_lis_attention_qkv_info": [_I, _I, _P],
     "p2v_lis_attention_fused": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "p2v_lis_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "p2v_fused_patch_embed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -38,15 +38,28 @@ expression, and the two agree bit for bit. JAX sums in float32 in its own
 order and its float32 ``exp`` is not correctly rounded, so against JAX the
 LIS-off arm is held to |Δcode| ≤ 1 on a stated share of codes.
 
-CUDA kernels (``csrc/attention_lis.cu``, head_dim 64, N ≤ 256, one block per
-(image, head), q/k/v rows in shared memory, warps own query rows: dp4a
-scores, then ``p2v::lis_row`` and the shift-accumulate, or
-``p2v::softmax_row`` and the float64 attn@v, in one per-row body) replace
-the Pallas kernels ``lis_attention_qkv_fused`` (``_qkv_fused_kernel``, the
-head's qkv columns computed with ``mma.sync`` int8 tiles into shared memory,
-42 KB at DeiT-S), ``lis_attention_fused`` (``_fused_kernel``) and
-``lis_attention`` (``_kernel``). Bound on the card: the per-score softmax
-chain and shared-memory reads, not the tensor cores.
+CUDA kernels (``csrc/attention_lis.cu``, head_dim 64, N ≤ 256) replace the
+Pallas kernels ``lis_attention_qkv_fused`` (``_qkv_fused_kernel``),
+``lis_attention_fused`` (``_fused_kernel``) and ``lis_attention``
+(``_kernel``).
+
+The qkv-fused kernel runs one thread-block cluster per (image, head) of
+ceil(N/64) CTAs (``qkv_cluster_plan``). CTA r computes the head's q/k/v
+codes of token rows [64r, 64r + 64) with ``mma.sync`` int8 into its own
+shared memory; the CTAs then copy the whole head's K and V (V transposed)
+and their query rows out of each other's shared memory (distributed shared
+memory), so no qkv code goes through HBM. Each CTA attends its share of the
+16-row query groups: q·kᵀ on int8 ``mma.sync`` (exact int32 sums, so equal
+to any order), ``p2v::lis_row`` per row, and attn@v on u8·s8 ``mma.sync``
+over the LIS weights split into two byte planes, w = 256·hi + lo with
+hi = w >> 8 and lo = w & 0xFF both ≤ 128, which keeps the integer sum
+exact. LIS off keeps ``p2v::softmax_row`` and the scalar float64 attn@v.
+What bounds it on the H100: the per-row LIS chain, about half of a CTA's
+time, and the qkv GEMM on ``mma.sync``, about a third (``phase_ns``); LIS
+off, the float64 attn@v. The other two kernels run one block per (image,
+head) over q/k/v rows copied into shared memory, warps owning query rows:
+dp4a scores, then ``p2v::lis_row`` and the shift-accumulate, or
+``p2v::softmax_row`` and the float64 attn@v (``attend_rows``).
 
 CUDA kernels (``csrc/swin_attention.cu``) replace the Pallas kernels
 ``p2vit_tpu/ops/attention_lis.py:swin_lis_attention`` (``_swin_kernel`` →
@@ -65,9 +78,12 @@ neither the kernels nor the plain versions pad.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+
 import torch
 
-from ._lib import check_cuda_operand, device_of, f32_scalars, f32_vec, launch
+from ._lib import check_cuda_operand, device_of, f32_scalars, f32_vec, launch, library
 from .fastmath import exp2i, exp_rn, floor_log2i
 from .matmul_int8 import int8_matmul_requant_plain
 
@@ -278,9 +294,73 @@ def lis_attention_qkv_fused_plain(h_q, w_q, requant_vec, bias_vec, num_heads,
                                      out_requant, lis_bits, lis)
 
 
+ROWS_PER_CTA = 64  # token rows whose q/k/v codes one CTA of the cluster computes
+QGROUP = 16  # query rows per MMA row tile
+GEMM_STAGE_BYTES = 2 * (64 + 3 * HEAD_DIM) * 80  # Gemm<64, 192>'s two cp.async stages
+MAX_SMEM = 232_448  # dynamic shared memory one CTA may use on the H100
+
+
+@dataclasses.dataclass(frozen=True)
+class QkvClusterPlan:
+    """The qkv-fused kernel's launch for N tokens (``csrc/attention_mma.cuh``
+    ``QkvPlan``, which the kernel computes itself from N)."""
+
+    cluster: int  # CTAs per (image, head) cluster, ceil(N/64)
+    groups: tuple  # (first 16-row query group, number of groups) of each CTA
+    kpad: int  # keys padded to a multiple of 32 (the MMA depth), zeros past N
+    smem_bytes: int  # dynamic shared memory per CTA
+
+
+def qkv_cluster_plan(n: int, c_in: int) -> QkvClusterPlan:
+    """Cluster size, query groups per CTA and shared memory of the
+    qkv-fused kernel at N tokens and C_in input channels; raises where the
+    kernel does not take them (N > 256, C_in % 16, shared memory).
+
+    The ceil(N/16) query groups are balanced across the cluster (4/3/3/3 at
+    N = 197). Shared memory: the CTA's own q/k/v tiles (3·64·64 B), then K
+    (kpad rows of 80 B), V transposed (64 rows of kpad + 16 B), the CTA's
+    q rows (80 B each) and two planes of scores and weights (kpad + 16 B a
+    row); the own tiles and what follows overlay the GEMM's stages."""
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"qkv-fused attention kernel needs 1 <= N <= {MAX_N}; got N={n}")
+    if c_in % 16:
+        raise ValueError(f"qkv-fused attention kernel needs C_in % 16 == 0; got C_in={c_in}")
+    cluster = -(-n // ROWS_PER_CTA)
+    groups = -(-n // QGROUP)
+    kpad = -(-n // 32) * 32
+    vld = kpad + 16
+    rows = QGROUP * -(-groups // cluster)
+    own = 3 * ROWS_PER_CTA * HEAD_DIM
+    smem = max(GEMM_STAGE_BYTES,
+               own + kpad * (HEAD_DIM + 16) + HEAD_DIM * vld + rows * (HEAD_DIM + 16) + 2 * rows * vld)
+    if smem > MAX_SMEM:
+        raise ValueError(f"qkv-fused attention kernel needs {smem} B of shared memory per CTA "
+                         f"at N={n}, above the card's {MAX_SMEM}")
+    q, rem = divmod(groups, cluster)
+    spans = tuple((r * q + min(r, rem), q + (1 if r < rem else 0)) for r in range(cluster))
+    return QkvClusterPlan(cluster, spans, kpad, smem)
+
+
+def qkv_kernel_info(n: int, lis: bool = True) -> dict:
+    """The built qkv-fused kernel's launch facts at N tokens, from the CUDA
+    runtime: CTAs per cluster, shared memory per CTA, registers and spill
+    bytes per thread, the clusters the card can hold at once and CTAs per SM.
+    Needs the card."""
+    lib, _ = library()
+    info = (ctypes.c_int * 6)()
+    rc = lib.p2v_lis_attention_qkv_info(int(n), int(bool(lis)), ctypes.cast(info, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"p2v_lis_attention_qkv_info: CUDA error {rc}: {lib.p2v_error_string(rc).decode()}")
+    keys = ("cluster", "smem_bytes", "registers", "spill_bytes", "max_active_clusters", "ctas_per_sm")
+    return dict(zip(keys, list(info)))
+
+
+QKV_PHASES = ("qkv GEMM", "K/V/q copy", "scores", "LIS weights", "attn@v")
+
+
 def lis_attention_qkv_fused(h_q, w_q, requant_vec, bias_vec, num_heads,
                             score_requant, attn_scale, out_requant,
-                            lis_bits=4, lis=True):
+                            lis_bits=4, lis=True, phase_ns=None):
     """qkv projection + attention over the attention input codes.
 
     Args:
@@ -291,7 +371,13 @@ def lis_attention_qkv_fused(h_q, w_q, requant_vec, bias_vec, num_heads,
     Returns (B, N, C) int8 codes of the qact2 node, bit for bit those of
     ``int8_matmul_requant`` followed by ``lis_attention_fused``. CPU tensors
     take the plain version; CUDA tensors launch the kernel (head_dim 64,
-    C_in % 16 == 0, N ≤ 256) or raise.
+    C_in % 16 == 0, N ≤ 256; ``qkv_cluster_plan``) or raise. w_q may be a
+    tensor-parallel shard's, with C_out = 64·num_heads ≠ C_in.
+    ``phase_ns``: a (6,) int64 CUDA tensor that receives the %globaltimer
+    (ns) of one CTA (rank 0 of the middle cluster) at its start and after
+    each of
+    ``QKV_PHASES`` (LIS off: the softmax and attn@v rows end at the fifth
+    stamp, and the sixth repeats it); a measurement hook.
     """
     dev = device_of(h_q, w_q)
     if dev.type == "cpu":
@@ -304,15 +390,20 @@ def lis_attention_qkv_fused(h_q, w_q, requant_vec, bias_vec, num_heads,
     check_cuda_operand(h_q, "h_q", torch.int8)
     check_cuda_operand(w_q, "w_q", torch.int8, (c3, c_in))
     _check_lis_bits(lis, lis_bits)
-    if c3 != 3 * c or c != HEAD_DIM * num_heads or c_in % 16 or n > MAX_N:
-        raise ValueError(f"attention kernel needs head_dim {HEAD_DIM}, C_in % 16 == 0 and "
-                         f"N <= {MAX_N}; got C={c}, heads={num_heads}, C_in={c_in}, N={n}")
+    if c3 != 3 * c or c != HEAD_DIM * num_heads:
+        raise ValueError(f"attention kernel needs head_dim {HEAD_DIM}; got C={c}, heads={num_heads}")
+    qkv_cluster_plan(n, c_in)
     scal = _vit_scalars(score_requant, attn_scale, out_requant, dev)
     r = f32_vec(requant_vec, c3, dev)
     bias = f32_vec(bias_vec, c3, dev)
     out = torch.empty((b, n, c), dtype=torch.int8, device=dev)
-    launch("p2v_lis_attention_qkv_fused", h_q, w_q, r, bias, scal, out,
-           b, n, c_in, c, num_heads, int(bool(lis)))
+    if phase_ns is None:
+        launch("p2v_lis_attention_qkv_fused", h_q, w_q, r, bias, scal, out,
+               b, n, c_in, c, num_heads, int(bool(lis)))
+    else:
+        check_cuda_operand(phase_ns, "phase_ns", torch.int64, (6,))
+        launch("p2v_lis_attention_qkv_fused_timed", h_q, w_q, r, bias, scal, out,
+               b, n, c_in, c, num_heads, int(bool(lis)), phase_ns)
     lis_attention_qkv_fused.launches += 1
     return out
 

@@ -80,17 +80,55 @@ def test_int8_matmul_res_ln_kernel(dev, k):
     _same(matmul_ln.int8_matmul_res_ln(*args), matmul_ln.int8_matmul_res_ln_plain(*args))
 
 
+# (B, N, C_in, C_out, heads): the cluster's edges (N = 5: one CTA and one
+# query group; 64: exactly one tile; 65: one row over; 197: DeiT's 4/3/3/3
+# groups; 256: the maximum), a tensor-parallel shard (C_out ≠ C_in) and the
+# DeiT-B width
+QKV_SHAPES = [(3, 5, 384, 384, 6), (3, 64, 384, 384, 6), (3, 65, 384, 384, 6), (3, 197, 384, 384, 6),
+              (3, 256, 384, 384, 6), (2, 197, 384, 192, 3), (2, 197, 768, 768, 12)]
+
+
 @pytest.mark.parametrize("lis", [True, False])
 @pytest.mark.parametrize("s_attn", [2.0**-11, 2.0**-5])
-def test_lis_attention_qkv_fused_kernel(dev, s_attn, lis):
-    rng = np.random.RandomState(2)
-    b, n, c, heads = 3, 197, 384, 6
-    h, w = _i8(rng, (b, n, c)).to(dev), _i8(rng, (3 * c, c)).to(dev)
-    rv = _pot(rng, 3 * c, -13, -10).to(dev)
+@pytest.mark.parametrize("shape", QKV_SHAPES, ids=lambda s: "b{}n{}cin{}cout{}h{}".format(*s))
+def test_lis_attention_qkv_fused_kernel(dev, shape, s_attn, lis):
+    b, n, c_in, c, heads = shape
+    rng = np.random.RandomState(2 + n + c_in + c)
+    h, w = _i8(rng, (b, n, c_in)).to(dev), _i8(rng, (3 * c, c_in)).to(dev)
+    rv = _pot(rng, 3 * c, -14 if c_in > 384 else -13, -10).to(dev)
     bv = torch.from_numpy(rng.randn(3 * c).astype(np.float32)).to(dev)
     a = (h, w, rv, bv, heads, 2.0**-12, s_attn, 0.5)
     _same(attention_lis.lis_attention_qkv_fused(*a, lis=lis),
           attention_lis.lis_attention_qkv_fused_plain(*a, lis=lis))
+
+
+@pytest.mark.parametrize("lis", [True, False])
+@pytest.mark.parametrize("n", [5, 64, 65, 197, 256])
+def test_lis_attention_qkv_fused_plan_matches_kernel(dev, n, lis):
+    """The CUDA runtime's view of the cluster kernel agrees with the Python
+    launch plan (cluster size, shared memory), and the card can hold it."""
+    plan = attention_lis.qkv_cluster_plan(n, 384)
+    info = attention_lis.qkv_kernel_info(n, lis)
+    assert info["cluster"] == plan.cluster and info["smem_bytes"] == plan.smem_bytes
+    assert info["max_active_clusters"] >= 1 and info["ctas_per_sm"] >= 1
+    with pytest.raises(ValueError, match="N <= 256"):
+        attention_lis.qkv_cluster_plan(257, 384)
+
+
+@pytest.mark.parametrize("lis", [True, False])
+def test_lis_attention_qkv_fused_phase_hook(dev, lis):
+    """The measurement hook: the same codes, one counted launch, and the
+    stamped CTA's six stamps in order."""
+    rng = np.random.RandomState(7)
+    h, w = _i8(rng, (2, 197, 384)).to(dev), _i8(rng, (1152, 384)).to(dev)
+    a = (h, w, _pot(rng, 1152, -13, -10).to(dev), torch.zeros(1152, device=dev), 6, 2.0**-12, 2.0**-5, 0.5)
+    stamps = torch.zeros(6, dtype=torch.int64, device=dev)
+    before = attention_lis.lis_attention_qkv_fused.launches
+    _same(attention_lis.lis_attention_qkv_fused(*a, lis=lis, phase_ns=stamps),
+          attention_lis.lis_attention_qkv_fused_plain(*a, lis=lis))
+    assert attention_lis.lis_attention_qkv_fused.launches == before + 1
+    st = stamps.cpu()
+    assert int(st[0]) > 0 and bool((st[1:] >= st[:-1]).all())
 
 
 @pytest.mark.parametrize("lis", [True, False])
