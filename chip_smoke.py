@@ -45,8 +45,10 @@ weight-only serving of both models and the two weight-store GEMM tools:
   ``torch.matmul`` over the same codes, its TFLOP/s and share of the float64
   tensor-core peak (fc1 at M = 12608, and per chain), and its blocks at
   M = 197. After the build, the DMMA instructions in the built
-  ``wstream_matmul`` kernels and the IMMA instructions in the cluster
-  attention kernel (``cuobjdump -sass``, report only).
+  ``wstream_matmul`` kernels, the IMMA instructions in the cluster
+  attention kernel, and the warpgroup-MMA (IGMMA) and TMA-load (UTMALDG)
+  instructions in the Hopper ``int8_matmul_requant`` kernels
+  (``cuobjdump -sass``, report only).
 
 Phases of the int8 serving paths, one line each, per path:
 
@@ -88,7 +90,14 @@ Phases of the int8 serving paths, one line each, per path:
      memory per CTA, CTAs per SM, resident clusters), the five phases of
      one CTA in the middle of the launch and its ms per forward beside the
      staged pair on the same arguments (the qkv ``int8_matmul_requant``
-     then ``lis_attention_fused``).
+     then ``lis_attention_fused``). A path that runs ``int8_matmul_requant``
+     prints its device ms per forward summed over all the kernel's
+     instances (one per tile width), and each of its shapes a launch line: its plan (tile width BN, consumer warpgroups,
+     ring stages, tiles, persistent grid), shared memory, registers at
+     launch and per consumer after ``setmaxnreg``, spill bytes and CTAs per
+     SM from the CUDA runtime, its time on one tile per CTA (no persistent
+     ring), and ``torch._int_mm``'s time for the int32 product alone (a
+     reference: not the same function, so ``library_ms`` stays null).
 
 Then the card's name and power limit, one JSON line of per-kernel results
 (``launches`` summed over the paths' phase-2 runs, ``ms``/``plain_ms``/
@@ -198,7 +207,7 @@ def _device_ms(fn, reps: int):
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
     if not by_name:
         return None, None, {}
-    port = sum(v for k, v in by_name.items() if "anonymous namespace" in k)  # the csrc kernels
+    port = sum(v for k, v in by_name.items() if "anonymous namespace" in k or "p2v::" in k)  # the csrc kernels
     return sum(by_name.values()), port, by_name
 
 
@@ -472,6 +481,10 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
               flush=True)
         for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             print(f"{path.name} phase 5 batch {bt} device ms/forward {t:.4f} {name[:110]}")
+        if "int8_matmul_requant" in path.kernels:
+            req = sum(t for name, t in by_name.items() if "requant_kernel<" in name)
+            print(f"{path.name} phase 5 batch {bt} device ms/forward int8_matmul_requant, all its instances: "
+                  f"{req:.4f}", flush=True)
     summary = {"ms": ms, "f32_ms": times.get("int8 kernels, float32 input", ms), "device_ms": dev_ms,
                "other_ms": None if dev_ms is None else dev_ms - port_ms}
     results = {}
@@ -490,6 +503,9 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
             if name == "lis_attention_qkv_fused":
                 print(f"{path.name} phase 5 kernel lis_attention_qkv_fused cluster: "
                       f"{_qkv_cluster_report(ops, a, k, count, reps)}", flush=True)
+            if name == "int8_matmul_requant":
+                print(f"{path.name} phase 5 kernel int8_matmul_requant launch: "
+                      f"{_requant_launch_report(ops, a, k, t_k, reps)}", flush=True)
             k_ms += t_k * count
             p_ms += t_p * count
             by[b_by] += b_ms * count
@@ -541,6 +557,27 @@ def _qkv_cluster_report(ops, a, k, count, reps):
             f"{info['registers']} registers ({info['spill_bytes']} B spilled), {info['ctas_per_sm']} CTAs per SM, "
             f"max active clusters {info['max_active_clusters']}; {'; '.join(parts)} (x{count}); "
             f"the middle cluster's rank-0 CTA's phases (us, mean of 5 calls): {phases}")
+
+
+def _requant_launch_report(ops, a, k, t_k, reps):
+    """The int8 kernel's plan and launch facts at one shape (CUDA runtime),
+    its time on one tile per CTA (the grid hook: no persistent ring), and
+    ``torch._int_mm``'s time for the int32 product alone (not the same
+    function: a reference, not ``library_ms``)."""
+    mi = ops.matmul_int8
+    x, w = a[0], a[1]
+    (m, kk), n = x.shape, w.shape[0]
+    gelu = bool(k.get("gelu", a[7] if len(a) > 7 else False))
+    info = mi.requant_kernel_info(m, n, kk, gelu)
+    tiles = info["tiles_m"] * info["tiles_n"]
+    one = _time_ms(lambda: mi.int8_matmul_requant_grid(*a, **k, grid=tiles), reps)
+    wt = w.t()
+    int_mm = f"{_time_ms(lambda: torch._int_mm(x, wt), reps):.4f} ms" if m > 16 else "not measured (M <= 16)"
+    return (f"BN {info['bn']}, {info['nc']} consumer warpgroups, {info['stages']} stages, {tiles} tiles on a "
+            f"persistent grid of {info['grid']} CTAs ({info['ctas_per_sm']} per SM of {info['sms']}), "
+            f"{info['smem_bytes']} B shared memory, {info['registers']} registers at launch, "
+            f"{info['consumer_registers']} per consumer thread, {info['spill_bytes']} B spilled; "
+            f"{t_k:.4f} ms per call, one tile per CTA {one:.4f} ms, torch._int_mm {int_mm}")
 
 
 def _img_s(bt, ms):
@@ -1064,6 +1101,8 @@ def main() -> None:
     so = _lib.library()[0]._name
     print(f"sass: DMMA instructions {sass_count(so, 'wstream_matmul_kernel', 'DMMA')}", flush=True)
     print(f"sass: IMMA instructions {sass_count(so, 'lis_attention_qkv_kernel', 'IMMA')}", flush=True)
+    for op in ("IGMMA", "UTMALDG"):
+        print(f"sass: {op} instructions {sass_count(so, 'wg14requant_kernel', op)}", flush=True)
 
     gen = torch.Generator().manual_seed(args.seed + 1)
 

@@ -6,7 +6,8 @@
 // * the Log-Int-Softmax row chain of both attention kernels, as
 //   ops/attention_lis.py lis_codes, and the LIS-off fp32 softmax row;
 // * Gemm: a tiled int8 x int8 -> int32 matrix product on mma.sync.m16n8k32,
-//   shared by the five GEMM kernels; its B operand comes from int8 rows or,
+//   shared by the mma.sync GEMM kernels (the int8 requant matmul runs on
+//   wgmma instead, gemm_wgmma.cuh); its B operand comes from int8 rows or,
 //   for the int4 kernel, from a nibble-packed store (PackedInt4Rows).
 //
 // Every float32 operation that a plain PyTorch version rounds on its own is

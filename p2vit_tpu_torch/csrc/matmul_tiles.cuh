@@ -1,7 +1,8 @@
-// Per-tile bodies of the int8 and int4 matmul kernels (csrc/matmul_int8.cu,
-// csrc/matmul_ln.cu), shared with the fused encoder layer
-// (csrc/layer_fused.cu): each path runs the same arithmetic, so the fused
-// layer equals the four-kernel path bit for bit by construction.
+// Per-tile bodies of the int4 matmul and the junction kernels
+// (csrc/matmul_int8.cu, csrc/matmul_ln.cu), shared with the fused encoder
+// layer (csrc/layer_fused.cu): each path runs the same arithmetic, so the
+// fused layer equals the four-kernel path bit for bit by construction. The
+// int8 Hopper kernel (gemm_wgmma.cuh) runs requant_epilogue's float chain.
 #pragma once
 
 #include "common.cuh"

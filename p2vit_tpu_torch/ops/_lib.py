@@ -38,6 +38,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argument types (pointers and the stream as void*)
 SIGNATURES = {
     "p2v_int8_matmul_requant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "p2v_int8_matmul_requant_grid": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "p2v_int8_matmul_requant_info": [_I, _I, _I, _I, _P],
+    "p2v_requant_rint_check": [_I, _I, _P, _P],
     "p2v_int8_matmul_res_ln": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "p2v_lis_attention_qkv_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "p2v_lis_attention_qkv_fused_timed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],

@@ -7,31 +7,47 @@ int4-packed weight store (counterpart of ``p2vit_tpu/ops/matmul_int8.py``).
 with acc = Σ_k x[m,k]·w[n,k] exact in int32, and GELU the erf form with the
 Abramowitz & Stegun 7.1.26 erf of the JAX kernel (not ``erff``).
 
-CUDA kernel (``csrc/matmul_int8.cu``) replaces the Pallas kernel
-``p2vit_tpu/ops/matmul_int8.py:int8_matmul_requant`` (``_kernel``). On the
-main path it runs fc1+GELU (M = B·197, N = 1536, K = 384) and the head
-(M = B, N = 1000, K = 384). Bound on the card: int8 tensor-core throughput
-for fc1 at batch ≥ 8 (2·M·N·K operations against M·K + N·K + M·N bytes);
-the head is launch-bound. Design: 128×128 output tiles, 8 warps of
-``mma.sync.m16n8k32`` s8×s8→s32, K staged in 64-byte slices through
-shared memory, edges masked (no padding copies), and the epilogue applied to
-the accumulator registers before the one int8 store.
+CUDA kernel (``csrc/matmul_int8.cu`` over ``csrc/gemm_wgmma.cuh``) replaces
+the Pallas kernel ``p2vit_tpu/ops/matmul_int8.py:int8_matmul_requant``
+(``_kernel``). On the default paths it runs DeiT-S's fc1+GELU (M = B·197,
+N = 1536, K = 384) and head, and Swin-T's qkv, proj, fc1+GELU, the plain
+fc2s, the PatchMerging reductions and the head (N = 96 … 3072, K = 96 …
+1536). Bound on the card: the bytes of x and out at Swin's narrow layers,
+and at fc1 the GELU epilogue (~128 instructions an element, its float64
+``exp`` about half: issue-bound); the int8 products are cheap. Design
+(Hopper): a persistent grid of one CTA per SM, a producer thread that
+TMA-loads 64 x rows and BN w rows (128 bytes of K, 128-byte swizzle, zeros
+past the edges) into an mbarrier ring, and consumer warpgroups that take the
+CTA's 64 × BN tiles in turn, each running ``wgmma`` s8·s8→s32 then its
+epilogue while the others issue their products; the int8 tile goes out
+through shared memory in 16-byte stores. Plain tiles: BN sized to N, two
+consumers, the epilogue on the accumulator registers. GELU tiles: BN 64,
+six consumers, the epilogue from the int32 tile in shared memory in a
+rolled loop. ``requant_plan`` gives the plan as the C entry computes it.
+The rounding is ``clip`` then ``+ 1.5·2^23`` (no conversion instruction),
+equal to the plain version's round-then-clip for every float32
+(``requant_rint_check`` proves it on the card).
 
 ``int4_matmul_requant`` (the same CUDA source) replaces the Pallas kernel
 ``p2vit_tpu/ops/matmul_int8.py:int4_matmul_requant`` (``_packed_kernel``):
 the weights come as ``pack_int4``'s store, two int4 codes per byte (half the
-bytes). The kernel unpacks each 16-code chunk of a B row into the same int8
-shared-memory stage and runs the int8 kernel's tile and epilogue; the
-accumulation is exact, so kernel, plain version (unpack, then
-``int8_matmul_requant_plain``) and JAX kernel agree bit for bit. Bound on
-the card: the weight bytes only at small M; the int8 products above.
+bytes). The kernel unpacks each 16-code chunk of a B row into the int8
+shared-memory stage of the ``mma.sync`` tile of ``csrc/matmul_tiles.cuh``
+(the fused layer's) and runs its epilogue; the accumulation is exact, so
+kernel, plain version (unpack, then ``int8_matmul_requant_plain``) and JAX
+kernel agree bit for bit. Bound on the card: the weight bytes only at small
+M; the int8 products above.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
+
 import torch
 
-from ._lib import check_cuda_operand, device_of, f32_scalars, f32_vec, launch
+from ._lib import check_cuda_operand, device_of, f32_scalars, f32_vec, launch, library
 from .fastmath import exp_rn
 
 # A&S 7.1.26 coefficients, as float32 like the JAX kernel's weak-typed consts
@@ -79,6 +95,145 @@ def int8_matmul_requant_plain(x_q, w_q, requant_scale, bias_scaled, out_inv=1.0,
     )
 
 
+# The Hopper kernel's tiling (csrc/gemm_wgmma.cuh, p2v::wg)
+TILE_M = 64  # output rows per consumer tile: one m64 wgmma
+TILE_K = 128  # K bytes per ring stage: the 128-byte swizzle span
+# (BN, consumer warpgroups per CTA) built, BN a legal m64nNk32 width; the
+# GELU epilogue runs from an int32 tile in shared memory: narrow tiles, many
+# consumers
+WIDTHS = ((256, 2), (192, 2), (144, 2), (128, 2), (96, 2))
+GELU_WIDTHS = ((64, 6),)
+MAX_STAGES = 8
+MAX_SMEM = 232_448  # dynamic shared memory one block may use
+MAX_CODE = 2 ** 22  # |qmin|, |qmax| bound of the kernel's rounding (p2v::wg::rint_clip)
+
+
+@dataclasses.dataclass(frozen=True)
+class RequantPlan:
+    """Launch plan of the int8 kernel (``p2v::wg::RequantPlan``)."""
+
+    bn: int  # tile width
+    nc: int  # consumer warpgroups per CTA (128·(nc + 1) threads)
+    stages: int  # ring stages of (64 + bn)·128 bytes
+    tiles_m: int
+    tiles_n: int
+    grid: int  # persistent CTAs, min(SMs, tiles)
+    smem_bytes: int
+
+    @property
+    def tiles(self) -> int:
+        return self.tiles_m * self.tiles_n
+
+    def tile(self, t: int) -> tuple:
+        """Output origin (m0, n0) of tile t: M-outer, N-inner."""
+        return (t // self.tiles_n) * TILE_M, (t % self.tiles_n) * self.bn
+
+    def walk(self):
+        """Every tile as the kernel takes it: (CTA, consumer warpgroup, the
+        tile's index in the CTA, tile). CTA c takes tiles c, c + grid, …;
+        its consumers take them in turn; the i-th tile's K slices fill ring
+        positions i·⌈K/128⌉ onwards."""
+        for c in range(self.grid):
+            for i, t in enumerate(range(c, self.tiles, self.grid)):
+                yield c, i % self.nc, i, t
+
+
+def requant_smem(bn: int, nc: int, stages: int, gelu: bool) -> int:
+    """Alignment slack, ring, a 64 × (bn + 16) output tile and r and b per
+    consumer, with GELU a 64 × (bn + 8) int32 accumulator tile per consumer,
+    a full and an empty barrier per stage, an order barrier per consumer."""
+    return (1024 + stages * (TILE_M + bn) * TILE_K + nc * TILE_M * (bn + 16) + nc * 8 * bn
+            + (nc * TILE_M * (bn + 8) * 4 if gelu else 0) + 16 * stages + 8 * nc)
+
+
+@functools.lru_cache(maxsize=256)
+def requant_plan(m: int, n: int, k: int, sms: int, gelu: bool = False) -> RequantPlan:
+    """The int8 kernel's plan at (M, N, K) on ``sms`` SMs, as the C entry
+    computes it; raises where the kernel does not run (K ≤ 0 or K % 16, the
+    TMA row stride; M or N outside the int32 coordinates; no SM).
+
+    BN is the width of ``WIDTHS`` (``GELU_WIDTHS``) that wastes the fewest
+    columns, ⌈N/BN⌉·BN − N, the widest on a tie (96 → 96, 288 → 144,
+    1536 → 256, 1000 → 144 with an 8-column masked edge); the ring takes as
+    many stages as shared memory holds, up to ``MAX_STAGES``."""
+    if k <= 0 or k % 16:
+        raise ValueError(f"int8_matmul_requant kernel needs K % 16 == 0 and K > 0, got K={k}")
+    if not (0 <= m < 2 ** 31 and 0 <= n < 2 ** 31):
+        raise ValueError(f"int8_matmul_requant kernel needs 0 <= M, N < 2^31, got M={m}, N={n}")
+    if sms < 1:
+        raise ValueError(f"int8_matmul_requant kernel needs at least one SM, got {sms}")
+    bn, nc = min(GELU_WIDTHS if gelu else WIDTHS, key=lambda w: (-(-n // w[0]) * w[0] - n, -w[0]))
+    stages = min(MAX_STAGES, (MAX_SMEM - requant_smem(bn, nc, 0, gelu)) // ((TILE_M + bn) * TILE_K + 16))
+    tiles_m, tiles_n = -(-m // TILE_M), -(-n // bn)
+    return RequantPlan(bn, nc, stages, tiles_m, tiles_n, min(sms, tiles_m * tiles_n),
+                       requant_smem(bn, nc, stages, gelu))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def requant_kernel_info(m: int, n: int, k: int, gelu: bool = False) -> dict:
+    """The built int8 kernel's launch facts at (M, N, K) from the CUDA
+    runtime: the plan, registers and spill bytes per thread, CTAs per SM and
+    SMs. Needs the card."""
+    lib, _ = library()
+    info = (ctypes.c_int * 12)()
+    rc = lib.p2v_int8_matmul_requant_info(int(m), int(n), int(k), int(bool(gelu)),
+                                          ctypes.cast(info, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"p2v_int8_matmul_requant_info: CUDA error {rc}: {lib.p2v_error_string(rc).decode()}")
+    keys = ("bn", "nc", "stages", "tiles_m", "tiles_n", "grid", "smem_bytes", "registers", "spill_bytes",
+            "consumer_registers", "ctas_per_sm", "sms")
+    return dict(zip(keys, list(info)))
+
+
+def requant_rint_check(qmin: int, qmax: int, device=None) -> int:
+    """The kernel's rounding (``p2v::wg::rint_clip``: clip, then round by
+    adding 1.5·2^23) against the plain rintf-then-clip, over all 2^32 float32
+    bit patterns at [qmin, qmax], on the card; returns the floats whose codes
+    differ."""
+    bad = torch.zeros(1, dtype=torch.int64, device=device or torch.device("cuda", torch.cuda.current_device()))
+    launch("p2v_requant_rint_check", qmin, qmax, bad)
+    return int(bad.item())
+
+
+def _requant_args(x_q, w_q, requant_scale, bias_scaled, out_inv, gelu, qmin, qmax):
+    """Checked CUDA launch arguments of the int8 kernel, (x, w, r, b, scalars,
+    out); raises where it does not run (``requant_plan``; |qmin|, |qmax| ≤
+    2^22). Rows of K bytes with K % 32 ≠ 0 are padded with zero codes to the
+    next multiple of 32 (zeros add nothing to the exact sum): TMA loads such
+    rows slowly, and the int stem's K = 48 took over twice K = 96's time at
+    the same M and N (``tools/requant_bench.py``)."""
+    dev = x_q.device
+    if max(abs(qmin), abs(qmax)) > MAX_CODE:
+        raise ValueError(f"int8_matmul_requant kernel needs |qmin|, |qmax| <= 2^22, got [{qmin}, {qmax}]")
+    m, k = x_q.shape
+    n = w_q.shape[0]
+    check_cuda_operand(x_q, "x_q", torch.int8)
+    check_cuda_operand(w_q, "w_q", torch.int8, (n, k))
+    requant_plan(m, n, k, _sm_count(dev.index if dev.index is not None else torch.cuda.current_device()),
+                 bool(gelu))
+    if k % 32:
+        x_q, w_q = (torch.nn.functional.pad(t, (0, 32 - k % 32)) for t in (x_q, w_q))
+    r = f32_vec(requant_scale, n, dev)
+    b = f32_vec(bias_scaled, n, dev)
+    s = f32_scalars(out_inv, device=dev)
+    return x_q, w_q, r, b, s, torch.empty((m, n), dtype=torch.int8, device=dev)
+
+
+def int8_matmul_requant_grid(x_q, w_q, requant_scale, bias_scaled, out_inv=1.0,
+                             qmin=-128, qmax=127, gelu=False, grid=0):
+    """The int8 kernel launched on ``grid`` CTAs (0: the plan's persistent
+    grid; ``requant_plan(...).tiles``: one tile per CTA). A measurement hook
+    for CUDA tensors; not counted in ``int8_matmul_requant.launches``."""
+    x_q, w_q, r, b, s, out = _requant_args(x_q, w_q, requant_scale, bias_scaled, out_inv, gelu, qmin, qmax)
+    (m, k), n = x_q.shape, w_q.shape[0]
+    launch("p2v_int8_matmul_requant_grid", x_q, w_q, r, b, s, out, m, n, k, qmin, qmax, int(bool(gelu)), grid)
+    return out
+
+
 def int8_matmul_requant(x_q, w_q, requant_scale, bias_scaled, out_inv=1.0,
                         qmin=-128, qmax=127, gelu=False):
     """out_q = clip(round(epilogue(Σ_k x_q·w_q · requant[n] + bias[n]))).
@@ -88,22 +243,14 @@ def int8_matmul_requant(x_q, w_q, requant_scale, bias_scaled, out_inv=1.0,
       requant_scale, bias_scaled: (N,) float32 (or scalars).
       out_inv: 1/s_out for the GELU epilogue.
     Returns (M, N) int8. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (K must be a multiple of 16) or raise.
+    launch the kernel (K must be a multiple of 16; ``requant_plan``) or raise.
     """
     dev = device_of(x_q, w_q)
     if dev.type == "cpu":
         return int8_matmul_requant_plain(x_q, w_q, requant_scale, bias_scaled,
                                          out_inv, qmin, qmax, gelu)
-    m, k = x_q.shape
-    n = w_q.shape[0]
-    check_cuda_operand(x_q, "x_q", torch.int8)
-    check_cuda_operand(w_q, "w_q", torch.int8, (n, k))
-    if k % 16:
-        raise ValueError(f"int8_matmul_requant kernel needs K % 16 == 0, got K={k}")
-    r = f32_vec(requant_scale, n, dev)
-    b = f32_vec(bias_scaled, n, dev)
-    s = f32_scalars(out_inv, device=dev)
-    out = torch.empty((m, n), dtype=torch.int8, device=dev)
+    x_q, w_q, r, b, s, out = _requant_args(x_q, w_q, requant_scale, bias_scaled, out_inv, gelu, qmin, qmax)
+    (m, k), n = x_q.shape, w_q.shape[0]
     launch("p2v_int8_matmul_requant", x_q, w_q, r, b, s, out, m, n, k,
            qmin, qmax, int(bool(gelu)))
     int8_matmul_requant.launches += 1

@@ -61,6 +61,88 @@ def test_int8_matmul_requant_kernel(dev, gelu):
           matmul_int8.int8_matmul_requant_plain(x[:77], w[:1000], r[:1000], b[:1000], **kw))
 
 
+def _requant_case(dev, seed, m, k, n, gelu):
+    rng = np.random.RandomState(seed)
+    x, w = _i8(rng, (m, k)).to(dev), _i8(rng, (n, k), -8, 8).to(dev)
+    r = (_pot(rng, n, -14, -10) if gelu else _pot(rng, n, -12, -7)).to(dev)
+    b = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
+    kw = dict(out_inv=torch.tensor(16.0, device=dev), gelu=True) if gelu else {}
+    return (x, w, r, b), kw
+
+
+@pytest.mark.parametrize("n,gelu,bn", [(96, False, 96), (288, False, 144), (384, False, 192), (1536, False, 256),
+                                       (128, False, 128), (1000, False, 144), (384, True, 64), (1536, True, 64)])
+def test_int8_matmul_requant_each_tile_width(dev, n, gelu, bn):
+    """Every tile width the plan picks, at Swin-T stage 1's M (3136 tiles of
+    64 rows: a persistent grid, every consumer of each CTA busy); the kernel's
+    own plan (the C entry) equals requant_plan's, and its registers are those
+    the setmaxnreg hand-over assumes, with nothing spilled."""
+    m, k = (200_704, 96) if n <= 384 else (12_608, 384)
+    a, kw = _requant_case(dev, n, m, k, n, gelu)
+    info = matmul_int8.requant_kernel_info(m, n, k, gelu)
+    plan = matmul_int8.requant_plan(m, n, k, info["sms"], gelu)
+    assert info["bn"] == plan.bn == bn
+    assert (info["nc"], info["stages"], info["grid"], info["smem_bytes"]) == (
+        plan.nc, plan.stages, plan.grid, plan.smem_bytes)
+    assert info["registers"] == (65536 // (128 * (plan.nc + 1))) // 8 * 8
+    assert info["spill_bytes"] == 0 and info["ctas_per_sm"] == 1
+    _same(matmul_int8.int8_matmul_requant(*a, **kw), matmul_int8.int8_matmul_requant_plain(*a, **kw))
+
+
+@pytest.mark.parametrize("m", [1, 77, 12608])
+@pytest.mark.parametrize("n", [96, 288, 1000])
+@pytest.mark.parametrize("k", [48, 96, 1536])
+def test_int8_matmul_requant_ragged(dev, m, n, k):
+    """Ragged M (below one tile, not a multiple of 64), N (a masked 8-column
+    edge at 1000, whose rows take 8-byte stores) and K (below one 128-byte
+    slice: TMA fills zeros; 12 slices at 1536)."""
+    a, kw = _requant_case(dev, m + n + k, m, k, n, n == 288)
+    _same(matmul_int8.int8_matmul_requant(*a, **kw), matmul_int8.int8_matmul_requant_plain(*a, **kw))
+
+
+@pytest.mark.parametrize("qmin,qmax", [(-8, 7), (0, 15), (-128, 127)])
+@pytest.mark.parametrize("gelu", [False, True])
+def test_int8_matmul_requant_clamp_arms(dev, qmin, qmax, gelu):
+    """The narrow clamps of 4-bit codes and the full int8 range, with and
+    without GELU, where many values clip at both ends."""
+    a, kw = _requant_case(dev, qmax - qmin, 1576, 384, 1536, gelu)
+    a = (a[0], a[1], a[2] * 8, a[3])
+    _same(matmul_int8.int8_matmul_requant(*a, qmin=qmin, qmax=qmax, **kw),
+          matmul_int8.int8_matmul_requant_plain(*a, qmin=qmin, qmax=qmax, **kw))
+
+
+@pytest.mark.parametrize("k", [384, 768])
+def test_int8_matmul_requant_head(dev, k):
+    """The classifier heads (M = batch, N = 1000): seven 144-wide tiles, one
+    per CTA; and the one-tile-per-CTA grid hook gives the same codes."""
+    for m in (1, 8, 64):
+        a, kw = _requant_case(dev, m + k, m, k, 1000, False)
+        got = matmul_int8.int8_matmul_requant(*a, **kw)
+        _same(got, matmul_int8.int8_matmul_requant_plain(*a, **kw))
+        tiles = matmul_int8.requant_plan(m, 1000, k, 1).tiles
+        _same(matmul_int8.int8_matmul_requant_grid(*a, grid=tiles), got)
+
+
+@pytest.mark.parametrize("qmin,qmax", [(-128, 127), (-8, 7), (0, 15), (0, 255), (-2 ** 22, 2 ** 22)])
+def test_int8_matmul_requant_rounding_rewrite_is_exact(dev, qmin, qmax):
+    """The kernel rounds by clip, then + 1.5·2^23 (p2v::wg::rint_clip), where
+    the plain version rounds half to even, then clips: equal over all 2^32
+    float32 bit patterns (NaN, ±inf, subnormals, ties) at each clamp."""
+    assert matmul_int8.requant_rint_check(qmin, qmax, dev) == 0
+
+
+def test_int8_matmul_requant_grid_hook_and_launch_count(dev):
+    """Any grid gives the same codes (1 CTA: every tile through one ring);
+    only the wrapper counts launches."""
+    a, kw = _requant_case(dev, 5, 12608, 384, 1536, True)
+    want = matmul_int8.int8_matmul_requant_plain(*a, **kw)
+    before = matmul_int8.int8_matmul_requant.launches
+    _same(matmul_int8.int8_matmul_requant(*a, **kw), want)
+    for grid in (1, 3, matmul_int8.requant_plan(12608, 1536, 384, 1, True).tiles):
+        _same(matmul_int8.int8_matmul_requant_grid(*a, grid=grid, **kw), want)
+    assert matmul_int8.int8_matmul_requant.launches == before + 1
+
+
 @pytest.mark.parametrize("k", [384, 1536])
 def test_int8_matmul_res_ln_kernel(dev, k):
     rng = np.random.RandomState(1)
@@ -164,6 +246,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         matmul_int8.int8_matmul_requant(x[:, ::2], w[:, :192], v, v)
     with pytest.raises(ValueError, match="K % 16"):
         matmul_int8.int8_matmul_requant(x[:, :40].contiguous(), w[:, :40].contiguous(), v, v)
+    with pytest.raises(ValueError, match="2\\^22"):
+        matmul_int8.int8_matmul_requant(x, w, v, v, qmin=-2 ** 23)
     rng = np.random.RandomState(6)
     h = _i8(rng, (1, 197, 384)).to(dev)
     wq = _i8(rng, (1152, 384), -8, 8).to(dev)
