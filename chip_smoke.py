@@ -47,8 +47,8 @@ weight-only serving of both models and the two weight-store GEMM tools:
   M = 197. After the build, the DMMA instructions in the built
   ``wstream_matmul`` kernels, the IMMA instructions in the cluster
   attention kernel, and the warpgroup-MMA (IGMMA) and TMA-load (UTMALDG)
-  instructions in the Hopper ``int8_matmul_requant`` kernels
-  (``cuobjdump -sass``, report only).
+  instructions in the Hopper ``int8_matmul_requant`` and
+  ``int8_matmul_res_ln`` kernels (``cuobjdump -sass``, report only).
 
 Phases of the int8 serving paths, one line each, per path:
 
@@ -97,13 +97,20 @@ Phases of the int8 serving paths, one line each, per path:
      launch and per consumer after ``setmaxnreg``, spill bytes and CTAs per
      SM from the CUDA runtime, its time on one tile per CTA (no persistent
      ring), and ``torch._int_mm``'s time for the int32 product alone (a
-     reference: not the same function, so ``library_ms`` stays null).
+     reference: not the same function, so ``library_ms`` stays null). A path
+     that runs ``int8_matmul_res_ln`` does the same for the junction: its
+     device ms per forward over all its instances, and per shape a launch
+     line (CTAs per cluster, chunk width BN and chunks per CTA, consumer
+     warpgroups, ring stages, row blocks, persistent grid, resident
+     clusters, shared memory, registers, spill bytes, CTAs per SM;
+     ``torch._int_mm`` beside it).
 
 Then the card's name and power limit, one JSON line of per-kernel results
 (``launches`` summed over the paths' phase-2 runs, ``ms``/``plain_ms``/
 ``bound_ms`` per forward at the largest batch summed over the paths that run
 the kernel, for the weight-store kernels per chain; ``library_ms`` for
-``wstream_matmul``; ``per_model`` the breakdown by path), and last ``{"ok": true,
+``wstream_matmul``; ``redesigned`` the Hopper design of a kernel redesigned
+after its first port, or null; ``per_model`` the breakdown by path), and last ``{"ok": true,
 "device": {...}}``. Any failure raises (exit 1, no result line). There is no
 CPU path.
 """
@@ -120,6 +127,11 @@ import time
 import numpy as np
 import torch
 
+# the kernels redesigned for Hopper after their first port, and the design they took
+REDESIGNED = {"wstream_matmul": "float64 tensor cores (mma.sync.m16n8k16) on exact panel sums",
+              "lis_attention_qkv_fused": "4-CTA cluster, K/V through distributed shared memory, int8 mma.sync",
+              "int8_matmul_requant": "TMA ring, int8 wgmma on N-sized tiles, persistent warp-specialized grid",
+              "int8_matmul_res_ln": "TMA ring, int8 wgmma chunks into a whole-row code tile, clusters splitting N"}
 # kernel → (plain version's module, its name, CUDA source, the TPU kernel it replaces)
 SOURCES = {
     "fused_patch_embed": ("embed_fused", "fused_patch_embed_plain", "embed_fused.cu",
@@ -481,10 +493,11 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
               flush=True)
         for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             print(f"{path.name} phase 5 batch {bt} device ms/forward {t:.4f} {name[:110]}")
-        if "int8_matmul_requant" in path.kernels:
-            req = sum(t for name, t in by_name.items() if "requant_kernel<" in name)
-            print(f"{path.name} phase 5 batch {bt} device ms/forward int8_matmul_requant, all its instances: "
-                  f"{req:.4f}", flush=True)
+        for kern, inst in (("int8_matmul_requant", "requant_kernel<"), ("int8_matmul_res_ln", "res_ln_kernel<")):
+            if kern in path.kernels:
+                t = sum(v for name, v in by_name.items() if inst in name)
+                print(f"{path.name} phase 5 batch {bt} device ms/forward {kern}, all its instances: {t:.4f}",
+                      flush=True)
     summary = {"ms": ms, "f32_ms": times.get("int8 kernels, float32 input", ms), "device_ms": dev_ms,
                "other_ms": None if dev_ms is None else dev_ms - port_ms}
     results = {}
@@ -506,6 +519,9 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
             if name == "int8_matmul_requant":
                 print(f"{path.name} phase 5 kernel int8_matmul_requant launch: "
                       f"{_requant_launch_report(ops, a, k, t_k, reps)}", flush=True)
+            if name == "int8_matmul_res_ln":
+                print(f"{path.name} phase 5 kernel int8_matmul_res_ln launch: "
+                      f"{_res_ln_launch_report(ops, a, t_k, reps)}", flush=True)
             k_ms += t_k * count
             p_ms += t_p * count
             by[b_by] += b_ms * count
@@ -578,6 +594,23 @@ def _requant_launch_report(ops, a, k, t_k, reps):
             f"{info['smem_bytes']} B shared memory, {info['registers']} registers at launch, "
             f"{info['consumer_registers']} per consumer thread, {info['spill_bytes']} B spilled; "
             f"{t_k:.4f} ms per call, one tile per CTA {one:.4f} ms, torch._int_mm {int_mm}")
+
+
+def _res_ln_launch_report(ops, a, t_k, reps):
+    """The junction kernel's plan and launch facts at one shape (CUDA
+    runtime), and ``torch._int_mm``'s time for its int32 product alone (not
+    the same function: a reference, not ``library_ms``)."""
+    x, w = a[0], a[1]
+    (m, kk), n = x.shape, w.shape[0]
+    info = ops.matmul_ln.res_ln_kernel_info(m, n)
+    wt = w.t()
+    int_mm = f"{_time_ms(lambda: torch._int_mm(x, wt), reps):.4f} ms" if m > 16 else "not measured (M <= 16)"
+    return (f"clusters of {info['cs']} CTAs splitting N, each {info['cpc']} chunk(s) of BN {info['bn']}, "
+            f"{info['nc']} consumer warpgroups of 64 rows, {info['stages']} stages, {info['blocks']} row blocks "
+            f"on a persistent grid of {info['grid']} CTAs ({info['ctas_per_sm']} per SM of {info['sms']}, "
+            f"{info['resident'][info['cs'] - 1]} clusters resident at most), {info['smem_bytes']} B shared memory, "
+            f"{info['registers']} registers at launch, {info['consumer_registers']} per consumer thread, "
+            f"{info['spill_bytes']} B spilled; {t_k:.4f} ms per call, torch._int_mm {int_mm}")
 
 
 def _img_s(bt, ms):
@@ -1101,8 +1134,9 @@ def main() -> None:
     so = _lib.library()[0]._name
     print(f"sass: DMMA instructions {sass_count(so, 'wstream_matmul_kernel', 'DMMA')}", flush=True)
     print(f"sass: IMMA instructions {sass_count(so, 'lis_attention_qkv_kernel', 'IMMA')}", flush=True)
-    for op in ("IGMMA", "UTMALDG"):
-        print(f"sass: {op} instructions {sass_count(so, 'wg14requant_kernel', op)}", flush=True)
+    for kern in ("wg14requant_kernel", "wg13res_ln_kernel"):
+        for op in ("IGMMA", "UTMALDG"):
+            print(f"sass: {op} instructions {sass_count(so, kern, op)}", flush=True)
 
     gen = torch.Generator().manual_seed(args.seed + 1)
 
@@ -1251,6 +1285,7 @@ def main() -> None:
         _, _, src, rep = SOURCES[name]
         results.append({
             "name": name, "route": "cuda", "source": f"p2vit_tpu_torch/csrc/{src}", "replaces": rep,
+            "redesigned": REDESIGNED.get(name),
             "launches": sum(r["launches"] for r in runs.values()),
             "max_abs_err": max(r["max_abs_err"] for r in runs.values()),
             "ms": round(sum(r["ms"] for r in runs.values()), 6),

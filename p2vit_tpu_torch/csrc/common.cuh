@@ -81,15 +81,18 @@ __device__ __forceinline__ LnRow ln_row(float sx, float sxx, float s1, float c) 
   return {__fdiv_rn(s1, std_), __fdiv_rn(mean, std_)};
 }
 
-// y = round((sign(A)·M·x + B)·2^-N) for one element (ops/intln.ln_mn_chain)
+// y = round((sign(A)·M·x + B)·2^-N) for one element (ops/intln.ln_mn_chain).
+// floor_log2i reads only the exponent field: the same for A and |A|.
+// sign(A)·M is formed as copysign(M, A): M is 0 wherever A is ±0 or NaN
+// (N = 31, or N = 0 and the clip of NaN), so the two differ at most in the
+// sign of a zero, which rounds to the same code.
 __device__ __forceinline__ float ln_elem(const LnRow& row, float x, float w_os, float b_os) {
   const float a = __fmul_rn(row.s1_over_std, w_os);
-  const float a_abs = fabsf(a);
-  const int n = min(max(7 - floor_log2i(a_abs), 0), 31);
+  const int n = min(max(7 - floor_log2i(a), 0), 31);
   const float p2n = exp2i(n);
-  const float m = clampf(floorf(__fmul_rn(a_abs, p2n)), 0.f, 255.f);
+  const float m = clampf(floorf(__fmul_rn(fabsf(a), p2n)), 0.f, 255.f);
   const float bb = rintf(__fmul_rn(__fsub_rn(b_os, __fmul_rn(row.mean_over_std, w_os)), p2n));
-  return rintf(__fmul_rn(__fadd_rn(__fmul_rn(__fmul_rn(signf(a), m), x), bb), exp2i(-n)));
+  return rintf(__fmul_rn(__fadd_rn(__fmul_rn(copysignf(m, a), x), bb), exp2i(-n)));
 }
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {

@@ -7,10 +7,13 @@
 //   xc   = clip(round((mid2·s_embed + pos[p−1]) / s_qact1))
 // then h = clip(round(LN(xc·mask))) with the block-0 LN1 constants.
 //
-// Same shape as matmul_ln.cu: a block owns 32 token rows at full width C; the
-// Gemm's row loader gathers each token's patch from the (B·NP, K) patch
-// matrix (CLS rows load zeros), so no [cls; patches] tensor is built. Σx and
-// Σx² are exact int32 warp sums. Bound: the K = 768 int8 matmul.
+// A block owns 32 token rows at full width C; the Gemm's row loader gathers
+// each token's patch from the (B·NP, K) patch matrix (CLS rows load zeros),
+// so no [cls; patches] tensor is built. Σx and Σx² are exact int32 warp
+// sums. The LN counts the true width c_true: the wrapper zero-pads C to a
+// multiple of 8 (and K to a multiple of 16), and zero mask and LN vectors
+// past c_true keep those columns out of the sums. Bound: the K = 768 int8
+// matmul.
 #include "common.cuh"
 
 namespace {
@@ -24,7 +27,7 @@ __global__ void __launch_bounds__(p2v::kThreads)
                              const float* __restrict__ vecs, const float* __restrict__ scal,
                              const float* __restrict__ pos, const int8_t* __restrict__ cls,
                              int8_t* __restrict__ xc_out, int8_t* __restrict__ h_out, int B,
-                             int NP, int K, int C) {
+                             int NP, int K, int C, int c_true) {
   extern __shared__ __align__(16) int8_t dsmem[];
   int* rowbuf = reinterpret_cast<int*>(dsmem + G::SMEM_BYTES);  // [BM][C]
   const int ntok = NP + 1, R = B * ntok, m0 = blockIdx.x * BM;
@@ -51,7 +54,7 @@ __global__ void __launch_bounds__(p2v::kThreads)
 
   const float *r1 = vecs, *b1 = vecs + C, *sq1 = vecs + 2 * C, *mask = vecs + 3 * C,
               *w_os = vecs + 4 * C, *b_os = vecs + 5 * C;
-  const float r2 = scal[0], s_embed = scal[1], s1 = scal[2], cf = static_cast<float>(C);
+  const float r2 = scal[0], s_embed = scal[1], s1 = scal[2], cf = static_cast<float>(c_true);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int rr = warp; rr < BM; rr += p2v::kThreads / 32) {
     const int t = m0 + rr;
@@ -92,7 +95,7 @@ __global__ void __launch_bounds__(p2v::kThreads)
 extern "C" int p2v_fused_patch_embed(const void* patches, const void* w, const void* vecs,
                                      const void* scal, const void* pos, const void* cls,
                                      void* xc_out, void* h_out, int B, int NP, int K, int C,
-                                     void* stream) {
+                                     int c_true, void* stream) {
   if (B == 0) return 0;
   const int smem = G::SMEM_BYTES + BM * C * 4;
   cudaError_t err = p2v::set_smem(fused_patch_embed_kernel, smem);
@@ -103,6 +106,6 @@ extern "C" int p2v_fused_patch_embed(const void* patches, const void* w, const v
       static_cast<const int8_t*>(patches), static_cast<const int8_t*>(w),
       static_cast<const float*>(vecs), static_cast<const float*>(scal),
       static_cast<const float*>(pos), static_cast<const int8_t*>(cls),
-      static_cast<int8_t*>(xc_out), static_cast<int8_t*>(h_out), B, NP, K, C);
+      static_cast<int8_t*>(xc_out), static_cast<int8_t*>(h_out), B, NP, K, C, c_true);
   return static_cast<int>(cudaGetLastError());
 }

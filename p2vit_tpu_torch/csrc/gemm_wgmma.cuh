@@ -95,6 +95,54 @@ inline RequantPlan requant_plan(int M, int N, int sms, bool gelu) {
   return p;
 }
 
+// ---- host helpers -------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query so that the library links no libcuda; null where it is missing.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a (rows, K) int8 matrix, boxes of 128 K bytes × box_rows,
+// 128-byte swizzle, zeros outside the matrix; no L2 promotion (256-byte
+// promotion slowed the rows of K < 128 bytes).
+inline bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int K, int box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
+  const cuuint32_t box[2] = {kBK, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// SMs of the current device (cached per device)
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  static int cache[64] = {};
+  if (dev < 64 && cache[dev]) return cache[dev];
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (dev < 64) cache[dev] = sms;
+  return sms;
+}
+
 // ---- PTX helpers -----------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -308,21 +356,8 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[128], uint64_t a, uint64_t b, 
 
 // ---- the epilogue ---------------------------------------------------------------
 
-// to_i8(requant(y, lo, hi)) as an int, without a conversion instruction:
-// clip first, then round by adding 1.5·2^23 (the float's last place is then
-// 1, and its ties go to even, as rintf's), then read the integer off the
-// bits. Equal for every float y, NaN and ±inf included, because lo and hi
-// are integers of magnitude ≤ 2^22 (the wrapper checks), so rounding commutes
-// with the clip; checked over all 2^32 floats on the card
-// (p2v_requant_rint_check). The conversion pipe runs 16 results per clock
-// per SM, the float adder 128: rintf and the float → int conversion were two
-// of the three conversions of a plain epilogue element.
-__device__ __forceinline__ int rint_clip(float y, float lo, float hi) {
-  return __float_as_int(__fadd_rn(clampf(y, lo, hi), 12582912.f)) - 0x4B400000;
-}
-
 // requant_epilogue's code as an int: the same float chain (gelu_as
-// unchanged), its rounding and clip by rint_clip.
+// unchanged), its rounding and clip by p2v::rint_clip (matmul_tiles.cuh).
 __device__ __forceinline__ int requant_code(int acc, float r, float b, float out_inv, bool gelu, float lo,
                                             float hi) {
   float y = __fadd_rn(__fmul_rn(__int2float_rn(acc), r), b);

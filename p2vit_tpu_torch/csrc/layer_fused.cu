@@ -18,13 +18,14 @@
 //      the body of csrc/attention_lis.cu's attention_rows_kernel);
 //   C. everything else is row-local, so one 32-row tile runs it with only
 //      __syncthreads(): the proj GEMM into an int32 row buffer, the junction
-//      and LN2 (p2v::res_ln_rows, the body of csrc/matmul_ln.cu) into the
+//      and LN2 (p2v::res_ln_rows, on the per-element chains of csrc/matmul_ln.cu) into the
 //      res1 and MLP-input tiles in shared memory; fc1 in 128-column chunks
 //      on the resident MLP input, GELU-requantized into a (32, hid) int8 tile
 //      in shared memory; fc2 on that resident tile, the junction against
 //      res1, then the next LN into ho / xo.
 //
-// Each phase calls the standalone kernels' own per-tile bodies, so the layer
+// Each phase calls the standalone kernels' own per-tile bodies or per-element
+// chains (the row sums are exact integers in any order), so the layer
 // equals the four-kernel path (int8_matmul_requant → lis_attention_fused →
 // int8_matmul_res_ln → int8_matmul_requant(gelu) → int8_matmul_res_ln) bit
 // for bit by construction, on both softmax arms.

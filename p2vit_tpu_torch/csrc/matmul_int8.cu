@@ -33,41 +33,6 @@ __global__ void __launch_bounds__(p2v::kThreads)
                     smem);
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
-// query so that the library links no libcuda; null where it is missing.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// The TMA map of a (rows, K) int8 matrix, boxes of 128 K bytes × box_rows,
-// 128-byte swizzle, zeros outside the matrix; no L2 promotion (256-byte
-// promotion slowed the rows of K < 128 bytes).
-bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int K, int box_rows) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
-  const cuuint32_t box[2] = {p2v::wg::kBK, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 using RequantKernel = void (*)(CUtensorMap, CUtensorMap, const float*, const float*, const float*, int8_t*, int,
                                int, int, int, float, float);
 
@@ -120,16 +85,6 @@ const Instance* pick_kernel(const p2v::wg::RequantPlan& plan, bool gelu, cudaErr
   return nullptr;
 }
 
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  static int cache[64] = {};
-  if (dev < 64 && cache[dev]) return cache[dev];
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (dev < 64) cache[dev] = sms;
-  return sms;
-}
-
 }  // namespace
 
 // x (M, K) int8, w (N, K) int8, K % 16 == 0, both 16-byte aligned (TMA's
@@ -141,13 +96,13 @@ extern "C" int p2v_int8_matmul_requant_grid(const void* x, const void* w, const 
                                             int qmax, int gelu, int grid, void* stream) {
   if (M == 0 || N == 0) return 0;
   if (abs(qmin) > p2v::wg::kMaxCode || abs(qmax) > p2v::wg::kMaxCode) return static_cast<int>(cudaErrorInvalidValue);
-  const p2v::wg::RequantPlan plan = p2v::wg::requant_plan(M, N, sm_count(), gelu != 0);
+  const p2v::wg::RequantPlan plan = p2v::wg::requant_plan(M, N, p2v::wg::sm_count(), gelu != 0);
   cudaError_t err;
   const Instance* in = pick_kernel(plan, gelu != 0, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (plan.stages < 2) return static_cast<int>(cudaErrorInvalidConfiguration);
   CUtensorMap tmx, tmw;
-  if (!tensor_map(&tmx, x, M, K, p2v::wg::kBM) || !tensor_map(&tmw, w, N, K, plan.bn))
+  if (!p2v::wg::tensor_map(&tmx, x, M, K, p2v::wg::kBM) || !p2v::wg::tensor_map(&tmw, w, N, K, plan.bn))
     return static_cast<int>(cudaErrorInvalidValue);
   in->kern<<<grid > 0 ? grid : plan.grid, p2v::wg::threads_of(plan.nc), plan.smem,
              static_cast<cudaStream_t>(stream)>>>(
@@ -167,7 +122,7 @@ extern "C" int p2v_int8_matmul_requant(const void* x, const void* w, const void*
 // memory, registers per thread at launch, spill bytes per thread, a
 // consumer's registers after setmaxnreg, CTAs per SM, SMs.
 extern "C" int p2v_int8_matmul_requant_info(int M, int N, int K, int gelu, void* out) {
-  const int sms = sm_count();
+  const int sms = p2v::wg::sm_count();
   const p2v::wg::RequantPlan plan = p2v::wg::requant_plan(M, N, sms, gelu != 0);
   const Instance* in = find_instance(plan, gelu != 0);
   if (in == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -187,14 +142,15 @@ extern "C" int p2v_int8_matmul_requant_info(int M, int N, int K, int gelu, void*
 
 namespace {
 
-// Over every float32 bit pattern: codes where rint_clip differs from
-// requant's rintf-then-clip, as an int.
+// Over every float32 bit pattern: codes where rint_clip (or rint_clipf)
+// differs from requant's rintf-then-clip.
 __global__ void rint_clip_check_kernel(float lo, float hi, unsigned long long* bad) {
   unsigned long long n = 0;
   const unsigned stride = gridDim.x * blockDim.x;
   for (unsigned long long u = blockIdx.x * blockDim.x + threadIdx.x; u < (1ull << 32); u += stride) {
     const float y = __uint_as_float(static_cast<unsigned>(u));
-    n += p2v::wg::rint_clip(y, lo, hi) != static_cast<int>(p2v::requant(y, lo, hi));
+    const float want = p2v::requant(y, lo, hi);
+    n += p2v::rint_clip(y, lo, hi) != static_cast<int>(want) || p2v::rint_clipf(y, lo, hi) != want;
   }
   n = p2v::warp_sum(n);
   if ((threadIdx.x & 31) == 0 && n) atomicAdd(bad, n);

@@ -2,52 +2,564 @@
 //
 // Replaces the Pallas kernel p2vit_tpu/ops/matmul_ln.py:int8_matmul_res_ln.
 // Per row m:  mid = clip(round(acc·r + b)); res = clip(round((mid·s_mid +
-// res_in·s_res)·inv_s_out)); ln = clip(round(LN(res·mask)·ratio)).
+// res_in·s_res)·inv_s_out)); ln = clip(round(LN(res·mask)·ratio)); two int8
+// outputs, res and ln. The LN counts the row's true width n_true; the
+// wrapper zero-pads N to a multiple of 16 and K to a multiple of 32, and
+// zero vectors past n_true make those columns add nothing to the row sums.
 //
-// The LN needs the whole row, so a block owns 32 rows at full width N
-// (N ≤ 1024): the Gemm sweeps the row in 128-column chunks into an int32 row
-// buffer in shared memory (32·N·4 bytes), then each warp runs the epilogue
-// on whole rows. Σx and Σx² are int32 warp sums (|x| ≤ 1024, so Σx² < 2^31
-// for N ≤ 1024): exact, whatever the order. Bound: tensor-core issue for fc2
-// (K = 1536); the weight panel is re-read from L2 by every 32-row block.
-#include "matmul_tiles.cuh"
+// Bound on the H100: the bytes (x, the residual codes and the two outputs;
+// 0.19 ms per DeiT-S forward at batch 64); the kernel itself is bound by
+// its per-element epilogue (~55 instructions an element: the junction
+// chain, then the LN chain), which the SMs must issue. The design, on
+// gemm_wgmma.cuh's parts:
+// * whole rows per cluster: a cluster of CS CTAs owns 64·NC rows (NC
+//   consumer warpgroups, 64 rows each, per CTA), CTA r taking cpc chunks of
+//   BN columns from column r·cpc·BN; the grid is persistent, the clusters
+//   taking row blocks in turn. CS spreads a row block's columns, and so its
+//   epilogue, over more SMs where the row blocks are too few to fill the
+//   card (Swin-T stage 3: 25 blocks of 128 rows; batches 1 and 8), and
+//   splits the weight panel each CTA streams from L2;
+// * a producer thread TMA-loads, per ring stage, the 64·NC x rows and BN w
+//   rows of 128 K bytes (128-byte swizzle, zeros past M, N and K); the
+//   consumers run wgmma.m64nBNk32 on the same stage, so the weight panel is
+//   read once per 64·NC rows;
+// * each warp owns 16 rows of its consumer's tile (thread (w, l) holds rows
+//   16w + l/4 + 8h), so a CTA's row sum is a quad shuffle: no exchange
+//   across warps; with CS > 1, the lanes holding a row's sums publish them in
+//   shared memory and arrive on each peer's mbarrier (release), and read the
+//   peers' sums of the same rows through distributed shared memory after
+//   their own barrier completes (acquire): integer sums, exact in any order;
+// * the warp copies its 16 residual rows (cp.async, 16 bytes a lane) into
+//   its rows of a 64 × (cpc·BN) code tile in shared memory while its
+//   products run; after each chunk, the junction chain runs on the
+//   accumulator registers, reads the residual code from the tile, writes
+//   the new code in its place and adds x = code·mask into Σx (int32) and
+//   Σx² (int64, exact for any PTF mask) in registers;
+// * after the last chunk, the row constants once per row, then the LN pass
+//   over the warp's rows in the tile: a lane owns four columns (their
+//   vectors read once) and walks the rows; both outputs are stored as
+//   coalesced 4-byte words;
+// * the nine per-column vectors are staged in shared memory once per CTA;
+// * codes held biased (clip + 1.5·2^23: the int8 byte is the low byte of
+//   the float's bits), so rounding and conversion take adds, not the
+//   conversion pipe; proven equal to rintf-then-clip over all 2^32 floats.
+// ResLnPlan picks CS, BN, cpc and NC (ops/matmul_ln.res_ln_plan mirrors it).
+#include "gemm_wgmma.cuh"
+
+namespace p2v {
+namespace wg {
+
+constexpr int kLnMaxConsumers = 2;
+constexpr int kLnMaxCluster = 4;
+
+struct ResLnPlan {
+  int bn, cpc, cs, nc, stages, blocks, grid, smem;  // nc = 0: N does not fit shared memory
+};
+
+// A row's partial sums over one CTA's columns, as its cluster peers read them.
+struct RowSums {
+  long long sxx;
+  int sx, pad;
+};
+
+// Bytes between two rows of a code tile: the chunks' width plus a pad that
+// puts the eight rows a quad group writes in distinct banks.
+__host__ __device__ constexpr int code_ld(int nw) { return nw + ((nw / 4) % 8 == 0 ? 16 : 32); }
+
+// Shared memory: 1024 B of alignment slack, the ring ((64·NC + BN)·128 B a
+// stage), NC code tiles of 64 rows over the CTA's cpc chunks, the nine
+// vectors over them, the row constants (8 B a row), a full and an empty
+// barrier per stage and, in clusters, two row-sum barriers and two buffers
+// of the rows' partial sums (16 B a row).
+inline int res_ln_smem(int bn, int cpc, int nc, int stages, int cs) {
+  const int nw = bn * cpc;
+  return 1024 + stages * (kBM * nc + bn) * kBK + nc * kBM * code_ld(nw) + 9 * nw * 4 + nc * kBM * 8 +
+         16 * stages + (cs > 1 ? 16 + 2 * nc * kBM * 16 : 0);
+}
+
+// The launch plan at (M, N), N % 16 == 0, given resident[cs - 1], the
+// clusters of cs CTAs the card holds at once (one CTA per SM: every plan
+// fills shared memory past half an SM's): clusters of CS CTAs split N, CTA
+// r of a cluster taking chunks [r·cpc, (r + 1)·cpc) of BN columns; each
+// cluster takes row blocks of 64·NC rows in turn. For each CS (1 to 4), BN
+// and cpc waste the fewest columns, ⌈N/(CS·BN)⌉·CS·BN − N (the widest BN
+// on a tie); a CS > 1 that wastes more than CS = 1 does is skipped. Of the
+// (CS, NC) that fit with two ring stages or more, the plan takes the one
+// whose busiest consumer owns the fewest elements,
+// ⌈blocks/resident⌉·64·cpc·BN (the epilogue's time, measured: the
+// consumers' warps issue it side by side), then the smaller CS, then the
+// smaller NC. force_cs, force_nc > 0 restrict the choice (a measurement
+// hook).
+inline ResLnPlan res_ln_plan(int M, int N, const int* resident, int force_cs = 0, int force_nc = 0) {
+  ResLnPlan best{};
+  long long best_load = -1, waste1 = -1;
+  for (int cs = 1; cs <= kLnMaxCluster; ++cs) {
+    int bn = 0, cpc = 0;
+    long long waste = -1;
+    for (const Width& w : kWidths) {
+      const int k = (N + cs * w.bn - 1) / (cs * w.bn);
+      const long long x = (long long)cs * k * w.bn - N;
+      if (waste < 0 || x < waste) waste = x, bn = w.bn, cpc = k;
+    }
+    if (cs == 1) waste1 = waste;
+    if (waste > waste1 || resident[cs - 1] < 1 || (force_cs && cs != force_cs)) continue;
+    for (int nc = kLnMaxConsumers; nc >= 1; --nc) {
+      if (force_nc && nc != force_nc) continue;
+      int stages = (kMaxSmem - res_ln_smem(bn, cpc, nc, 0, cs)) / ((kBM * nc + bn) * kBK + 16);
+      if (stages > kMaxStages) stages = kMaxStages;
+      if (stages < 2) continue;
+      const long long blocks = ((long long)M + kBM * nc - 1) / (kBM * nc), clusters = resident[cs - 1];
+      const long long load = (blocks + clusters - 1) / clusters * kBM * cpc * bn;
+      if (best_load < 0 || load < best_load || (load == best_load && cs == best.cs && nc < best.nc)) {
+        best_load = load;
+        best.bn = bn, best.cpc = cpc, best.cs = cs, best.nc = nc, best.stages = stages;
+        best.blocks = static_cast<int>(blocks);
+        best.grid = static_cast<int>(blocks < clusters ? blocks : clusters) * cs;
+      }
+    }
+  }
+  if (best.nc != 0) best.smem = res_ln_smem(best.bn, best.cpc, best.nc, best.stages, best.cs);
+  return best;
+}
+
+// ---- cluster helpers ------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// shared::cluster address of `p` (this CTA's shared memory) in CTA `rank`
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+// arrive on the barrier at `bar` in CTA `rank`, releasing this thread's
+// earlier writes to the cluster
+__device__ __forceinline__ void mbar_arrive_peer(uint64_t* bar, uint32_t rank) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(peer_addr(bar, rank))
+               : "memory");
+}
+
+// mbar_wait, acquiring what the arriving peers released
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ RowSums ld_peer(const RowSums* p, uint32_t rank) {
+  const uint32_t a = peer_addr(p, rank);
+  RowSums v;
+  asm volatile("ld.shared::cluster.u64 %0, [%1];\n" : "=l"(v.sxx) : "r"(a) : "memory");
+  asm volatile("ld.shared::cluster.u32 %0, [%1+8];\n" : "=r"(v.sx) : "r"(a) : "memory");
+  v.pad = 0;
+  return v;
+}
+
+// The junction on one chunk's accumulators: thread (w, l) holds
+// acc[4j + 2h + e] at row g + 8h of its warp's rows (g = l/4), column
+// n0 + 8j + 2q + e (q = l%4). The residual code in the tile is read and
+// replaced by the new one; x = code·mask goes into the row sums.
+template <int BN>
+__device__ __forceinline__ void junction_chunk(const int (&acc)[BN / 2], int8_t* ct, int ldc, int n0, const float* vs,
+                                               int nw, int g, int q, float lo, float hi, int (&sx)[2],
+                                               long long (&sxx)[2]) {
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * q;
+    const float2 r = *reinterpret_cast<const float2*>(vs + col);
+    const float2 b = *reinterpret_cast<const float2*>(vs + nw + col);
+    const float2 sm = *reinterpret_cast<const float2*>(vs + 2 * nw + col);
+    const float2 sr = *reinterpret_cast<const float2*>(vs + 3 * nw + col);
+    const float2 inv = *reinterpret_cast<const float2*>(vs + 4 * nw + col);
+    const float2 mk = *reinterpret_cast<const float2*>(vs + 5 * nw + col);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint16_t* p = reinterpret_cast<uint16_t*>(ct + (g + 8 * h) * ldc + col);
+      const uint32_t rr = *p;  // the two residual codes
+      const float t0 = junction_code(acc[4 * j + 2 * h], r.x, b.x, sm.x, __int2float_rn(static_cast<int8_t>(rr)),
+                                     sr.x, inv.x, lo, hi);
+      const float t1 = junction_code(acc[4 * j + 2 * h + 1], r.y, b.y, sm.y,
+                                     __int2float_rn(static_cast<int8_t>(rr >> 8)), sr.y, inv.y, lo, hi);
+      *p = static_cast<uint16_t>(code_byte(t0) | (code_byte(t1) << 8));
+      const int x0 = __float2int_rz(__fmul_rn(unbias(t0), mk.x)), x1 = __float2int_rz(__fmul_rn(unbias(t1), mk.y));
+      sx[h] += x0 + x1;
+      sxx[h] += static_cast<long long>(x0) * x0;
+      sxx[h] += static_cast<long long>(x1) * x1;
+    }
+  }
+}
+
+// vecs rows: r, b, s_mid, s_res, inv_s_out, mask, w_os, b_os, ratio (each N).
+// Launched in clusters of cs CTAs (cs = 1: one CTA a cluster).
+template <int BN>
+__global__ void __launch_bounds__(threads_of(kLnMaxConsumers), 1)
+    res_ln_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
+                  const int8_t* __restrict__ res, const float* __restrict__ vecs, const float* __restrict__ s1p,
+                  int8_t* __restrict__ res_out, int8_t* __restrict__ ln_out, int M, int N, int n_true, int K, int cpc,
+                  int cs, int nc, int stages, float lo, float hi) {
+  const int nw = cpc * BN, ldc = code_ld(nw);
+  const int rows = kBM * nc, stage_bytes = (rows + BN) * kBK;
+  const uint32_t rank = cs > 1 ? cluster_rank() : 0;
+  const int n0 = static_cast<int>(rank) * nw;              // the CTA's first column
+  const int ncols = max(0, min(nw, N - n0));               // its columns inside N
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  int8_t* codes = reinterpret_cast<int8_t*>(smem + stages * stage_bytes);  // [64·nc][ldc]
+  float* vs = reinterpret_cast<float*>(codes + rows * ldc);                // [9][nw]
+  float2* lnrows = reinterpret_cast<float2*>(vs + 9 * nw);                 // [64·nc] row constants
+  uint64_t* full = reinterpret_cast<uint64_t*>(lnrows + rows);
+  uint64_t* empty = full + stages;
+  uint64_t* sums = empty + stages;                         // cs > 1, [2]: the peers' sums of a block landed
+  RowSums* part = reinterpret_cast<RowSums*>(sums + 2);    // cs > 1, [2][64·nc] partial row sums
+
+  const int nk = (K + kBK - 1) / kBK;
+  for (int i = threadIdx.x; i < 9 * nw; i += blockDim.x) {
+    const int v = i / nw, col = i - v * nw;
+    vs[i] = col < ncols ? vecs[(size_t)v * N + n0 + col] : 0.f;
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, nc);
+    }
+    if (cs > 1) {  // every peer's consumer lanes that hold row sums arrive
+      mbar_init(sums, (cs - 1) * 4 * nc * 8);
+      mbar_init(sums + 1, (cs - 1) * 4 * nc * 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (cs > 1)
+    cluster_sync();  // the peers' barriers are initialized before any arrive
+  else
+    __syncthreads();
+  const int cl = blockIdx.x / cs, ncl = gridDim.x / cs;  // this cluster, the clusters
+
+  if (threadIdx.x < 128) {
+    // ---- producer: one thread keeps the ring full --------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Regs<kLnMaxConsumers>::kProducer));
+    if (threadIdx.x == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tmx)) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tmw)) : "memory");
+      int st = 0, ph = 0;  // ring stage and the parity of its current use
+      for (unsigned m0 = cl * rows; m0 < static_cast<unsigned>(M); m0 += ncl * rows)
+        for (int ch = 0; ch < cpc; ++ch)
+          for (int s = 0; s < nk; ++s) {
+            mbar_wait(empty + st, ph ^ 1);
+            mbar_expect_tx(full + st, stage_bytes);
+            tma_load_2d(smem + st * stage_bytes, &tmx, s * kBK, static_cast<int>(m0), full + st);
+            tma_load_2d(smem + st * stage_bytes + rows * kBK, &tmw, s * kBK, n0 + ch * BN, full + st);
+            if (++st == stages) st = 0, ph ^= 1;
+          }
+    }
+  } else {
+    // ---- consumers: each owns 64 rows of the cluster's block ---------------
+    // Every consumer reads every stage (its own x rows, the shared w rows)
+    // and releases it; the producer refills a stage once all have, so a
+    // full barrier is never more than one phase ahead of the parity tested.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Regs<kLnMaxConsumers>::kConsumer));
+    const int c = (threadIdx.x >> 7) - 1, t128 = threadIdx.x & 127, w = t128 >> 5, lane = t128 & 31;
+    const int g = lane >> 2, q = lane & 3;
+    int8_t* ct = codes + (c * kBM + 16 * w) * ldc;  // the warp's 16 rows
+    float2* lr = lnrows + c * kBM + 16 * w;
+    const float s1 = s1p[0], cf = static_cast<float>(n_true);
+    const float *mask = vs + 5 * nw, *w_os = vs + 6 * nw, *b_os = vs + 7 * nw, *ratio = vs + 8 * nw;
+    const int n16 = ncols / 16, n4 = ncols / 4;
+    int st = 0, ph = 0, prev = 0;  // ring stage, its parity, the stage before it
+    int it = 0;                    // the CTA's row blocks so far
+    for (unsigned m0 = cl * rows; m0 < static_cast<unsigned>(M); m0 += ncl * rows, ++it) {
+      const int r0 = static_cast<int>(m0) + c * kBM + 16 * w;  // the warp's first row
+      for (int i = lane; i < 16 * n16; i += 32) {
+        const int rr = i / n16, cc = (i - rr * n16) * 16;
+        if (r0 + rr < M) cp_async16(ct + rr * ldc + cc, res + (size_t)(r0 + rr) * N + n0 + cc);
+      }
+      cp_async_commit();
+      int sx[2] = {0, 0};
+      long long sxx[2] = {0, 0};
+      for (int ch = 0; ch < cpc; ++ch) {
+        // the chunk's accumulators, live only until its junction (the
+        // first wgmma overwrites them)
+        int acc[BN / 2];
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+        // main loop: one ring stage per 128 bytes of K, one slice's wgmmas in flight
+        for (int s = 0; s < nk; ++s) {
+          mbar_wait(full + st, ph);
+          const uint32_t a = smem_u32(smem + st * stage_bytes);
+          const uint64_t da = sw128_desc(a + c * kBM * kBK), db = sw128_desc(a + rows * kBK);
+          const int ksteps = (min(kBK, K - s * kBK) + 31) / 32;
+          wgmma_fence();
+          fence_regs(acc);
+#pragma unroll
+          for (int kk = 0; kk < kBK / 32; ++kk)
+            if (kk < ksteps) wgmma_s8(acc, da + 2 * kk, db + 2 * kk, s + kk);
+          wgmma_commit();
+          fence_regs(acc);
+          if (s > 0) {
+            wgmma_wait<1>();
+            if (t128 == 0) mbar_arrive(empty + prev);
+          }
+          prev = st;
+          if (++st == stages) st = 0, ph ^= 1;
+        }
+        wgmma_wait<0>();
+        fence_regs(acc);
+        if (t128 == 0) mbar_arrive(empty + prev);
+        if (ch == 0) {
+          cp_async_wait<0>();
+          __syncwarp();  // the warp's residual rows have landed
+        }
+        junction_chunk<BN>(acc, ct, ldc, ch * BN, vs, nw, g, q, lo, hi, sx, sxx);
+      }
+      // the row sums over the quad that holds each row
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sx[h] += __shfl_xor_sync(0xffffffffu, sx[h], 1);
+        sx[h] += __shfl_xor_sync(0xffffffffu, sx[h], 2);
+        sxx[h] += __shfl_xor_sync(0xffffffffu, sxx[h], 1);
+        sxx[h] += __shfl_xor_sync(0xffffffffu, sxx[h], 2);
+      }
+      if (cs > 1) {
+        // add the peers' partial sums of the same rows (their columns): the
+        // lanes that hold a row's sums publish them and arrive, releasing
+        // them, on every peer's barrier of this block's buffer, then wait
+        // for the peers' lanes and read theirs. Two buffers and two
+        // barriers: a peer writes a buffer again only after every CTA of the
+        // cluster has arrived for the block between.
+        RowSums* mine = part + (it & 1) * rows + c * kBM + 16 * w;
+        if (q == 0) {
+          mine[g] = RowSums{sxx[0], sx[0], 0};
+          mine[g + 8] = RowSums{sxx[1], sx[1], 0};
+          for (int p = 0; p < cs; ++p)
+            if (p != static_cast<int>(rank)) mbar_arrive_peer(sums + (it & 1), p);
+        }
+        mbar_wait_cluster(sums + (it & 1), (it >> 1) & 1);
+        if (q == 0)
+          for (int p = 0; p < cs; ++p)
+            if (p != static_cast<int>(rank)) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const RowSums v = ld_peer(mine + g + 8 * h, p);
+                sx[h] += v.sx;
+                sxx[h] += v.sxx;
+              }
+            }
+      }
+      if (q == 0)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const LnRow row = ln_row_exact(sx[h], sxx[h], s1, cf);
+          lr[g + 8 * h] = make_float2(row.s1_over_std, row.mean_over_std);
+        }
+      __syncwarp();  // codes and row constants visible to the warp
+      // the LN pass: a lane owns four columns at a time and walks the warp's
+      // rows, so the column vectors are read once per block
+      const int nrows = min(16, M - r0);
+      for (int c4 = lane; c4 < n4; c4 += 32) {
+        const int col = 4 * c4;
+        const float4 mk = *reinterpret_cast<const float4*>(mask + col);
+        const float4 wo = *reinterpret_cast<const float4*>(w_os + col);
+        const float4 bo = *reinterpret_cast<const float4*>(b_os + col);
+        const float4 ra = *reinterpret_cast<const float4*>(ratio + col);
+        const float m4[4] = {mk.x, mk.y, mk.z, mk.w}, w4[4] = {wo.x, wo.y, wo.z, wo.w},
+                    b4[4] = {bo.x, bo.y, bo.z, bo.w}, r4[4] = {ra.x, ra.y, ra.z, ra.w};
+#pragma unroll 2
+        for (int rr = 0; rr < nrows; ++rr) {
+          const uint32_t res4 = *reinterpret_cast<const uint32_t*>(ct + rr * ldc + col);
+          const float2 lv = lr[rr];
+          const LnRow row{lv.x, lv.y};
+          uint32_t ln4 = 0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = __fmul_rn(__int2float_rn(static_cast<int8_t>(res4 >> (8 * e))), m4[e]);
+            ln4 |= code_byte(ln_code(row, x, w4[e], b4[e], r4[e], lo, hi)) << (8 * e);
+          }
+          const size_t o = (size_t)(r0 + rr) * N + n0 + col;
+          *reinterpret_cast<uint32_t*>(res_out + o) = res4;
+          *reinterpret_cast<uint32_t*>(ln_out + o) = ln4;
+        }
+      }
+      __syncwarp();  // the tile rows are read before the next block's copies
+    }
+  }
+  if (cs > 1) cluster_sync();  // no CTA leaves while a peer may read its row sums
+}
+
+}  // namespace wg
+}  // namespace p2v
 
 namespace {
 
-constexpr int BM = p2v::kLnRows;
-using G = p2v::LnGemm;
+using ResLnKernel = void (*)(CUtensorMap, CUtensorMap, const int8_t*, const float*, const float*, int8_t*, int8_t*,
+                             int, int, int, int, int, int, int, int, float, float);
 
-// vecs rows: r, b, s_mid, s_res, inv_s_out, mask, w_os, b_os, ratio (each N)
-__global__ void __launch_bounds__(p2v::kThreads)
-    matmul_res_ln_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                         const int8_t* __restrict__ res, const float* __restrict__ vecs,
-                         const float* __restrict__ s1p, int8_t* __restrict__ res_out,
-                         int8_t* __restrict__ ln_out, int M, int N, int K, int qmin, int qmax) {
-  extern __shared__ __align__(16) int8_t dsmem[];
-  int* rowbuf = reinterpret_cast<int*>(dsmem + G::SMEM_BYTES);  // [BM][N]
-  const int m0 = blockIdx.x * BM;
-  p2v::gemm_rows<false>(
-      [&](int rr) -> const int8_t* { return m0 + rr < M ? x + (size_t)(m0 + rr) * K : nullptr; },
-      nullptr, 0, w, N, K, rowbuf, dsmem);
-  __syncthreads();
-  const size_t base = (size_t)m0 * N;
-  p2v::res_ln_rows(rowbuf, N, min(BM, M - m0), res + base, N, vecs, s1p[0], res_out + base, N,
-                   ln_out + base, N, static_cast<float>(qmin), static_cast<float>(qmax));
+// The built instances: every width of p2v::wg::kWidths.
+struct Instance {
+  int bn;
+  ResLnKernel kern;
+  bool ready;
+};
+
+Instance g_instances[] = {{256, p2v::wg::res_ln_kernel<256>, false}, {192, p2v::wg::res_ln_kernel<192>, false},
+                          {144, p2v::wg::res_ln_kernel<144>, false}, {128, p2v::wg::res_ln_kernel<128>, false},
+                          {96, p2v::wg::res_ln_kernel<96>, false}};
+
+Instance* find_instance(int bn) {
+  for (Instance& in : g_instances)
+    if (in.bn == bn) return &in;
+  return nullptr;
+}
+
+// The instance of the plan's width, its shared-memory limit raised and its
+// register count checked on first use (the setmaxnreg hand-over assumes the
+// launch's registers, as the requant kernel's).
+cudaError_t ready(Instance* in) {
+  if (in == nullptr) return cudaErrorInvalidValue;
+  if (in->ready) return cudaSuccess;
+  cudaFuncAttributes attr{};
+  cudaError_t err = p2v::set_smem(in->kern, p2v::wg::kMaxSmem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, in->kern);
+  if (err == cudaSuccess && attr.numRegs != p2v::wg::Regs<p2v::wg::kLnMaxConsumers>::kLaunch)
+    err = cudaErrorInvalidConfiguration;
+  in->ready = err == cudaSuccess;
+  return err;
+}
+
+// A launch of `grid` CTAs of nc consumers in clusters of cs.
+cudaLaunchConfig_t launch_config(int grid, int cs, int nc, int smem, cudaStream_t stream, cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(p2v::wg::threads_of(nc));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The clusters of 1 to 4 CTAs the card holds at once, for a CTA of the
+// kernel's size that fills shared memory (cached per device).
+cudaError_t resident_clusters(int* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  static int cache[64][p2v::wg::kLnMaxCluster] = {};
+  if (dev < 64 && cache[dev][0]) {
+    for (int i = 0; i < p2v::wg::kLnMaxCluster; ++i) out[i] = cache[dev][i];
+    return cudaSuccess;
+  }
+  Instance* in = find_instance(96);
+  err = ready(in);
+  for (int cs = 1; cs <= p2v::wg::kLnMaxCluster && err == cudaSuccess; ++cs) {
+    cudaLaunchAttribute attr{};
+    const cudaLaunchConfig_t cfg =
+        launch_config(cs, cs, p2v::wg::kLnMaxConsumers, p2v::wg::kMaxSmem, nullptr, &attr);
+    err = cudaOccupancyMaxActiveClusters(&out[cs - 1], in->kern, &cfg);
+  }
+  if (err == cudaSuccess && dev < 64)
+    for (int i = 0; i < p2v::wg::kLnMaxCluster; ++i) cache[dev][i] = out[i];
+  return err;
 }
 
 }  // namespace
 
-extern "C" int p2v_int8_matmul_res_ln(const void* x, const void* w, const void* res,
-                                      const void* vecs, const void* s1, void* res_out,
-                                      void* ln_out, int M, int N, int K, int qmin, int qmax,
-                                      void* stream) {
+// x (M, K) int8, w (N, K) int8, res (M, N) int8, K % 16 == 0, N % 16 == 0,
+// all 16-byte aligned (the wrapper pads and checks); vecs (9, N) float32,
+// zero past n_true; res_out, ln_out (M, N) int8. The LN counts n_true.
+// force_cs, force_nc: 0, or the plan's cluster size and consumers (a
+// measurement hook; cudaErrorInvalidConfiguration where that does not fit).
+extern "C" int p2v_int8_matmul_res_ln_forced(const void* x, const void* w, const void* res, const void* vecs,
+                                             const void* s1, void* res_out, void* ln_out, int M, int N, int n_true,
+                                             int K, int qmin, int qmax, int force_cs, int force_nc, void* stream) {
   if (M == 0) return 0;
-  const int smem = G::SMEM_BYTES + BM * N * 4;
-  cudaError_t err = p2v::set_smem(matmul_res_ln_kernel, smem);
+  if (N % 16 || K % 16 || n_true < 1 || n_true > N || abs(qmin) > p2v::wg::kMaxCode ||
+      abs(qmax) > p2v::wg::kMaxCode)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int resident[p2v::wg::kLnMaxCluster];
+  cudaError_t err = resident_clusters(resident);
   if (err != cudaSuccess) return static_cast<int>(err);
-  matmul_res_ln_kernel<<<(M + BM - 1) / BM, p2v::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), static_cast<const int8_t*>(res),
-      static_cast<const float*>(vecs), static_cast<const float*>(s1), static_cast<int8_t*>(res_out),
-      static_cast<int8_t*>(ln_out), M, N, K, qmin, qmax);
+  const p2v::wg::ResLnPlan plan = p2v::wg::res_ln_plan(M, N, resident, force_cs, force_nc);
+  if (plan.nc == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  Instance* in = find_instance(plan.bn);
+  err = ready(in);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap tmx, tmw;
+  if (!p2v::wg::tensor_map(&tmx, x, M, K, p2v::wg::kBM * plan.nc) || !p2v::wg::tensor_map(&tmw, w, N, K, plan.bn))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr{};
+  const cudaLaunchConfig_t cfg =
+      launch_config(plan.grid, plan.cs, plan.nc, plan.smem, static_cast<cudaStream_t>(stream), &attr);
+  err = cudaLaunchKernelEx(&cfg, in->kern, tmx, tmw, static_cast<const int8_t*>(res), static_cast<const float*>(vecs),
+                           static_cast<const float*>(s1), static_cast<int8_t*>(res_out), static_cast<int8_t*>(ln_out),
+                           M, N, n_true, K, plan.cpc, plan.cs, plan.nc, plan.stages, static_cast<float>(qmin),
+                           static_cast<float>(qmax));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int p2v_int8_matmul_res_ln(const void* x, const void* w, const void* res, const void* vecs,
+                                      const void* s1, void* res_out, void* ln_out, int M, int N, int n_true, int K,
+                                      int qmin, int qmax, void* stream) {
+  return p2v_int8_matmul_res_ln_forced(x, w, res, vecs, s1, res_out, ln_out, M, N, n_true, K, qmin, qmax, 0, 0,
+                                       stream);
+}
+
+// The launch facts at (M, N), N % 16 == 0 (force_cs, force_nc as above):
+// out[0..16] = BN, chunks per CTA, CTAs per cluster, consumer warpgroups,
+// stages, row blocks, grid, dynamic shared memory, registers per thread at
+// launch, spill bytes per thread, a consumer's registers after setmaxnreg,
+// CTAs per SM, SMs, and the clusters of 1, 2, 3 and 4 CTAs the card holds
+// at once.
+extern "C" int p2v_int8_matmul_res_ln_info(int M, int N, int force_cs, int force_nc, void* out) {
+  int resident[p2v::wg::kLnMaxCluster];
+  cudaError_t err = resident_clusters(resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const p2v::wg::ResLnPlan plan = p2v::wg::res_ln_plan(M, N, resident, force_cs, force_nc);
+  if (plan.nc == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  Instance* in = find_instance(plan.bn);
+  err = ready(in);
+  cudaFuncAttributes attr{};
+  int per_sm = 0;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, in->kern);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, in->kern, p2v::wg::threads_of(plan.nc), plan.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vals[17] = {plan.bn,
+                        plan.cpc,
+                        plan.cs,
+                        plan.nc,
+                        plan.stages,
+                        plan.blocks,
+                        plan.grid,
+                        plan.smem,
+                        attr.numRegs,
+                        static_cast<int>(attr.localSizeBytes),
+                        p2v::wg::Regs<p2v::wg::kLnMaxConsumers>::kConsumer,
+                        per_sm,
+                        p2v::wg::sm_count(),
+                        resident[0],
+                        resident[1],
+                        resident[2],
+                        resident[3]};
+  for (int i = 0; i < 17; ++i) static_cast<int*>(out)[i] = vals[i];
+  return 0;
 }

@@ -2,7 +2,8 @@
 // (csrc/matmul_int8.cu, csrc/matmul_ln.cu), shared with the fused encoder
 // layer (csrc/layer_fused.cu): each path runs the same arithmetic, so the
 // fused layer equals the four-kernel path bit for bit by construction. The
-// int8 Hopper kernel (gemm_wgmma.cuh) runs requant_epilogue's float chain.
+// int8 Hopper kernels (gemm_wgmma.cuh, matmul_ln.cu) run requant_epilogue's
+// float chain and the junction's per-element chains defined here.
 #pragma once
 
 #include "common.cuh"
@@ -15,6 +16,50 @@ __device__ __forceinline__ float requant_epilogue(int acc, float r, float b, flo
   float y = __fadd_rn(__fmul_rn(__int2float_rn(acc), r), b);
   if (gelu) y = __fmul_rn(gelu_as(y), out_inv);
   return requant(y, lo, hi);
+}
+
+// A code c = requant(y, lo, hi) held "biased", as the float t = clip(y) +
+// 1.5·2^23: the add rounds half to even, as rintf, because the sum's last
+// place is 1, and rounding commutes with the clip since lo and hi are
+// integers of magnitude ≤ 2^22 (the wrappers check). The bits of t are
+// 0x4B400000 + c, so their low byte is c's int8 byte (code_byte), and one
+// subtraction gives c as a float (unbias): no conversion instruction, where
+// the conversion pipe runs 16 results per clock per SM and the float adder
+// 128. rint_clip and rint_clipf equal requant's rintf-then-clip for every
+// float y, NaN and ±inf included, up to the sign of a zero code; checked
+// over all 2^32 floats on the card (p2v_requant_rint_check).
+__device__ __forceinline__ float biased(float y, float lo, float hi) {
+  return __fadd_rn(clampf(y, lo, hi), 12582912.f);
+}
+__device__ __forceinline__ float unbias(float t) { return __fsub_rn(t, 12582912.f); }
+__device__ __forceinline__ uint32_t code_byte(float t) { return __float_as_uint(t) & 0xFFu; }
+__device__ __forceinline__ int rint_clip(float y, float lo, float hi) {
+  return __float_as_int(biased(y, lo, hi)) - 0x4B400000;
+}
+__device__ __forceinline__ float rint_clipf(float y, float lo, float hi) { return unbias(biased(y, lo, hi)); }
+
+// The residual junction of one element (ops/matmul_ln.py): the mid-node
+// code clip(round(acc·r + b)), then the residual code
+// clip(round((mid·s_mid + res·s_res)·inv_s_out)), biased.
+__device__ __forceinline__ float junction_code(int acc, float r, float b, float s_mid, float res, float s_res,
+                                               float inv_s_out, float lo, float hi) {
+  const float mid = rint_clipf(__fadd_rn(__fmul_rn(__int2float_rn(acc), r), b), lo, hi);
+  const float val = __fadd_rn(__fmul_rn(mid, s_mid), __fmul_rn(res, s_res));
+  return biased(__fmul_rn(val, inv_s_out), lo, hi);
+}
+
+// The LN code of one aligned element x of a row, clip(round(ln_elem·ratio)),
+// biased.
+__device__ __forceinline__ float ln_code(const LnRow& row, float x, float w_os, float b_os, float ratio, float lo,
+                                         float hi) {
+  return biased(__fmul_rn(ln_elem(row, x, w_os, b_os), ratio), lo, hi);
+}
+
+// The LN row constants from the exact integer row sums (Σx² in 64 bits:
+// exact while |x| < 2^26 at N ≤ 2048), each rounded once to float32 as the
+// plain version's row_sums.
+__device__ __forceinline__ LnRow ln_row_exact(int sx, long long sxx, float s1, float c) {
+  return ln_row(__int2float_rn(sx), __ll2float_rn(sxx), s1, c);
 }
 
 using RequantGemm = Gemm<128, 128, 2, 4>;
@@ -51,7 +96,7 @@ __device__ __forceinline__ void matmul_requant_tile(const int8_t* x, const int8_
                r, b, out_inv, out, M, N, K, lo, hi, gelu, m0, n0, smem);
 }
 
-// The junction kernels own 32 whole rows of the output.
+// The fused layer's row tiles own 32 whole rows of the output.
 constexpr int kLnRows = 32;
 using LnGemm = Gemm<kLnRows, 128, 2, 4>;
 
@@ -80,14 +125,15 @@ __device__ __forceinline__ void gemm_rows(ARow a_row, const int8_t* sa, int lda,
 }
 
 // The residual junction and the following integer LN on rows [0, rows) of
-// rowbuf (ops/matmul_ln.py):
+// rowbuf (ops/matmul_ln.py), for the fused layer (csrc/layer_fused.cu):
 //   mid = clip(round(acc·r + b)); res = clip(round((mid·s_mid + res_in·s_res)·inv_s_out));
 //   ln = clip(round(LN(res·mask)·ratio)).
 // vecs rows: r, b, s_mid, s_res, inv_s_out, mask, w_os, b_os, ratio (each N).
-// Each warp owns whole rows; Σx and Σx² are int32 warp sums (|x| ≤ 1024, so
-// Σx² < 2^31 for N ≤ 1024): exact, whatever the order. The row buffer then
-// holds the masked residual codes. res_in / res_out / ln_out point at row 0
-// of the tile, rows *_ld bytes apart, in global or shared memory.
+// Each warp owns whole rows; Σx (int32) and Σx² (int64) are warp sums:
+// exact, whatever the order. The per-element chains are junction_code and
+// ln_code, as in the junction kernel (csrc/matmul_ln.cu). The row buffer
+// then holds the masked residual codes. res_in / res_out / ln_out point at
+// row 0 of the tile, rows *_ld bytes apart, in global or shared memory.
 __device__ __forceinline__ void res_ln_rows(int* rowbuf, int N, int rows, const int8_t* res_in, int res_ld,
                                             const float* vecs, float s1, int8_t* res_out, int res_out_ld,
                                             int8_t* ln_out, int ln_ld, float lo, float hi) {
@@ -101,24 +147,20 @@ __device__ __forceinline__ void res_ln_rows(int* rowbuf, int N, int rows, const 
     const int8_t* rin = res_in + (size_t)rr * res_ld;
     int8_t* rout = res_out + (size_t)rr * res_out_ld;
     int8_t* lout = ln_out + (size_t)rr * ln_ld;
-    int sx = 0, sxx = 0;
+    int sx = 0;
+    long long sxx = 0;
     for (int c = lane; c < N; c += 32) {
-      const float mid = requant(__fadd_rn(__fmul_rn(__int2float_rn(row[c]), r[c]), b[c]), lo, hi);
-      const float val = __fadd_rn(__fmul_rn(mid, s_mid[c]), __fmul_rn(static_cast<float>(rin[c]), s_res[c]));
-      const float code = requant(__fmul_rn(val, inv_s_out[c]), lo, hi);
-      rout[c] = to_i8(code);
-      const int xi = static_cast<int>(__fmul_rn(code, mask[c]));
+      const float code = junction_code(row[c], r[c], b[c], s_mid[c], static_cast<float>(rin[c]), s_res[c],
+                                       inv_s_out[c], lo, hi);
+      rout[c] = static_cast<int8_t>(code_byte(code));
+      const int xi = static_cast<int>(__fmul_rn(unbias(code), mask[c]));
       row[c] = xi;  // this lane owns column c of the row
       sx += xi;
-      sxx += xi * xi;
+      sxx += static_cast<long long>(xi) * xi;
     }
-    sx = warp_sum(sx);
-    sxx = warp_sum(sxx);
-    const LnRow lr = ln_row(__int2float_rn(sx), __int2float_rn(sxx), s1, cf);
-    for (int c = lane; c < N; c += 32) {
-      const float y = ln_elem(lr, static_cast<float>(row[c]), w_os[c], b_os[c]);
-      lout[c] = to_i8(requant(__fmul_rn(y, ratio[c]), lo, hi));
-    }
+    const LnRow lr = ln_row_exact(warp_sum(sx), warp_sum(sxx), s1, cf);
+    for (int c = lane; c < N; c += 32)
+      lout[c] = static_cast<int8_t>(code_byte(ln_code(lr, static_cast<float>(row[c]), w_os[c], b_os[c], ratio[c], lo, hi)));
   }
 }
 

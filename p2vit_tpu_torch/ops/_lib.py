@@ -41,13 +41,15 @@ SIGNATURES = {
     "p2v_int8_matmul_requant_grid": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "p2v_int8_matmul_requant_info": [_I, _I, _I, _I, _P],
     "p2v_requant_rint_check": [_I, _I, _P, _P],
-    "p2v_int8_matmul_res_ln": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "p2v_int8_matmul_res_ln": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "p2v_int8_matmul_res_ln_forced": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "p2v_int8_matmul_res_ln_info": [_I, _I, _I, _I, _P],
     "p2v_lis_attention_qkv_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "p2v_lis_attention_qkv_fused_timed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "p2v_lis_attention_qkv_info": [_I, _I, _P],
     "p2v_lis_attention_fused": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "p2v_lis_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "p2v_fused_patch_embed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "p2v_fused_patch_embed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "p2v_int_ln_requant": [_P, _P, _P, _P, _I, _I, _P],
     "p2v_int_res_ln_requant": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "p2v_swin_lis_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -165,6 +167,14 @@ def check_cuda_operand(t: torch.Tensor, name: str, dtype, shape=None) -> None:
         raise ValueError(f"{name}: must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: must be 16-byte aligned")
+
+
+def pad_cols(t: torch.Tensor, mult: int, value: float = 0) -> torch.Tensor:
+    """``t`` with its last dimension padded at the end to a multiple of
+    ``mult`` with ``value`` (zero codes add nothing to an integer sum); ``t``
+    itself where it needs no padding."""
+    pad = (-t.shape[-1]) % mult
+    return torch.nn.functional.pad(t, (0, pad), value=value) if pad else t
 
 
 def f32_vec(v, n: int, device) -> torch.Tensor:

@@ -20,24 +20,27 @@ output token rows with their full width: the [CLS] rows take the constant
 codes, the patch rows gather their patch from the (B·196, 768) matrix
 inside the ``mma.sync`` tile loads, so no [cls; patches] concatenation is
 materialized. Bound on the card: the K = 768 int8 matmul; one launch per
-forward.
+forward. The wrapper zero-pads K to a multiple of 16 and C to a multiple of 8
+(``embed_pad``), as the JAX wrapper pads both to 128; the LN counts the
+true C. C ≤ 1024: the block's int32 row buffer (32·C·4 bytes) lies in shared
+memory.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ._lib import check_cuda_operand, device_of, f32_scalars, f32_vec, launch
+from ._lib import check_cuda_operand, device_of, f32_scalars, f32_vec, launch, pad_cols
 from .intln import ln_codes
-from .matmul_ln import MAX_ROW
 from .matmul_int8 import int_matmul_nt
 
 _I8 = (-128, 127)
+MAX_C = 1024  # the kernel's shared-memory row buffer
 
 
 def embed_consts(c, device, patch_requant, patch_bias, s_qact1, ln_mask, ln_w_os,
                  ln_b_os, embed_requant, s_embed, ln_s1):
-    """Per-column vectors (5, C) and scalars (3,) shared by kernel and plain."""
+    """Per-column vectors (6, C) and scalars (3,) shared by kernel and plain."""
     v = lambda a: f32_vec(a, c, device)  # noqa: E731
     vecs = torch.stack([v(patch_requant), v(patch_bias), v(s_qact1), v(ln_mask),
                         v(ln_w_os), v(ln_b_os)])
@@ -45,15 +48,11 @@ def embed_consts(c, device, patch_requant, patch_bias, s_qact1, ln_mask, ln_w_os
     return vecs, scal
 
 
-def fused_patch_embed_plain(patches, w_q, patch_requant, patch_bias,
-                            embed_requant, s_embed, pos_val, cls_xc, s_qact1,
-                            ln_mask, ln_s1, ln_w_os, ln_b_os):
-    """Plain PyTorch version of the kernel; returns (xc, h)."""
-    dev = device_of(patches, w_q)
+def embed_codes_plain(patches, w_q, vecs, scal, pos_val, cls_xc, c_true=None):
+    """The kernel's chain on its constants (``embed_consts``); the LN counts
+    ``c_true`` columns (default C)."""
     b, n_patch, k = patches.shape
     c = w_q.shape[0]
-    vecs, scal = embed_consts(c, dev, patch_requant, patch_bias, s_qact1, ln_mask,
-                              ln_w_os, ln_b_os, embed_requant, s_embed, ln_s1)
     r1, b1, sq1, mask, w_os, b_os = (row[None, :] for row in vecs)
     r2, s_emb, s1 = scal
     acc = int_matmul_nt(patches.reshape(-1, k), w_q).reshape(b, n_patch, c)
@@ -63,7 +62,33 @@ def fused_patch_embed_plain(patches, w_q, patch_requant, patch_bias,
     xcp = torch.clamp(torch.round(val / sq1), *_I8)
     cls_row = cls_xc.to(torch.float32).reshape(1, 1, c).expand(b, 1, c)
     xc = torch.cat([cls_row, xcp], dim=1)
-    return xc.to(torch.int8), ln_codes(xc * mask, s1, w_os, b_os, 1.0)
+    return xc.to(torch.int8), ln_codes(xc * mask, s1, w_os, b_os, 1.0, c_true=c_true)
+
+
+def fused_patch_embed_plain(patches, w_q, patch_requant, patch_bias,
+                            embed_requant, s_embed, pos_val, cls_xc, s_qact1,
+                            ln_mask, ln_s1, ln_w_os, ln_b_os):
+    """Plain PyTorch version of the kernel; returns (xc, h)."""
+    dev = device_of(patches, w_q)
+    vecs, scal = embed_consts(w_q.shape[0], dev, patch_requant, patch_bias, s_qact1, ln_mask,
+                              ln_w_os, ln_b_os, embed_requant, s_embed, ln_s1)
+    return embed_codes_plain(patches, w_q, vecs, scal, pos_val, cls_xc)
+
+
+def embed_pad(patches, w_q, vecs, pos, cls):
+    """The kernel's operands, zero-padded: K to a multiple of 16 (patches,
+    w), C to a multiple of 8 (w rows, the vectors, pos and cls columns).
+    The padded columns' codes are zeros (s_qact1 is padded with ones, so the
+    PTF divide stays finite) and their mask is zero, so they add nothing to
+    the LN row sums; the LN must still count the true C."""
+    k, c = patches.shape[-1], w_q.shape[0]
+    if k % 16 == 0 and c % 8 == 0:
+        return patches, w_q, vecs, pos, cls
+    patches = pad_cols(patches, 16)
+    w_q = torch.nn.functional.pad(w_q, (0, patches.shape[-1] - k, 0, (-c) % 8))
+    sq1 = pad_cols(vecs[2:3], 8, value=1.0)
+    vecs = torch.cat([pad_cols(vecs[:2], 8), sq1, pad_cols(vecs[3:], 8)])
+    return patches, w_q, vecs, pad_cols(pos, 8), pad_cols(cls, 8)
 
 
 def fused_patch_embed(patches, w_q, patch_requant, patch_bias, embed_requant,
@@ -80,7 +105,7 @@ def fused_patch_embed(patches, w_q, patch_requant, patch_bias, embed_requant,
         positional values of the patch rows; cls_xc: (1, C) int8 [CLS] row.
       s_qact1: (C,) PTF scale (divides). ln_*: block-0 LN1 constants.
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (K % 16 == 0, C % 8 == 0, C ≤ 1024) or raise.
+    (any K, C ≤ 1024, both zero-padded by ``embed_pad``) or raise.
     """
     dev = device_of(patches, w_q)
     if dev.type == "cpu":
@@ -91,20 +116,24 @@ def fused_patch_embed(patches, w_q, patch_requant, patch_bias, embed_requant,
     c = w_q.shape[0]
     check_cuda_operand(patches, "patches", torch.int8)
     check_cuda_operand(w_q, "w_q", torch.int8, (c, k))
-    if k % 16 or c % 8 or c > MAX_ROW:
-        raise ValueError(f"fused_patch_embed kernel needs K % 16 == 0, C % 8 == 0 and "
-                         f"C <= {MAX_ROW}; got K={k}, C={c}")
+    if c > MAX_C:
+        raise ValueError(f"fused_patch_embed kernel needs C <= {MAX_C} (its row buffer in shared memory); "
+                         f"got C={c}")
     pos = pos_val.to(torch.float32).contiguous()
     cls = cls_xc.to(torch.int8).reshape(c).contiguous()
     if tuple(pos.shape) != (n_patch, c) or pos.device != dev or cls.device != dev:
         raise ValueError("pos_val must be (N_patch, C) and cls_xc (1, C), on the patches' device")
     vecs, scal = embed_consts(c, dev, patch_requant, patch_bias, s_qact1, ln_mask,
                               ln_w_os, ln_b_os, embed_requant, s_embed, ln_s1)
-    xc = torch.empty((b, n_patch + 1, c), dtype=torch.int8, device=dev)
-    h = torch.empty((b, n_patch + 1, c), dtype=torch.int8, device=dev)
+    patches, w_q, vecs, pos, cls = embed_pad(patches, w_q, vecs, pos, cls)
+    c_pad = w_q.shape[0]
+    xc = torch.empty((b, n_patch + 1, c_pad), dtype=torch.int8, device=dev)
+    h = torch.empty((b, n_patch + 1, c_pad), dtype=torch.int8, device=dev)
     launch("p2v_fused_patch_embed", patches, w_q, vecs, scal, pos, cls, xc, h,
-           b, n_patch, k, c)
+           b, n_patch, patches.shape[-1], c_pad, c)
     fused_patch_embed.launches += 1
+    if c_pad != c:
+        return xc[..., :c].contiguous(), h[..., :c].contiguous()
     return xc, h
 
 

@@ -79,11 +79,12 @@ def ln_mn_chain(x, sx, sxx, s1, c_true, w_os, b_os):
     return torch.round((a_sign * m * x + bb) * exp2i(-n))
 
 
-def ln_codes(x, s1, w_os, b_os, ratio, qmin=-128, qmax=127):
+def ln_codes(x, s1, w_os, b_os, ratio, qmin=-128, qmax=127, c_true=None):
     """LN of aligned codes ``x`` (M, C) with exact row sums, then
-    clip(round(y·ratio)) as int8: every plain LN epilogue."""
+    clip(round(y·ratio)) as int8: every plain LN epilogue. The LN counts
+    ``c_true`` columns (default C: a zero-padded row counts its true width)."""
     sx, sxx = row_sums(x)
-    y = ln_mn_chain(x, sx, sxx, s1, float(x.shape[-1]), w_os, b_os)
+    y = ln_mn_chain(x, sx, sxx, s1, float(x.shape[-1] if c_true is None else c_true), w_os, b_os)
     return torch.clamp(torch.round(y * ratio), qmin, qmax).to(torch.int8)
 
 

@@ -47,7 +47,7 @@ import functools
 
 import torch
 
-from ._lib import check_cuda_operand, device_of, f32_scalars, f32_vec, launch, library
+from ._lib import check_cuda_operand, device_of, f32_scalars, f32_vec, launch, library, pad_cols
 from .fastmath import exp_rn
 
 # A&S 7.1.26 coefficients, as float32 like the JAX kernel's weak-typed consts
@@ -199,13 +199,19 @@ def requant_rint_check(qmin: int, qmax: int, device=None) -> int:
     return int(bad.item())
 
 
+def requant_pad(x_q, w_q):
+    """x (M, K) and w (N, K) with K zero-padded to a multiple of 32 (zeros
+    add nothing to the exact sum; JAX pads K to 128): rows of K % 16 ≠ 0
+    bytes cannot be TMA rows, and TMA loads rows of K % 32 ≠ 0 slowly (the
+    int stem's K = 48 took over twice K = 96's time at the same M and N,
+    ``tools/requant_bench.py``)."""
+    return pad_cols(x_q, 32), pad_cols(w_q, 32)
+
+
 def _requant_args(x_q, w_q, requant_scale, bias_scaled, out_inv, gelu, qmin, qmax):
     """Checked CUDA launch arguments of the int8 kernel, (x, w, r, b, scalars,
-    out); raises where it does not run (``requant_plan``; |qmin|, |qmax| ≤
-    2^22). Rows of K bytes with K % 32 ≠ 0 are padded with zero codes to the
-    next multiple of 32 (zeros add nothing to the exact sum): TMA loads such
-    rows slowly, and the int stem's K = 48 took over twice K = 96's time at
-    the same M and N (``tools/requant_bench.py``)."""
+    out), K padded by ``requant_pad``; raises where it does not run
+    (``requant_plan`` at the padded K; |qmin|, |qmax| ≤ 2^22)."""
     dev = x_q.device
     if max(abs(qmin), abs(qmax)) > MAX_CODE:
         raise ValueError(f"int8_matmul_requant kernel needs |qmin|, |qmax| <= 2^22, got [{qmin}, {qmax}]")
@@ -213,10 +219,9 @@ def _requant_args(x_q, w_q, requant_scale, bias_scaled, out_inv, gelu, qmin, qma
     n = w_q.shape[0]
     check_cuda_operand(x_q, "x_q", torch.int8)
     check_cuda_operand(w_q, "w_q", torch.int8, (n, k))
-    requant_plan(m, n, k, _sm_count(dev.index if dev.index is not None else torch.cuda.current_device()),
-                 bool(gelu))
-    if k % 32:
-        x_q, w_q = (torch.nn.functional.pad(t, (0, 32 - k % 32)) for t in (x_q, w_q))
+    x_q, w_q = requant_pad(x_q, w_q)
+    requant_plan(m, n, x_q.shape[1],
+                 _sm_count(dev.index if dev.index is not None else torch.cuda.current_device()), bool(gelu))
     r = f32_vec(requant_scale, n, dev)
     b = f32_vec(bias_scaled, n, dev)
     s = f32_scalars(out_inv, device=dev)
@@ -243,7 +248,8 @@ def int8_matmul_requant(x_q, w_q, requant_scale, bias_scaled, out_inv=1.0,
       requant_scale, bias_scaled: (N,) float32 (or scalars).
       out_inv: 1/s_out for the GELU epilogue.
     Returns (M, N) int8. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (K must be a multiple of 16; ``requant_plan``) or raise.
+    launch the kernel (any K > 0, zero-padded by ``requant_pad``;
+    ``requant_plan``) or raise.
     """
     dev = device_of(x_q, w_q)
     if dev.type == "cpu":

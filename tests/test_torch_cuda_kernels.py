@@ -143,23 +143,131 @@ def test_int8_matmul_requant_grid_hook_and_launch_count(dev):
     assert matmul_int8.int8_matmul_requant.launches == before + 1
 
 
-@pytest.mark.parametrize("k", [384, 1536])
-def test_int8_matmul_res_ln_kernel(dev, k):
-    rng = np.random.RandomState(1)
-    m, n = 394, 384
+def _res_ln_args(rng, m, k, n, case="ptf"):
+    """Junction arguments: int8 x, int4-valued weights, PoT requant scales,
+    residual codes and PTF scales. ``mask16``: every column but one at
+    s_out = 16·s1 (PTF mask 16) with the residual scaled so that most codes
+    saturate: |x| = 2048, and at N = 1024 every row's Σx² passes 2^31."""
+    s_out = (0.013 * 2.0 ** rng.randint(0, 4, n)).astype(np.float32)
+    s_res = (0.011 * 2.0 ** rng.randint(0, 4, n)).astype(np.float32)
+    if case == "mask16":
+        s_out = np.full(n, 0.013 * 16, np.float32)
+        s_out[0] = 0.013
+        s_res = (4 * s_out).astype(np.float32)
     args = [
         _i8(rng, (m, k)), _i8(rng, (n, k), -8, 8), _pot(rng, n, -10, -6),
         torch.from_numpy(rng.randn(n).astype(np.float32)), _i8(rng, (m, n)),
         torch.from_numpy((np.abs(rng.randn(n)) * 0.02 + 0.01).astype(np.float32)),
-        torch.from_numpy((0.011 * 2.0 ** rng.randint(0, 4, n)).astype(np.float32)),
-        torch.from_numpy((0.013 * 2.0 ** rng.randint(0, 4, n)).astype(np.float32)),
+        torch.from_numpy(s_res), torch.from_numpy(s_out),
         torch.from_numpy(rng.randn(n).astype(np.float32)),
         torch.from_numpy((rng.randn(n) * 0.1).astype(np.float32)),
         torch.from_numpy((np.abs(rng.randn(n)) * 0.03 + 0.01).astype(np.float32)),
         _pot(rng, n, -1, 2),
     ]
-    args = [a.to(dev) for a in args]
+    return args
+
+
+@pytest.mark.parametrize("case", ["ptf", "mask16", "int4_clamp"])
+@pytest.mark.parametrize("kmul", [1, 4])
+@pytest.mark.parametrize("n", [96, 128, 192, 256, 384, 512, 768, 1024])
+def test_int8_matmul_res_ln_kernel(dev, n, kmul, case):
+    """Every chunk width the plan picks (N = 96 … 1024, one to four chunks),
+    K = N (proj) and 4N (fc2), ragged M (one row, one row past a 64-row
+    tile, a partial 128-row block, Swin-T stage 3's 3136 + 1); a PTF mask
+    of 16 with saturated codes (Σx² past 2^31 at N = 1024); the int4 clamp."""
+    rng = np.random.RandomState(n + kmul)
+    qmin, qmax = (-8, 7) if case == "int4_clamp" else (-128, 127)
+    for m in (1, 65, 394, 3137):
+        args = [a.to(dev) for a in _res_ln_args(rng, m, kmul * n, n, case)]
+        got = matmul_ln.int8_matmul_res_ln(*args, qmin=qmin, qmax=qmax)
+        _same(got, matmul_ln.int8_matmul_res_ln_plain(*args, qmin=qmin, qmax=qmax))
+        if case == "mask16" and n == 1024 and m > 1:
+            x = got[0].to(torch.int64) * torch.round(args[7] / args[7].min()).to(torch.int64)
+            assert int((x * x).sum(1).min()) > 2**31
+
+
+# (M, N, K) of every junction of the zoo's serving paths at batch 64:
+# DeiT-T/S/B and ViT-B/L (proj K = C, fc2 K = 4C, M = 64·197) and
+# Swin-T/S/B's fc2 junctions per stage
+RES_LN_SHAPES = [(12608, 192, 192), (12608, 192, 768), (12608, 384, 384), (12608, 384, 1536),
+                 (12608, 768, 768), (12608, 768, 3072), (12608, 1024, 1024), (12608, 1024, 4096),
+                 (200704, 96, 384), (50176, 192, 768), (12544, 384, 1536), (3136, 768, 3072),
+                 (200704, 128, 512), (50176, 256, 1024), (12544, 512, 2048), (3136, 1024, 4096)]
+
+
+@pytest.mark.parametrize("m,n,k", RES_LN_SHAPES)
+def test_int8_matmul_res_ln_plan_matches_kernel(dev, m, n, k):
+    """The C entry's plan equals res_ln_plan at every zoo junction shape; its
+    registers are those the setmaxnreg hand-over assumes, nothing spills, one
+    CTA per SM, and the card holds all of the persistent grid's clusters at
+    once; the kernel equals the plain version there (M cut to a few row
+    blocks past the first wave)."""
+    info = matmul_ln.res_ln_kernel_info(m, n)
+    plan = matmul_ln.res_ln_plan(m, n, k, info["sms"], info["resident"])
+    assert (info["bn"], info["cpc"], info["cs"], info["nc"], info["stages"], info["blocks"], info["grid"],
+            info["smem_bytes"]) == (plan.bn, plan.cpc, plan.cs, plan.nc, plan.stages, plan.blocks, plan.grid,
+                                    plan.smem_bytes)
+    assert info["registers"] == 168 and info["spill_bytes"] == 0 and info["ctas_per_sm"] == 1
+    assert plan.grid <= info["resident"][plan.cs - 1] * plan.cs
+    mm = min(m, plan.rows * (info["sms"] + 3) - 5)
+    args = [a.to(dev) for a in _res_ln_args(np.random.RandomState(m + n), mm, k, n)]
     _same(matmul_ln.int8_matmul_res_ln(*args), matmul_ln.int8_matmul_res_ln_plain(*args))
+
+
+@pytest.mark.parametrize("cs,nc", [(1, 1), (1, 2), (2, 1), (2, 2), (3, 1), (3, 2), (4, 1), (4, 2)])
+def test_int8_matmul_res_ln_forced_plans(dev, cs, nc):
+    """Every cluster size and consumer count the measurement hook can force,
+    at DeiT-S's width over a few waves of row blocks (the clusters' row sums
+    through distributed shared memory, blocks taken in turn), equals the
+    plain version; the hook counts no launch."""
+    rng = np.random.RandomState(10 * cs + nc)
+    args = [a.to(dev) for a in _res_ln_args(rng, 64 * 2 * 200 + 17, 384, 384, "mask16")]
+    before = matmul_ln.int8_matmul_res_ln.launches
+    _same(matmul_ln.int8_matmul_res_ln_forced(*args, cs=cs, nc=nc), matmul_ln.int8_matmul_res_ln_plain(*args))
+    assert matmul_ln.int8_matmul_res_ln.launches == before
+
+
+@pytest.mark.parametrize("n", [8, 100, 200, 1000])
+@pytest.mark.parametrize("k", [40, 100, 384])
+def test_int8_matmul_res_ln_padded(dev, n, k):
+    """N not a multiple of 16 and K not of 32: the wrapper zero-pads both,
+    the LN counts the true N, and the outputs are (M, N); each call counts
+    one launch."""
+    rng = np.random.RandomState(n * k)
+    args = [a.to(dev) for a in _res_ln_args(rng, 131, k, n)]
+    before = matmul_ln.int8_matmul_res_ln.launches
+    got = matmul_ln.int8_matmul_res_ln(*args)
+    assert matmul_ln.int8_matmul_res_ln.launches == before + 1
+    assert got[0].shape == got[1].shape == (131, n) and got[0].is_contiguous()
+    _same(got, matmul_ln.int8_matmul_res_ln_plain(*args))
+
+
+@pytest.mark.parametrize("m,k,n", [(77, 40, 96), (200, 8, 288), (12608, 100, 384), (5, 200, 1000)])
+@pytest.mark.parametrize("gelu", [False, True])
+def test_int8_matmul_requant_padded(dev, m, k, n, gelu):
+    """K not a multiple of 16: planned and launched at the zero-padded K."""
+    a, kw = _requant_case(dev, m + k, m, k, n, gelu)
+    _same(matmul_int8.int8_matmul_requant(*a, **kw), matmul_int8.int8_matmul_requant_plain(*a, **kw))
+
+
+def _embed_args(rng, b, n_patch, k, c):
+    """fused_patch_embed arguments: int8 patch codes, int4-valued weights,
+    PoT scales, positional values, a [CLS] row and the LN constants."""
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    return [_i8(rng, (b, n_patch, k)), _i8(rng, (c, k), -8, 8), _pot(rng, c, -10, -6), f(rng.randn(c)),
+            f(2.0 ** rng.randint(-2, 1)), f(0.05), f(rng.randn(n_patch, c) * 0.2), _i8(rng, (1, c)),
+            f(0.02 * 2.0 ** rng.randint(0, 3, c)), f(2.0 ** rng.randint(0, 3, c)), f(0.02),
+            f(rng.randn(c) * 8), f(rng.randn(c) * 4)]
+
+
+@pytest.mark.parametrize("k,c", [(768, 384), (40, 100), (200, 36), (768, 1000)])
+def test_fused_patch_embed_padded(dev, k, c):
+    """K not a multiple of 16 and C not of 8 (and DeiT-S's own widths): the
+    wrapper zero-pads both and the LN counts the true C."""
+    args = [a.to(dev) for a in _embed_args(np.random.RandomState(k + c), 3, 49, k, c)]
+    got = embed_fused.fused_patch_embed(*args)
+    assert got[0].shape == (3, 50, c)
+    _same(got, embed_fused.fused_patch_embed_plain(*args))
 
 
 # (B, N, C_in, C_out, heads): the cluster's edges (N = 5: one CTA and one
@@ -245,7 +353,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         matmul_int8.int8_matmul_requant(x[:, ::2], w[:, :192], v, v)
     with pytest.raises(ValueError, match="K % 16"):
-        matmul_int8.int8_matmul_requant(x[:, :40].contiguous(), w[:, :40].contiguous(), v, v)
+        matmul_int8.int8_matmul_requant(x[:, :0].contiguous(), w[:, :0].contiguous(), v, v)
     with pytest.raises(ValueError, match="2\\^22"):
         matmul_int8.int8_matmul_requant(x, w, v, v, qmin=-2 ** 23)
     rng = np.random.RandomState(6)
