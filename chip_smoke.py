@@ -46,7 +46,8 @@ weight-only serving of both models and the two weight-store GEMM tools:
   tensor-core peak (fc1 at M = 12608, and per chain), and its blocks at
   M = 197. After the build, the DMMA instructions in the built
   ``wstream_matmul`` kernels, the IMMA instructions in the cluster
-  attention kernel, and the warpgroup-MMA (IGMMA) and TMA-load (UTMALDG)
+  attention kernel and in the Swin attention kernel, and the warpgroup-MMA
+  (IGMMA) and TMA-load (UTMALDG)
   instructions in the Hopper ``int8_matmul_requant`` and
   ``int8_matmul_res_ln`` kernels (``cuobjdump -sass``, report only).
 
@@ -56,7 +57,10 @@ Phases of the int8 serving paths, one line each, per path:
      on the arguments the path gives it (captured from a plain forward at
      batch 8 and 64): mismatch counts; must be 0. The staged path also holds
      ``lis_attention`` against its plain version, on the captured qkv codes
-     split to (B·H, N, 64).
+     split to (B·H, N, 64); the Swin paths hold the Swin attention on each
+     panel call's arguments on forced grids (one item per CTA, 7 CTAs) and
+     the folded entry, at shift 0 and ws // 2, on the raster grid the
+     panels tile.
   2. the path: launch counts reset, serving_forward through the kernels on
      every request batch, counts read. Its logits must equal the plain
      path's (``use_kernels=False``) bit for bit. uint8 paths: the logits must
@@ -103,7 +107,12 @@ Phases of the int8 serving paths, one line each, per path:
      line (CTAs per cluster, chunk width BN and chunks per CTA, consumer
      warpgroups, ring stages, row blocks, persistent grid, resident
      clusters, shared memory, registers, spill bytes, CTAs per SM;
-     ``torch._int_mm`` beside it).
+     ``torch._int_mm`` beside it). A path that runs the Swin attention does
+     the same for it: its device ms per forward over all instances, the
+     device ms in ``roll`` kernels, and per shape a launch line (items,
+     grid, CTAs per SM, shared memory, registers, spills, its time at one
+     item per CTA, the middle CTA's phase clock and bias stagings, and the
+     spread of the CTAs' durations).
 
 Then the card's name and power limit, one JSON line of per-kernel results
 (``launches`` summed over the paths' phase-2 runs, ``ms``/``plain_ms``/
@@ -120,6 +129,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -131,7 +141,11 @@ import torch
 REDESIGNED = {"wstream_matmul": "float64 tensor cores (mma.sync.m16n8k16) on exact panel sums",
               "lis_attention_qkv_fused": "4-CTA cluster, K/V through distributed shared memory, int8 mma.sync",
               "int8_matmul_requant": "TMA ring, int8 wgmma on N-sized tiles, persistent warp-specialized grid",
-              "int8_matmul_res_ln": "TMA ring, int8 wgmma chunks into a whole-row code tile, clusters splitting N"}
+              "int8_matmul_res_ln": "TMA ring, int8 wgmma chunks into a whole-row code tile, clusters splitting N",
+              "swin_lis_attention": "persistent grid taking items from a counter, q/k/v and mask by cp.async, "
+                                    "bias per head change, int8 mma.sync scores and LIS attn@v",
+              "swin_lis_attention_folded": "the same body; window partition, reverse and the cyclic shift "
+                                           "in its addresses"}
 # kernel → (plain version's module, its name, CUDA source, the TPU kernel it replaces)
 SOURCES = {
     "fused_patch_embed": ("embed_fused", "fused_patch_embed_plain", "embed_fused.cu",
@@ -379,6 +393,7 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
     # ---- phase 1: each kernel vs its plain version on the path's arguments --
     worst = {k: 0 for k in plain}
     mismatches = {k: 0 for k in plain}
+    swin_entries = {}  # the Swin kernel's forced grids and shifted folded entry, kernel vs plain
     timing_calls = {}
     for b in sorted({8, bt}):
         x = requests[b] if b in requests else img(b, path.img_size, u8)
@@ -396,6 +411,9 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
                     diff = (g_.to(torch.int32) - w_.to(torch.int32)).abs()
                     mismatches[name] += int((diff != 0).sum())
                     worst[name] = max(worst[name], int(diff.max()))
+                if name == "swin_lis_attention":
+                    for key2, n_bad in _swin_entry_checks(ops, a, k).items():
+                        swin_entries[key2] = swin_entries.get(key2, 0) + n_bad
                 if b == bt:
                     count = sum(1 for a2, k2 in calls[pname] if _shape_key(a2, k2) == key)
                     timing_calls.setdefault(name, []).append((a, k, count, _bound(name, a, want)))
@@ -404,6 +422,12 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
           f"mismatches {json.dumps(mismatches)}", flush=True)
     if any(mismatches.values()):
         _fail(f"{path.name}: kernel disagrees with its plain version: {mismatches}")
+    if swin_entries:
+        print(f"{path.name} phase 1 Swin attention on the panel calls' arguments (forced grids; the folded "
+              f"entry on the raster grid the windows tile, shift 0 and ws // 2): mismatches "
+              f"{json.dumps(swin_entries)}", flush=True)
+        if any(swin_entries.values()):
+            _fail(f"{path.name}: a Swin attention entry disagrees with its plain version: {swin_entries}")
 
     # ---- phase 2: the path through the kernels ----------------------------
     reset_launch_counts()
@@ -493,11 +517,16 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
               flush=True)
         for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             print(f"{path.name} phase 5 batch {bt} device ms/forward {t:.4f} {name[:110]}")
-        for kern, inst in (("int8_matmul_requant", "requant_kernel<"), ("int8_matmul_res_ln", "res_ln_kernel<")):
-            if kern in path.kernels:
+        for kern, inst in (("int8_matmul_requant", "requant_kernel<"), ("int8_matmul_res_ln", "res_ln_kernel<"),
+                           ("swin_lis_attention*", "swin_attention_kernel<")):
+            if kern.rstrip("*") in path.kernels:
                 t = sum(v for name, v in by_name.items() if inst in name)
                 print(f"{path.name} phase 5 batch {bt} device ms/forward {kern}, all its instances: {t:.4f}",
                       flush=True)
+        if path.key.startswith("swin"):
+            rolls = {name: v for name, v in by_name.items() if re.search(r"\broll", name)}  # not "unrolled_…"
+            print(f"{path.name} phase 5 batch {bt} device ms/forward in roll kernels: {sum(rolls.values()):.4f} "
+                  f"({len(rolls)} kernel names)", flush=True)
     summary = {"ms": ms, "f32_ms": times.get("int8 kernels, float32 input", ms), "device_ms": dev_ms,
                "other_ms": None if dev_ms is None else dev_ms - port_ms}
     results = {}
@@ -522,6 +551,9 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
             if name == "int8_matmul_res_ln":
                 print(f"{path.name} phase 5 kernel int8_matmul_res_ln launch: "
                       f"{_res_ln_launch_report(ops, a, t_k, reps)}", flush=True)
+            if name in ("swin_lis_attention", "swin_lis_attention_folded"):
+                print(f"{path.name} phase 5 kernel {name} launch: "
+                      f"{_swin_launch_report(ops, name, a, k, t_k, reps)}", flush=True)
             k_ms += t_k * count
             p_ms += t_p * count
             by[b_by] += b_ms * count
@@ -611,6 +643,75 @@ def _res_ln_launch_report(ops, a, t_k, reps):
             f"{info['resident'][info['cs'] - 1]} clusters resident at most), {info['smem_bytes']} B shared memory, "
             f"{info['registers']} registers at launch, {info['consumer_registers']} per consumer thread, "
             f"{info['spill_bytes']} B spilled; {t_k:.4f} ms per call, torch._int_mm {int_mm}")
+
+
+def _swin_geometry(name, a):
+    """(windows, windows per image, heads, N, fold) of a Swin attention call."""
+    qkv, heads = a[0], a[3]
+    if name == "swin_lis_attention_folded":
+        b, res = qkv.shape[:2]
+        g2 = (res // a[4]) ** 2
+        return b * g2, g2, heads, a[4] * a[4], True
+    w, n = qkv.shape[:2]
+    return w, a[4] if a[2] is not None else 1, heads, n, False
+
+
+def _swin_entry_checks(ops, a, k):
+    """Element mismatches of the Swin kernel against its plain version on one
+    panel call's arguments: forced grids of one item per CTA and of 7 CTAs
+    (runs across heads and window positions), and the folded entry on the
+    raster grid the panels tile (window_reverse) at shift 0 and ws // 2
+    (stages of more than one window)."""
+    from p2vit_tpu_torch.models.swin import window_reverse
+
+    al = ops.attention_lis
+    qkv, heads, nw = a[0], a[3], a[4]
+    w, n, _ = qkv.shape
+    want = al.swin_lis_attention_plain(*a, **k)
+    out = {}
+    for g in (w * heads, 7):
+        out[f"panel grid {'items' if g == w * heads else g}"] = _diff(al.swin_lis_attention(*a, **k, grid=g), want)[0]
+    ws, g2 = round(n ** 0.5), round(nw ** 0.5)
+    if g2 > 1 and ws * ws == n and g2 * g2 == nw:
+        res = g2 * ws
+        raster = window_reverse(qkv, ws, res, res).contiguous()
+        for shift in (0, ws // 2):
+            fa = (raster, a[1], a[2], heads, ws) + tuple(a[5:])
+            out[f"folded shift {shift}"] = _diff(al.swin_lis_attention_folded(*fa, **k, shift=shift),
+                                                 al.swin_lis_attention_folded_plain(*fa, **k, shift=shift))[0]
+    return out
+
+
+def _swin_launch_report(ops, name, a, k, t_k, reps):
+    """The Swin kernel's plan and launch facts at one shape (CUDA runtime),
+    its time with one item per CTA (the forced-grid hook) and the middle
+    CTA's phases summed over its items (the %globaltimer hook)."""
+    al = ops.attention_lis
+    windows, nw, heads, n, fold = _swin_geometry(name, a)
+    lis = bool(k.get("lis", True))
+    info = al.swin_attention_info(n, lis, fold)
+    plan = al.swin_attention_plan(windows, nw, heads, n, info["sms"], info["ctas_per_sm"], lis=lis)
+    kern = getattr(al, name)
+    one = _time_ms(lambda: kern(*a, **k, grid=plan.items), reps)
+    stamps = torch.zeros((5, 16), dtype=torch.int64, device=a[0].device)  # 16-byte aligned rows
+    for row in stamps:
+        kern(*a, **k, phase_ns=row[:9])
+    spans = torch.zeros(2 * plan.grid, dtype=torch.int64, device=a[0].device)
+    kern(*a, **k, cta_ns=spans)
+    torch.cuda.synchronize()
+    us = (stamps[:, :6].double().mean(0) / 1e3).tolist()
+    names = al.SWIN_PHASES if lis else al.SWIN_PHASES_LISOFF
+    phases = ", ".join(f"{nm} {t:.2f}" for nm, t in zip(names, us))
+    se = spans.view(-1, 2).double() / 1e3
+    dur = (se[:, 1] - se[:, 0]).sort().values
+    return (f"{plan.items} items on a grid of {plan.grid} CTAs ({info['ctas_per_sm']} per SM of {info['sms']}) "
+            f"taking them in turn, {plan.items / plan.grid:.2f} items a CTA, mask "
+            f"{'with every item' if a[2] is not None else 'none'}, {info['smem_bytes']} B shared memory, "
+            f"{info['registers']} registers ({info['spill_bytes']} B spilled), MMA tiles a warp per item (scores, "
+            f"attn@v) {plan.warp_tiles}; {t_k:.4f} ms per call, one item per CTA {one:.4f} ms; the middle CTA's "
+            f"{int(stamps[0, 6])} items, {int(stamps[0, 8])} bias stagings (us per call, mean of 5): {phases}, "
+            f"total {us[5]:.2f}; CTA durations us min {float(dur[0]):.2f} median {float(dur[len(dur) // 2]):.2f} "
+            f"max {float(dur[-1]):.2f}, span {float(se[:, 1].max() - se[:, 0].min()):.2f}")
 
 
 def _img_s(bt, ms):
@@ -1077,7 +1178,6 @@ def sass_count(lib_path: str, kernel: str, opcode: str) -> str:
     """The instructions whose opcode starts with ``opcode`` in the built
     instances of ``kernel``, by opcode (cuobjdump -sass; report only)."""
     import os
-    import re
     import shutil
 
     tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
@@ -1134,6 +1234,7 @@ def main() -> None:
     so = _lib.library()[0]._name
     print(f"sass: DMMA instructions {sass_count(so, 'wstream_matmul_kernel', 'DMMA')}", flush=True)
     print(f"sass: IMMA instructions {sass_count(so, 'lis_attention_qkv_kernel', 'IMMA')}", flush=True)
+    print(f"sass: IMMA instructions {sass_count(so, 'swin_attention_kernel', 'IMMA')}", flush=True)
     for kern in ("wg14requant_kernel", "wg13res_ln_kernel"):
         for op in ("IGMMA", "UTMALDG"):
             print(f"sass: {op} instructions {sass_count(so, kern, op)}", flush=True)

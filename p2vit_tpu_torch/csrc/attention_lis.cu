@@ -156,18 +156,27 @@ __global__ void __launch_bounds__(p2v::kThreads, 2)
   stamp(2);
 
   // 3. attention of this CTA's query groups
+  namespace ma = p2v::mma_attn;
   int8_t* s = dsmem + P.w_hi;
   int8_t* o = out + (size_t)img * N * C + head * D;
-  scores_mma(q_mine, k_all, ng, P.kpad, scal[0], s, P.vld);
+  const float rq = scal[0];
+  ma::scores_mma<D>(q_mine, k_all, KLD, ng, P.kpad, [&](int r, int j, int a0, int a1) {
+    char2 c;
+    c.x = p2v::to_i8(ma::score_code(a0, rq));
+    c.y = p2v::to_i8(ma::score_code(a1, rq));
+    *reinterpret_cast<char2*>(s + r * P.vld + j) = c;
+  });
   __syncthreads();
   stamp(3);
+  auto load = [&](int r, float(&ac)[JT]) { ma::load_scores<JT>(s + r * P.vld, N, ac); };
+  auto out_row = [&](int row) { return o + (size_t)row * C; };
   if constexpr (LIS) {
-    lis_weight_rows(s, dsmem + P.w_lo, P.vld, nrows, row0, N, P.kpad, scal);
+    ma::lis_weight_rows<JT>(load, s, dsmem + P.w_lo, P.vld, nrows, row0, N, P.kpad, scal[3], scal[4], scal[5]);
     __syncthreads();
     stamp(4);
-    av_mma(s, dsmem + P.w_lo, v_all, P.vld, ng, P.kpad, row0, N, scal[2], o, C);
+    ma::av_mma<D>(s, dsmem + P.w_lo, v_all, P.vld, ng, P.kpad, row0, N, scal[2], out_row);
   } else {
-    softmax_av_rows(s, P.vld, v_all, nrows, row0, N, scal, o, C);
+    ma::softmax_av_rows<JT>(load, v_all, D, nrows, row0, N, scal[1], scal[2], out_row);
     if (stamps != nullptr) __syncthreads();
     stamp(4);
   }

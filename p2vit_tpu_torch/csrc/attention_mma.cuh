@@ -1,39 +1,202 @@
-// Per-tile bodies of the cluster attention kernel (csrc/attention_lis.cu,
-// p2v_lis_attention_qkv_fused): one (image, head) of head_dim 64 and N ≤ 256
-// tokens, its query rows split across a cluster of ceil(N/64) CTAs.
+// Per-tile bodies of the int8 attention kernels on mma.sync: the ViT
+// cluster kernel (csrc/attention_lis.cu, p2v_lis_attention_qkv_fused: one
+// (image, head) of head_dim 64 and N ≤ 256 tokens, its query rows split
+// across a cluster of ceil(N/64) CTAs) and the Swin windowed kernel
+// (csrc/swin_attention.cu: (window, head) items of head_dim 32, N ≤ 64).
 //
-// * QkvPlan: the cluster size, each CTA's 16-row query groups and the
-//   shared-memory layout (ops/attention_lis.py qkv_cluster_plan mirrors it).
-// * scores_mma: q·kᵀ of a CTA's query groups against every key on
-//   mma.sync m16n8k32 s8·s8 (|q·k| ≤ 64·128² < 2^20: exact int32 in any
-//   order, so equal to a dp4a sum), epilogue clip(round(acc·rq)) into an int8
-//   score tile.
-// * lis_weight_rows: one warp per query row reads its scores into the lane
-//   layout of p2v::lis_row (common.cuh, unchanged), and writes each weight
-//   w = 2^(15−q) ∈ {0, 1, …, 2^15} as two u8 planes hi = w >> 8, lo = w & 0xFF
-//   (both ≤ 128), over the score row in place (each lane writes only the
-//   bytes it read).
-// * av_mma: attn@v as 256·(hi·V) + lo·V on mma.sync m16n8k32 u8·s8 against
-//   V transposed (d × keys, keys contiguous: the col B operand). Each partial
-//   sum is ≤ 256·128·128 = 2^22 in magnitude, so av_int is the exact integer
-//   Σ_j w_j·v_j, the scalar shift-accumulate's bit for bit; out =
+// * QkvPlan (vit_attn): the cluster size, each CTA's 16-row query groups and
+//   the shared-memory layout (ops/attention_lis.py qkv_cluster_plan mirrors it).
+// * scores_mma<HD>: q·kᵀ of 16-row query groups against every key on
+//   mma.sync m16n8k32 s8·s8 (|q·k| ≤ HD·128² < 2^20 for HD ≤ 64: exact
+//   int32 in any order, so equal to a dp4a sum); the caller's epilogue gets
+//   each pair of adjacent scores (ViT: clip(round(acc·rq)) into an int8
+//   score tile; Swin: that, the relative-position bias and the qact2
+//   requant).
+// * lis_weight_rows<JT>: one warp per query row reads its scores (the
+//   caller's loader) into the lane layout of p2v::lis_row (common.cuh,
+//   unchanged), and writes each weight w = 2^(15−q) ∈ {0, 1, …, 2^15} as two
+//   u8 planes hi = w >> 8, lo = w & 0xFF (both ≤ 128); the hi plane may lie
+//   over an int8 score tile (each lane writes only the bytes it read).
+// * av_mma<HD>: attn@v as 256·(hi·V) + lo·V on mma.sync m16n8k32 u8·s8
+//   against V transposed (d × keys, keys contiguous: the col B operand). Each
+//   partial sum is ≤ 256·128·128 = 2^22 in magnitude, so av_int is the exact
+//   integer Σ_j w_j·v_j, the scalar shift-accumulate's bit for bit; out =
 //   clip(round(av_int·2^-15·ro)).
-// * softmax_av_rows (LIS off): p2v::softmax_row and the float64 Σ_j p_j·v_j of
-//   attend_rows (attention_rows.cuh), bit for bit, on the score tile and
-//   row-major V: an exact product makes each fma round as attend_rows'
-//   multiply-then-add, and v reaches float64 by integer ops and a DADD.
+// * softmax_av_rows (LIS off, head_dim 64): p2v::softmax_row and the
+//   float64 Σ_j p_j·v_j of attend_rows (attention_rows.cuh), bit for bit,
+//   on the caller's scores and row-major V: an exact product makes each fma
+//   round as attend_rows' multiply-then-add, and v reaches float64 by
+//   integer ops and a DADD. (The Swin kernel sums its LIS-off rows itself,
+//   over v codes it converts to float64 once per item.)
 //
+// Warps take (16-row group, 8-column tile) pairs in turn in both products.
 // Keys past N carry weight 0 and zero q/k/v codes (padded to a multiple of
-// 32), never garbage.
+// 32), never garbage. Output rows go through the caller's out_row(row).
 #pragma once
 
 #include "attention_rows.cuh"
 
 namespace p2v {
+namespace mma_attn {
+
+constexpr int QGROUP = 16;  // query rows per MMA row tile
+
+// Scores of ng query groups (q rows qm + r·ld) against keys [0, nk) (k
+// rows ka + j·ld; nk a multiple of 8), head_dim HD. epi(r, j, acc_j,
+// acc_j+1) takes the scores of row r at keys j and j + 1.
+template <int HD, class Epi>
+__device__ __forceinline__ void scores_mma(const int8_t* qm, const int8_t* ka, int ld, int ng, int nk,
+                                           Epi&& epi) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int ntn = nk / 8;
+  for (int p = warp; p < ng * ntn; p += kThreads / 32) {
+    const int r0 = (p / ntn) * QGROUP, n0 = (p % ntn) * 8;
+    int c[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int kk = 0; kk < HD; kk += 32) {
+      const int8_t* qa = qm + (r0 + g) * ld + kk + 4 * t;
+      const int8_t* kb = ka + (n0 + g) * ld + kk + 4 * t;
+      const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * ld), ld32(qa + 16), ld32(qa + 8 * ld + 16)};
+      const uint32_t b[2] = {ld32(kb), ld32(kb + 16)};
+      mma_s8(c, a, b);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) epi(r0 + g + 8 * h, n0 + 2 * t, c[2 * h], c[2 * h + 1]);
+  }
+}
+
+// The attention code clip(round(acc·rq)) of an int32 score.
+__device__ __forceinline__ float score_code(int acc, float rq) {
+  return requant(__fmul_rn(__int2float_rn(acc), rq), -128.f, 127.f);
+}
+
+// A warp's int8 score row (codes s[j], j < n) in lis_row's lane layout.
+template <int JT>
+__device__ __forceinline__ void load_scores(const int8_t* s, int n, float (&ac)[JT]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int t = 0; t < JT; ++t) {
+    const int j = lane + 32 * t;
+    ac[t] = j < n ? static_cast<float>(s[j]) : 0.f;
+  }
+}
+
+// LIS weights of query rows r = 0 … nrows−1 (global row row0 + r; rows
+// ≥ n get weight 0): load(r, ac) gives row r's scores in lis_row's lane
+// layout → hi plane hi[r·ld + j], lo plane lo[r·ld + j], keys j < kpad.
+template <int JT, class Load>
+__device__ __forceinline__ void lis_weight_rows(Load&& load, int8_t* hi, int8_t* lo, int ld, int nrows, int row0,
+                                                int n, int kpad, float x0, float b_int, float c_int) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < nrows; r += kThreads / 32) {
+    int wt[JT];
+    if (row0 + r < n) {
+      float ac[JT];
+      load(r, ac);
+      lis_row<JT>(ac, n, x0, b_int, c_int, wt);
+    } else {
+#pragma unroll
+      for (int t = 0; t < JT; ++t) wt[t] = 0;
+    }
+#pragma unroll
+    for (int t = 0; t < JT; ++t) {
+      const int j = lane + 32 * t;
+      if (j < kpad) {
+        reinterpret_cast<uint8_t*>(hi)[r * ld + j] = static_cast<uint8_t>(wt[t] >> 8);
+        reinterpret_cast<uint8_t*>(lo)[r * ld + j] = static_cast<uint8_t>(wt[t] & 0xFF);
+      }
+    }
+  }
+}
+
+// attn@v of ng query groups, head_dim HD: weight planes hi/lo (row r at
+// r·ld) against V transposed (dim d at vt + d·ld), keys [0, kpad). Warps
+// take (group, 8-dim tile) pairs in turn (HD = 64: warp w owns dims
+// [8w, 8w + 8) of every group). Output row r (global row0 + r < n) at
+// out_row(row0 + r).
+template <int HD, class OutRow>
+__device__ __forceinline__ void av_mma(const int8_t* hi, const int8_t* lo, const int8_t* vt, int ld, int ng,
+                                       int kpad, int row0, int n, float ro, OutRow&& out_row) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  constexpr int NT = HD / 8;          // 8-dim tiles
+  constexpr bool ONE = NT == kThreads / 32;  // one dim tile per warp, every group in turn
+  for (int p = ONE ? 0 : warp; p < (ONE ? ng : ng * NT); p += ONE ? 1 : kThreads / 32) {
+    const int r0 = (ONE ? p : p / NT) * QGROUP, n0 = (ONE ? warp : p % NT) * 8;
+    int ch[4] = {0, 0, 0, 0}, cl[4] = {0, 0, 0, 0};
+    for (int kk = 0; kk < kpad; kk += 32) {
+      const int8_t* ah = hi + (r0 + g) * ld + kk + 4 * t;
+      const int8_t* al = lo + (r0 + g) * ld + kk + 4 * t;
+      const int8_t* vb = vt + (n0 + g) * ld + kk + 4 * t;
+      const uint32_t a_hi[4] = {ld32(ah), ld32(ah + 8 * ld), ld32(ah + 16), ld32(ah + 8 * ld + 16)};
+      const uint32_t a_lo[4] = {ld32(al), ld32(al + 8 * ld), ld32(al + 16), ld32(al + 8 * ld + 16)};
+      const uint32_t b[2] = {ld32(vb), ld32(vb + 16)};
+      mma_u8s8(ch, a_hi, b);
+      mma_u8s8(cl, a_lo, b);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + r0 + g + 8 * h;
+      if (row >= n) continue;
+      char2 o;
+      const int a0 = ch[2 * h] * 256 + cl[2 * h], a1 = ch[2 * h + 1] * 256 + cl[2 * h + 1];
+      o.x = to_i8(requant(__fmul_rn(__fmul_rn(__int2float_rn(a0), 0x1p-15f), ro), -128.f, 127.f));
+      o.y = to_i8(requant(__fmul_rn(__fmul_rn(__int2float_rn(a1), 0x1p-15f), ro), -128.f, 127.f));
+      *reinterpret_cast<char2*>(out_row(row) + n0 + 2 * t) = o;
+    }
+  }
+}
+
+// The exact double of an int8 code given as its byte: 2^52 + (byte ^ 0x80)
+// is exact, and so is subtracting 2^52 + 128 (an integer add and a DADD, not
+// a quarter-rate int → double conversion).
+__device__ __forceinline__ double i8_to_f64(uint32_t byte) {
+  return __dsub_rn(__hiloint2double(0x43300000, static_cast<int>((byte & 0xFFu) ^ 0x80u)), 4503599627370624.0);
+}
+
+// LIS off: query rows r < nrows with global row row0 + r < n: load(r, ac)
+// → p2v::softmax_row at scale s_attn → Σ_j p_j·v_j in float64 over
+// row-major v rows (v + j·vld, zeros from n to the next multiple of 32),
+// keys in order, as attend_rows; lane l owns dims 2l and 2l + 1 of head_dim
+// 64. Each product p_j·v_j is exact in float64 (24 + 8 bits), so
+// fma(p_j, v_j, a) rounds exactly as attend_rows' a + p_j·v_j; p_j goes to
+// double once, by the lane that holds it. Output row at out_row(row0 + r).
+template <int JT, class Load, class OutRow>
+__device__ __forceinline__ void softmax_av_rows(Load&& load, const int8_t* v, int vld, int nrows, int row0, int n,
+                                                float s_attn, float ro, OutRow&& out_row) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < nrows && row0 + r < n; r += kThreads / 32) {
+    float ac[JT], p[JT];
+    load(r, ac);
+    softmax_row<JT>(ac, n, s_attn, p);
+    double a0 = 0.0, a1 = 0.0;
+#pragma unroll
+    for (int t = 0; t < JT; ++t) {
+      if (32 * t >= n) break;
+      // keys 32t … 32t + 31, unrolled: past n, p = 0 and the v rows are
+      // zeros, and a + (+0) = a (a is never −0), so the sum is attend_rows'
+      const double pt = static_cast<double>(p[t]);
+      const int8_t* vt = v + 32 * t * vld + 2 * lane;
+#pragma unroll
+      for (int src = 0; src < 32; ++src) {
+        const double pj = __shfl_sync(0xffffffffu, pt, src);
+        const uint32_t v2 = *reinterpret_cast<const uint16_t*>(vt + src * vld);
+        a0 = __fma_rn(pj, i8_to_f64(v2), a0);
+        a1 = __fma_rn(pj, i8_to_f64(v2 >> 8), a1);
+      }
+    }
+    char2 o;
+    o.x = to_i8(requant(__fmul_rn(__double2float_rn(a0), ro), -128.f, 127.f));
+    o.y = to_i8(requant(__fmul_rn(__double2float_rn(a1), ro), -128.f, 127.f));
+    *reinterpret_cast<char2*>(out_row(row0 + r) + 2 * lane) = o;
+  }
+}
+
+}  // namespace mma_attn
+
 namespace vit_attn {
 
+using mma_attn::QGROUP;
 constexpr int ROWS_PER_CTA = 64;  // token rows whose q/k/v codes a CTA computes
-constexpr int QGROUP = 16;        // query rows per MMA row tile
 constexpr int KLD = D + 16;       // bytes per K / q row in the gathered tiles (conflict-free fragments)
 constexpr int OWN_BYTES = 3 * ROWS_PER_CTA * D;  // a CTA's own q, k, v tiles (64 B rows)
 
@@ -89,150 +252,6 @@ __device__ __forceinline__ void copy16(int total, Src src, Dst dst) {
   }
 }
 
-// Scores of ng query groups (q rows qm + r·KLD) against keys [0, kpad) (k
-// rows ka + j·KLD) → int8 attention codes s[r·ld + j]. Warps take
-// (group, 8-key tile) pairs in turn.
-__device__ __forceinline__ void scores_mma(const int8_t* qm, const int8_t* ka, int ng, int kpad, float rq,
-                                           int8_t* s, int ld) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const int ntn = kpad / 8;
-  for (int p = warp; p < ng * ntn; p += kThreads / 32) {
-    const int r0 = (p / ntn) * QGROUP, n0 = (p % ntn) * 8;
-    int c[4] = {0, 0, 0, 0};
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 32) {
-      const int8_t* qa = qm + (r0 + g) * KLD + kk + 4 * t;
-      const int8_t* kb = ka + (n0 + g) * KLD + kk + 4 * t;
-      const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * KLD), ld32(qa + 16), ld32(qa + 8 * KLD + 16)};
-      const uint32_t b[2] = {ld32(kb), ld32(kb + 16)};
-      mma_s8(c, a, b);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      char2 o;
-      o.x = to_i8(requant(__fmul_rn(__int2float_rn(c[2 * h]), rq), -128.f, 127.f));
-      o.y = to_i8(requant(__fmul_rn(__int2float_rn(c[2 * h + 1]), rq), -128.f, 127.f));
-      *reinterpret_cast<char2*>(s + (r0 + g + 8 * h) * ld + n0 + 2 * t) = o;
-    }
-  }
-}
-
-// A warp's score row (int8 codes s[j], j < n) in lis_row's lane layout.
-__device__ __forceinline__ void load_scores(const int8_t* s, int n, float (&ac)[JT]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int t = 0; t < JT; ++t) {
-    const int j = lane + 32 * t;
-    ac[t] = j < n ? static_cast<float>(s[j]) : 0.f;
-  }
-}
-
-// LIS weights of query rows r = 0 … nrows−1 (global row row0 + r; rows
-// ≥ n get weight 0): scores s[r·ld + j] → hi plane over them in place, lo
-// plane lo[r·ld + j], for keys j < kpad.
-__device__ __forceinline__ void lis_weight_rows(int8_t* s, int8_t* lo, int ld, int nrows, int row0, int n,
-                                                int kpad, const float* __restrict__ scal) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < nrows; r += kThreads / 32) {
-    int wt[JT];
-    if (row0 + r < n) {
-      float ac[JT];
-      load_scores(s + r * ld, n, ac);
-      lis_row<JT>(ac, n, scal[3], scal[4], scal[5], wt);
-    } else {
-#pragma unroll
-      for (int t = 0; t < JT; ++t) wt[t] = 0;
-    }
-#pragma unroll
-    for (int t = 0; t < JT; ++t) {
-      const int j = lane + 32 * t;
-      if (j < kpad) {
-        reinterpret_cast<uint8_t*>(s)[r * ld + j] = static_cast<uint8_t>(wt[t] >> 8);
-        reinterpret_cast<uint8_t*>(lo)[r * ld + j] = static_cast<uint8_t>(wt[t] & 0xFF);
-      }
-    }
-  }
-}
-
-// attn@v of ng query groups: weight planes hi/lo (row r at r·ld) against V
-// transposed (dim d at vt + d·ld), keys [0, kpad). Warp w owns output dims
-// [8w, 8w + 8). Output row r (global row0 + r < n) at out + (row0 + r)·out_ld.
-__device__ __forceinline__ void av_mma(const int8_t* hi, const int8_t* lo, const int8_t* vt, int ld, int ng,
-                                       int kpad, int row0, int n, float ro, int8_t* out, size_t out_ld) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const int n0 = 8 * warp;
-  static_assert(D == 8 * (kThreads / 32), "one 8-dim MMA tile per warp");
-  for (int gi = 0; gi < ng; ++gi) {
-    const int r0 = gi * QGROUP;
-    int ch[4] = {0, 0, 0, 0}, cl[4] = {0, 0, 0, 0};
-    for (int kk = 0; kk < kpad; kk += 32) {
-      const int8_t* ah = hi + (r0 + g) * ld + kk + 4 * t;
-      const int8_t* al = lo + (r0 + g) * ld + kk + 4 * t;
-      const int8_t* vb = vt + (n0 + g) * ld + kk + 4 * t;
-      const uint32_t a_hi[4] = {ld32(ah), ld32(ah + 8 * ld), ld32(ah + 16), ld32(ah + 8 * ld + 16)};
-      const uint32_t a_lo[4] = {ld32(al), ld32(al + 8 * ld), ld32(al + 16), ld32(al + 8 * ld + 16)};
-      const uint32_t b[2] = {ld32(vb), ld32(vb + 16)};
-      mma_u8s8(ch, a_hi, b);
-      mma_u8s8(cl, a_lo, b);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + r0 + g + 8 * h;
-      if (row >= n) continue;
-      char2 o;
-      const int a0 = ch[2 * h] * 256 + cl[2 * h], a1 = ch[2 * h + 1] * 256 + cl[2 * h + 1];
-      o.x = to_i8(requant(__fmul_rn(__fmul_rn(__int2float_rn(a0), 0x1p-15f), ro), -128.f, 127.f));
-      o.y = to_i8(requant(__fmul_rn(__fmul_rn(__int2float_rn(a1), 0x1p-15f), ro), -128.f, 127.f));
-      *reinterpret_cast<char2*>(out + row * out_ld + n0 + 2 * t) = o;
-    }
-  }
-}
-
-// The exact double of an int8 code given as its byte: 2^52 + (byte ^ 0x80)
-// is exact, and so is subtracting 2^52 + 128 (an integer add and a DADD, not
-// a quarter-rate int → double conversion).
-__device__ __forceinline__ double i8_to_f64(uint32_t byte) {
-  return __dsub_rn(__hiloint2double(0x43300000, static_cast<int>((byte & 0xFFu) ^ 0x80u)), 4503599627370624.0);
-}
-
-// LIS off: query rows r < nrows with global row row0 + r < n: the scores
-// s[r·ld + j] → p2v::softmax_row → Σ_j p_j·v_j in float64 over row-major v
-// rows (v + j·D, zeros from n to the next multiple of 32), keys in order,
-// as attend_rows. Each product p_j·v_j is
-// exact in float64 (24 + 8 bits), so fma(p_j, v_j, a) rounds exactly as
-// attend_rows' a + p_j·v_j; p_j goes to double once, by the lane that holds
-// it. Output row at out + (row0 + r)·out_ld.
-__device__ __forceinline__ void softmax_av_rows(const int8_t* s, int ld, const int8_t* v, int nrows, int row0,
-                                                int n, const float* __restrict__ scal, int8_t* out,
-                                                size_t out_ld) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float s_attn = scal[1], ro = scal[2];
-  for (int r = warp; r < nrows && row0 + r < n; r += kThreads / 32) {
-    float ac[JT], p[JT];
-    load_scores(s + r * ld, n, ac);
-    softmax_row<JT>(ac, n, s_attn, p);
-    double a0 = 0.0, a1 = 0.0;
-#pragma unroll
-    for (int t = 0; t < JT; ++t) {
-      if (32 * t >= n) break;
-      // keys 32t … 32t + 31, unrolled: past n, p = 0 and the v rows are
-      // zeros, and a + (+0) = a (a is never −0), so the sum is attend_rows'
-      const double pt = static_cast<double>(p[t]);
-      const int8_t* vt = v + 32 * t * D + 2 * lane;
-#pragma unroll
-      for (int src = 0; src < 32; ++src) {
-        const double pj = __shfl_sync(0xffffffffu, pt, src);
-        const uint32_t v2 = *reinterpret_cast<const uint16_t*>(vt + src * D);
-        a0 = __fma_rn(pj, i8_to_f64(v2), a0);
-        a1 = __fma_rn(pj, i8_to_f64(v2 >> 8), a1);
-      }
-    }
-    char2 o;
-    o.x = to_i8(requant(__fmul_rn(__double2float_rn(a0), ro), -128.f, 127.f));
-    o.y = to_i8(requant(__fmul_rn(__double2float_rn(a1), ro), -128.f, 127.f));
-    *reinterpret_cast<char2*>(out + (row0 + r) * out_ld + 2 * lane) = o;
-  }
-}
 
 }  // namespace vit_attn
 }  // namespace p2v

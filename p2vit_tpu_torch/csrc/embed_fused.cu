@@ -7,27 +7,38 @@
 //   xc   = clip(round((mid2·s_embed + pos[p−1]) / s_qact1))
 // then h = clip(round(LN(xc·mask))) with the block-0 LN1 constants.
 //
-// A block owns 32 token rows at full width C; the Gemm's row loader gathers
-// each token's patch from the (B·NP, K) patch matrix (CLS rows load zeros),
-// so no [cls; patches] tensor is built. Σx and Σx² are exact int32 warp
-// sums. The LN counts the true width c_true: the wrapper zero-pads C to a
-// multiple of 8 (and K to a multiple of 16), and zero mask and LN vectors
-// past c_true keep those columns out of the sums. Bound: the K = 768 int8
-// matmul.
+// A block owns BM token rows at full width C: 32, or 16 where the 32 rows'
+// int32 row buffer (32·C·4 bytes) would not fit shared memory beside the
+// Gemm's stages (C > 1616; the 16-row block takes C ≤ 3272, every width the
+// JAX kernel's VMEM guard admits at the zoo's 197 tokens). The Gemm's row
+// loader gathers each token's patch from the (B·NP, K) patch matrix (CLS
+// rows load zeros), so no [cls; patches] tensor is built. Σx and Σx² are
+// exact int32 warp sums. The LN counts the true width c_true: the wrapper
+// zero-pads C to a multiple of 8 (and K to a multiple of 16), and zero mask
+// and LN vectors past c_true keep those columns out of the sums. Bound: the
+// K = 768 int8 matmul.
 #include "common.cuh"
 
 namespace {
 
-constexpr int BM = 32;
-using G = p2v::Gemm<BM, 128, 2, 4>;
+constexpr int kMaxSmem = 232448;  // dynamic shared memory one block may use
+
+// the block's Gemm: 32 rows on a 2 × 4 warp grid, 16 rows on 1 × 8
+template <int BM>
+using Block = p2v::Gemm<BM, 128, BM / 16, 8 / (BM / 16)>;
+
+template <int BM>
+constexpr int block_smem(int C) { return Block<BM>::SMEM_BYTES + BM * C * 4; }
 
 // vecs rows: r1, b1, s_qact1, mask, w_os, b_os (each C); scal: r2, s_embed, s1
+template <int BM>
 __global__ void __launch_bounds__(p2v::kThreads)
     fused_patch_embed_kernel(const int8_t* __restrict__ patches, const int8_t* __restrict__ w,
                              const float* __restrict__ vecs, const float* __restrict__ scal,
                              const float* __restrict__ pos, const int8_t* __restrict__ cls,
                              int8_t* __restrict__ xc_out, int8_t* __restrict__ h_out, int B,
                              int NP, int K, int C, int c_true) {
+  using G = Block<BM>;
   extern __shared__ __align__(16) int8_t dsmem[];
   int* rowbuf = reinterpret_cast<int*>(dsmem + G::SMEM_BYTES);  // [BM][C]
   const int ntok = NP + 1, R = B * ntok, m0 = blockIdx.x * BM;
@@ -90,22 +101,33 @@ __global__ void __launch_bounds__(p2v::kThreads)
   }
 }
 
+template <int BM>
+int launch_embed(const void* patches, const void* w, const void* vecs, const void* scal, const void* pos,
+                 const void* cls, void* xc_out, void* h_out, int B, int NP, int K, int C, int c_true,
+                 cudaStream_t stream) {
+  const int smem = block_smem<BM>(C);
+  cudaError_t err = p2v::set_smem(fused_patch_embed_kernel<BM>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = B * (NP + 1);
+  fused_patch_embed_kernel<BM><<<(rows + BM - 1) / BM, p2v::kThreads, smem, stream>>>(
+      static_cast<const int8_t*>(patches), static_cast<const int8_t*>(w), static_cast<const float*>(vecs),
+      static_cast<const float*>(scal), static_cast<const float*>(pos), static_cast<const int8_t*>(cls),
+      static_cast<int8_t*>(xc_out), static_cast<int8_t*>(h_out), B, NP, K, C, c_true);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// A block of 32 token rows where its row buffer fits, else of 16 (ops/embed_fused.embed_block)
 extern "C" int p2v_fused_patch_embed(const void* patches, const void* w, const void* vecs,
                                      const void* scal, const void* pos, const void* cls,
                                      void* xc_out, void* h_out, int B, int NP, int K, int C,
                                      int c_true, void* stream) {
   if (B == 0) return 0;
-  const int smem = G::SMEM_BYTES + BM * C * 4;
-  cudaError_t err = p2v::set_smem(fused_patch_embed_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows = B * (NP + 1);
-  fused_patch_embed_kernel<<<(rows + BM - 1) / BM, p2v::kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(patches), static_cast<const int8_t*>(w),
-      static_cast<const float*>(vecs), static_cast<const float*>(scal),
-      static_cast<const float*>(pos), static_cast<const int8_t*>(cls),
-      static_cast<int8_t*>(xc_out), static_cast<int8_t*>(h_out), B, NP, K, C, c_true);
-  return static_cast<int>(cudaGetLastError());
+  auto s = static_cast<cudaStream_t>(stream);
+  if (block_smem<32>(C) <= kMaxSmem)
+    return launch_embed<32>(patches, w, vecs, scal, pos, cls, xc_out, h_out, B, NP, K, C, c_true, s);
+  if (block_smem<16>(C) <= kMaxSmem)
+    return launch_embed<16>(patches, w, vecs, scal, pos, cls, xc_out, h_out, B, NP, K, C, c_true, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

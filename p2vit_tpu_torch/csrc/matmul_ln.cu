@@ -77,13 +77,22 @@ inline int res_ln_smem(int bn, int cpc, int nc, int stages, int cs) {
          16 * stages + (cs > 1 ? 16 + 2 * nc * kBM * 16 : 0);
 }
 
+// Ring stages that fit shared memory beside the rest, at most kMaxStages.
+inline int ln_stages(int bn, int cpc, int nc, int cs) {
+  const int stages = (kMaxSmem - res_ln_smem(bn, cpc, nc, 0, cs)) / ((kBM * nc + bn) * kBK + 16);
+  return stages < kMaxStages ? stages : kMaxStages;
+}
+
 // The launch plan at (M, N), N % 16 == 0, given resident[cs - 1], the
 // clusters of cs CTAs the card holds at once (one CTA per SM: every plan
 // fills shared memory past half an SM's): clusters of CS CTAs split N, CTA
 // r of a cluster taking chunks [r·cpc, (r + 1)·cpc) of BN columns; each
 // cluster takes row blocks of 64·NC rows in turn. For each CS (1 to 4), BN
 // and cpc waste the fewest columns, ⌈N/(CS·BN)⌉·CS·BN − N (the widest BN
-// on a tie); a CS > 1 that wastes more than CS = 1 does is skipped. Of the
+// on a tie); where CS = 1 fits (some NC with two ring stages), a CS > 1
+// that wastes more than CS = 1 does is skipped; where it does not (N = 1536
+// or 2048: a whole row's code tile leaves no room for two stages), the
+// clusters need not beat its waste. Of the
 // (CS, NC) that fit with two ring stages or more, the plan takes the one
 // whose busiest consumer owns the fewest elements,
 // ⌈blocks/resident⌉·64·cpc·BN (the epilogue's time, measured: the
@@ -101,12 +110,15 @@ inline ResLnPlan res_ln_plan(int M, int N, const int* resident, int force_cs = 0
       const long long x = (long long)cs * k * w.bn - N;
       if (waste < 0 || x < waste) waste = x, bn = w.bn, cpc = k;
     }
-    if (cs == 1) waste1 = waste;
-    if (waste > waste1 || resident[cs - 1] < 1 || (force_cs && cs != force_cs)) continue;
+    if (cs == 1) {  // CS = 1's waste bounds the clusters' only where CS = 1 fits
+      bool fits = false;
+      for (int nc = 1; nc <= kLnMaxConsumers; ++nc) fits = fits || ln_stages(bn, cpc, nc, 1) >= 2;
+      waste1 = fits ? waste : -1;
+    }
+    if ((waste1 >= 0 && waste > waste1) || resident[cs - 1] < 1 || (force_cs && cs != force_cs)) continue;
     for (int nc = kLnMaxConsumers; nc >= 1; --nc) {
       if (force_nc && nc != force_nc) continue;
-      int stages = (kMaxSmem - res_ln_smem(bn, cpc, nc, 0, cs)) / ((kBM * nc + bn) * kBK + 16);
-      if (stages > kMaxStages) stages = kMaxStages;
+      const int stages = ln_stages(bn, cpc, nc, cs);
       if (stages < 2) continue;
       const long long blocks = ((long long)M + kBM * nc - 1) / (kBM * nc), clusters = resident[cs - 1];
       const long long load = (blocks + clusters - 1) / clusters * kBM * cpc * bn;

@@ -53,7 +53,9 @@ SIGNATURES = {
     "p2v_int_ln_requant": [_P, _P, _P, _P, _I, _I, _P],
     "p2v_int_res_ln_requant": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "p2v_swin_lis_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "p2v_swin_lis_attention_folded": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "p2v_swin_lis_attention_folded": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "p2v_swin_attention_hook": [_P] * 5 + [_I] * 9 + [_P, _P, _P],
+    "p2v_swin_attention_info": [_I, _I, _I, _P],
     "p2v_fused_swin_stem": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "p2v_fused_vit_layer": [_P] * 15 + [_I] * 6 + [_P],
     "p2v_int4_matmul_requant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

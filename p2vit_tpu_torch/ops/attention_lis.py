@@ -67,13 +67,19 @@ CUDA kernels (``csrc/swin_attention.cu``) replace the Pallas kernels
 ``swin_lis_attention_folded`` (``_swin_folded_kernel``), on the (B, res,
 res, 3C) raster qkv grid: per head, q·kᵀ → attn1 codes → + rel-pos bias →
 ·1/s2 round/clip (qact2 codes) → + the shift mask/s2, unrounded → LIS or
-the fp softmax at s2 → @v → qact3 codes. One block per (window, head) holds
-the head's q/k/v rows in shared memory; warps own query rows, lanes own
-keys, then output dims. The two entries share that body and differ only in
-the address of a window's rows: the folded one reads and writes raster
-pixels, so window_partition and window_reverse never run as copies. The
-JAX kernels pad rows 49 → 56 and keys to 64 and park padded keys at −2^30;
-neither the kernels nor the plain versions pad.
+the fp softmax at s2 → @v → qact3 codes. The two entries share one body
+and differ only in the address of a window's rows: the folded one reads and
+writes raster pixels moved by the block's cyclic shift, so window_partition,
+window_reverse and the two rolls never run as copies. A persistent grid
+(``swin_attention_plan``) walks the (window, head) items head-major, then
+window, each CTA taking its next item from a counter in device memory: it
+stages bias[h] in shared memory when the head changes, prefetches the next
+item's q/k/v rows and mask by ``cp.async``, runs q·kᵀ and the LIS attn@v (hi/lo weight planes)
+on int8 ``mma.sync`` and ``p2v::lis_row`` per row; LIS off keeps
+``p2v::softmax_row`` and the float64 attn@v in key order, over v codes
+converted to float64 once per item. The JAX kernels pad rows 49 → 56 and
+keys to 64 and park padded keys at −2^30; the CUDA kernel pads rows and
+keys to 64 with zero codes and weight 0, the plain versions do not pad.
 """
 
 from __future__ import annotations
@@ -417,6 +423,102 @@ lis_attention_qkv_fused.launches = 0
 
 SWIN_HEAD_DIM = 32  # every Swin in the zoo
 SWIN_MAX_N = 64  # tokens per window the kernel takes (49 for 7×7 windows)
+_SWIN_QLD = SWIN_HEAD_DIM + 16  # bytes per staged q / k row
+_SWIN_STAGE = 2 * SWIN_MAX_N * _SWIN_QLD + SWIN_MAX_N * SWIN_HEAD_DIM  # one item's q, k, v rows
+_SWIN_WLD = SWIN_MAX_N + 16  # bytes per row of V transposed and of the score / hi plane
+_SWIN_OFF_ROWS = 2  # LIS off: rows a warp sums side by side
+SWIN_PHASES = ("q/k/v and mask wait", "bias, V transpose", "scores", "LIS weights", "attn@v")
+SWIN_PHASES_LISOFF = ("q/k/v and mask wait", "bias, v to float64", "scores", "softmax and attn@v")
+
+
+def swin_attention_smem(n: int, lis: bool = True) -> int:
+    """Shared memory of one CTA of the Swin kernel at N tokens
+    (``csrc/swin_attention.cu`` ``layout``): two rows of token indices, two
+    stage buffers of q, k, v rows and two of masks, the score/hi plane and
+    bias[h] (N² float32 each, 16-byte rounded); LIS: V transposed (the lo
+    plane lies over the item's spent q/k rows); LIS off: v as float64 and
+    each warp's rows of p as float64."""
+    nn = -(-n * n * 4 // 16) * 16
+    end = 2 * SWIN_MAX_N * 4 + 2 * _SWIN_STAGE + 3 * nn + SWIN_MAX_N * _SWIN_WLD
+    if lis:
+        return end + SWIN_HEAD_DIM * _SWIN_WLD
+    return end + -(-n * SWIN_HEAD_DIM * 8 // 16) * 16 + 8 * _SWIN_OFF_ROWS * SWIN_MAX_N * 8
+
+
+@dataclasses.dataclass(frozen=True)
+class SwinAttentionPlan:
+    """The Swin kernel's launch (``csrc/swin_attention.cu``, which computes
+    it itself): a persistent grid whose CTAs take (window, head) items,
+    ordered head-major, then window, from a counter in device memory, each
+    CTA one item ahead of the one it computes."""
+
+    windows: int  # W: B·nW windows
+    n_windows: int  # windows per image: window w takes mask[w mod nW]
+    heads: int
+    n: int  # tokens per window
+    grid: int  # CTAs: min(items, SMs × CTAs per SM), or the forced grid
+    smem_bytes: int  # dynamic shared memory per CTA
+
+    @property
+    def items(self) -> int:
+        return self.windows * self.heads
+
+    def item(self, it: int) -> tuple:
+        """(head, window) of item ``it`` = head·W + window."""
+        return divmod(it, self.windows)
+
+    def walk(self):
+        """(CTA, head, window) of every item in the order the counter hands
+        them out when the CTAs take them at one pace (item c + k·grid is CTA
+        c's k-th); on the card the order between CTAs is the race's."""
+        for it in range(self.items):
+            yield (it % self.grid, *self.item(it))
+
+    def bias_stagings(self) -> int:
+        """bias[h] stagings over the grid in ``walk``'s order: a CTA stages it
+        when its next item's head differs from its last."""
+        last, n = {}, 0
+        for c, h, _ in self.walk():
+            n += last.get(c) != h
+            last[c] = h
+        return n
+
+    @property
+    def warp_tiles(self) -> tuple:
+        """(scores, attn@v) MMA tiles each of the 8 warps takes per item at
+        most: (16-row group, 8-key tile) and (group, 8-dim tile) pairs."""
+        groups, kpad = -(-self.n // 16), -(-self.n // 32) * 32
+        return -(-groups * kpad // 8 // 8), -(-groups * SWIN_HEAD_DIM // 8 // 8)
+
+
+def swin_attention_plan(windows: int, n_windows: int, heads: int, n: int, sms: int = 132,
+                        ctas_per_sm: int = 4, grid: int = 0, lis: bool = True) -> SwinAttentionPlan:
+    """The Swin kernel's plan: ``windows`` windows of N tokens, ``n_windows``
+    per image (the mask's period), ``heads`` heads, on ``sms`` SMs holding
+    ``ctas_per_sm`` CTAs each (``swin_attention_info`` reads both on the
+    card; the H100 holds 4 at N = 49 with LIS, 3 without). ``grid`` > 0
+    forces the grid (a measurement hook). Raises where the kernel does not
+    run (N > 64, shared memory)."""
+    if not 1 <= n <= SWIN_MAX_N:
+        raise ValueError(f"Swin attention kernel needs 1 <= N <= {SWIN_MAX_N}; got N={n}")
+    smem = swin_attention_smem(n, lis)
+    if smem > MAX_SMEM:
+        raise ValueError(f"Swin attention kernel needs {smem} B of shared memory, above {MAX_SMEM}")
+    items = windows * heads
+    return SwinAttentionPlan(windows, n_windows, heads, n, min(items, grid if grid > 0 else sms * ctas_per_sm),
+                             smem)
+
+
+def swin_attention_info(n: int, lis: bool = True, fold: bool = False) -> dict:
+    """The built Swin kernel's launch facts at N tokens, from the CUDA
+    runtime: shared memory per CTA, registers and spill bytes per thread,
+    CTAs per SM and SMs. Needs the card."""
+    lib, _ = library()
+    info = (ctypes.c_int * 5)()
+    rc = lib.p2v_swin_attention_info(int(n), int(bool(lis)), int(bool(fold)), ctypes.cast(info, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"p2v_swin_attention_info: CUDA error {rc}: {lib.p2v_error_string(rc).decode()}")
+    return dict(zip(("smem_bytes", "registers", "spill_bytes", "ctas_per_sm", "sms"), list(info)))
 
 
 def swin_attention_scalars(score_requant, attn_scale, s2, out_requant, device, lis=True):
@@ -481,8 +583,24 @@ def _check_swin_operands(qkv, bias, mask, c3, n, num_heads, n_windows, lis, lis_
     return c, bias, mask
 
 
+def _swin_hooks(grid, phase_ns, cta_ns, items, n, lis, fold):
+    """The measurement hooks' C arguments (grid, stamps, CTA spans);
+    phase_ns is zeroed (the kernel adds its phase sums into it), and cta_ns
+    must hold two stamps for each CTA of the launch."""
+    if phase_ns is not None:
+        check_cuda_operand(phase_ns, "phase_ns", torch.int64, (9,))
+        phase_ns.zero_()
+    if cta_ns is not None:
+        check_cuda_operand(cta_ns, "cta_ns", torch.int64)
+        info = swin_attention_info(n, lis, fold)
+        ctas = min(items, grid if grid > 0 else info["sms"] * info["ctas_per_sm"])
+        if cta_ns.numel() < 2 * ctas:
+            raise ValueError(f"cta_ns holds {cta_ns.numel()} stamps; the launch has {ctas} CTAs")
+    return int(grid), phase_ns, cta_ns
+
+
 def swin_lis_attention(qkv_q, bias, mask, num_heads, n_windows, score_requant, attn_scale,
-                       s2, out_requant, lis_bits=4, lis=True):
+                       s2, out_requant, lis_bits=4, lis=True, *, grid=0, phase_ns=None, cta_ns=None):
     """Windowed attention over (W, N, 3C) int8 qkv codes of B·nW windows.
 
     Args:
@@ -492,8 +610,14 @@ def swin_lis_attention(qkv_q, bias, mask, num_heads, n_windows, score_requant, a
       score_requant: s_qkv²·d^-0.5/s_attn1; attn_scale: s_attn1;
       s2: the qact2 scale (LIS input); out_requant: s_qkv/s_qact3.
     Returns (W, N, C) int8 codes of the qact3 node. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (head_dim 32, N ≤ 64) or
-    raise.
+    plain version; CUDA tensors launch the kernel (head_dim 32, N ≤ 64;
+    ``swin_attention_plan``) or raise. Measurement hooks: ``grid`` > 0
+    launches that many CTAs instead of the plan's; ``phase_ns``, a (9,)
+    int64 CUDA tensor, receives the middle CTA's time per phase summed over
+    its items (``SWIN_PHASES``; LIS off ``SWIN_PHASES_LISOFF`` and a zero),
+    its total ns, its items, the grid and its bias stagings; ``cta_ns``, a
+    (2·grid,) int64 CUDA tensor, every CTA's %globaltimer at its start and
+    end.
     """
     dev = device_of(qkv_q, bias, *(() if mask is None else (mask,)))
     if dev.type == "cpu":
@@ -506,8 +630,13 @@ def swin_lis_attention(qkv_q, bias, mask, num_heads, n_windows, score_requant, a
         raise ValueError(f"{w} windows are not whole images of {n_windows} windows")
     scal = swin_attention_scalars(score_requant, attn_scale, s2, out_requant, dev, lis)
     out = torch.empty((w, n, c), dtype=torch.int8, device=dev)
-    launch("p2v_swin_lis_attention", qkv_q, bias, mask, scal, out, w, n, c, num_heads,
-           n_windows if mask is not None else 1, int(bool(lis)))
+    nw = n_windows if mask is not None else 1
+    if grid or phase_ns is not None or cta_ns is not None:
+        launch("p2v_swin_attention_hook", qkv_q, bias, mask, scal, out, w, n, nw, c, num_heads, 0,
+               int(bool(lis)), 0, *_swin_hooks(grid, phase_ns, cta_ns, w * num_heads, n, lis, False))
+    else:
+        launch("p2v_swin_lis_attention", qkv_q, bias, mask, scal, out, w, n, c, num_heads, nw,
+               int(bool(lis)))
     swin_lis_attention.launches += 1
     return out
 
@@ -530,44 +659,59 @@ def _folded_geometry(qkv_r, mask, window):
 
 
 def swin_lis_attention_folded_plain(qkv_r, bias, mask, num_heads, window, score_requant,
-                                    attn_scale, s2, out_requant, lis_bits=4, lis=True):
-    """Plain PyTorch version of the kernel: window partition → the panel
-    attention → window reverse."""
+                                    attn_scale, s2, out_requant, lis_bits=4, lis=True, shift=0):
+    """Plain PyTorch version of the kernel: roll by −shift → window
+    partition → the panel attention → window reverse → roll by +shift."""
     b, res, g, n = _folded_geometry(qkv_r, mask, window)
     ws, c3 = window, qkv_r.shape[-1]
+    if shift:
+        qkv_r = torch.roll(qkv_r, (-shift, -shift), (1, 2))
     hw = qkv_r.reshape(b, g, ws, g, ws, c3).permute(0, 1, 3, 2, 4, 5).reshape(b * g * g, n, c3)
     out = _swin_windows_plain(hw, bias, mask, num_heads, g * g, score_requant, attn_scale, s2,
                               out_requant, lis_bits, lis)
-    return out.reshape(b, g, g, ws, ws, -1).permute(0, 1, 3, 2, 4, 5).reshape(b, res, res, -1)
+    out = out.reshape(b, g, g, ws, ws, -1).permute(0, 1, 3, 2, 4, 5).reshape(b, res, res, -1)
+    return torch.roll(out, (shift, shift), (1, 2)) if shift else out
 
 
 def swin_lis_attention_folded(qkv_r, bias, mask, num_heads, window, score_requant, attn_scale,
-                              s2, out_requant, lis_bits=4, lis=True):
-    """Windowed attention over the raster-layout qkv codes, no partition copies.
+                              s2, out_requant, lis_bits=4, lis=True, shift=0, *, grid=0, phase_ns=None,
+                              cta_ns=None):
+    """Windowed attention over the raster-layout qkv codes, no partition or
+    roll copies.
 
     Args:
-      qkv_r: (B, res, res, 3C) int8 qkv codes in image-raster layout, rolled
-        already for a shifted block; res a multiple of ``window``, > window.
+      qkv_r: (B, res, res, 3C) int8 qkv codes in image-raster layout, NOT
+        rolled; res a multiple of ``window``, > window.
       bias: (H, N, N) float32, N = window². mask: (g·g, N, N) float32 shift
-        mask already divided by s2 (window (wy, wx) takes mask[wy·g + wx]),
-        or None. Scales as ``swin_lis_attention``.
+        mask already divided by s2 (window (wy, wx) of the rolled grid takes
+        mask[wy·g + wx]), or None. Scales as ``swin_lis_attention``.
+      shift: the block's cyclic shift: the attention runs on the grid
+        rolled by −shift and its output is rolled back by +shift, both in
+        the kernel's addresses.
     Returns (B, res, res, C) int8 qact3 codes in raster layout, bit for bit
-    window_reverse of ``swin_lis_attention`` on the partitioned panels. CPU
-    tensors take the plain version; CUDA tensors launch the kernel (head_dim
-    32, N ≤ 64) or raise.
+    roll(+shift) of window_reverse of ``swin_lis_attention`` on the
+    partitioned panels of roll(−shift) of ``qkv_r``. CPU tensors take the
+    plain version; CUDA tensors launch the kernel (head_dim 32, N ≤ 64) or
+    raise. ``grid``, ``phase_ns`` and ``cta_ns``: the measurement hooks of
+    ``swin_lis_attention``.
     """
     dev = device_of(qkv_r, bias, *(() if mask is None else (mask,)))
     if dev.type == "cpu":
         return swin_lis_attention_folded_plain(qkv_r, bias, mask, num_heads, window,
                                                score_requant, attn_scale, s2, out_requant,
-                                               lis_bits, lis)
+                                               lis_bits, lis, shift)
     b, res, g, n = _folded_geometry(qkv_r, mask, window)
     c, bias, mask = _check_swin_operands(qkv_r, bias, mask, qkv_r.shape[-1], n, num_heads, g * g,
                                          lis, lis_bits)
     scal = swin_attention_scalars(score_requant, attn_scale, s2, out_requant, dev, lis)
     out = torch.empty((b, res, res, c), dtype=torch.int8, device=dev)
-    launch("p2v_swin_lis_attention_folded", qkv_r, bias, mask, scal, out, b, res, window, c,
-           num_heads, int(bool(lis)))
+    shift = int(shift) % res
+    if grid or phase_ns is not None or cta_ns is not None:
+        launch("p2v_swin_attention_hook", qkv_r, bias, mask, scal, out, b, res, window, c, num_heads,
+               shift, int(bool(lis)), 1, *_swin_hooks(grid, phase_ns, cta_ns, b * g * g * num_heads, n, lis, True))
+    else:
+        launch("p2v_swin_lis_attention_folded", qkv_r, bias, mask, scal, out, b, res, window, c,
+               num_heads, shift, int(bool(lis)))
     swin_lis_attention_folded.launches += 1
     return out
 

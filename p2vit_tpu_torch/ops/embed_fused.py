@@ -22,8 +22,12 @@ inside the ``mma.sync`` tile loads, so no [cls; patches] concatenation is
 materialized. Bound on the card: the K = 768 int8 matmul; one launch per
 forward. The wrapper zero-pads K to a multiple of 16 and C to a multiple of 8
 (``embed_pad``), as the JAX wrapper pads both to 128; the LN counts the
-true C. C ≤ 1024: the block's int32 row buffer (32·C·4 bytes) lies in shared
-memory.
+true C. The block's int32 row buffer (rows·C·4 bytes) lies in shared memory
+beside the GEMM's two stages (``embed_block``): 32 rows up to C = 1616, 16
+rows up to C = 3272. The JAX kernel's own guard is its VMEM estimate
+(``_vmem_bytes`` ≤ 14 MiB at one image a step): at the zoo's 197 tokens and
+K = 768 (16×16 patches, int8) that is 150,528 + 5,114·C_pad bytes, so it
+admits C_pad ≤ 2816 (C ≤ 2816), which the 16-row block serves.
 """
 
 from __future__ import annotations
@@ -35,7 +39,21 @@ from .intln import ln_codes
 from .matmul_int8 import int_matmul_nt
 
 _I8 = (-128, 127)
-MAX_C = 1024  # the kernel's shared-memory row buffer
+MAX_SMEM = 232_448  # dynamic shared memory one block may use
+_STAGES = {32: 2 * (32 + 128) * 80, 16: 2 * (16 + 128) * 80}  # the GEMM's two stages per block size
+MAX_C = (MAX_SMEM - _STAGES[16]) // (16 * 4)  # 3272: the 16-row block's row buffer
+
+
+def embed_block(c: int) -> tuple:
+    """(token rows per block, shared memory) of the kernel at the padded
+    width C (``csrc/embed_fused.cu``): 32 rows where their int32 row buffer
+    fits beside the GEMM's stages, else 16; raises past ``MAX_C``."""
+    for rows in (32, 16):
+        smem = _STAGES[rows] + rows * c * 4
+        if smem <= MAX_SMEM:
+            return rows, smem
+    raise ValueError(f"fused_patch_embed kernel needs C <= {MAX_C} (its row buffer in shared memory); "
+                     f"got C={c}")
 
 
 def embed_consts(c, device, patch_requant, patch_bias, s_qact1, ln_mask, ln_w_os,
@@ -105,7 +123,8 @@ def fused_patch_embed(patches, w_q, patch_requant, patch_bias, embed_requant,
         positional values of the patch rows; cls_xc: (1, C) int8 [CLS] row.
       s_qact1: (C,) PTF scale (divides). ln_*: block-0 LN1 constants.
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (any K, C ≤ 1024, both zero-padded by ``embed_pad``) or raise.
+    (any K, C ≤ 3272, both zero-padded by ``embed_pad``; ``embed_block``) or
+    raise.
     """
     dev = device_of(patches, w_q)
     if dev.type == "cpu":
@@ -116,9 +135,7 @@ def fused_patch_embed(patches, w_q, patch_requant, patch_bias, embed_requant,
     c = w_q.shape[0]
     check_cuda_operand(patches, "patches", torch.int8)
     check_cuda_operand(w_q, "w_q", torch.int8, (c, k))
-    if c > MAX_C:
-        raise ValueError(f"fused_patch_embed kernel needs C <= {MAX_C} (its row buffer in shared memory); "
-                         f"got C={c}")
+    embed_block(-(-c // 8) * 8)
     pos = pos_val.to(torch.float32).contiguous()
     cls = cls_xc.to(torch.int8).reshape(c).contiguous()
     if tuple(pos.shape) != (n_patch, c) or pos.device != dev or cls.device != dev:

@@ -52,7 +52,7 @@ from ._lib import check_cuda_operand, device_of, f32_vec, launch, library, pad_c
 from .intln import ln_codes
 from .matmul_int8 import MAX_CODE, MAX_SMEM, MAX_STAGES, TILE_K, TILE_M, WIDTHS, _sm_count, int_matmul_nt
 
-MAX_ROW = 1024  # N: the widest row whose code tile and vectors fit shared memory beside a ring
+MAX_ROW = 2048  # N: the JAX kernel's widest row (its padded N ≤ 2048)
 MAX_CONSUMERS = 2  # consumer warpgroups of 64 rows per CTA
 MAX_CLUSTER = 4  # CTAs per cluster that split N
 N_ALIGN, K_ALIGN = 16, 32  # the wrapper's zero padding of N (16-byte rows) and K (whole TMA words)
@@ -165,6 +165,11 @@ def res_ln_smem(bn: int, cpc: int, nc: int, stages: int, cs: int) -> int:
             + nc * TILE_M * 8 + 16 * stages + (16 + 2 * nc * TILE_M * 16 if cs > 1 else 0))
 
 
+def _ring_stages(bn: int, cpc: int, nc: int, cs: int) -> int:
+    """Ring stages that fit shared memory beside the rest, at most ``MAX_STAGES``."""
+    return min(MAX_STAGES, (MAX_SMEM - res_ln_smem(bn, cpc, nc, 0, cs)) // ((TILE_M * nc + bn) * TILE_K + 16))
+
+
 @functools.lru_cache(maxsize=256)
 def res_ln_plan(m: int, n: int, k: int, sms: int, resident: tuple | None = None, cs: int = 0,
                 nc: int = 0) -> ResLnPlan:
@@ -177,10 +182,13 @@ def res_ln_plan(m: int, n: int, k: int, sms: int, resident: tuple | None = None,
     ⌊sms/c⌋; the H100 holds 132, 66, 39 and 30). For each cluster size CS of
     1 to ``MAX_CLUSTER``: BN and the chunks per CTA cpc waste the fewest
     columns of the padded N, ⌈N/(CS·BN)⌉·CS·BN − N, the widest BN on a tie
-    (CS = 1: 96 → 96, 384 → 2 × 192, 768 → 3 × 256); a CS > 1 that wastes
-    more than CS = 1 is skipped. Of the (CS, NC) whose CTA fits shared
-    memory with a ring of two stages or more, the plan takes the one whose
-    busiest consumer owns the fewest elements, ⌈⌈M/(64·NC)⌉ /
+    (CS = 1: 96 → 96, 384 → 2 × 192, 768 → 3 × 256); where CS = 1 fits
+    (some NC with two ring stages), a CS > 1 that wastes more than CS = 1 is
+    skipped; where it does not (N = 1536 or 2048: a whole row's code tile
+    leaves no room for two stages), the clusters need not beat its waste.
+    Of the (CS, NC) whose CTA fits shared memory with a ring of two stages
+    or more, the plan takes the one whose busiest consumer owns the fewest
+    elements, ⌈⌈M/(64·NC)⌉ /
     resident⌉·64·cpc·BN (the epilogue's time: a CTA's consumers issue it
     side by side), then the smaller CS, then the smaller NC; the ring takes
     as many stages as shared memory holds, up to ``MAX_STAGES``. ``cs``,
@@ -202,11 +210,13 @@ def res_ln_plan(m: int, n: int, k: int, sms: int, resident: tuple | None = None,
         bn = min((w for w, _ in WIDTHS), key=lambda w: (-(-n_pad // (c * w)) * c * w - n_pad, -w))
         cpc = -(-n_pad // (c * bn))
         waste = c * cpc * bn - n_pad
-        waste1 = waste if c == 1 else waste1
-        if waste > waste1 or resident[c - 1] < 1 or cs not in (0, c):
+        if c == 1:  # CS = 1's waste bounds the clusters' only where CS = 1 fits
+            fits = any(_ring_stages(bn, cpc, q, 1) >= 2 for q in range(1, MAX_CONSUMERS + 1))
+            waste1 = waste if fits else None
+        if (waste1 is not None and waste > waste1) or resident[c - 1] < 1 or cs not in (0, c):
             continue
         for q in range(MAX_CONSUMERS, 0, -1):  # as the C plan: a tie goes to the smaller q
-            stages = min(MAX_STAGES, (MAX_SMEM - res_ln_smem(bn, cpc, q, 0, c)) // ((TILE_M * q + bn) * TILE_K + 16))
+            stages = _ring_stages(bn, cpc, q, c)
             if stages < 2 or nc not in (0, q):
                 continue
             blocks = -(-m // (TILE_M * q))
@@ -284,7 +294,7 @@ def int8_matmul_res_ln(x_q, w_q, requant_scale, bias_scaled, res_q, s_mid, s_res
         the LN's input scale (s1 = min, PTF mask = round(s_out/s1)).
       ln_w/ln_b/ln_out_scale/ratio: the following LN and its requant.
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``res_ln_plan``: N ≤ 1024; |qmin|, |qmax| ≤ 2^22; any K, padded) or
+    (``res_ln_plan``: N ≤ 2048; |qmin|, |qmax| ≤ 2^22; any K, padded) or
     raise.
     """
     if device_of(x_q, w_q, res_q).type == "cpu":

@@ -298,10 +298,11 @@ def serving_forward(s, qstate, cfg: SwinConfig, policy: QuantPolicy, x, use_kern
     against. ``lis``: override the policy's Log-Int-Softmax switch; off runs
     the LIS-off fp32 softmax, in the kernels as in the plain versions.
     ``fuse_stem``, ``int_stem``: the stem (``stem_codes``).
-    ``fold_windows``: qkv and proj run on raster rows, the cyclic shift
-    rolls the (B, res, res, 3C) qkv codes, and the attention windows them in
-    its loads and stores (``swin_lis_attention_folded``); a stage that is one
-    window (Swin-T's last, res 7 = ws) keeps the two-step attention. The
+    ``fold_windows``: qkv and proj run on raster rows, and the attention
+    windows the (B, res, res, 3C) qkv codes and applies the block's cyclic
+    shift in its loads and stores (``swin_lis_attention_folded`` with
+    ``shift``), so no partition, reverse or roll copy runs; a stage that is
+    one window (Swin-T's last, res 7 = ws) keeps the two-step attention. The
     logits equal the default path's bit for bit.
     ``fuse_res=False``: both residual junctions elementwise (each product
     and the sum rounded on its own), then every norm1, norm2 and the final
@@ -351,9 +352,10 @@ def serving_forward(s, qstate, cfg: SwinConfig, policy: QuantPolicy, x, use_kern
             proj = (sb["proj"]["w_q"], aq["qact3"]["scale"] * sb["proj"]["sw"] / aq["qact4"]["scale"],
                     sb["proj_b"] / aq["qact4"]["scale"])
             if fold_windows and res > ws:
-                hq = _roll(mm(h.reshape(-1, c), *qkv).reshape(bs, res, res, 3 * c), -shift)
-                hw = attn_fold(hq, sb["bias_val"], sb["mask_s2"], heads, ws, *scales, lis=lis)
-                h = mm(_roll(hw, shift).reshape(-1, c), *proj)
+                # the cyclic shift rides in the kernel's addresses: no roll copies
+                hq = mm(h.reshape(-1, c), *qkv).reshape(bs, res, res, 3 * c)
+                hw = attn_fold(hq, sb["bias_val"], sb["mask_s2"], heads, ws, *scales, lis=lis, shift=shift)
+                h = mm(hw.reshape(-1, c), *proj)
             else:
                 hw = window_partition(_roll(h.reshape(bs, res, res, c), -shift), ws)
                 hw = mm(hw.reshape(-1, c), *qkv).reshape(-1, ws * ws, 3 * c)

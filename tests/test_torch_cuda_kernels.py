@@ -242,6 +242,21 @@ def test_int8_matmul_res_ln_padded(dev, n, k):
     _same(got, matmul_ln.int8_matmul_res_ln_plain(*args))
 
 
+@pytest.mark.parametrize("n", [1536, 2048])
+def test_int8_matmul_res_ln_wide_rows(dev, n):
+    """N = 1536 and 2048, which JAX serves and no one-CTA plan fits: the
+    plan splits each row over a cluster (ragged M: one row, a partial
+    block, several waves), the C entry's plan equals res_ln_plan, and the
+    kernel equals the plain version with PTF masks of 16."""
+    for m in (1, 197, 3136 + 5):
+        info = matmul_ln.res_ln_kernel_info(m, n)
+        plan = matmul_ln.res_ln_plan(m, n, n, info["sms"], info["resident"])
+        assert plan.cs >= 2 and (info["cs"], info["bn"], info["cpc"], info["nc"], info["stages"]) == (
+            plan.cs, plan.bn, plan.cpc, plan.nc, plan.stages)
+        args = [a.to(dev) for a in _res_ln_args(np.random.RandomState(m + n), m, n, n, "mask16")]
+        _same(matmul_ln.int8_matmul_res_ln(*args), matmul_ln.int8_matmul_res_ln_plain(*args))
+
+
 @pytest.mark.parametrize("m,k,n", [(77, 40, 96), (200, 8, 288), (12608, 100, 384), (5, 200, 1000)])
 @pytest.mark.parametrize("gelu", [False, True])
 def test_int8_matmul_requant_padded(dev, m, k, n, gelu):
@@ -267,6 +282,18 @@ def test_fused_patch_embed_padded(dev, k, c):
     args = [a.to(dev) for a in _embed_args(np.random.RandomState(k + c), 3, 49, k, c)]
     got = embed_fused.fused_patch_embed(*args)
     assert got[0].shape == (3, 50, c)
+    _same(got, embed_fused.fused_patch_embed_plain(*args))
+
+
+@pytest.mark.parametrize("c", [1536, 2816, 3272])
+def test_fused_patch_embed_wide(dev, c):
+    """Past C = 1024 at the zoo's 196 patches and K = 768: C = 1536 (still
+    a 32-row block), 2816 (the widest C JAX's VMEM guard admits there) and
+    3272 (the 16-row block's widest) equal the plain version."""
+    assert embed_fused.embed_block(c)[0] == (32 if c <= 1616 else 16)
+    args = [a.to(dev) for a in _embed_args(np.random.RandomState(c), 2, 196, 768, c)]
+    got = embed_fused.fused_patch_embed(*args)
+    assert got[0].shape == (2, 197, c)
     _same(got, embed_fused.fused_patch_embed_plain(*args))
 
 
@@ -489,6 +516,89 @@ def test_swin_lis_attention_kernel(dev, case, lis):
     a = _swin_attn_args(rng, windows, n_win, heads, case != "stage0", case == "mask_chunks")
     a = tuple(t.to(dev) if isinstance(t, torch.Tensor) else t for t in a)
     _same(attention_lis.swin_lis_attention(*a, lis=lis), attention_lis.swin_lis_attention_plain(*a, lis=lis))
+
+
+@pytest.mark.parametrize("lis", [True, False])
+@pytest.mark.parametrize("grid", [1, 7, 0, -1])
+def test_swin_lis_attention_forced_grids(dev, grid, lis):
+    """The persistent grid forced to one CTA (every item in turn: bias and
+    mask restaged across heads and window positions), 7 CTAs, the plan's and
+    one item per CTA (-1), at Swin-T stage 0's shifted shapes (64 distinct
+    masks): bit for bit the plain version."""
+    rng = np.random.RandomState(5)
+    a = tuple(t.to(dev) if isinstance(t, torch.Tensor) else t for t in _swin_attn_args(rng, 128, 64, 3, True, True))
+    g = 128 * 3 if grid == -1 else grid
+    _same(attention_lis.swin_lis_attention(*a, lis=lis, grid=g), attention_lis.swin_lis_attention_plain(*a, lis=lis))
+
+
+@pytest.mark.parametrize("lis", [True, False])
+@pytest.mark.parametrize("batch", [1, 8, 64])
+def test_swin_attention_at_swin_t_stages(dev, batch, lis):
+    """Both entries at every Swin-T stage (res 56/28/14/7, heads 3/6/12/24)
+    and batches 1, 8 and 64: the panel entry with and without the shift
+    mask, the folded entry (stages of more than one window) at shift 0
+    unmasked and at shift 3 masked, against their plain versions; the
+    shifted folded entry also against roll → the panel kernel → roll."""
+    rng = np.random.RandomState(batch)
+    for stage in range(4):
+        res, heads = 56 >> stage, 3 << stage
+        g2 = (res // 7) ** 2
+        c = 32 * heads
+        qkv = _i8(rng, (batch, res, res, 3 * c)).to(dev)
+        bias = torch.from_numpy((rng.randn(heads, 49, 49) * 0.3).astype(np.float32)).to(dev)
+        mask = torch.from_numpy(swin.shift_attn_mask(res, res, 7, 3) / 2.0**-4).float().to(dev) if g2 > 1 else None
+        sc = (2.0**-9, 2.0**-4, 2.0**-4, 2.0**-2)
+        panels = swin.window_partition(qkv, 7).contiguous()
+        for m in ((None, mask) if mask is not None else (None,)):
+            a = (panels, bias, m, heads, g2) + sc
+            _same(attention_lis.swin_lis_attention(*a, lis=lis), attention_lis.swin_lis_attention_plain(*a, lis=lis))
+        if g2 == 1:
+            continue
+        for shift, m in ((0, None), (3, mask)):
+            a = (qkv, bias, m, heads, 7) + sc
+            got = attention_lis.swin_lis_attention_folded(*a, lis=lis, shift=shift)
+            _same(got, attention_lis.swin_lis_attention_folded_plain(*a, lis=lis, shift=shift))
+        rolled = swin.window_partition(torch.roll(qkv, (-3, -3), (1, 2)), 7).contiguous()
+        two_step = attention_lis.swin_lis_attention(rolled, bias, mask, heads, g2, *sc, lis=lis)
+        _same(got, torch.roll(swin.window_reverse(two_step, 7, res, res), (3, 3), (1, 2)).contiguous())
+
+
+@pytest.mark.parametrize("lis", [True, False])
+@pytest.mark.parametrize("fold", [False, True])
+def test_swin_attention_plan_matches_kernel(dev, fold, lis):
+    """The launch facts at N = 49: the shared memory swin_attention_smem
+    states, nothing spilled, 4 CTAs per SM with LIS and 3 without; the
+    phase hook's readings (the grid the plan states, the middle CTA's items
+    and bias stagings, a phase clock that adds up to no more than its total)
+    and every CTA's span (each CTA ran; the items went to all of them)."""
+    info = attention_lis.swin_attention_info(49, lis, fold)
+    assert info["smem_bytes"] == attention_lis.swin_attention_smem(49, lis) and info["spill_bytes"] == 0
+    assert info["ctas_per_sm"] == (4 if lis else 3)
+    rng = np.random.RandomState(6)
+    qkv = _i8(rng, (8, 56, 56, 288)).to(dev)
+    bias = torch.from_numpy((rng.randn(3, 49, 49) * 0.3).astype(np.float32)).to(dev)
+    mask = torch.from_numpy(swin.shift_attn_mask(56, 56, 7, 3) / 2.0**-4).float().to(dev)
+    sc = (2.0**-9, 2.0**-4, 2.0**-4, 2.0**-2)
+    plan = attention_lis.swin_attention_plan(8 * 64, 64, 3, 49, info["sms"], info["ctas_per_sm"], lis=lis)
+    stamps = torch.zeros(9, dtype=torch.int64, device=dev)
+    spans = torch.zeros(2 * plan.grid, dtype=torch.int64, device=dev)
+    if fold:
+        a = (qkv, bias, mask, 3, 7) + sc
+        kw = dict(lis=lis, shift=3)
+        want = attention_lis.swin_lis_attention_folded_plain(*a, **kw)
+        kern = attention_lis.swin_lis_attention_folded
+    else:
+        a = (swin.window_partition(qkv, 7).contiguous(), bias, mask, 3, 64) + sc
+        kw = dict(lis=lis)
+        want = attention_lis.swin_lis_attention_plain(*a, **kw)
+        kern = attention_lis.swin_lis_attention
+    _same(kern(*a, **kw, phase_ns=stamps), want)
+    _same(kern(*a, **kw, cta_ns=spans), want)
+    st = stamps.tolist()
+    assert st[7] == plan.grid and 1 <= st[6] <= plan.items and 1 <= st[8] <= st[6]
+    assert 0 < sum(st[:5]) <= st[5]
+    se = spans.view(-1, 2)
+    assert bool((se[:, 1] > se[:, 0]).all()) and bool((se[:, 0] > 0).all())
 
 
 def test_swin_wrappers_raise_on_what_the_kernels_do_not_take(dev):

@@ -14,10 +14,13 @@ padding function against the plain version on the unpadded inputs. Every
 comparison is bit for bit.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from p2vit_tpu.ops.embed_fused import fused_patch_embed as j_embed
 from p2vit_tpu.ops.matmul_ln import int8_matmul_res_ln as j_resln
 from p2vit_tpu.ops.matmul_ln import int8_matmul_res_ln_ref
 from p2vit_tpu_torch.ops import embed_fused, intln, matmul_int8, matmul_ln as ml
@@ -102,7 +105,7 @@ def test_forced_plans_at_deit_s(cs, nc):
 
 
 @pytest.mark.parametrize("m,n,k,sms,match", [
-    (64, 96, 0, 132, "K > 0"), (64, 1040, 96, 132, "N <= 1024"), (64, 0, 96, 132, "N <= 1024"),
+    (64, 96, 0, 132, "K > 0"), (64, 2064, 96, 132, "N <= 2048"), (64, 0, 96, 132, "N <= 2048"),
     (2 ** 31, 96, 96, 132, "2\\^31"), (64, 96, 96, 0, "SM"),
 ])
 def test_plan_raises_where_the_kernel_does_not_run(m, n, k, sms, match):
@@ -271,3 +274,118 @@ def test_embed_pad_equals_plain(k, c):
     assert pp.shape[-1] % 16 == 0 and wp.shape[0] % 8 == 0 and (vp[2, c:] == 1).all()
     got = embed_fused.embed_codes_plain(pp, wp, vp, scal, pos, cls, c_true=c)
     assert torch.equal(got[0][..., :c], want[0]) and torch.equal(got[1][..., :c], want[1])
+
+
+# ---------------------------------------------------------------------------
+# The widths JAX serves past the zoo's: junction rows 1024 < N ≤ 2048, and
+# the fused embed past C = 1024
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1536, 2048])
+@pytest.mark.parametrize("m", [1, 1576, 3136, 12608])
+def test_plan_at_wide_rows(m, n):
+    """At these widths one CTA's plan (BN 256, the widest that wastes no
+    column) fits no ring of two stages beside a whole row's code tile, so
+    clusters split the row: the plan fits shared memory, its clusters are
+    resident and cover N, and the walk covers every row block once."""
+    for q in range(1, ml.MAX_CONSUMERS + 1):
+        assert ml.res_ln_smem(256, n // 256, q, 2, 1) > matmul_int8.MAX_SMEM
+    plan = ml.res_ln_plan(m, n, 4 * n, H100_SMS, H100_RESIDENT)
+    assert plan.cs >= 2 and plan.cs * plan.cols >= n > (plan.cs - 1) * plan.cols
+    assert 2 <= plan.stages and plan.smem_bytes == ml.res_ln_smem(plan.bn, plan.cpc, plan.nc, plan.stages,
+                                                                  plan.cs) <= matmul_int8.MAX_SMEM
+    assert plan.grid == min(H100_RESIDENT[plan.cs - 1], plan.blocks) * plan.cs
+    seen = np.zeros(plan.blocks, np.int64)
+    for _, _, blk in plan.walk():
+        seen[blk] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("n", [1536, 2048])
+def test_walk_replay_equals_plain_wide_rows(n):
+    """The replayed walk of a wide-row plan (clusters splitting N, PTF
+    masks up to 16, K = 40 padded to 64) equals the plain version, every
+    element stored once."""
+    a = [torch.from_numpy(v) for v in _args(n, 65, 40, n)]
+    plan = ml.res_ln_plan(65, n, 40, H100_SMS, H100_RESIDENT)
+    assert plan.cs >= 2
+    vecs, s1 = ml.res_ln_consts(n, torch.device("cpu"), *a[2:4], *a[5:])
+    got, stores = _replay(plan, a[0], a[1], a[4], vecs, s1, n)
+    assert (stores == 1).all()
+    want = ml.int8_matmul_res_ln_plain(*a)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n", [1536, 2048])
+def test_plain_matches_jax_wide_rows(n):
+    """The plain version against JAX's Pallas kernel in interpret mode and its
+    eager twin at N = 1536 and 2048 (JAX serves N ≤ 2048), masks up to 8."""
+    a = _args(7 * n, 9, 64, n, mask_max=8)
+    got = ml.int8_matmul_res_ln_plain(*(torch.from_numpy(v) for v in a))
+    for want in (j_resln(*a, interpret=True), int8_matmul_res_ln_ref(*a)):
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("c,rows", [(384, 32), (1616, 32), (1624, 16), (2816, 16), (3272, 16), (3280, None)])
+def test_embed_block_rows(c, rows):
+    """The fused embed's block: 32 token rows while their int32 row buffer
+    fits shared memory beside the GEMM's stages, 16 past C = 1616, up to
+    C = 3272; wider raises."""
+    if rows is None:
+        with pytest.raises(ValueError, match="C <= 3272"):
+            embed_fused.embed_block(c)
+        return
+    got, smem = embed_fused.embed_block(c)
+    assert got == rows and smem == embed_fused._STAGES[rows] + rows * c * 4 <= embed_fused.MAX_SMEM
+    if rows == 16:
+        assert embed_fused._STAGES[32] + 32 * c * 4 > embed_fused.MAX_SMEM
+
+
+def _embed_jax_args(rng, b, n_patch, k, c):
+    """fused_patch_embed arguments as numpy: int8 patch codes, int4-valued
+    weights, power-of-two requant scales and s_embed, PTF scales and masks
+    up to 2, the [CLS] row and LN constants."""
+    f = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return dict(
+        patches=rng.randint(-128, 128, (b, n_patch, k)).astype(np.int8),
+        w_q=rng.randint(-8, 8, (c, k)).astype(np.int8),
+        patch_requant=f(2.0 ** rng.randint(-10, -6, c)), patch_bias=f(rng.randn(c)),
+        embed_requant=f(0.5), s_embed=f(2.0**-4), pos_val=f(rng.randn(n_patch, c) * 0.2),
+        cls_xc=rng.randint(-128, 128, (1, c)).astype(np.int8),
+        s_qact1=f(0.05 * 2.0 ** rng.randint(0, 2, c)), ln_mask=f(2.0 ** rng.randint(0, 2, c)),
+        ln_s1=f(0.05), ln_w_os=f(rng.randn(c) * 8), ln_b_os=f(rng.randn(c) * 4))
+
+
+def test_embed_plain_matches_jax_at_c1536():
+    """The fused embed's plain version against JAX's Pallas kernel in
+    interpret mode at C = 1536 (int8 patches, K = 48)."""
+    a = _embed_jax_args(np.random.RandomState(1536), 2, 9, 48, 1536)
+    xc_j, h_j = j_embed(jnp.asarray(a["patches"]), jnp.asarray(a["w_q"]), 1.0, interpret=True,
+                        **{k: jnp.asarray(v) for k, v in a.items() if k not in ("patches", "w_q")})
+    xc_t, h_t = embed_fused.fused_patch_embed_plain(*(torch.from_numpy(a[k]) for k in (
+        "patches", "w_q", "patch_requant", "patch_bias", "embed_requant", "s_embed", "pos_val", "cls_xc",
+        "s_qact1", "ln_mask", "ln_s1", "ln_w_os", "ln_b_os")))
+    np.testing.assert_array_equal(xc_t.numpy(), np.asarray(xc_j))
+    np.testing.assert_array_equal(h_t.numpy(), np.asarray(h_j))
+
+
+def test_embed_widest_c_jax_admits_at_197_tokens():
+    """JAX's VMEM guard at the zoo's 196 patches + [CLS] and K = 768 admits
+    C = 2816 and refuses the next padded width (C = 2817 → 2944); the
+    port's kernel serves 2816 with its 16-row block."""
+    def shapes(c):
+        a = _embed_jax_args(np.random.RandomState(0), 1, 196, 768, 8)
+        spec = {k: jax.ShapeDtypeStruct(np.shape(v) if k not in ("w_q", "pos_val", "cls_xc") else
+                                        {"w_q": (c, 768), "pos_val": (196, c), "cls_xc": (1, c)}[k], v.dtype)
+                for k, v in a.items()}
+        vec = jax.ShapeDtypeStruct((c,), np.float32)
+        for k in ("patch_requant", "patch_bias", "s_qact1", "ln_mask", "ln_w_os", "ln_b_os"):
+            spec[k] = vec
+        return jax.eval_shape(lambda **kw: j_embed(kw.pop("patches"), kw.pop("w_q"), 1.0, **kw), **spec)
+
+    assert shapes(2816)[0].shape == (1, 197, 2816)
+    with pytest.raises(ValueError, match="scoped-VMEM"):
+        shapes(2817)
+    assert embed_fused.embed_block(2816) == (16, embed_fused._STAGES[16] + 16 * 2816 * 4)
