@@ -49,7 +49,9 @@ weight-only serving of both models and the two weight-store GEMM tools:
   attention kernel and in the Swin attention kernel, and the warpgroup-MMA
   (IGMMA) and TMA-load (UTMALDG)
   instructions in the Hopper ``int8_matmul_requant`` and
-  ``int8_matmul_res_ln`` kernels (``cuobjdump -sass``, report only).
+  ``int8_matmul_res_ln`` kernels (``cuobjdump -sass``, report only), and
+  the int-LN kernels' two chain rewrites against ``ln_elem`` over all 2^32
+  float32 inputs (mismatches; must be 0).
 
 Phases of the int8 serving paths, one line each, per path:
 
@@ -112,7 +114,11 @@ Phases of the int8 serving paths, one line each, per path:
      device ms in ``roll`` kernels, and per shape a launch line (items,
      grid, CTAs per SM, shared memory, registers, spills, its time at one
      item per CTA, the middle CTA's phase clock and bias stagings, and the
-     spread of the CTAs' durations).
+     spread of the CTAs' durations). A path that runs the int-LN kernels
+     does the same for each: its device ms per forward over its instances,
+     and per shape a launch line (lanes per row G, chunks per lane, rows per
+     CTA block, blocks, grid, CTAs per SM, shared memory, registers, spill
+     bytes).
 
 Then the card's name and power limit, one JSON line of per-kernel results
 (``launches`` summed over the paths' phase-2 runs, ``ms``/``plain_ms``/
@@ -145,7 +151,10 @@ REDESIGNED = {"wstream_matmul": "float64 tensor cores (mma.sync.m16n8k16) on exa
               "swin_lis_attention": "persistent grid taking items from a counter, q/k/v and mask by cp.async, "
                                     "bias per head change, int8 mma.sync scores and LIS attn@v",
               "swin_lis_attention_folded": "the same body; window partition, reverse and the cyclic shift "
-                                           "in its addresses"}
+                                           "in its addresses",
+              "int_ln_requant": "G lanes a row sized to C, 16-byte chunks held in registers, vectors in shared "
+                                "memory, persistent grid, exact float/int32 lane sums",
+              "int_res_ln_requant": "the same body; the residual code computed once and kept for the LN pass"}
 # kernel → (plain version's module, its name, CUDA source, the TPU kernel it replaces)
 SOURCES = {
     "fused_patch_embed": ("embed_fused", "fused_patch_embed_plain", "embed_fused.cu",
@@ -518,9 +527,11 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
         for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             print(f"{path.name} phase 5 batch {bt} device ms/forward {t:.4f} {name[:110]}")
         for kern, inst in (("int8_matmul_requant", "requant_kernel<"), ("int8_matmul_res_ln", "res_ln_kernel<"),
-                           ("swin_lis_attention*", "swin_attention_kernel<")):
+                           ("swin_lis_attention*", "swin_attention_kernel<"),
+                           ("int_ln_requant", r"int_ln_kernel<\d+, false"),
+                           ("int_res_ln_requant", r"int_ln_kernel<\d+, true")):
             if kern.rstrip("*") in path.kernels:
-                t = sum(v for name, v in by_name.items() if inst in name)
+                t = sum(v for name, v in by_name.items() if re.search(inst, name))
                 print(f"{path.name} phase 5 batch {bt} device ms/forward {kern}, all its instances: {t:.4f}",
                       flush=True)
         if path.key.startswith("swin"):
@@ -554,6 +565,9 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
             if name in ("swin_lis_attention", "swin_lis_attention_folded"):
                 print(f"{path.name} phase 5 kernel {name} launch: "
                       f"{_swin_launch_report(ops, name, a, k, t_k, reps)}", flush=True)
+            if name in ("int_ln_requant", "int_res_ln_requant"):
+                print(f"{path.name} phase 5 kernel {name} launch: {_intln_launch_report(ops, name, a, t_k)}",
+                      flush=True)
             k_ms += t_k * count
             p_ms += t_p * count
             by[b_by] += b_ms * count
@@ -643,6 +657,18 @@ def _res_ln_launch_report(ops, a, t_k, reps):
             f"{info['resident'][info['cs'] - 1]} clusters resident at most), {info['smem_bytes']} B shared memory, "
             f"{info['registers']} registers at launch, {info['consumer_registers']} per consumer thread, "
             f"{info['spill_bytes']} B spilled; {t_k:.4f} ms per call, torch._int_mm {int_mm}")
+
+
+def _intln_launch_report(ops, name, a, t_k):
+    """An int-LN kernel's plan and launch facts at one shape (CUDA runtime)."""
+    res = name == "int_res_ln_requant"
+    m, c = a[0].shape
+    info = ops.intln.ln_kernel_info(m, c, res)
+    return (f"G {info['g']} lanes a row, {info['k']} 16-byte chunk(s) a lane, {info['rows']} rows a CTA block, "
+            f"{info['blocks']} blocks on a {'persistent ' if info['blocks'] > info['grid'] else ''}grid of "
+            f"{info['grid']} CTAs ({info['ctas_per_sm']} per SM of {info['sms']}), "
+            f"{info['smem_bytes']} B shared memory, {info['registers']} registers ({info['spill_bytes']} B spilled); "
+            f"{t_k:.4f} ms per call")
 
 
 def _swin_geometry(name, a):
@@ -1238,6 +1264,11 @@ def main() -> None:
     for kern in ("wg14requant_kernel", "wg13res_ln_kernel"):
         for op in ("IGMMA", "UTMALDG"):
             print(f"sass: {op} instructions {sass_count(so, kern, op)}", flush=True)
+    bad = ops.intln.ln_chain_check(dev)
+    print(f"int-LN chain rewrites (2^N bits, unit-ratio fold) against ln_elem over all 2^32 floats: "
+          f"mismatches {bad}", flush=True)
+    if any(bad):
+        _fail(f"the int-LN kernels' chain rewrites disagree with ln_elem: {bad}")
 
     gen = torch.Generator().manual_seed(args.seed + 1)
 

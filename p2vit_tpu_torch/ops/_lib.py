@@ -50,8 +50,10 @@ SIGNATURES = {
     "p2v_lis_attention_fused": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "p2v_lis_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "p2v_fused_patch_embed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "p2v_int_ln_requant": [_P, _P, _P, _P, _I, _I, _P],
-    "p2v_int_res_ln_requant": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "p2v_int_ln_requant": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "p2v_int_res_ln_requant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "p2v_int_ln_info": [_I, _I, _I, _I, _P],
+    "p2v_ln_chain_check": [_P, _P],
     "p2v_swin_lis_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "p2v_swin_lis_attention_folded": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "p2v_swin_attention_hook": [_P] * 5 + [_I] * 9 + [_P, _P, _P],

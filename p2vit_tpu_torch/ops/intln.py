@@ -32,20 +32,43 @@ The two kernels (``csrc/intln.cu``), on (M, C) int8 codes:
   two outputs. On the Swin path: the attention-side junction after
   ``window_reverse``, once per block.
 
-Both are bound by memory on the card (a few flops per byte): one warp owns
-a row (C ≤ 3072), reads it as 4-byte words, sums Σx in int32 and Σx² in
-int64 (C·(128·8)² passes 2^31 at C = 2048) with warp shuffles, then reads
-the row again from L1/L2 for the elementwise chain and writes 4-byte words.
+They move 2 and 4 bytes an element but issue ~29 and ~44 instructions an
+element (the LN chain, the residual chain), so on the H100 the SMs' issue
+rate bounds them, not memory. ``ln_plan`` sizes the launch to C: G lanes
+per row so that no lane idles at C = 96, each lane holding whole 16-byte
+chunks of its row in registers from the one read to the one write, the
+column vectors staged in shared memory once per CTA, a persistent grid;
+the row sums are exact integers (see ``csrc/intln.cu``).
+
+Widths: the wrappers zero-pad C to a multiple of 16 (``ln_pad``; the
+kernel counts the true C, ``c_true``), as the JAX wrappers pad it to 128,
+and serve C up to what JAX's own VMEM estimate admits at its floor
+``block_m = 128`` under TPU's 16 MiB of scoped VMEM: ~27 bytes per block
+element for ``int_ln_requant`` (``p2vit_tpu/ops/intln.py:123-126``),
+128·C_pad·27 ≤ 2^24 gives C_pad ≤ 4854, so C ≤ 4736 (``MAX_C``); ~30 for
+``int_res_ln_requant`` (``:231-233``) gives C ≤ 4352 (``MAX_RES_C``). Past
+them the wrappers raise, as JAX's kernels fail to fit.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
+
 import torch
 
-from ._lib import check_cuda_operand, device_of, f32_vec, launch
+from ._lib import check_cuda_operand, device_of, f32_vec, launch, library, pad_cols
 from .fastmath import exp2i, floor_log2i, sqrt_rn
 
-MAX_LN_ROW = 3072  # swin_base's 4·768 PatchMerging row is the widest in the zoo
+_VMEM = 2 ** 24  # scoped VMEM on the TPU, bytes
+MAX_C = (_VMEM // (128 * 27)) // 128 * 128  # 4736: int_ln_requant's widest row, as JAX admits it
+MAX_RES_C = (_VMEM // (128 * 30)) // 128 * 128  # 4352: int_res_ln_requant's
+CHUNK = 16  # bytes a lane loads and stores at once; the wrappers pad C to a multiple
+THREADS = 256  # threads per CTA, 8 warps
+RUN = 3  # the chunks per lane the plan aims at
+K_SET = (1, 2, 3, 4, 6, 8, 10)  # the chunks per lane the kernel is built for
+LD = 17  # float4s a chunk's column vectors take in shared memory (16 and one of padding)
 _I8 = (-128, 127)
 
 
@@ -88,9 +111,107 @@ def ln_codes(x, s1, w_os, b_os, ratio, qmin=-128, qmax=127, c_true=None):
     return torch.clamp(torch.round(y * ratio), qmin, qmax).to(torch.int8)
 
 
-def _check_rows(name, c):
-    if c % 4 or c > MAX_LN_ROW:
-        raise ValueError(f"{name} kernel needs C % 4 == 0 and C <= {MAX_LN_ROW}; got C={c}")
+@dataclasses.dataclass(frozen=True)
+class LnPlan:
+    """Launch plan of the two int-LN kernels (``csrc/intln.cu``, ``LnPlan``)."""
+
+    g: int  # lanes per row; 32 / g rows share a warp
+    k: int  # 16-byte chunks per lane: lane l of a row owns chunks l, l + g, …, l + (k − 1)·g
+    c_pad: int  # the width the kernel sees (multiple of 16)
+    rows: int  # rows per CTA per block, 256 / g
+    blocks: int  # row blocks of ``rows`` rows
+    grid: int  # persistent CTAs: min(blocks, SMs × CTAs per SM)
+    smem_bytes: int  # the column vectors: LD float4s a chunk (residual: two such)
+
+    @property
+    def chunks(self) -> int:
+        return self.c_pad // CHUNK
+
+    def lane_chunks(self, lane: int) -> list:
+        """The chunks lane ``lane`` (0 ≤ lane < g) of a row owns."""
+        return [j for j in range(lane, self.k * self.g, self.g) if j < self.chunks]
+
+
+@functools.lru_cache(maxsize=256)
+def ln_plan(m: int, c: int, res: bool = False, sms: int = 132, ctas_per_sm: int = 4, g: int = 0) -> LnPlan:
+    """The plan of ``int_ln_requant`` (``res``: ``int_res_ln_requant``) at
+    (M, C), as the C entry computes it at the padded width on ``sms`` SMs
+    holding ``ctas_per_sm`` CTAs each (``ln_kernel_info`` reads both on the
+    card). G: the fewest lanes, a power of two from 2 to 32, with at most 3
+    chunks a lane (C = 96: 2 lanes of 3 chunks; 384: 8; 1536: 32); k: the
+    chunks per lane rounded up into ``K_SET``. ``g`` > 0 forces G (a
+    measurement hook). Raises past the width JAX serves."""
+    limit = MAX_RES_C if res else MAX_C
+    if not 1 <= c <= limit:
+        raise ValueError(f"{'int_res_ln_requant' if res else 'int_ln_requant'} kernel needs 1 <= C <= {limit} "
+                         f"(JAX's VMEM estimate at block_m = 128), got C={c}")
+    if not 0 <= m < 2 ** 31:
+        raise ValueError(f"int-LN kernel needs 0 <= M < 2^31, got M={m}")
+    if sms < 1 or ctas_per_sm < 1:
+        raise ValueError(f"int-LN kernel needs SMs and CTAs per SM >= 1, got {sms}, {ctas_per_sm}")
+    c_pad = -(-c // CHUNK) * CHUNK
+    nch = c_pad // CHUNK
+    lanes = 2
+    while lanes < 32 and -(-nch // lanes) > RUN:
+        lanes *= 2
+    if g:
+        if g not in (1, 2, 4, 8, 16, 32):
+            raise ValueError(f"int-LN kernel takes G in 1, 2, 4, …, 32 lanes per row, got {g}")
+        lanes = g
+    k = next((kk for kk in K_SET if kk * lanes >= nch), None)
+    if k is None:
+        raise ValueError(f"int-LN kernel: {nch} chunks do not fit {lanes} lanes of at most {K_SET[-1]}")
+    rows = THREADS // lanes
+    blocks = -(-m // rows)
+    return LnPlan(lanes, k, c_pad, rows, blocks, min(blocks, sms * ctas_per_sm), nch * LD * 16 * (2 if res else 1))
+
+
+def ln_pad(vecs: torch.Tensor, *codes: torch.Tensor):
+    """The kernel's operands: each (M, C) code tensor and the (n, C) column
+    vectors zero-padded to a multiple of 16 columns (the tensors themselves
+    where C needs none). Zero vectors make the padded columns' x = code·mask
+    zero (and the residual codes zero), so Σx and Σx² are those of the true
+    C; the LN must still count the true C."""
+    return (pad_cols(vecs, CHUNK),) + tuple(pad_cols(t, CHUNK) for t in codes)
+
+
+_INFO_KEYS = ("g", "k", "rows", "blocks", "grid", "smem_bytes", "registers", "spill_bytes", "ctas_per_sm", "sms")
+
+
+def ln_kernel_info(m: int, c: int, res: bool = False, g: int = 0) -> dict:
+    """The built kernel's launch facts at (M, C) from the CUDA runtime: the
+    plan (``g`` as ``ln_plan``), registers and spill bytes per thread, CTAs
+    per SM and SMs. Needs the card."""
+    lib, _ = library()
+    info = (ctypes.c_int * len(_INFO_KEYS))()
+    c_pad = -(-c // CHUNK) * CHUNK
+    rc = lib.p2v_int_ln_info(int(m), c_pad, int(res), int(g), ctypes.cast(info, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"p2v_int_ln_info: CUDA error {rc}: {lib.p2v_error_string(rc).decode()}")
+    return dict(zip(_INFO_KEYS, list(info)))
+
+
+def ln_chain_check(device=None) -> tuple:
+    """The kernel's LN chain rewrites against ``p2v::ln_elem``'s, over all
+    2^32 float32 bit patterns on the card: (inputs whose 2^N or 2^-N bits
+    differ, inputs whose unit-ratio fold differs). Both must be 0."""
+    bad = torch.zeros(2, dtype=torch.int64, device=device or torch.device("cuda", torch.cuda.current_device()))
+    launch("p2v_ln_chain_check", bad)
+    return tuple(int(v) for v in bad.tolist())
+
+
+def _ln_launch(entry, codes, vecs, s1, c, res, g):
+    """Check, pad and launch the C entry ``entry`` on ``codes`` (one tensor,
+    or the residual's two operands); returns the output tensor(s), (M, C)."""
+    m = codes[0].shape[0]
+    dev = codes[0].device
+    plan = ln_plan(m, c, res, g=g)  # the width and G checks; the C entry plans the grid itself
+    vecs, *padded = ln_pad(vecs, *codes)
+    outs = [torch.empty((m, plan.c_pad), dtype=torch.int8, device=dev) for _ in range(2 if res else 1)]
+    launch(entry, *padded, vecs, s1, *outs, m, plan.c_pad, c, g)
+    if plan.c_pad != c:
+        outs = [o[:, :c].contiguous() for o in outs]
+    return tuple(outs) if res else outs[0]
 
 
 # ---------------------------------------------------------------------------
@@ -107,12 +228,33 @@ def ln_requant_consts(c, device, ptf_mask, s1, ln_w, ln_b, out_scale, ratio):
     return vecs, torch.as_tensor(s1, dtype=torch.float32, device=device).reshape(1)
 
 
+def ln_requant_codes(codes, vecs, s1, c_true=None):
+    """The kernel's chain on its constants (``ln_requant_consts``, maybe
+    padded by ``ln_pad``); the LN counts ``c_true`` columns (default C)."""
+    mask, w_os, b_os, ratio_v = (row[None, :] for row in vecs)
+    return ln_codes(codes.to(torch.float32) * mask, s1[0], w_os, b_os, ratio_v, c_true=c_true)
+
+
 def int_ln_requant_plain(codes, ptf_mask, s1, ln_w, ln_b, out_scale, ratio):
     """Plain PyTorch version of the kernel."""
-    vecs, s1v = ln_requant_consts(codes.shape[-1], codes.device, ptf_mask, s1, ln_w, ln_b,
-                                  out_scale, ratio)
-    mask, w_os, b_os, ratio_v = (row[None, :] for row in vecs)
-    return ln_codes(codes.to(torch.float32) * mask, s1v[0], w_os, b_os, ratio_v)
+    return ln_requant_codes(codes, *ln_requant_consts(codes.shape[-1], codes.device, ptf_mask, s1, ln_w, ln_b,
+                                                      out_scale, ratio))
+
+
+def _int_ln(codes, ptf_mask, s1, ln_w, ln_b, out_scale, ratio, g):
+    if codes.device.type != "cuda":
+        raise ValueError(f"int_ln_requant kernel needs CUDA tensors, got {codes.device}")
+    c = codes.shape[1]
+    check_cuda_operand(codes, "codes", torch.int8)
+    vecs, s1v = ln_requant_consts(c, codes.device, ptf_mask, s1, ln_w, ln_b, out_scale, ratio)
+    return _ln_launch("p2v_int_ln_requant", (codes,), vecs, s1v, c, False, g)
+
+
+def int_ln_requant_forced(codes, ptf_mask, s1, ln_w, ln_b, out_scale, ratio, g=0):
+    """The kernel launched with ``g`` lanes per row (0: the plan's). A
+    measurement hook for CUDA tensors; not counted in
+    ``int_ln_requant.launches``."""
+    return _int_ln(codes, ptf_mask, s1, ln_w, ln_b, out_scale, ratio, g)
 
 
 def int_ln_requant(codes, ptf_mask, s1, ln_w, ln_b, out_scale, ratio):
@@ -123,16 +265,11 @@ def int_ln_requant(codes, ptf_mask, s1, ln_w, ln_b, out_scale, ratio):
       ln_w/ln_b: (C,) LayerNorm affine. out_scale: (C,) consumer scale.
       ratio: (C,) post-LN code multiplier (1 on the Swin path).
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (C % 4 == 0, C ≤ 3072) or raise.
+    (any C ≤ ``MAX_C``, zero-padded to a multiple of 16) or raise.
     """
     if codes.device.type == "cpu":
         return int_ln_requant_plain(codes, ptf_mask, s1, ln_w, ln_b, out_scale, ratio)
-    m, c = codes.shape
-    check_cuda_operand(codes, "codes", torch.int8)
-    _check_rows("int_ln_requant", c)
-    vecs, s1v = ln_requant_consts(c, codes.device, ptf_mask, s1, ln_w, ln_b, out_scale, ratio)
-    out = torch.empty((m, c), dtype=torch.int8, device=codes.device)
-    launch("p2v_int_ln_requant", codes, vecs, s1v, out, m, c)
+    out = _int_ln(codes, ptf_mask, s1, ln_w, ln_b, out_scale, ratio, 0)
     int_ln_requant.launches += 1
     return out
 
@@ -160,16 +297,38 @@ def res_ln_requant_consts(c, device, s_a, s_b, s_out, ln_w, ln_b, ln_out_scale, 
     return vecs, s1.reshape(1)
 
 
-def int_res_ln_requant_plain(a_q, s_a, b_q, s_b, s_out, ln_w, ln_b, ln_out_scale, ratio):
-    """Plain PyTorch version of the kernel; the twin of
-    ``int_res_ln_requant_ref`` op for op. Returns (res_codes, ln_codes)."""
-    dev = device_of(a_q, b_q)
-    vecs, s1 = res_ln_requant_consts(a_q.shape[-1], dev, s_a, s_b, s_out, ln_w, ln_b,
-                                     ln_out_scale, ratio)
+def res_ln_requant_codes(a_q, b_q, vecs, s1, c_true=None):
+    """The kernel's chain on its constants (``res_ln_requant_consts``, maybe
+    padded by ``ln_pad``); the LN counts ``c_true`` columns (default C).
+    Returns (res_codes, ln_codes)."""
     sa, sb, inv_out, mask, w_os, b_os, ratio_v = (row[None, :] for row in vecs)
     val = a_q.to(torch.float32) * sa + b_q.to(torch.float32) * sb
     res = torch.clamp(torch.round(val * inv_out), *_I8)
-    return res.to(torch.int8), ln_codes(res * mask, s1[0], w_os, b_os, ratio_v)
+    return res.to(torch.int8), ln_codes(res * mask, s1[0], w_os, b_os, ratio_v, c_true=c_true)
+
+
+def int_res_ln_requant_plain(a_q, s_a, b_q, s_b, s_out, ln_w, ln_b, ln_out_scale, ratio):
+    """Plain PyTorch version of the kernel; the twin of
+    ``int_res_ln_requant_ref`` op for op. Returns (res_codes, ln_codes)."""
+    return res_ln_requant_codes(a_q, b_q, *res_ln_requant_consts(a_q.shape[-1], device_of(a_q, b_q), s_a, s_b,
+                                                                 s_out, ln_w, ln_b, ln_out_scale, ratio))
+
+
+def _int_res_ln(a_q, s_a, b_q, s_b, s_out, ln_w, ln_b, ln_out_scale, ratio, g):
+    dev = device_of(a_q, b_q)
+    if dev.type != "cuda":
+        raise ValueError(f"int_res_ln_requant kernel needs CUDA tensors, got {dev}")
+    m, c = a_q.shape
+    check_cuda_operand(a_q, "a_q", torch.int8)
+    check_cuda_operand(b_q, "b_q", torch.int8, (m, c))
+    vecs, s1 = res_ln_requant_consts(c, dev, s_a, s_b, s_out, ln_w, ln_b, ln_out_scale, ratio)
+    return _ln_launch("p2v_int_res_ln_requant", (a_q, b_q), vecs, s1, c, True, g)
+
+
+def int_res_ln_requant_forced(a_q, s_a, b_q, s_b, s_out, ln_w, ln_b, ln_out_scale, ratio, g=0):
+    """The kernel launched with ``g`` lanes per row, as
+    ``int_ln_requant_forced``; not counted in ``int_res_ln_requant.launches``."""
+    return _int_res_ln(a_q, s_a, b_q, s_b, s_out, ln_w, ln_b, ln_out_scale, ratio, g)
 
 
 def int_res_ln_requant(a_q, s_a, b_q, s_b, s_out, ln_w, ln_b, ln_out_scale, ratio):
@@ -183,21 +342,13 @@ def int_res_ln_requant(a_q, s_a, b_q, s_b, s_out, ln_w, ln_b, ln_out_scale, rati
       ln_w/ln_b: (C,) affine; ln_out_scale: consumer scale; ratio: post-LN
         code multiplier.
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (C % 4 == 0, C ≤ 3072) or raise.
+    (any C ≤ ``MAX_RES_C``, zero-padded to a multiple of 16) or raise.
     """
-    dev = device_of(a_q, b_q)
-    if dev.type == "cpu":
+    if device_of(a_q, b_q).type == "cpu":
         return int_res_ln_requant_plain(a_q, s_a, b_q, s_b, s_out, ln_w, ln_b, ln_out_scale, ratio)
-    m, c = a_q.shape
-    check_cuda_operand(a_q, "a_q", torch.int8)
-    check_cuda_operand(b_q, "b_q", torch.int8, (m, c))
-    _check_rows("int_res_ln_requant", c)
-    vecs, s1 = res_ln_requant_consts(c, dev, s_a, s_b, s_out, ln_w, ln_b, ln_out_scale, ratio)
-    res_out = torch.empty((m, c), dtype=torch.int8, device=dev)
-    ln_out = torch.empty((m, c), dtype=torch.int8, device=dev)
-    launch("p2v_int_res_ln_requant", a_q, b_q, vecs, s1, res_out, ln_out, m, c)
+    out = _int_res_ln(a_q, s_a, b_q, s_b, s_out, ln_w, ln_b, ln_out_scale, ratio, 0)
     int_res_ln_requant.launches += 1
-    return res_out, ln_out
+    return out
 
 
 int_res_ln_requant.launches = 0

@@ -463,29 +463,109 @@ def _ptf(rng, n, base):
     return torch.from_numpy((base * 2.0 ** rng.randint(0, 4, n)).astype(np.float32))
 
 
-@pytest.mark.parametrize("m,c", [(2 * 3136 + 5, 96), (2 * 196, 384), (2 * 49, 1536), (50, 3072)])
-def test_int_ln_requant_kernel(dev, m, c):
-    """Swin-T's int-LN rows (patch norm C = 96, norm1 C = 384, the 4C = 1536
-    PatchMerging row) and swin_base's widest 3072 row, ragged M."""
-    rng = np.random.RandomState(c)
+# Swin-T's int-LN calls at batch 2: (M, C) of the patch norm and first norm1s,
+# the PatchMerging rows (4C), and the attention-side junctions
+SWIN_T_LN = [(2 * 3136, 96), (2 * 784, 192), (2 * 196, 384), (2 * 49, 768), (2 * 784, 384), (2 * 196, 768),
+             (2 * 49, 1536)]
+SWIN_T_RES = [(2 * 3136, 96), (2 * 784, 192), (2 * 196, 384), (2 * 49, 768)]
+
+
+def _ln_args(rng, m, c, mask=None, const_rows=0):
     s_in = _ptf(rng, c, 0.013)
-    args = [_i8(rng, (m, c)), torch.round(s_in / s_in.min()), s_in.min(),
+    codes = _i8(rng, (m, c))
+    const_rows = min(const_rows, m)
+    codes[:const_rows] = torch.from_numpy(rng.randint(-128, 128, (const_rows, 1)).astype(np.int8))
+    codes[:min(1, const_rows)] = 0  # a row of zeros: mean/std = 0/0, NaN codes cast as the plain version casts them
+    return [codes, torch.round(s_in / s_in.min()) if mask is None else mask, s_in.min(),
             torch.from_numpy(rng.randn(c).astype(np.float32)),
             torch.from_numpy((rng.randn(c) * 0.1).astype(np.float32)),
             torch.from_numpy((np.abs(rng.randn(c)) * 0.03 + 0.01).astype(np.float32)), 1.0]
-    args = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
+
+
+@pytest.mark.parametrize("m,c", SWIN_T_LN + [(2 * 3136 + 5, 96), (2 * 196 + 3, 384), (50, 3072), (77, 18),
+                                             (129, 98), (3, 100), (200, 3074), (33, intln.MAX_C)])
+def test_int_ln_requant_kernel(dev, m, c):
+    """Every Swin-T int-LN shape at batch 2, ragged M, padded C (18, 98, 100,
+    3074), swin_base's widest 3072 row and the widest C JAX serves; the
+    first 5 rows constant (std = 0: the row constants are inf, or NaN on
+    the first row, all zeros)."""
+    rng = np.random.RandomState(c + m)
+    args = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in _ln_args(rng, m, c, const_rows=5)]
     _same(intln.int_ln_requant(*args), intln.int_ln_requant_plain(*args))
 
 
-@pytest.mark.parametrize("c", [96, 768])
-def test_int_res_ln_requant_kernel(dev, c):
-    rng = np.random.RandomState(c + 1)
-    m = 2 * 3136 if c == 96 else 2 * 49
-    args = [_i8(rng, (m, c)), _ptf(rng, c, 0.011), _i8(rng, (m, c)), torch.tensor(2.0**-5),
-            _ptf(rng, c, 0.017), torch.from_numpy(rng.randn(c).astype(np.float32)),
+def test_int_ln_chain_rewrites_exhaustive(dev):
+    """The kernels' LN chain (``ln_code_fast``: 2^N and 2^-N from a's bits,
+    and with every ratio 1 the round of y folded into the biased clip)
+    against ``p2v::ln_elem``'s forms, over all 2^32 float32 inputs."""
+    assert intln.ln_chain_check(dev) == (0, 0)
+
+
+def _res_args(rng, m, c, const_rows=0):
+    a, b = _i8(rng, (m, c)), _i8(rng, (m, c))
+    a[:const_rows], b[:const_rows] = 0, 17  # residual codes constant along the row where s_out is a scalar
+    b[:min(1, const_rows)] = 0  # a row of zero residual codes: NaN LN codes
+    return [a, _ptf(rng, c, 0.011), b, torch.tensor(2.0**-5), _ptf(rng, c, 0.017),
+            torch.from_numpy(rng.randn(c).astype(np.float32)),
             torch.from_numpy((rng.randn(c) * 0.1).astype(np.float32)), torch.tensor(2.0**-4), 1.0]
-    args = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
-    _same(intln.int_res_ln_requant(*args), intln.int_res_ln_requant_plain(*args))
+
+
+@pytest.mark.parametrize("m,c", SWIN_T_RES + [(2 * 3136 + 7, 96), (2 * 49 + 1, 768), (5, 18), (130, 100),
+                                              (64, 1536), (33, intln.MAX_RES_C)])
+def test_int_res_ln_requant_kernel(dev, m, c):
+    """Every Swin-T junction shape at batch 2, ragged M, padded C and the
+    widest C JAX serves; the first 4 rows' residual codes constant where
+    s_out is a scalar (std = 0), the first row's zero."""
+    rng = np.random.RandomState(c + m + 1)
+    args = _res_args(rng, m, c, const_rows=4)
+    for s_out in (args[4], torch.tensor(0.017)):
+        a = [t.to(dev) if isinstance(t, torch.Tensor) else t for t in args[:4] + [s_out] + args[5:]]
+        _same(intln.int_res_ln_requant(*a), intln.int_res_ln_requant_plain(*a))
+
+
+@pytest.mark.parametrize("kind", ["mask16", "fraction", "negative"])
+def test_int_ln_kernels_any_mask(dev, kind):
+    """Masks that are not integers of magnitude ≤ 8 take the kernel's int64
+    sums of truncated x, as the plain version's ``row_sums``."""
+    rng = np.random.RandomState(3)
+    m, c = 300, 384
+    mask = {"mask16": torch.from_numpy(2.0 ** rng.randint(0, 5, c)).float(),
+            "fraction": torch.from_numpy(rng.randint(1, 9, c) * 0.75).float(),
+            "negative": -torch.from_numpy(2.0 ** rng.randint(0, 4, c)).float()}[kind]
+    args = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in _ln_args(rng, m, c, mask=mask)]
+    _same(intln.int_ln_requant(*args), intln.int_ln_requant_plain(*args))
+    ra = _res_args(rng, m, c)
+    ra[4] = torch.from_numpy((0.01 * 2.0 ** rng.randint(0, 6, c)).astype(np.float32))  # masks up to 32
+    ra = [t.to(dev) if isinstance(t, torch.Tensor) else t for t in ra]
+    _same(intln.int_res_ln_requant(*ra), intln.int_res_ln_requant_plain(*ra))
+
+
+@pytest.mark.parametrize("res", [False, True])
+def test_int_ln_plan_and_forced_launches(dev, res):
+    """The C plan equals ``ln_plan`` on the card's SMs and resident CTAs at
+    Swin-T's shapes at batches 1 and 64; every forced G (1 to 32) gives the
+    plain version's codes."""
+    shapes = SWIN_T_RES if res else SWIN_T_LN
+    for batch in (1, 64):
+        for m2, c in shapes:
+            m = m2 // 2 * batch
+            info = intln.ln_kernel_info(m, c, res)
+            plan = intln.ln_plan(m, c, res, info["sms"], info["ctas_per_sm"])
+            assert (info["g"], info["k"], info["rows"], info["blocks"], info["grid"], info["smem_bytes"]) == (
+                plan.g, plan.k, plan.rows, plan.blocks, plan.grid, plan.smem_bytes)
+            assert info["spill_bytes"] == 0
+    rng = np.random.RandomState(9)
+    m, c = 2 * 3136 + 3, 96
+    if res:
+        args = [t.to(dev) if isinstance(t, torch.Tensor) else t for t in _res_args(rng, m, c, const_rows=2)]
+        want, kern = intln.int_res_ln_requant_plain(*args), intln.int_res_ln_requant_forced
+    else:
+        args = [t.to(dev) if isinstance(t, torch.Tensor) else t for t in _ln_args(rng, m, c, const_rows=2)]
+        want, kern = intln.int_ln_requant_plain(*args), intln.int_ln_requant_forced
+    before = (intln.int_ln_requant.launches, intln.int_res_ln_requant.launches)
+    for g in (1, 2, 4, 8, 16, 32):
+        _same(kern(*args, g=g), want)
+    assert (intln.int_ln_requant.launches, intln.int_res_ln_requant.launches) == before
 
 
 def _swin_attn_args(rng, windows, n_win, heads, masked, distinct_masks=False):
@@ -613,9 +693,11 @@ def test_swin_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         attention_lis.swin_lis_attention(*low)
     with pytest.raises(ValueError, match="head_dim"):
         attention_lis.swin_lis_attention(a[0], a[1][:1], None, 1, *a[4:])
-    x = torch.zeros(8, 3074, dtype=torch.int8, device=dev)
-    with pytest.raises(ValueError, match="C % 4"):
+    x = torch.zeros(8, intln.MAX_C + 1, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match=f"C <= {intln.MAX_C}"):
         intln.int_ln_requant(x, 1.0, 1.0, 1.0, 0.0, 1.0, 1.0)
+    with pytest.raises(ValueError, match=f"C <= {intln.MAX_RES_C}"):
+        intln.int_res_ln_requant(x, 1.0, x, 1.0, 1.0, 1.0, 0.0, 1.0, 1.0)
 
 
 def test_swin_serving_forward_small_model(dev):
