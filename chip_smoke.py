@@ -48,8 +48,10 @@ weight-only serving of both models and the two weight-store GEMM tools:
   ``wstream_matmul`` kernels, the IMMA instructions in the cluster
   attention kernel and in the Swin attention kernel, and the warpgroup-MMA
   (IGMMA) and TMA-load (UTMALDG)
-  instructions in the Hopper ``int8_matmul_requant`` and
-  ``int8_matmul_res_ln`` kernels (``cuobjdump -sass``, report only), and
+  instructions in the Hopper ``int8_matmul_requant``, ``int8_matmul_res_ln``
+  and ``fused_patch_embed`` kernels, and the shared loads (LDS) against the
+  multiplies of ``fused_swin_stem``'s inner loop (``cuobjdump -sass``,
+  report only), and
   the int-LN kernels' two chain rewrites against ``ln_elem`` over all 2^32
   float32 inputs (mismatches; must be 0).
 
@@ -62,7 +64,12 @@ Phases of the int8 serving paths, one line each, per path:
      split to (B·H, N, 64); the Swin paths hold the Swin attention on each
      panel call's arguments on forced grids (one item per CTA, 7 CTAs) and
      the folded entry, at shift 0 and ws // 2, on the raster grid the
-     panels tile.
+     panels tile. The prologue kernels are also held on forced plans:
+     ``fused_patch_embed`` on every cluster size and consumer count that
+     fits and on the same patches as float32 values (its in-kernel
+     quantize), and its PTF divide against ``__fdiv_rn`` over all 2^32
+     dividends for each s_qact1 value of the state; ``fused_swin_stem`` on
+     one block a CTA and on 7 CTAs.
   2. the path: launch counts reset, serving_forward through the kernels on
      every request batch, counts read. Its logits must equal the plain
      path's (``use_kernels=False``) bit for bit. uint8 paths: the logits must
@@ -118,7 +125,12 @@ Phases of the int8 serving paths, one line each, per path:
      does the same for each: its device ms per forward over its instances,
      and per shape a launch line (lanes per row G, chunks per lane, rows per
      CTA block, blocks, grid, CTAs per SM, shared memory, registers, spill
-     bytes).
+     bytes). A path that runs a prologue kernel does the same: its device ms
+     per forward, and a launch line (the plan: the embed's clusters, chunks,
+     consumers, stages, row blocks and grid, the stem's channels a thread,
+     blocks, grid and shared loads a product; registers, spills; device µs
+     of the call and of the kernel alone against its bound, the stem's also
+     against its multiply-and-add ceiling).
 
 Then the card's name and power limit, one JSON line of per-kernel results
 (``launches`` summed over the paths' phase-2 runs, ``ms``/``plain_ms``/
@@ -154,7 +166,11 @@ REDESIGNED = {"wstream_matmul": "float64 tensor cores (mma.sync.m16n8k16) on exa
                                            "in its addresses",
               "int_ln_requant": "G lanes a row sized to C, 16-byte chunks held in registers, vectors in shared "
                                 "memory, persistent grid, exact float/int32 lane sums",
-              "int_res_ln_requant": "the same body; the residual code computed once and kept for the LN pass"}
+              "int_res_ln_requant": "the same body; the residual code computed once and kept for the LN pass",
+              "fused_patch_embed": "TMA ring, int8 wgmma chunks into a whole-row code tile, clusters splitting C, "
+                                   "[CLS] rows once per CTA, a Markstein-corrected PTF divide, 16-byte LN pass",
+              "fused_swin_stem": "4 rows × C/16 channels a thread in registers, summed in k order; cp.async "
+                                 "double buffer, persistent grid, exact lane sums"}
 # kernel → (plain version's module, its name, CUDA source, the TPU kernel it replaces)
 SOURCES = {
     "fused_patch_embed": ("embed_fused", "fused_patch_embed_plain", "embed_fused.cu",
@@ -403,6 +419,7 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
     worst = {k: 0 for k in plain}
     mismatches = {k: 0 for k in plain}
     swin_entries = {}  # the Swin kernel's forced grids and shifted folded entry, kernel vs plain
+    prologue = {}  # the prologue kernels' forced plans (and the embed's divide), kernel vs plain
     timing_calls = {}
     for b in sorted({8, bt}):
         x = requests[b] if b in requests else img(b, path.img_size, u8)
@@ -423,6 +440,9 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
                 if name == "swin_lis_attention":
                     for key2, n_bad in _swin_entry_checks(ops, a, k).items():
                         swin_entries[key2] = swin_entries.get(key2, 0) + n_bad
+                if name in ("fused_patch_embed", "fused_swin_stem"):
+                    for key2, n_bad in _prologue_checks(ops, name, a, k, want).items():
+                        prologue[key2] = prologue.get(key2, 0) + n_bad
                 if b == bt:
                     count = sum(1 for a2, k2 in calls[pname] if _shape_key(a2, k2) == key)
                     timing_calls.setdefault(name, []).append((a, k, count, _bound(name, a, want)))
@@ -431,6 +451,12 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
           f"mismatches {json.dumps(mismatches)}", flush=True)
     if any(mismatches.values()):
         _fail(f"{path.name}: kernel disagrees with its plain version: {mismatches}")
+    if prologue:
+        print(f"{path.name} phase 1 prologue kernels on forced plans (the path's arguments; the embed also on "
+              f"float32 patches, and its PTF divide over all 2^32 dividends per s_qact1 value): mismatches "
+              f"{json.dumps(prologue)}", flush=True)
+        if any(prologue.values()):
+            _fail(f"{path.name}: a prologue kernel's forced plan disagrees with its plain version: {prologue}")
     if swin_entries:
         print(f"{path.name} phase 1 Swin attention on the panel calls' arguments (forced grids; the folded "
               f"entry on the raster grid the windows tile, shift 0 and ws // 2): mismatches "
@@ -529,7 +555,8 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
         for kern, inst in (("int8_matmul_requant", "requant_kernel<"), ("int8_matmul_res_ln", "res_ln_kernel<"),
                            ("swin_lis_attention*", "swin_attention_kernel<"),
                            ("int_ln_requant", r"int_ln_kernel<\d+, false"),
-                           ("int_res_ln_requant", r"int_ln_kernel<\d+, true")):
+                           ("int_res_ln_requant", r"int_ln_kernel<\d+, true"),
+                           ("fused_patch_embed", "embed_kernel<"), ("fused_swin_stem", "swin_stem_kernel<")):
             if kern.rstrip("*") in path.kernels:
                 t = sum(v for name, v in by_name.items() if re.search(inst, name))
                 print(f"{path.name} phase 5 batch {bt} device ms/forward {kern}, all its instances: {t:.4f}",
@@ -567,6 +594,15 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
                       f"{_swin_launch_report(ops, name, a, k, t_k, reps)}", flush=True)
             if name in ("int_ln_requant", "int_res_ln_requant"):
                 print(f"{path.name} phase 5 kernel {name} launch: {_intln_launch_report(ops, name, a, t_k)}",
+                      flush=True)
+            if name in ("fused_patch_embed", "fused_swin_stem"):
+                print(f"{path.name} phase 5 kernel {name} launch: "
+                      f"{_prologue_launch_report(ops, name, a, k, t_k, b_ms)}", flush=True)
+            if name == "lis_attention":  # on no path: its device time on the staged path's split qkv
+                _, port_ms, _ = _device_ms(lambda: kern(*a, **k), 5)
+                dev = "not measured" if port_ms is None else (
+                    f"{port_ms:.4f} per call, {port_ms * count:.4f} for the {count} calls of a forward")
+                print(f"{path.name} phase 5 kernel lis_attention device ms (profiler, the kernel alone): {dev}",
                       flush=True)
             k_ms += t_k * count
             p_ms += t_p * count
@@ -669,6 +705,74 @@ def _intln_launch_report(ops, name, a, t_k):
             f"{info['grid']} CTAs ({info['ctas_per_sm']} per SM of {info['sms']}), "
             f"{info['smem_bytes']} B shared memory, {info['registers']} registers ({info['spill_bytes']} B spilled); "
             f"{t_k:.4f} ms per call")
+
+
+def _prologue_checks(ops, name, a, k, want):
+    """Element mismatches of a prologue kernel against its plain version on
+    one call's arguments, on forced plans: the embed on every cluster size
+    and consumer count that fits, and on the same patches as float32 values
+    quantized in the kernel (s_input 1: the codes themselves); its PTF
+    divide against __fdiv_rn over all 2^32 dividends for each distinct
+    s_qact1 value; the stem on one block a CTA and on 7 CTAs."""
+    out = {}
+    if name == "fused_patch_embed":
+        ef = ops.embed_fused
+        (b, n_patch, kk), c = a[0].shape, a[1].shape[0]
+        info = ef.embed_kernel_info(b * n_patch, c)
+        for cs in range(1, ef.MAX_CLUSTER + 1):
+            for nc in range(1, ef.MAX_CONSUMERS + 1):
+                try:
+                    ef.embed_plan(b * n_patch, c, kk, info["sms"], info["resident"], cs=cs, nc=nc)
+                except ValueError:
+                    continue
+                out[f"embed cs{cs} nc{nc}"] = sum(_diff(g, w)[0] for g, w in zip(ef.fused_patch_embed_forced(
+                    *a, **k, cs=cs, nc=nc), want))
+        fa = (a[0].to(torch.float32),) + tuple(a[1:])
+        one = torch.ones((), device=a[0].device)
+        out["embed float32 arm"] = sum(_diff(g, w)[0] for g, w in zip(ef.fused_patch_embed(
+            *fa, **{**k, "s_input": one}), want))
+        sq1 = torch.as_tensor(k["s_qact1"] if "s_qact1" in k else a[8], dtype=torch.float32,
+                              device=a[0].device).reshape(-1).unique()
+        out["embed divide"] = sum(ef.embed_div_check(sq1))
+    else:
+        st = ops.swin_stem
+        plan = st.stem_plan(a[0].shape[0], a[0].shape[1], a[1].shape[0])
+        for g in (plan.blocks, 7):
+            out[f"stem grid {'blocks' if g == plan.blocks else g}"] = _diff(st.fused_swin_stem_forced(*a, **k, grid=g),
+                                                                          want[0])[0]
+    return out
+
+
+def _prologue_launch_report(ops, name, a, k, t_k, b_ms):
+    """A prologue kernel's plan and launch facts at one shape (CUDA runtime)
+    and its device µs per call, all the wrapper launches and the kernel
+    alone (profiler), against its bound; the stem also against its
+    multiply-and-add ceiling."""
+    fn = getattr(ops, name)
+    _, _, by_name = _device_ms(lambda: fn(*a, **k), 5)
+    call_us = sum(by_name.values()) * 1e3
+    kern_us = sum(v for n, v in by_name.items() if re.search(r"embed_kernel<|swin_stem_kernel<", n)) * 1e3
+    if name == "fused_patch_embed":
+        (b, n_patch, _), c = a[0].shape, a[1].shape[0]
+        info = ops.embed_fused.embed_kernel_info(b * n_patch, c)
+        plan = (f"clusters of {info['cs']} CTAs splitting C, each {info['cpc']} chunk(s) of BN {info['bn']}, "
+                f"{info['nc']} consumer warpgroups of 64 patch rows, {info['stages']} stages, {info['blocks']} row "
+                f"blocks on a persistent grid of {info['grid']} CTAs ({info['resident'][info['cs'] - 1]} clusters "
+                f"resident at most), {info['smem_bytes']} B shared memory, {info['registers']} registers at launch, "
+                f"{info['consumer_registers']} per consumer thread, {info['spill_bytes']} B spilled")
+        ceiling = ""
+    else:
+        (m, kk), c = a[0].shape, a[1].shape[0]
+        info = ops.swin_stem.stem_kernel_info(m, kk, c)
+        plan = (f"4 rows × {info['cc']} channels a thread, {info['blocks']} blocks of {info['rows']} patch rows on "
+                f"a persistent grid of {info['grid']} CTAs ({info['ctas_per_sm']} per SM of {info['sms']}), "
+                f"{info['smem_bytes']} B shared memory, {info['registers']} registers ({info['spill_bytes']} B "
+                f"spilled), {ops.swin_stem.stem_plan(m, kk, c).loads_per_product:.3f} shared loads a product")
+        ops, peak = _ops(name, a)
+        ceil_us = 2 * ops / peak * 1e6
+        ceiling = f", {kern_us / ceil_us:.2f}x the multiply-and-add ceiling {ceil_us:.2f} us"
+    return (f"{plan}; {t_k:.4f} ms per call (CUDA events), device {call_us:.2f} us per call, the kernel alone "
+            f"{kern_us:.2f} us, {kern_us / (1e3 * b_ms):.2f}x its bound {1e3 * b_ms:.2f} us{ceiling}")
 
 
 def _swin_geometry(name, a):
@@ -1223,6 +1327,54 @@ def sass_count(lib_path: str, kernel: str, opcode: str) -> str:
     return f"{sum(found.values())} {json.dumps(found)} in {fns} {kernel} instances"
 
 
+def sass_loop_counts(lib_path: str, kernel: str) -> str:
+    """Per built instance of ``kernel``, its hot loop in ``cuobjdump -sass``:
+    of the backward branches' bodies with 8 FMULs or more, the densest in
+    FMULs (the k loop, not the block loop around it), and its LDS, FMUL and
+    FADD counts (shared loads a product = LDS/FMUL; report only)."""
+    import os
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                                                     "cuobjdump")
+    try:
+        sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, timeout=120).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"not measured ({e})"
+    out, fns, cur = {}, [], None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            cur = [] if kernel in ln else None
+            if cur is not None:
+                fns.append((re.search(r"ILi(\d+)E", ln), cur))
+        elif cur is not None:
+            cur.append(ln)
+    for tmpl, lines in fns:
+        ins, labels, best = [], {}, None  # (address, text) of each instruction; label → address
+        for ln in lines:
+            if m := re.match(r"\s*(\.L_x_\d+):", ln):
+                labels[m.group(1)] = len(ins)
+            elif m := re.match(r"\s*/\*([0-9a-f]{4,})\*/\s*(.*)", ln):
+                ins.append((int(m.group(1), 16), m.group(2)))
+        for i, (addr, text) in enumerate(ins):
+            m = re.search(r"\bBRA\b\s+(?:`?\(?(\.L_x_\d+)|0x([0-9a-f]+))", text)
+            if not m:
+                continue
+            start = labels.get(m.group(1)) if m.group(1) else next(
+                (j for j, (a, _) in enumerate(ins) if a == int(m.group(2), 16)), None)
+            if start is None or start > i:
+                continue  # not a backward branch
+            body = [t for _, t in ins[start:i + 1]]
+            cnt = {op: sum(1 for t in body if re.search(rf"\b{op}\b", t)) for op in ("LDS", "FMUL", "FADD")}
+            cnt["instructions"] = len(body)
+            if cnt["FMUL"] >= 8 and (best is None or cnt["FMUL"] / len(body) > best["FMUL"] / best["instructions"]):
+                best = cnt
+        if best and best["FMUL"]:
+            key = f"{kernel}<{tmpl.group(1) if tmpl else '?'}>"
+            out[key] = {**best, "loads_per_product": round(best["LDS"] / best["FMUL"], 3)}
+    return json.dumps(out)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--models", default=",".join(PATHS),
@@ -1261,7 +1413,9 @@ def main() -> None:
     print(f"sass: DMMA instructions {sass_count(so, 'wstream_matmul_kernel', 'DMMA')}", flush=True)
     print(f"sass: IMMA instructions {sass_count(so, 'lis_attention_qkv_kernel', 'IMMA')}", flush=True)
     print(f"sass: IMMA instructions {sass_count(so, 'swin_attention_kernel', 'IMMA')}", flush=True)
-    for kern in ("wg14requant_kernel", "wg13res_ln_kernel"):
+    print(f"sass: the stem's inner loop (LDS per FMUL+FADD pair) {sass_loop_counts(so, 'swin_stem_kernel')}",
+          flush=True)
+    for kern in ("wg14requant_kernel", "wg13res_ln_kernel", "wg12embed_kernel"):
         for op in ("IGMMA", "UTMALDG"):
             print(f"sass: {op} instructions {sass_count(so, kern, op)}", flush=True)
     bad = ops.intln.ln_chain_check(dev)

@@ -43,28 +43,15 @@
 // * codes held biased (clip + 1.5·2^23: the int8 byte is the low byte of
 //   the float's bits), so rounding and conversion take adds, not the
 //   conversion pipe; proven equal to rintf-then-clip over all 2^32 floats.
-// ResLnPlan picks CS, BN, cpc and NC (ops/matmul_ln.res_ln_plan mirrors it).
+// res_ln_plan picks CS, BN, cpc and NC (ops/matmul_ln.res_ln_plan mirrors it).
 #include "gemm_wgmma.cuh"
 
 namespace p2v {
 namespace wg {
 
-constexpr int kLnMaxConsumers = 2;
-constexpr int kLnMaxCluster = 4;
-
-struct ResLnPlan {
-  int bn, cpc, cs, nc, stages, blocks, grid, smem;  // nc = 0: N does not fit shared memory
-};
-
-// A row's partial sums over one CTA's columns, as its cluster peers read them.
-struct RowSums {
-  long long sxx;
-  int sx, pad;
-};
-
-// Bytes between two rows of a code tile: the chunks' width plus a pad that
-// puts the eight rows a quad group writes in distinct banks.
-__host__ __device__ constexpr int code_ld(int nw) { return nw + ((nw / 4) % 8 == 0 ? 16 : 32); }
+constexpr int kLnMaxConsumers = kRowMaxConsumers;
+constexpr int kLnMaxCluster = kRowMaxCluster;
+constexpr int kLnWidths[] = {256, 192, 144, 128, 96};  // kWidths' tile widths
 
 // Shared memory: 1024 B of alignment slack, the ring ((64·NC + BN)·128 B a
 // stage), NC code tiles of 64 rows over the CTA's cpc chunks, the nine
@@ -77,110 +64,10 @@ inline int res_ln_smem(int bn, int cpc, int nc, int stages, int cs) {
          16 * stages + (cs > 1 ? 16 + 2 * nc * kBM * 16 : 0);
 }
 
-// Ring stages that fit shared memory beside the rest, at most kMaxStages.
-inline int ln_stages(int bn, int cpc, int nc, int cs) {
-  const int stages = (kMaxSmem - res_ln_smem(bn, cpc, nc, 0, cs)) / ((kBM * nc + bn) * kBK + 16);
-  return stages < kMaxStages ? stages : kMaxStages;
-}
-
-// The launch plan at (M, N), N % 16 == 0, given resident[cs - 1], the
-// clusters of cs CTAs the card holds at once (one CTA per SM: every plan
-// fills shared memory past half an SM's): clusters of CS CTAs split N, CTA
-// r of a cluster taking chunks [r·cpc, (r + 1)·cpc) of BN columns; each
-// cluster takes row blocks of 64·NC rows in turn. For each CS (1 to 4), BN
-// and cpc waste the fewest columns, ⌈N/(CS·BN)⌉·CS·BN − N (the widest BN
-// on a tie); where CS = 1 fits (some NC with two ring stages), a CS > 1
-// that wastes more than CS = 1 does is skipped; where it does not (N = 1536
-// or 2048: a whole row's code tile leaves no room for two stages), the
-// clusters need not beat its waste. Of the
-// (CS, NC) that fit with two ring stages or more, the plan takes the one
-// whose busiest consumer owns the fewest elements,
-// ⌈blocks/resident⌉·64·cpc·BN (the epilogue's time, measured: the
-// consumers' warps issue it side by side), then the smaller CS, then the
-// smaller NC. force_cs, force_nc > 0 restrict the choice (a measurement
-// hook).
-inline ResLnPlan res_ln_plan(int M, int N, const int* resident, int force_cs = 0, int force_nc = 0) {
-  ResLnPlan best{};
-  long long best_load = -1, waste1 = -1;
-  for (int cs = 1; cs <= kLnMaxCluster; ++cs) {
-    int bn = 0, cpc = 0;
-    long long waste = -1;
-    for (const Width& w : kWidths) {
-      const int k = (N + cs * w.bn - 1) / (cs * w.bn);
-      const long long x = (long long)cs * k * w.bn - N;
-      if (waste < 0 || x < waste) waste = x, bn = w.bn, cpc = k;
-    }
-    if (cs == 1) {  // CS = 1's waste bounds the clusters' only where CS = 1 fits
-      bool fits = false;
-      for (int nc = 1; nc <= kLnMaxConsumers; ++nc) fits = fits || ln_stages(bn, cpc, nc, 1) >= 2;
-      waste1 = fits ? waste : -1;
-    }
-    if ((waste1 >= 0 && waste > waste1) || resident[cs - 1] < 1 || (force_cs && cs != force_cs)) continue;
-    for (int nc = kLnMaxConsumers; nc >= 1; --nc) {
-      if (force_nc && nc != force_nc) continue;
-      const int stages = ln_stages(bn, cpc, nc, cs);
-      if (stages < 2) continue;
-      const long long blocks = ((long long)M + kBM * nc - 1) / (kBM * nc), clusters = resident[cs - 1];
-      const long long load = (blocks + clusters - 1) / clusters * kBM * cpc * bn;
-      if (best_load < 0 || load < best_load || (load == best_load && cs == best.cs && nc < best.nc)) {
-        best_load = load;
-        best.bn = bn, best.cpc = cpc, best.cs = cs, best.nc = nc, best.stages = stages;
-        best.blocks = static_cast<int>(blocks);
-        best.grid = static_cast<int>(blocks < clusters ? blocks : clusters) * cs;
-      }
-    }
-  }
-  if (best.nc != 0) best.smem = res_ln_smem(best.bn, best.cpc, best.nc, best.stages, best.cs);
-  return best;
-}
-
-// ---- cluster helpers ------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-// shared::cluster address of `p` (this CTA's shared memory) in CTA `rank`
-__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
-  uint32_t a;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
-  return a;
-}
-
-// arrive on the barrier at `bar` in CTA `rank`, releasing this thread's
-// earlier writes to the cluster
-__device__ __forceinline__ void mbar_arrive_peer(uint64_t* bar, uint32_t rank) {
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(peer_addr(bar, rank))
-               : "memory");
-}
-
-// mbar_wait, acquiring what the arriving peers released
-__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ RowSums ld_peer(const RowSums* p, uint32_t rank) {
-  const uint32_t a = peer_addr(p, rank);
-  RowSums v;
-  asm volatile("ld.shared::cluster.u64 %0, [%1];\n" : "=l"(v.sxx) : "r"(a) : "memory");
-  asm volatile("ld.shared::cluster.u32 %0, [%1+8];\n" : "=r"(v.sx) : "r"(a) : "memory");
-  v.pad = 0;
-  return v;
+// The launch plan at (M, N): whole_row_plan (gemm_wgmma.cuh) over
+// res_ln_smem and every width of kWidths.
+inline RowPlan res_ln_plan(int M, int N, const int* resident, int force_cs = 0, int force_nc = 0) {
+  return whole_row_plan(M, N, kLnWidths, 5, res_ln_smem, resident, force_cs, force_nc);
 }
 
 // The junction on one chunk's accumulators: thread (w, l) holds
@@ -509,7 +396,7 @@ extern "C" int p2v_int8_matmul_res_ln_forced(const void* x, const void* w, const
   int resident[p2v::wg::kLnMaxCluster];
   cudaError_t err = resident_clusters(resident);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const p2v::wg::ResLnPlan plan = p2v::wg::res_ln_plan(M, N, resident, force_cs, force_nc);
+  const p2v::wg::RowPlan plan = p2v::wg::res_ln_plan(M, N, resident, force_cs, force_nc);
   if (plan.nc == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   Instance* in = find_instance(plan.bn);
   err = ready(in);
@@ -545,7 +432,7 @@ extern "C" int p2v_int8_matmul_res_ln_info(int M, int N, int force_cs, int force
   int resident[p2v::wg::kLnMaxCluster];
   cudaError_t err = resident_clusters(resident);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const p2v::wg::ResLnPlan plan = p2v::wg::res_ln_plan(M, N, resident, force_cs, force_nc);
+  const p2v::wg::RowPlan plan = p2v::wg::res_ln_plan(M, N, resident, force_cs, force_nc);
   if (plan.nc == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   Instance* in = find_instance(plan.bn);
   err = ready(in);

@@ -10,91 +10,297 @@
 //
 // The dot is summed in a fixed order, k = 0 first, each product and each add
 // rounded on its own (__fmul_rn / __fadd_rn, --fmad=false), the order of the
-// plain version's loop, so the two agree bit for bit on any input. The LN row
-// sums Σx and Σx² are exact int64 warp sums.
+// plain version's loop, so the two agree bit for bit on any input; no tensor
+// core and no reassociation.
 //
-// Layout: the (C, K) weight, stored transposed as (K, C) so that lanes read
-// consecutive channels, and the five (C,) vectors live in shared memory
-// (18.8 KB at Swin-T's C = 96, K = 48); each warp stages its patch row in
-// shared memory and lane l computes channels l, l + 32, ... (C ≤ 256).
-// Warps stride over rows, so a block loads the weight once for many rows.
-//
-// Bound: the float32 dot, 2·M·C·K operations (1.85 GFLOP at Swin-T batch 64,
-// M = 200,704), over 58 MB of patch reads and code writes; written with
-// separate multiply and add, it runs at most half the FMA peak.
-#include "common.cuh"
+// Bound on the H100: the float32 products, 2·M·C·K operations (1.85 GFLOP
+// at Swin-T batch 64, M = 200,704, K = 48, C = 96): 0.0276 ms at the
+// 67 TFLOP/s FMA peak, 0.0552 ms with a separate multiply and add, which
+// the fixed order needs. The design feeds the FP32 pipe, not the
+// shared-memory pipe:
+// * register blocking: a CTA takes 64 patch rows at a time; thread
+//   (row group rg, channel group cg) of its 16 × 16 holds 4 rows × CC
+//   channels of h in registers (CC = C_pad/16: 6 at C = 96); per 4 k it
+//   reads the 4 rows' x as float4s and, per k, its CC weights as float2s or
+//   float4s, then issues 4·CC multiply-add pairs: (4 + 4·CC/G)/(16·CC)
+//   shared loads a product (G the weight load's width; 0.17 at C = 96);
+//   a thread's channels are G-wide groups 16·G apart, so the weight loads
+//   of a half-warp hit distinct banks;
+// * the weight, transposed to (K, C), and the five vectors live in shared
+//   memory, staged once per CTA; the grid is persistent and each block's
+//   64 contiguous patch rows arrive by cp.async into one of two buffers
+//   while the block before is computed;
+// * the epilogue in registers: + bias, · inv_sbn, the biased rounding
+//   (matmul_tiles.cuh), · mask; the row sums over the 16 lanes of a row
+//   group by shuffles, exact: float lane sums where every mask is an
+//   integer of magnitude ≤ 8 (|x| ≤ 1024, checked per CTA), else int64 of
+//   the truncated x (row_sums); the LN chain ln_code_fast (ln_chain.cuh),
+//   round, clip and byte in one saturating conversion, and a row with
+//   non-finite constants (0/0) ln_code_exact; the codes go through a
+//   shared-memory tile out as 16-byte stores.
+// The wrapper zero-pads K to 4 and C to 16·CC (zero products added at the
+// end of the sum change no bit; zero vectors keep the padded channels out
+// of the row sums); the LN counts the true C.
+#include "ln_chain.cuh"
 
 namespace {
 
-constexpr int kWarps = p2v::kThreads / 32;
-constexpr int CT = 8;  // channel slots per lane: C ≤ 256
+constexpr int kThreads = p2v::kThreads;  // 256: 16 row groups × 16 channel groups
+constexpr int kRows = 4;                 // rows a thread holds
+constexpr int kBlock = 16 * kRows;       // patch rows a CTA block
 
-// vecs rows: bias, inv_sbn, mask, w_os, b_os (each C)
-__global__ void __launch_bounds__(p2v::kThreads)
-    swin_stem_kernel(const float* __restrict__ px, const float* __restrict__ w,
-                     const float* __restrict__ vecs, const float* __restrict__ s1p,
-                     int8_t* __restrict__ out, int M, int K, int C) {
-  extern __shared__ float sm[];
-  float* wt = sm;           // (K, C)
-  float* vs = wt + K * C;   // (5, C)
-  float* xs = vs + 5 * C;   // (kWarps, K)
-  for (int idx = threadIdx.x; idx < K * C; idx += p2v::kThreads) wt[(idx % K) * C + idx / K] = w[idx];
-  for (int idx = threadIdx.x; idx < 5 * C; idx += p2v::kThreads) vs[idx] = vecs[idx];
-  __syncthreads();
-  const float *bias = vs, *inv_sbn = vs + C, *mask = vs + 2 * C, *w_os = vs + 3 * C,
-              *b_os = vs + 4 * C;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* xr = xs + warp * K;
-  const float s1 = s1p[0];
-  for (int m = blockIdx.x * kWarps + warp; m < M; m += gridDim.x * kWarps) {
-    for (int k = lane; k < K; k += 32) xr[k] = px[(size_t)m * K + k];
-    __syncwarp();
-    float x[CT];
-    long long sx = 0, sxx = 0;
+struct StemPlan {
+  int cc, c_pad, blocks, grid, smem;
+};
+
+// Channels a thread holds at the padded width: CC of {2, 4, 6, 8, 12, 16}.
+__host__ __device__ constexpr int cc_of(int c) {
+  return c <= 32 ? 2 : c <= 64 ? 4 : c <= 96 ? 6 : c <= 128 ? 8 : c <= 192 ? 12 : c <= 256 ? 16 : 0;
+}
+
+// The transposed weight (K, C_pad), the five vectors, two buffers of 64
+// patch rows and the 64 × C_pad code tile.
+inline int stem_smem(int kp, int cp) { return 4 * (kp * cp + 5 * cp + 2 * kBlock * kp) + kBlock * cp; }
+
+// The weight load's width (floats) at CC channels a thread.
+template <int CC>
+constexpr int kG = CC % 4 == 0 ? 4 : 2;
+
+// The column of channel j (0..CC-1) of channel group cg: G-wide groups
+// 16·G apart.
+template <int CC>
+__device__ __forceinline__ int col_of(int cg, int j) {
+  constexpr int G = kG<CC>;
+  return G * cg + 16 * G * (j / G) + j % G;
+}
+
+// vecs rows: bias, inv_sbn, mask, w_os, b_os (each cp); px (M, kp), w (cp, kp)
+template <int CC>
+__global__ void __launch_bounds__(kThreads, CC <= 8 ? 3 : 2)
+    swin_stem_kernel(const float* __restrict__ px, const float* __restrict__ w, const float* __restrict__ vecs,
+                     const float* __restrict__ s1p, int8_t* __restrict__ out, int M, int kp, int c_true,
+                     int blocks) {
+  constexpr int CP = 16 * CC, G = kG<CC>;
+  extern __shared__ __align__(16) float sm[];
+  float* wt = sm;                          // (kp, CP)
+  float* vs = wt + kp * CP;                // (5, CP)
+  float* xs = vs + 5 * CP;                 // 2 × (64, kp)
+  int8_t* ot = reinterpret_cast<int8_t*>(xs + 2 * kBlock * kp);  // (64, CP)
+  const int tid = threadIdx.x, cg = tid & 15, rg = tid >> 4;
+
+  // the block's 64 contiguous patch rows into buffer `buf` (rows past M not copied)
+  auto fetch = [&](int blk, int buf) {
+    const int m0 = blk * kBlock, n4 = min(kBlock, M - m0) * kp / 4;
+    const float* src = px + (size_t)m0 * kp;
+    float* dst = xs + buf * kBlock * kp;
+    for (int i = tid; i < n4; i += kThreads)
+      p2v::cp_async16(reinterpret_cast<int8_t*>(dst + 4 * i), reinterpret_cast<const int8_t*>(src + 4 * i));
+    p2v::cp_async_commit();
+  };
+  if (static_cast<int>(blockIdx.x) < blocks) fetch(blockIdx.x, 0);  // in flight while the weight is staged
+  for (int idx = tid; idx < CP * kp; idx += kThreads) wt[(idx % kp) * CP + idx / kp] = w[idx];
+  // every mask an integer of magnitude ≤ 8; every LN vector finite, and m·x too
+  int small = 1, finite = 1;
+  for (int c = tid; c < CP; c += kThreads) {
+    float v5[5];
 #pragma unroll
-    for (int t = 0; t < CT; ++t) {
-      const int c = lane + 32 * t;
-      x[t] = 0.f;
-      if (c < C) {
-        float h = 0.f;
-        for (int k = 0; k < K; ++k) h = __fadd_rn(h, __fmul_rn(xr[k], wt[k * C + c]));
-        h = __fadd_rn(h, bias[c]);
-        x[t] = __fmul_rn(p2v::requant(__fmul_rn(h, inv_sbn[c]), -128.f, 127.f), mask[c]);
-        const long long xi = static_cast<long long>(x[t]);
-        sx += xi;
-        sxx += xi * xi;
+    for (int v = 0; v < 5; ++v) vs[v * CP + c] = v5[v] = vecs[v * CP + c];
+    small &= (v5[2] == rintf(v5[2]) && fabsf(v5[2]) <= 8.f) ? 1 : 0;
+    finite &= (isfinite(__fmul_rn(v5[2], 32640.f)) && isfinite(v5[3]) && isfinite(v5[4])) ? 1 : 0;
+  }
+  const bool fast = __syncthreads_and(small) != 0;
+  const bool finite_cols = __syncthreads_and(finite) != 0;
+  const float s1 = s1p[0], cf = static_cast<float>(c_true);
+
+  int it = 0;
+  for (int blk = blockIdx.x; blk < blocks; blk += gridDim.x, ++it) {
+    if (blk + static_cast<int>(gridDim.x) < blocks)
+      fetch(blk + gridDim.x, (it + 1) & 1);
+    else
+      p2v::cp_async_commit();  // an empty group keeps the count of the wait below
+    p2v::cp_async_wait<1>();
+    __syncthreads();  // this block's rows have landed; the last block's codes are stored
+    const float* xb = xs + (it & 1) * kBlock * kp + kRows * rg * kp;
+
+    float acc[kRows][CC];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < CC; ++j) acc[i][j] = 0.f;
+#pragma unroll 1
+    for (int k = 0; k < kp; k += 4) {
+      float4 xv[kRows];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) xv[i] = *reinterpret_cast<const float4*>(xb + i * kp + k);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* wr = wt + (k + kk) * CP + G * cg;
+        float wv[CC];
+#pragma unroll
+        for (int v = 0; v < CC / G; ++v) {
+          if constexpr (G == 4) {
+            const float4 t = *reinterpret_cast<const float4*>(wr + 16 * G * v);
+            wv[4 * v] = t.x, wv[4 * v + 1] = t.y, wv[4 * v + 2] = t.z, wv[4 * v + 3] = t.w;
+          } else {
+            const float2 t = *reinterpret_cast<const float2*>(wr + 16 * G * v);
+            wv[2 * v] = t.x, wv[2 * v + 1] = t.y;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          const float xk = kk == 0 ? xv[i].x : kk == 1 ? xv[i].y : kk == 2 ? xv[i].z : xv[i].w;
+#pragma unroll
+          for (int j = 0; j < CC; ++j) acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(xk, wv[j]));
+        }
       }
     }
-    __syncwarp();  // the next row overwrites xr
-    sx = p2v::warp_sum(sx);
-    sxx = p2v::warp_sum(sxx);
-    const p2v::LnRow lr =
-        p2v::ln_row(__ll2float_rn(sx), __ll2float_rn(sxx), s1, static_cast<float>(C));
+
+    // the epilogue: codes, x = code·mask, the row sums over the row group's 16 lanes
+    long long sx[kRows], sxx[kRows];
 #pragma unroll
-    for (int t = 0; t < CT; ++t) {
-      const int c = lane + 32 * t;
-      if (c < C)
-        out[(size_t)m * C + c] =
-            p2v::to_i8(p2v::requant(p2v::ln_elem(lr, x[t], w_os[c], b_os[c]), -128.f, 127.f));
+    for (int i = 0; i < kRows; ++i) {
+      p2v::FastSums fs;
+      sx[i] = sxx[i] = 0;
+#pragma unroll
+      for (int j = 0; j < CC; ++j) {
+        const int c = col_of<CC>(cg, j);
+        const float code = p2v::rint_clipf(__fmul_rn(__fadd_rn(acc[i][j], vs[c]), vs[CP + c]), -128.f, 127.f);
+        acc[i][j] = __fmul_rn(code, vs[2 * CP + c]);  // x
+        if (fast) {
+          fs.add(acc[i][j]);
+        } else {
+          const long long xi = static_cast<long long>(acc[i][j]);
+          sx[i] += xi;
+          sxx[i] += xi * xi;
+        }
+      }
+      if (fast) {  // |Σx| ≤ 16·1024, Σx² ≤ 16·2^20: exact floats
+        fs.end_chunk();
+        sx[i] = __float2int_rn(fs.sx);
+        sxx[i] = fs.sxx;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int o = 1; o < 16; o <<= 1) {
+        sx[i] += __shfl_xor_sync(0xffffffffu, sx[i], o);
+        sxx[i] += __shfl_xor_sync(0xffffffffu, sxx[i], o);
+      }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const p2v::LnRow lr = p2v::ln_row(__ll2float_rn(sx[i]), __ll2float_rn(sxx[i]), s1, cf);
+      const bool ok = finite_cols && isfinite(lr.s1_over_std) && isfinite(lr.mean_over_std);
+      int8_t* orow = ot + (kRows * rg + i) * CP;
+#pragma unroll
+      for (int j = 0; j < CC; ++j) {
+        const int c = col_of<CC>(cg, j);
+        const float w_os = vs[3 * CP + c], b_os = vs[4 * CP + c];
+        orow[c] = static_cast<int8_t>(ok ? p2v::ln_code_fast<true>(lr, acc[i][j], w_os, b_os, 1.f)
+                                         : p2v::ln_code_exact(lr, acc[i][j], w_os, b_os));
+      }
+    }
+    __syncthreads();  // the block's codes are in the tile; its rows are read
+    const int m0 = blk * kBlock, nrows = min(kBlock, M - m0);
+    for (int i = tid; i < nrows * (CP / 16); i += kThreads) {
+      const int r = i / (CP / 16), c16 = i - r * (CP / 16);
+      *reinterpret_cast<uint4*>(out + (size_t)(m0 + r) * CP + 16 * c16) =
+          *reinterpret_cast<const uint4*>(ot + r * CP + 16 * c16);
     }
   }
+  p2v::cp_async_wait<0>();
+}
+
+using StemKernel = void (*)(const float*, const float*, const float*, const float*, int8_t*, int, int, int, int);
+
+StemKernel kernel_of(int cc) {
+  switch (cc) {
+    case 2: return swin_stem_kernel<2>;
+    case 4: return swin_stem_kernel<4>;
+    case 6: return swin_stem_kernel<6>;
+    case 8: return swin_stem_kernel<8>;
+    case 12: return swin_stem_kernel<12>;
+    case 16: return swin_stem_kernel<16>;
+    default: return nullptr;
+  }
+}
+
+// The plan at (M, kp, cp) and its kernel: the card's SMs and the kernel's
+// resident CTAs at its shared memory (cached per kernel, device and size).
+cudaError_t plan_of(int M, int kp, int cp, StemPlan* plan, StemKernel* kern, int* per_sm_out, int* sms_out) {
+  const int cc = cc_of(cp);
+  if (cc == 0 || cp != 16 * cc || kp < 4 || kp % 4) return cudaErrorInvalidValue;
+  *kern = kernel_of(cc);
+  const int smem = stem_smem(kp, cp);
+  if (smem > 232448) return cudaErrorInvalidValue;
+  struct Entry {
+    StemKernel kern;
+    int dev, smem, sms, per_sm;
+  };
+  static Entry cache[32];
+  static int next = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const Entry* hit = nullptr;
+  for (const Entry& e : cache)
+    if (e.kern == *kern && e.dev == dev && e.smem == smem) hit = &e;
+  Entry e{*kern, dev, smem, 0, 0};
+  if (hit != nullptr) {
+    e = *hit;
+  } else {
+    err = p2v::set_smem(*kern, smem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&e.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&e.per_sm, *kern, kThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (e.per_sm < 1) return cudaErrorInvalidConfiguration;
+    cache[next++ % 32] = e;
+  }
+  const int blocks = (M + kBlock - 1) / kBlock;
+  *plan = StemPlan{cc, cp, blocks, blocks < e.sms * e.per_sm ? blocks : e.sms * e.per_sm, smem};
+  *per_sm_out = e.per_sm;
+  *sms_out = e.sms;
+  return cudaSuccess;
 }
 
 }  // namespace
 
-extern "C" int p2v_fused_swin_stem(const void* px, const void* w, const void* vecs,
-                                   const void* s1, void* out, int M, int K, int C, void* stream) {
+// px (M, kp) float32, kp % 4 == 0; w (cp, kp) float32, cp = 16·cc_of(cp);
+// vecs (5, cp); s1 (1,); out (M, cp) int8; the LN counts c_true channels.
+// grid > 0: that many CTAs in place of the plan's (a measurement hook).
+extern "C" int p2v_fused_swin_stem_forced(const void* px, const void* w, const void* vecs, const void* s1, void* out,
+                                          int M, int kp, int cp, int c_true, int grid, void* stream) {
   if (M == 0) return 0;
-  const int smem = static_cast<int>(sizeof(float)) * (K * C + 5 * C + kWarps * K);
-  cudaError_t err = p2v::set_smem(swin_stem_kernel, smem);
+  if (c_true < 1 || c_true > cp || grid < 0) return static_cast<int>(cudaErrorInvalidValue);
+  StemPlan p{};
+  StemKernel kern = nullptr;
+  int per_sm = 0, sms = 0;
+  const cudaError_t err = plan_of(M, kp, cp, &p, &kern, &per_sm, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int rows_of_warps = (M + kWarps - 1) / kWarps;
-  const int blocks = rows_of_warps < 8 * sms ? rows_of_warps : 8 * sms;
-  swin_stem_kernel<<<blocks, p2v::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kern<<<grid > 0 ? grid : p.grid, kThreads, p.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(px), static_cast<const float*>(w), static_cast<const float*>(vecs),
-      static_cast<const float*>(s1), static_cast<int8_t*>(out), M, K, C);
+      static_cast<const float*>(s1), static_cast<int8_t*>(out), M, kp, c_true, p.blocks);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int p2v_fused_swin_stem(const void* px, const void* w, const void* vecs, const void* s1, void* out, int M,
+                                   int kp, int cp, int c_true, void* stream) {
+  return p2v_fused_swin_stem_forced(px, w, vecs, s1, out, M, kp, cp, c_true, 0, stream);
+}
+
+// The launch facts at (M, kp, cp): out = {channels a thread, cp, rows a CTA
+// block, blocks, grid, shared memory, registers, spill bytes, CTAs per SM,
+// SMs}.
+extern "C" int p2v_fused_swin_stem_info(int M, int kp, int cp, void* out) {
+  StemPlan p{};
+  StemKernel kern = nullptr;
+  int per_sm = 0, sms = 0;
+  cudaError_t err = plan_of(M, kp, cp, &p, &kern, &per_sm, &sms);
+  cudaFuncAttributes fa{};
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kern);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vals[10] = {p.cc, p.c_pad, kBlock, p.blocks, p.grid, p.smem, fa.numRegs,
+                        static_cast<int>(fa.localSizeBytes), per_sm, sms};
+  for (int i = 0; i < 10; ++i) static_cast<int*>(out)[i] = vals[i];
+  return 0;
 }

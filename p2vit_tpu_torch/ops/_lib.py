@@ -49,7 +49,10 @@ SIGNATURES = {
     "p2v_lis_attention_qkv_info": [_I, _I, _P],
     "p2v_lis_attention_fused": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "p2v_lis_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "p2v_fused_patch_embed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "p2v_fused_patch_embed": [_P] * 10 + [_I] * 5 + [_P],
+    "p2v_fused_patch_embed_forced": [_P] * 10 + [_I] * 7 + [_P, _P],
+    "p2v_fused_patch_embed_info": [_I, _I, _I, _I, _P],
+    "p2v_embed_div_check": [_P, _I, _P, _P],
     "p2v_int_ln_requant": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "p2v_int_res_ln_requant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "p2v_int_ln_info": [_I, _I, _I, _I, _P],
@@ -58,7 +61,9 @@ SIGNATURES = {
     "p2v_swin_lis_attention_folded": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "p2v_swin_attention_hook": [_P] * 5 + [_I] * 9 + [_P, _P, _P],
     "p2v_swin_attention_info": [_I, _I, _I, _P],
-    "p2v_fused_swin_stem": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "p2v_fused_swin_stem": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "p2v_fused_swin_stem_forced": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "p2v_fused_swin_stem_info": [_I, _I, _I, _P],
     "p2v_fused_vit_layer": [_P] * 15 + [_I] * 6 + [_P],
     "p2v_int4_matmul_requant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "p2v_wstream_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

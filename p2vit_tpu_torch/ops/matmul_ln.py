@@ -165,35 +165,61 @@ def res_ln_smem(bn: int, cpc: int, nc: int, stages: int, cs: int) -> int:
             + nc * TILE_M * 8 + 16 * stages + (16 + 2 * nc * TILE_M * 16 if cs > 1 else 0))
 
 
-def _ring_stages(bn: int, cpc: int, nc: int, cs: int) -> int:
-    """Ring stages that fit shared memory beside the rest, at most ``MAX_STAGES``."""
-    return min(MAX_STAGES, (MAX_SMEM - res_ln_smem(bn, cpc, nc, 0, cs)) // ((TILE_M * nc + bn) * TILE_K + 16))
+def ring_stages(smem, bn: int, cpc: int, nc: int, cs: int) -> int:
+    """Ring stages that fit shared memory beside the rest of a whole-row
+    kernel's (``smem(bn, cpc, nc, stages, cs)``), at most ``MAX_STAGES``."""
+    return min(MAX_STAGES, (MAX_SMEM - smem(bn, cpc, nc, 0, cs)) // ((TILE_M * nc + bn) * TILE_K + 16))
+
+
+def whole_row_plan(m: int, n_pad: int, widths, smem, resident: tuple, cs: int = 0, nc: int = 0):
+    """The plan rule of the whole-row kernels (``csrc/gemm_wgmma.cuh``
+    ``whole_row_plan``: this junction kernel and the fused embed) at M rows
+    and the padded width, chunk widths ``widths`` and shared memory
+    ``smem``: (bn, cpc, cs, nc, stages, blocks, grid), or None where nothing
+    fits. For each cluster size CS of 1 to ``MAX_CLUSTER``: BN and the
+    chunks per CTA cpc waste the fewest columns, ⌈N/(CS·BN)⌉·CS·BN − N, the
+    widest BN on a tie; where CS = 1 fits (some NC with two ring stages), a
+    CS > 1 that wastes more than CS = 1 is skipped; where it does not (a
+    whole row's code tile leaves no room for two stages), the clusters need
+    not beat its waste. Of the (CS, NC) whose CTA fits shared memory with a
+    ring of two stages or more, the one whose busiest consumer owns the
+    fewest elements, ⌈⌈M/(64·NC)⌉/resident⌉·64·cpc·BN (the epilogue's time:
+    a CTA's consumers issue it side by side), then the smaller CS, then the
+    smaller NC; the ring takes as many stages as shared memory holds, up to
+    ``MAX_STAGES``. ``cs``, ``nc`` > 0 restrict the choice."""
+    best, waste1 = None, None
+    for c in range(1, MAX_CLUSTER + 1):
+        bn = min(widths, key=lambda w: (-(-n_pad // (c * w)) * c * w - n_pad, -w))
+        cpc = -(-n_pad // (c * bn))
+        waste = c * cpc * bn - n_pad
+        if c == 1:  # CS = 1's waste bounds the clusters' only where CS = 1 fits
+            fits = any(ring_stages(smem, bn, cpc, q, 1) >= 2 for q in range(1, MAX_CONSUMERS + 1))
+            waste1 = waste if fits else None
+        if (waste1 is not None and waste > waste1) or resident[c - 1] < 1 or cs not in (0, c):
+            continue
+        for q in range(MAX_CONSUMERS, 0, -1):  # as the C plan: a tie goes to the smaller q
+            stages = ring_stages(smem, bn, cpc, q, c)
+            if stages < 2 or nc not in (0, q):
+                continue
+            blocks = -(-m // (TILE_M * q))
+            load = -(-blocks // resident[c - 1]) * TILE_M * cpc * bn
+            if best is None or load < best[0] or (load == best[0] and c == best[3] and q < best[4]):
+                best = (load, bn, cpc, c, q, stages, blocks, min(blocks, resident[c - 1]) * c)
+    return None if best is None else best[1:]
 
 
 @functools.lru_cache(maxsize=256)
 def res_ln_plan(m: int, n: int, k: int, sms: int, resident: tuple | None = None, cs: int = 0,
                 nc: int = 0) -> ResLnPlan:
     """The junction kernel's plan at (M, N, K) on ``sms`` SMs, as the C entry
-    computes it at the padded widths; raises where the kernel does not run
-    (K ≤ 0; N < 1 or N > ``MAX_ROW``; M outside the int32 coordinates; no SM).
-
-    ``resident[c - 1]``: the clusters of c CTAs the card holds at once
-    (``res_ln_kernel_info(...)["resident"]`` reads them on the card; default
-    ⌊sms/c⌋; the H100 holds 132, 66, 39 and 30). For each cluster size CS of
-    1 to ``MAX_CLUSTER``: BN and the chunks per CTA cpc waste the fewest
-    columns of the padded N, ⌈N/(CS·BN)⌉·CS·BN − N, the widest BN on a tie
-    (CS = 1: 96 → 96, 384 → 2 × 192, 768 → 3 × 256); where CS = 1 fits
-    (some NC with two ring stages), a CS > 1 that wastes more than CS = 1 is
-    skipped; where it does not (N = 1536 or 2048: a whole row's code tile
-    leaves no room for two stages), the clusters need not beat its waste.
-    Of the (CS, NC) whose CTA fits shared memory with a ring of two stages
-    or more, the plan takes the one whose busiest consumer owns the fewest
-    elements, ⌈⌈M/(64·NC)⌉ /
-    resident⌉·64·cpc·BN (the epilogue's time: a CTA's consumers issue it
-    side by side), then the smaller CS, then the smaller NC; the ring takes
-    as many stages as shared memory holds, up to ``MAX_STAGES``. ``cs``,
-    ``nc`` > 0 restrict the choice (the measurement hook
-    ``int8_matmul_res_ln_forced``)."""
+    computes it at the padded widths (``whole_row_plan`` over every width
+    of the requant GEMM, ``WIDTHS``: 96 → 96, 384 → 2 × 192, 768 → 3 × 256);
+    raises where the kernel does not run (K ≤ 0; N < 1 or N > ``MAX_ROW``;
+    M outside the int32 coordinates; no SM). ``resident[c - 1]``: the
+    clusters of c CTAs the card holds at once (``res_ln_kernel_info(...)
+    ["resident"]`` reads them on the card; default ⌊sms/c⌋; the H100 holds
+    132, 66, 39 and 30). ``cs``, ``nc`` > 0 restrict the choice (the
+    measurement hook ``int8_matmul_res_ln_forced``)."""
     if k <= 0:
         raise ValueError(f"int8_matmul_res_ln kernel needs K > 0, got K={k}")
     if not 1 <= n <= MAX_ROW:
@@ -205,28 +231,11 @@ def res_ln_plan(m: int, n: int, k: int, sms: int, resident: tuple | None = None,
         raise ValueError(f"int8_matmul_res_ln kernel needs at least one SM, got {sms}")
     resident = resident or tuple(sms // c for c in range(1, MAX_CLUSTER + 1))
     n_pad, k_pad = -(-n // N_ALIGN) * N_ALIGN, -(-k // K_ALIGN) * K_ALIGN
-    best, waste1 = None, None
-    for c in range(1, MAX_CLUSTER + 1):
-        bn = min((w for w, _ in WIDTHS), key=lambda w: (-(-n_pad // (c * w)) * c * w - n_pad, -w))
-        cpc = -(-n_pad // (c * bn))
-        waste = c * cpc * bn - n_pad
-        if c == 1:  # CS = 1's waste bounds the clusters' only where CS = 1 fits
-            fits = any(_ring_stages(bn, cpc, q, 1) >= 2 for q in range(1, MAX_CONSUMERS + 1))
-            waste1 = waste if fits else None
-        if (waste1 is not None and waste > waste1) or resident[c - 1] < 1 or cs not in (0, c):
-            continue
-        for q in range(MAX_CONSUMERS, 0, -1):  # as the C plan: a tie goes to the smaller q
-            stages = _ring_stages(bn, cpc, q, c)
-            if stages < 2 or nc not in (0, q):
-                continue
-            blocks = -(-m // (TILE_M * q))
-            load = -(-blocks // resident[c - 1]) * TILE_M * cpc * bn
-            if best is None or load < best[0] or (load == best[0] and c == best[1].cs and q < best[1].nc):
-                best = (load, ResLnPlan(bn, cpc, c, q, stages, blocks, min(blocks, resident[c - 1]) * c,
-                                        res_ln_smem(bn, cpc, q, stages, c), n_pad, k_pad))
-    if best is None:
+    p = whole_row_plan(m, n_pad, [w for w, _ in WIDTHS], res_ln_smem, resident, cs, nc)
+    if p is None:
         raise ValueError(f"int8_matmul_res_ln kernel: no plan fits N={n} (cs={cs}, nc={nc})")
-    return best[1]
+    bn, cpc, c, q, stages, blocks, grid = p
+    return ResLnPlan(bn, cpc, c, q, stages, blocks, grid, res_ln_smem(bn, cpc, q, stages, c), n_pad, k_pad)
 
 
 _INFO_KEYS = ("bn", "cpc", "cs", "nc", "stages", "blocks", "grid", "smem_bytes", "registers", "spill_bytes",

@@ -22,21 +22,31 @@ makes it; otherwise the two stems part at rounding edges.
 CUDA kernel (``csrc/swin_stem.cu``) replaces the Pallas kernel
 ``p2vit_tpu/ops/swin_stem.py:fused_swin_stem`` (``_kernel``). At Swin-T
 batch 64: (200,704, 48) patches × (96, 48) weights → (200,704, 96) codes, one
-launch per forward. Bound on the card: the float32 dot (2·M·C·K
-operations), above the 58 MB of patch reads and code writes; the weight and
-the five constant vectors live in shared memory, a warp owns a patch row.
+launch per forward. Bound on the card: the float32 dot, 2·M·C·K operations
+(0.0276 ms at the 67 TFLOP/s FMA peak; 0.0552 ms with the separate
+multiply and add the fixed order needs). Design: a persistent grid whose
+CTAs take blocks of 64 contiguous patch rows (cp.async, double-buffered);
+each thread holds 4 rows × CC channels of h in registers (CC = C_pad/16)
+and reads, per k, 4 x values and CC weights from shared memory, so the
+FP32 pipe and not the shared-memory pipe sets the pace; the epilogue and
+the LN run in registers with exact row sums (``stem_plan``).
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+
 import torch
 
-from ._lib import check_cuda_operand, device_of, f32_vec, launch
+from ._lib import check_cuda_operand, device_of, f32_vec, launch, library, pad_cols
 from .intln import ln_codes
 
 _I8 = (-128, 127)
-MAX_STEM_C = 256  # channel slots per row in the kernel (8 per lane)
-MAX_STEM_SMEM = 227 * 1024
+MAX_STEM_C = 256  # 16 channels a thread at most
+MAX_STEM_SMEM = 232_448  # dynamic shared memory one block may use
+ROWS = 64  # patch rows a CTA block: 16 row groups of 4
+CC_SET = (2, 4, 6, 8, 12, 16)  # channels a thread holds, as the kernel is built
 
 
 def stem_consts(c, device, bias, s_bn, ln_w, ln_b, out_scale):
@@ -71,6 +81,64 @@ def fused_swin_stem_plain(patches, w, bias, s_bn, ln_w, ln_b, out_scale):
     return ln_codes(codes * mask, s1[0], w_os, b_os, 1.0)
 
 
+@dataclasses.dataclass(frozen=True)
+class StemPlan:
+    """Launch plan of the stem kernel (``csrc/swin_stem.cu``)."""
+
+    cc: int  # channels a thread holds (4 rows each); the CTA's 16 channel groups cover c_pad
+    c_pad: int  # 16·cc
+    k_pad: int  # K, padded to a multiple of 4
+    blocks: int  # blocks of 64 patch rows
+    grid: int  # persistent CTAs: min(blocks, SMs × CTAs per SM)
+    smem_bytes: int
+
+    @property
+    def loads_per_product(self) -> float:
+        """Shared-memory loads a multiply-add pair of the inner loop: per 4 k,
+        4 x loads (float4) and 4·cc/G weight loads (G = 4 where 4 divides
+        cc, else 2) for 16·cc products."""
+        g = 4 if self.cc % 4 == 0 else 2
+        return (4 + 4 * self.cc / g) / (16 * self.cc)
+
+
+def stem_smem(k_pad: int, c_pad: int) -> int:
+    """The transposed weight (K, C), five vectors, two buffers of 64 patch
+    rows (float32) and the 64 × C code tile."""
+    return 4 * (k_pad * c_pad + 5 * c_pad + 2 * ROWS * k_pad) + ROWS * c_pad
+
+
+def stem_plan(m: int, k: int, c: int, sms: int = 132, ctas_per_sm: int = 3) -> StemPlan:
+    """The stem kernel's plan at (M, K, C), as the C entry computes it on
+    ``sms`` SMs holding ``ctas_per_sm`` CTAs each (``stem_kernel_info``
+    reads both on the card): cc the least of ``CC_SET`` with 16·cc ≥ C;
+    raises past C = 256 or where the CTA's shared memory does not fit."""
+    k_pad = -(-k // 4) * 4
+    cc = next((v for v in CC_SET if 16 * v >= c), None)
+    if c < 1 or cc is None or stem_smem(k_pad, 16 * cc) > MAX_STEM_SMEM:
+        raise ValueError(f"fused_swin_stem kernel needs C <= {MAX_STEM_C} and its (K, C) weight with two "
+                         f"blocks of 64 patch rows in shared memory (4·(K·C + 5·C + 128·K) + 64·C <= "
+                         f"{MAX_STEM_SMEM} bytes at the padded widths); got C={c}, K={k}")
+    blocks = -(-m // ROWS)
+    return StemPlan(cc, 16 * cc, k_pad, blocks, min(blocks, sms * ctas_per_sm), stem_smem(k_pad, 16 * cc))
+
+
+_INFO_KEYS = ("cc", "c_pad", "rows", "blocks", "grid", "smem_bytes", "registers", "spill_bytes", "ctas_per_sm",
+              "sms")
+
+
+def stem_kernel_info(m: int, k: int, c: int) -> dict:
+    """The built stem kernel's launch facts at (M, K, C) from the CUDA
+    runtime (the plan, registers, spill bytes, CTAs per SM, SMs). Needs the
+    card."""
+    plan = stem_plan(m, k, c)
+    lib, _ = library()
+    info = (ctypes.c_int * 10)()
+    rc = lib.p2v_fused_swin_stem_info(int(m), plan.k_pad, plan.c_pad, ctypes.cast(info, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"p2v_fused_swin_stem_info: CUDA error {rc}: {lib.p2v_error_string(rc).decode()}")
+    return dict(zip(_INFO_KEYS, list(info)))
+
+
 def fused_swin_stem(patches, w, bias, s_bn, ln_w, ln_b, out_scale):
     """(M, K) float32 patch rows → (M, C) int8 patch-qact codes.
 
@@ -81,23 +149,39 @@ def fused_swin_stem(patches, w, bias, s_bn, ln_w, ln_b, out_scale):
         (C,)). ln_w/ln_b: (C,) patch-norm affine. out_scale: the patch_qact
         scale (scalar or (C,)).
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (C ≤ 256, weight and row in shared memory) or raise.
+    (C ≤ 256, K and C zero-padded to the plan's widths, ``stem_plan``) or
+    raise.
     """
-    dev = device_of(patches, w)
-    if dev.type == "cpu":
+    if device_of(patches, w).type == "cpu":
         return fused_swin_stem_plain(patches, w, bias, s_bn, ln_w, ln_b, out_scale)
+    out = _stem_launch("p2v_fused_swin_stem", patches, w, bias, s_bn, ln_w, ln_b, out_scale)
+    fused_swin_stem.launches += 1
+    return out
+
+
+def _stem_launch(entry, patches, w, bias, s_bn, ln_w, ln_b, out_scale, *extra):
+    """Check, pad and launch the C entry ``entry``; returns the (M, C) codes."""
+    dev = device_of(patches, w)
     m, k = patches.shape
     c = w.shape[0]
     check_cuda_operand(patches, "patches", torch.float32)
     check_cuda_operand(w, "w", torch.float32, (c, k))
-    if c > MAX_STEM_C or 4 * (k * c + 5 * c + 8 * k) > MAX_STEM_SMEM:
-        raise ValueError(f"fused_swin_stem kernel needs C <= {MAX_STEM_C} and the (C, K) weight "
-                         f"in shared memory; got C={c}, K={k}")
+    plan = stem_plan(m, k, c)
     vecs, s1 = stem_consts(c, dev, bias, s_bn, ln_w, ln_b, out_scale)
-    out = torch.empty((m, c), dtype=torch.int8, device=dev)
-    launch("p2v_fused_swin_stem", patches, w, vecs, s1, out, m, k, c)
-    fused_swin_stem.launches += 1
-    return out
+    if plan.k_pad != k or plan.c_pad != c:
+        patches = pad_cols(patches, 4)
+        w = torch.nn.functional.pad(w, (0, plan.k_pad - k, 0, plan.c_pad - c))
+        vecs = torch.nn.functional.pad(vecs, (0, plan.c_pad - c))
+    out = torch.empty((m, plan.c_pad), dtype=torch.int8, device=dev)
+    launch(entry, patches, w, vecs, s1, out, m, plan.k_pad, plan.c_pad, c, *extra)
+    return out if plan.c_pad == c else out[:, :c].contiguous()
+
+
+def fused_swin_stem_forced(patches, w, bias, s_bn, ln_w, ln_b, out_scale, grid=0):
+    """The kernel launched on ``grid`` CTAs (0: the plan's persistent grid;
+    ``plan.blocks``: one block a CTA). A measurement hook for CUDA tensors;
+    not counted in ``fused_swin_stem.launches``."""
+    return _stem_launch("p2v_fused_swin_stem_forced", patches, w, bias, s_bn, ln_w, ln_b, out_scale, grid)
 
 
 fused_swin_stem.launches = 0

@@ -277,6 +277,7 @@ def _embed_fused_consts(s, cfg: ViTConfig):
     osc = torch.clamp(torch.broadcast_to((qkv0["s_act"] * qkv0["cs"]).to(torch.float32), (c,)),
                       min=1e-30)
     return dict(
+        s_input=s["s_input"],
         patch_requant=s["s_input"] * p["sw"] / p["s_out"],
         patch_bias=p["bias"] / p["s_out"],
         embed_requant=p["s_out"] / s["s_embed"],

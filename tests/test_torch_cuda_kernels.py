@@ -287,14 +287,112 @@ def test_fused_patch_embed_padded(dev, k, c):
 
 @pytest.mark.parametrize("c", [1536, 2816, 3272])
 def test_fused_patch_embed_wide(dev, c):
-    """Past C = 1024 at the zoo's 196 patches and K = 768: C = 1536 (still
-    a 32-row block), 2816 (the widest C JAX's VMEM guard admits there) and
-    3272 (the 16-row block's widest) equal the plain version."""
-    assert embed_fused.embed_block(c)[0] == (32 if c <= 1616 else 16)
+    """Past C = 1024 at the zoo's 196 patches and K = 768: C = 1536, 2816
+    (the widest C JAX's VMEM guard admits there) and 3272 (the port's
+    widest, padded to 3280) split over clusters, equal to the plain version."""
+    info = embed_fused.embed_kernel_info(2 * 196, c)
+    assert info["cs"] > 1 and info["cs"] * info["cpc"] * info["bn"] >= -(-c // 16) * 16
     args = [a.to(dev) for a in _embed_args(np.random.RandomState(c), 2, 196, 768, c)]
     got = embed_fused.fused_patch_embed(*args)
     assert got[0].shape == (2, 197, c)
     _same(got, embed_fused.fused_patch_embed_plain(*args))
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 64])
+@pytest.mark.parametrize("c", [192, 384, 768, 1024])
+def test_fused_patch_embed_embed_widths(dev, c, b):
+    """DeiT-T/S/B and ViT-L widths at the zoo's 196 patches, K = 768: at
+    batch 1 (clusters splitting C over 4 row blocks), 2 and 3 (row blocks of
+    64·NC patch rows that cross images) and 64; the kernel's plan equals
+    embed_plan's with the card's resident clusters, its registers are those
+    the setmaxnreg hand-over assumes; nothing spills but at BN 192, whose
+    96 accumulators and 96 prefetched positional values leave a 16-byte
+    frame (28 bytes of spill stores, ptxas)."""
+    info = embed_fused.embed_kernel_info(b * 196, c)
+    plan = embed_fused.embed_plan(b * 196, c, 768, info["sms"], info["resident"])
+    assert (info["bn"], info["cpc"], info["cs"], info["nc"], info["stages"], info["blocks"], info["grid"],
+            info["smem_bytes"]) == (plan.bn, plan.cpc, plan.cs, plan.nc, plan.stages, plan.blocks, plan.grid,
+                                    plan.smem_bytes)
+    assert info["registers"] == 168 and info["ctas_per_sm"] == 1
+    assert info["spill_bytes"] == (16 if info["bn"] == 192 else 0)
+    args = [a.to(dev) for a in _embed_args(np.random.RandomState(b * c), b, 196, 768, c)]
+    before = embed_fused.fused_patch_embed.launches
+    _same(embed_fused.fused_patch_embed(*args), embed_fused.fused_patch_embed_plain(*args))
+    assert embed_fused.fused_patch_embed.launches == before + 1
+
+
+@pytest.mark.parametrize("cs,nc", [(1, 1), (1, 2), (2, 1), (2, 2), (3, 1), (3, 2), (4, 1), (4, 2)])
+def test_fused_patch_embed_forced_plans(dev, cs, nc):
+    """Every cluster size and consumer count the hook can force, at DeiT-S's
+    width over several waves of row blocks, and on the float32 arm, equals
+    the plain version; the hook counts no launch."""
+    rng = np.random.RandomState(10 * cs + nc)
+    args = [a.to(dev) for a in _embed_args(rng, 70, 196, 768, 384)]
+    before = embed_fused.fused_patch_embed.launches
+    _same(embed_fused.fused_patch_embed_forced(*args, cs=cs, nc=nc), embed_fused.fused_patch_embed_plain(*args))
+    args[0] = torch.from_numpy((rng.randn(3, 196, 768) * 0.6).astype(np.float32)).to(dev)
+    kw = dict(s_input=torch.tensor(0.0131, device=dev))
+    _same(embed_fused.fused_patch_embed_forced(*args, cs=cs, nc=nc, **kw),
+          embed_fused.fused_patch_embed_plain(*args, **kw))
+    assert embed_fused.fused_patch_embed.launches == before
+
+
+def test_fused_patch_embed_phase_hook(dev):
+    """The phase clock of one CTA's consumer at DeiT-S batch 64: its stamps
+    run in order through each chunk's products and epilogue, the row
+    constants, the LN pass and the end (two may share a tick of the
+    timer); the hook counts no launch and changes no output."""
+    args = [a.to(dev) for a in _embed_args(np.random.RandomState(14), 64, 196, 768, 384)]
+    info = embed_fused.embed_kernel_info(64 * 196, 384)
+    stamps = torch.zeros(len(embed_fused.EMBED_PHASES), dtype=torch.int64, device=dev)
+    before = embed_fused.fused_patch_embed.launches
+    _same(embed_fused.fused_patch_embed_forced(*args, phase_ns=stamps), embed_fused.fused_patch_embed_plain(*args))
+    assert embed_fused.fused_patch_embed.launches == before
+    st = stamps.tolist()
+    seq = [st[0]] + [st[1 + i] for i in range(2 * min(info["cpc"], 6))] + st[13:16]
+    assert all(a <= b for a, b in zip(seq, seq[1:])) and seq[0] < seq[-1], seq
+
+
+@pytest.mark.parametrize("k,c", [(768, 384), (48, 100), (40, 1024)])
+def test_fused_patch_embed_f32_arm(dev, k, c):
+    """float32 patches quantized in the kernel (clip(round(x / s_input)),
+    the true divide), a third of them on round-half edges, K and C padded:
+    equal to the plain version; without s_input the wrapper raises."""
+    rng = np.random.RandomState(k + c)
+    args = [a.to(dev) for a in _embed_args(rng, 3, 49, k, c)]
+    s_in = 0.0131
+    x = rng.randn(3, 49, k).astype(np.float32) * 0.7
+    half = ((rng.randint(-140, 140, x.shape) + 0.5) * np.float32(s_in)).astype(np.float32)
+    args[0] = torch.from_numpy(np.where(rng.rand(*x.shape) < 1 / 3, half, x).astype(np.float32)).to(dev)
+    kw = dict(s_input=torch.tensor(s_in, device=dev))
+    _same(embed_fused.fused_patch_embed(*args, **kw), embed_fused.fused_patch_embed_plain(*args, **kw))
+    with pytest.raises(ValueError, match="s_input"):
+        embed_fused.fused_patch_embed(*args)
+
+
+def test_fused_patch_embed_zero_row_ln(dev):
+    """A patch row whose codes are all zero (zero patches, zero bias, zero
+    positional row) has LN constants 0/0: its h row is what the plain
+    version's NaN cast gives, and the other rows are unchanged."""
+    rng = np.random.RandomState(12)
+    args = [a.to(dev) for a in _embed_args(rng, 3, 196, 768, 384)]
+    args[0][1, 5] = 0
+    args[3] = torch.zeros(384, device=dev)
+    args[6][5] = 0
+    xc, h = embed_fused.fused_patch_embed(*args)
+    assert int((xc[1, 6] != 0).sum()) == 0
+    _same((xc, h), embed_fused.fused_patch_embed_plain(*args))
+
+
+def test_fused_patch_embed_divide_exhaustive(dev):
+    """The kernel's PTF divide (RN(1/d) staged, one Markstein correction)
+    against __fdiv_rn over all 2^32 float32 dividends, for 256 divisors
+    across [2^-64, 2^64] and at the edges of their significands: no code
+    differs, nor any quotient in [1/4, 1024)."""
+    rng = np.random.RandomState(13)
+    edge = [m * 2.0 ** e for e in (-64, -20, -7, -1, 0, 1, 20, 63) for m in (1.0, 1 + 2.0**-23, 2 - 2.0**-23)]
+    d = np.concatenate([np.float32(edge), np.exp2(rng.uniform(-64, 64, 232)).astype(np.float32)])
+    assert embed_fused.embed_div_check(torch.from_numpy(d.astype(np.float32)).to(dev)) == (0, 0)
 
 
 # (B, N, C_in, C_out, heads): the cluster's edges (N = 5: one CTA and one
@@ -748,6 +846,55 @@ def test_fused_swin_stem_kernel(dev, case):
     assert swin_stem.fused_swin_stem.launches == before + 1
     with pytest.raises(ValueError, match="C <= 256"):
         swin_stem.fused_swin_stem(args[0], torch.zeros(300, k, device=dev), *args[2:])
+
+
+@pytest.mark.parametrize("case", ["randn", "zero_row_mask16"])
+@pytest.mark.parametrize("c", [96, 128, 192, 256])
+def test_fused_swin_stem_widths(dev, c, case):
+    """Each channel count a thread holds (C = 96, 128, 192, 256) at ragged
+    M: random-normal inputs; and a calibrated state's kinds with PTF masks
+    up to 16 (the int64 sums) and a zero patch row with zero bias (LN 0/0).
+    The kernel's plan equals stem_plan's with the card's CTAs per SM."""
+    rng = np.random.RandomState(c)
+    m, k = 3136 + 77, 48
+    bias = torch.from_numpy((rng.randn(c) * 0.05).astype(np.float32))
+    ln_w = torch.from_numpy(rng.randn(c).astype(np.float32))
+    ln_b = torch.from_numpy((rng.randn(c) * 0.1).astype(np.float32))
+    if case == "randn":
+        px = torch.from_numpy(rng.randn(m, k).astype(np.float32))
+        w = torch.from_numpy((rng.randn(c, k) * 0.2).astype(np.float32))
+        s_bn, s_out = torch.tensor(0.04), torch.tensor(0.03)
+    else:
+        px = _i8(rng, (m, k)).to(torch.float32) * 2.0**-5
+        px[100] = 0
+        w = _i8(rng, (c, k), -8, 8).to(torch.float32) * _pot(rng, c, -9, -6)[:, None]
+        bias = torch.zeros(c)
+        s_bn = torch.from_numpy((2.0**-4 * 2.0 ** rng.randint(0, 5, c)).astype(np.float32))
+        s_out = torch.tensor(2.0**-4)
+    args = [t.to(dev) for t in (px, w, bias, s_bn, ln_w, ln_b, s_out)]
+    info = swin_stem.stem_kernel_info(m, k, c)
+    plan = swin_stem.stem_plan(m, k, c, info["sms"], info["ctas_per_sm"])
+    assert (info["cc"], info["c_pad"], info["blocks"], info["grid"], info["smem_bytes"]) == (
+        plan.cc, plan.c_pad, plan.blocks, plan.grid, plan.smem_bytes)
+    _same(swin_stem.fused_swin_stem(*args), swin_stem.fused_swin_stem_plain(*args))
+
+
+@pytest.mark.parametrize("grid", [0, 1, 7, "blocks"])
+def test_fused_swin_stem_forced_grid(dev, grid):
+    """The persistent grid's double buffer on any grid: the plan's, one CTA
+    taking every block, 7 CTAs, and one block a CTA, all equal to the plain
+    version; the hook counts no launch."""
+    rng = np.random.RandomState(15)
+    m, k, c = 20 * 64 + 9, 48, 96
+    args = [t.to(dev) for t in (torch.from_numpy(rng.randn(m, k).astype(np.float32)),
+                                torch.from_numpy((rng.randn(c, k) * 0.2).astype(np.float32)),
+                                torch.from_numpy((rng.randn(c) * 0.05).astype(np.float32)), torch.tensor(0.04),
+                                torch.from_numpy(rng.randn(c).astype(np.float32)),
+                                torch.from_numpy((rng.randn(c) * 0.1).astype(np.float32)), torch.tensor(0.03))]
+    g = swin_stem.stem_plan(m, k, c).blocks if grid == "blocks" else grid
+    before = swin_stem.fused_swin_stem.launches
+    _same(swin_stem.fused_swin_stem_forced(*args, grid=g), swin_stem.fused_swin_stem_plain(*args))
+    assert swin_stem.fused_swin_stem.launches == before
 
 
 @pytest.mark.parametrize("lis", [True, False])

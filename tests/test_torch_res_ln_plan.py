@@ -330,17 +330,20 @@ def test_plain_matches_jax_wide_rows(n):
 
 @pytest.mark.parametrize("c,rows", [(384, 32), (1616, 32), (1624, 16), (2816, 16), (3272, 16), (3280, None)])
 def test_embed_block_rows(c, rows):
-    """The fused embed's block: 32 token rows while their int32 row buffer
-    fits shared memory beside the GEMM's stages, 16 past C = 1616, up to
-    C = 3272; wider raises."""
+    """The fused embed's row blocks up to C = 3272 (wider raises): at the
+    zoo's 196 patches, batch 64, the Hopper plan (embed_plan) holds whole
+    rows of codes in shared memory, over a cluster where one CTA's tile does
+    not fit, and reads the weight panel once per 64·NC patch rows, at least
+    the ``rows`` of the mma.sync kernel's block that it replaced (32 token
+    rows, 16 past C = 1616)."""
     if rows is None:
         with pytest.raises(ValueError, match="C <= 3272"):
-            embed_fused.embed_block(c)
+            embed_fused.embed_plan(64 * 196, c, 768, H100_SMS, H100_RESIDENT)
         return
-    got, smem = embed_fused.embed_block(c)
-    assert got == rows and smem == embed_fused._STAGES[rows] + rows * c * 4 <= embed_fused.MAX_SMEM
-    if rows == 16:
-        assert embed_fused._STAGES[32] + 32 * c * 4 > embed_fused.MAX_SMEM
+    plan = embed_fused.embed_plan(64 * 196, c, 768, H100_SMS, H100_RESIDENT)
+    assert plan.rows >= rows and plan.cs * plan.cols >= plan.c_pad > (plan.cs - 1) * plan.cols
+    assert 2 <= plan.stages and plan.smem_bytes == embed_fused.embed_smem(
+        plan.bn, plan.cpc, plan.nc, plan.stages, plan.cs) <= matmul_int8.MAX_SMEM
 
 
 def _embed_jax_args(rng, b, n_patch, k, c):
@@ -388,4 +391,5 @@ def test_embed_widest_c_jax_admits_at_197_tokens():
     assert shapes(2816)[0].shape == (1, 197, 2816)
     with pytest.raises(ValueError, match="scoped-VMEM"):
         shapes(2817)
-    assert embed_fused.embed_block(2816) == (16, embed_fused._STAGES[16] + 16 * 2816 * 4)
+    plan = embed_fused.embed_plan(196, 2816, 768, H100_SMS, H100_RESIDENT)
+    assert plan.cs * plan.cols >= 2816 and plan.smem_bytes <= matmul_int8.MAX_SMEM
