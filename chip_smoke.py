@@ -48,8 +48,10 @@ weight-only serving of both models and the two weight-store GEMM tools:
   ``wstream_matmul`` kernels, the IMMA instructions in the cluster
   attention kernel and in the Swin attention kernel, and the warpgroup-MMA
   (IGMMA) and TMA-load (UTMALDG)
-  instructions in the Hopper ``int8_matmul_requant``, ``int8_matmul_res_ln``
-  and ``fused_patch_embed`` kernels, and the shared loads (LDS) against the
+  instructions in the Hopper ``int8_matmul_requant``, ``int8_matmul_res_ln``,
+  ``fused_patch_embed`` and ``fused_vit_layer`` kernels, the IMMA
+  instructions of the fused layer and of the per-item attention kernel, and
+  the shared loads (LDS) against the
   multiplies of ``fused_swin_stem``'s inner loop (``cuobjdump -sass``,
   report only), and
   the int-LN kernels' two chain rewrites against ``ln_elem`` over all 2^32
@@ -61,7 +63,11 @@ Phases of the int8 serving paths, one line each, per path:
      on the arguments the path gives it (captured from a plain forward at
      batch 8 and 64): mismatch counts; must be 0. The staged path also holds
      ``lis_attention`` against its plain version, on the captured qkv codes
-     split to (B·H, N, 64); the Swin paths hold the Swin attention on each
+     split to (B·H, N, 64), and both per-item attention kernels on the same
+     codes read at head_dims 32 and 16 and on forced query-group chunks;
+     the fused-layer paths hold ``fused_vit_layer`` on forced plans (7
+     CTAs; 1 and 4 query groups a chunk; blocks of 32 and 64 rows) and at
+     head_dim 32; the Swin paths hold the Swin attention on each
      panel call's arguments on forced grids (one item per CTA, 7 CTAs) and
      the folded entry, at shift 0 and ws // 2, on the raster grid the
      panels tile. The prologue kernels are also held on forced plans:
@@ -97,8 +103,12 @@ Phases of the int8 serving paths, one line each, per path:
      LIS on, uint8 against float32, and each Swin-T flag path against the
      default, each on one line; ``deit_layer`` against ``deit`` at every
      batch (img/s, device ms, the other PyTorch kernels' and the idle
-     share). The fused layer's phase 5 line also splits one call into its
-     qkv GEMM, attention and row-tile phases (block 0's clock); the
+     share). The fused layer's phase 5 lines also split one call into its
+     qkv GEMM, attention and row-block phases (block 0's clock) and give
+     its launch (threads, grid, shared memory per phase, query groups a
+     chunk, registers, spills, CTAs per SM); the per-item attention
+     kernels' lines give theirs (padded head_dim, groups a chunk, shared
+     memory, registers, spills, CTAs per SM); the
      qkv-fused attention's line gives its cluster launch (registers, shared
      memory per CTA, CTAs per SM, resident clusters), the five phases of
      one CTA in the middle of the launch and its ms per forward beside the
@@ -170,7 +180,13 @@ REDESIGNED = {"wstream_matmul": "float64 tensor cores (mma.sync.m16n8k16) on exa
               "fused_patch_embed": "TMA ring, int8 wgmma chunks into a whole-row code tile, clusters splitting C, "
                                    "[CLS] rows once per CTA, a Markstein-corrected PTF divide, 16-byte LN pass",
               "fused_swin_stem": "4 rows × C/16 channels a thread in registers, summed in k order; cp.async "
-                                 "double buffer, persistent grid, exact lane sums"}
+                                 "double buffer, persistent grid, exact lane sums",
+              "fused_vit_layer": "one cooperative launch, 384 threads an SM: qkv GEMM and the 64-row MLP chain on "
+                                 "a TMA ring and int8 wgmma chunks, MLP input and GELU codes in swizzled shared "
+                                 "tiles; attention on the per-item mma.sync body, the next item prefetched",
+              "lis_attention_fused": "per-item body: q/k/v by cp.async, keys and head_dim zero-padded, int8 "
+                                     "mma.sync scores and LIS attn@v over hi/lo planes, query groups in chunks",
+              "lis_attention": "the same body over split q/k/v, any head_dim up to 64"}
 # kernel → (plain version's module, its name, CUDA source, the TPU kernel it replaces)
 SOURCES = {
     "fused_patch_embed": ("embed_fused", "fused_patch_embed_plain", "embed_fused.cu",
@@ -443,6 +459,9 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
                 if name in ("fused_patch_embed", "fused_swin_stem"):
                     for key2, n_bad in _prologue_checks(ops, name, a, k, want).items():
                         prologue[key2] = prologue.get(key2, 0) + n_bad
+                if name in ("fused_vit_layer", "lis_attention_fused", "lis_attention"):
+                    for key2, n_bad in _vit_plan_checks(ops, name, a, k, want).items():
+                        prologue[key2] = prologue.get(key2, 0) + n_bad
                 if b == bt:
                     count = sum(1 for a2, k2 in calls[pname] if _shape_key(a2, k2) == key)
                     timing_calls.setdefault(name, []).append((a, k, count, _bound(name, a, want)))
@@ -452,11 +471,11 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
     if any(mismatches.values()):
         _fail(f"{path.name}: kernel disagrees with its plain version: {mismatches}")
     if prologue:
-        print(f"{path.name} phase 1 prologue kernels on forced plans (the path's arguments; the embed also on "
-              f"float32 patches, and its PTF divide over all 2^32 dividends per s_qact1 value): mismatches "
+        print(f"{path.name} phase 1 kernels on forced plans and other head_dims (the path's arguments; the embed "
+              f"also on float32 patches, and its PTF divide over all 2^32 dividends per s_qact1 value): mismatches "
               f"{json.dumps(prologue)}", flush=True)
         if any(prologue.values()):
-            _fail(f"{path.name}: a prologue kernel's forced plan disagrees with its plain version: {prologue}")
+            _fail(f"{path.name}: a kernel's forced plan disagrees with its plain version: {prologue}")
     if swin_entries:
         print(f"{path.name} phase 1 Swin attention on the panel calls' arguments (forced grids; the folded "
               f"entry on the raster grid the windows tile, shift 0 and ws // 2): mismatches "
@@ -580,6 +599,11 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
                   f"x{count} per forward")
             if name == "fused_vit_layer":
                 print(f"{path.name} phase 5 kernel fused_vit_layer phases: {_layer_phases(kern, a, k)}")
+                print(f"{path.name} phase 5 kernel fused_vit_layer launch: {_layer_launch_report(ops, a, k)}",
+                      flush=True)
+            if name in ("lis_attention_fused", "lis_attention"):
+                print(f"{path.name} phase 5 kernel {name} launch: {_vit_attention_launch_report(ops, name, a, k)}",
+                      flush=True)
             if name == "lis_attention_qkv_fused":
                 print(f"{path.name} phase 5 kernel lis_attention_qkv_fused cluster: "
                       f"{_qkv_cluster_report(ops, a, k, count, reps)}", flush=True)
@@ -613,8 +637,70 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
     return results, summary
 
 
+def _vit_head_dim(a, name, hd):
+    """The per-item attention kernels' or the fused layer's arguments with
+    the same codes read at head_dim ``hd``: more heads of the same width, or
+    (split q/k/v) each head's leading ``hd`` columns."""
+    a = list(a)
+    if name == "lis_attention":
+        a[:3] = [t[..., :hd].contiguous() for t in a[:3]]
+    elif name == "lis_attention_fused":
+        a[1] = a[0].shape[2] // 3 // hd
+    else:
+        a[5] = a[0].shape[2] // hd
+    return a
+
+
+def _vit_plan_checks(ops, name, a, k, want):
+    """Element mismatches of the fused layer and the per-item attention
+    kernels against their plain versions on one call's arguments: on forced
+    plans (the layer on 7 CTAs, on 1 and 4 query groups a chunk and on
+    phase-C blocks of 32 and 64 rows, the attention on 1 and 4 groups a
+    chunk) and with the codes read at head_dims 32 and 16 (the layer at
+    32)."""
+    out = {}
+    al, lf = ops.attention_lis, ops.layer_fused
+    want = _as_tuple(want)
+    if name == "fused_vit_layer":
+        for grid, gc, br in ((7, 0, 0), (0, 1, 0), (0, 4, 0), (0, 0, 32), (0, 0, 64)):
+            out[f"layer grid {grid} gc {gc} br {br}"] = sum(_diff(g, w)[0] for g, w in zip(
+                lf.fused_vit_layer_forced(*a, **k, grid=grid, gc=gc, br=br), want))
+    else:
+        forced = al.lis_attention_fused_forced if name == "lis_attention_fused" else al.lis_attention_forced
+        for gc in (1, 4):
+            out[f"{name} gc {gc}"] = _diff(forced(*a, **k, gc=gc), want[0])[0]
+    plain = getattr(getattr(ops, SOURCES[name][0]), SOURCES[name][1])
+    for hd in ((32,) if name == "fused_vit_layer" else (32, 16)):
+        b = _vit_head_dim(a, name, hd)
+        out[f"{name} head_dim {hd}"] = sum(_diff(g, w)[0] for g, w in zip(
+            _as_tuple(getattr(ops, name)(*b, **k)), _as_tuple(plain(*b, **k))))
+    return out
+
+
+def _layer_launch_report(ops, a, k):
+    """The fused layer's launch facts at one shape (CUDA runtime)."""
+    (b, n, c), hid = a[0].shape, a[19].shape[0]
+    info = ops.layer_fused.layer_kernel_info(b, n, c, a[5], hid, k.get("lis", True))
+    return (f"{info['threads']} threads a CTA (three warpgroups, each its own TMA ring), a cooperative grid of "
+            f"{info['grid']} CTAs ({info['ctas_per_sm']} per SM of {info['sms']}), {info['smem_bytes']} B shared "
+            f"memory (phases {info['smem_a']} / {info['smem_b']} / {info['smem_c']}), {info['ring']} ring stages "
+            f"of {info['chunk']}-column chunks, {info['blocks']} row blocks ({info['blocks_64']} of 64 rows, the "
+            f"rest of 32), {info['gc']} query groups a chunk at head_dim {info['hdp']}, "
+            f"{info['registers']} registers ({info['spill_bytes']} B spilled)")
+
+
+def _vit_attention_launch_report(ops, name, a, k):
+    """A per-item attention kernel's launch facts at one shape."""
+    n = a[0].shape[1]
+    hd = a[0].shape[2] if name == "lis_attention" else a[0].shape[2] // 3 // a[1]
+    info = ops.attention_lis.vit_attention_info(n, hd, k.get("lis", True))
+    return (f"one (image, head) item a CTA, head_dim {hd} padded to {info['hdp']}, {info['gc']} query groups a "
+            f"chunk, {info['smem_bytes']} B shared memory, {info['ctas_per_sm']} CTAs per SM, {info['registers']} "
+            f"registers ({info['spill_bytes']} B spilled)")
+
+
 def _layer_phases(kern, a, k, reps=5):
-    """The fused layer's three phases (qkv GEMM, attention, row tiles), ms
+    """The fused layer's three phases (qkv GEMM, attention, row blocks), ms
     per call by block 0's %globaltimer, mean of ``reps`` calls."""
     stamps = torch.zeros((reps, 4), dtype=torch.int64, device=a[0].device)
     for r in range(reps):
@@ -622,7 +708,7 @@ def _layer_phases(kern, a, k, reps=5):
     torch.cuda.synchronize()
     ms = (stamps[:, 1:] - stamps[:, :-1]).double().mean(0).tolist()
     return (f"qkv GEMM {ms[0] / 1e6:.4f} ms, attention {ms[1] / 1e6:.4f} ms, "
-            f"row tiles {ms[2] / 1e6:.4f} ms per call (block 0's clock, mean of {reps})")
+            f"row blocks {ms[2] / 1e6:.4f} ms per call (block 0's clock, mean of {reps})")
 
 
 def _qkv_cluster_report(ops, a, k, count, reps):
@@ -1415,7 +1501,9 @@ def main() -> None:
     print(f"sass: IMMA instructions {sass_count(so, 'swin_attention_kernel', 'IMMA')}", flush=True)
     print(f"sass: the stem's inner loop (LDS per FMUL+FADD pair) {sass_loop_counts(so, 'swin_stem_kernel')}",
           flush=True)
-    for kern in ("wg14requant_kernel", "wg13res_ln_kernel", "wg12embed_kernel"):
+    print(f"sass: IMMA instructions {sass_count(so, 'attention_rows_kernel', 'IMMA')}", flush=True)
+    print(f"sass: IMMA instructions {sass_count(so, 'fused_vit_layer_kernel', 'IMMA')}", flush=True)
+    for kern in ("wg14requant_kernel", "wg13res_ln_kernel", "wg12embed_kernel", "fused_vit_layer_kernel"):
         for op in ("IGMMA", "UTMALDG"):
             print(f"sass: {op} instructions {sass_count(so, kern, op)}", flush=True)
     bad = ops.intln.ln_chain_check(dev)

@@ -1,5 +1,6 @@
-// int8 attention with Log-Int-Softmax, or the LIS-off fp32 softmax, over
-// head_dim D = 64 (ops/attention_lis.py).
+// int8 attention with Log-Int-Softmax, or the LIS-off fp32 softmax, for ViT
+// (ops/attention_lis.py): the qkv-fused kernel at head_dim D = 64, the other
+// two at any head_dim their wrappers take (≤ 64).
 //
 // * p2v_lis_attention_qkv_fused replaces the Pallas kernel
 //   p2vit_tpu/ops/attention_lis.py:lis_attention_qkv_fused (_qkv_fused_kernel
@@ -32,33 +33,27 @@
 //   GEMM on mma.sync, about a third; the two tensor-core products and the
 //   peer copy take the rest. LIS off: the scalar float64 attn@v.
 // * p2v_lis_attention_fused replaces lis_attention_fused (_fused_kernel ->
-//   heads_attention): one block per (image, head) copies the head's q/k/v
-//   rows out of the (B, N, 3C) qkv codes.
-// * p2v_lis_attention replaces lis_attention (_kernel): one block per
-//   (batch·head) copies its rows out of split (BH, N, D) q, k and v.
+//   heads_attention): (image, head) items over the (B, N, 3C) qkv codes,
+//   head_dim 16, 32 or 64.
+// * p2v_lis_attention replaces lis_attention (_kernel): (batch·head) items
+//   over split (BH, N, d) q, k and v, any head_dim d ≤ 64.
 //
-// The last two share one per-row body (attend_rows, in attention_rows.cuh
-// with the per-item row copy, so that the fused encoder layer runs it too)
-// over q/k/v rows held in shared memory. Shared rows are 68 bytes (17
-// words), so the per-lane key rows fall in distinct banks. Nothing is
-// padded: rows and keys past N are never read. Per query row, a warp: 32
-// lanes × 8 key slots of dp4a scores → attn codes clip(round(acc·rq)); then
-// * LIS: p2v::lis_row (common.cuh, shared with csrc/swin_attention.cu), the
-//   integer weights 2^(15−q), and attn@v as the paper's shift-accumulate:
-//   lane l sums output dims 2l, 2l+1 over all keys in int32, weights
-//   broadcast by warp shuffle. Exact while |Σ_j v_j·2^(15−q_j)| < 2^24, i.e.
-//   while a row's LIS weights sum below 4 (they sum to about 1). out =
-//   clip(round(av_int·2^-15·ro)).
-// * LIS off: p2v::softmax_row, then Σ_j p_j·v_j in float64 (each product of
-//   a float32 and an int8 is exact there), rounded once to float32, out =
-//   clip(round(av·ro)).
-//
-// Bound of these two: the per-score softmax chain (an IEEE divide and an
-// exponent extraction per score with LIS; a float64 exp per score without)
-// and shared-memory reads.
+// The last two run one item per CTA on the per-item body of
+// attention_rows.cuh (shared with the fused encoder layer): the item's q,
+// k and v rows staged by cp.async with keys and head_dim zero-padded, q·kᵀ
+// on int8 mma.sync into a score plane, p2v::lis_row per row into the hi/lo
+// weight planes and attn@v on u8·s8 mma.sync against V transposed; LIS off:
+// p2v::softmax_row and the float64 Σ_j p_j·v_j in key order. The plan
+// (vit_attention_plan in ops/attention_lis.py mirrors it) takes the query
+// groups in chunks of gc, sized so that as many CTAs as shared memory allows
+// (up to 4) share an SM: their warps hide the LIS chain's latency, which
+// the chunks' extra barriers cost less than. Bound: the bytes of q/k/v in and codes out;
+// the kernels are bound by the per-row LIS chain (two IEEE divides and an
+// int-exp per score), which the SMs must issue; LIS off by the float64
+// attn@v.
 #include <cooperative_groups.h>
 
-#include "attention_mma.cuh"
+#include "attention_rows.cuh"
 
 namespace {
 
@@ -184,30 +179,66 @@ __global__ void __launch_bounds__(p2v::kThreads, 2)
   stamp(5);
 }
 
-// Block b = (outer, head) = (b / H, b % H): its q/k/v row i lies at
-// {q,k,v} + outer·in_outer + head·D + i·in_ld; its output row i at
-// out + outer·out_outer + head·D + i·out_ld.
-template <bool LIS>
-__global__ void __launch_bounds__(p2v::kThreads)
-    attention_rows_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
-                          const int8_t* __restrict__ v, int in_ld, size_t in_outer,
-                          const float* __restrict__ scal, int8_t* __restrict__ out, int out_ld,
-                          size_t out_outer, int N, int H) {
+// One item per CTA: item blockIdx.x of `a` (attention_rows.cuh), one stage,
+// gc query groups a chunk.
+template <bool LIS, int HDP>
+__global__ void __launch_bounds__(p2v::kThreads, 3)
+    attention_rows_kernel(p2v::vit_item::Items a, const float* __restrict__ scal, int gc) {
   extern __shared__ __align__(16) int8_t dsmem[];
-  attention_item<LIS>(q, k, v, in_ld, in_outer, scal, out, out_ld, out_outer, N, H, blockIdx.x, dsmem);
+  const p2v::vit_item::Layout L = p2v::vit_item::layout(a.N, a.hd, LIS, 1, gc);
+  p2v::vit_item::stage_item<p2v::kThreads>(L, a, blockIdx.x, dsmem);
+  p2v::cp_async_wait<0>();
+  __syncthreads();
+  p2v::vit_item::attend_item<LIS, HDP, p2v::kThreads>(L, a, blockIdx.x, dsmem, dsmem, scal);
 }
 
-template <bool LIS>
-int launch_rows(const int8_t* q, const int8_t* k, const int8_t* v, int in_ld, size_t in_outer,
-                const void* scal, void* out, int out_ld, size_t out_outer, int N, int H, int blocks,
+// The most one CTA may take; an SM's 228 KB, 1 KB of it reserved per CTA.
+constexpr int kMaxSmem = 232448;
+constexpr int kSmSmem = 233472;
+
+// Query groups a chunk: the most CTAs an SM (4, 3, 2) whose shared memory
+// fits one group, then the fewest chunks at that size; force > 0 as given.
+int rows_gc(int N, int hd, bool lis, int force) {
+  if (force > 0) return p2v::vit_item::fit_gc(N, hd, lis, 1, kMaxSmem, force);
+  for (int per_sm = 4; per_sm >= 2; --per_sm) {
+    const int gc = p2v::vit_item::fit_gc(N, hd, lis, 1, kSmSmem / per_sm - 1024, 0);
+    if (gc > 0) return gc;
+  }
+  return p2v::vit_item::fit_gc(N, hd, lis, 1, kMaxSmem, 0);
+}
+
+using RowsKernel = void (*)(p2v::vit_item::Items, const float*, int);
+
+RowsKernel rows_kernel(bool lis, int hdp) {
+  if (hdp == 32) return lis ? attention_rows_kernel<true, 32> : attention_rows_kernel<false, 32>;
+  return lis ? attention_rows_kernel<true, 64> : attention_rows_kernel<false, 64>;
+}
+
+int launch_rows(const p2v::vit_item::Items& a, const void* scal, int items, int lis, int force_gc,
                 cudaStream_t stream) {
-  const int smem = 3 * N * QROW;
-  cudaError_t err = p2v::set_smem(attention_rows_kernel<LIS>, smem);
+  if (a.N < 1 || a.N > NMAX || a.hd < 1 || a.hd > D) return static_cast<int>(cudaErrorInvalidValue);
+  if (items == 0) return 0;
+  const int gc = rows_gc(a.N, a.hd, lis != 0, force_gc);
+  const p2v::vit_item::Layout L = p2v::vit_item::layout(a.N, a.hd, lis != 0, 1, gc);
+  if (gc == 0 || L.total > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const RowsKernel kern = rows_kernel(lis != 0, L.hdp);
+  cudaError_t err = p2v::set_smem(kern, L.total);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_rows_kernel<LIS><<<blocks, p2v::kThreads, smem, stream>>>(
-      q, k, v, in_ld, in_outer, static_cast<const float*>(scal), static_cast<int8_t*>(out), out_ld,
-      out_outer, N, H);
+  kern<<<items, p2v::kThreads, L.total, stream>>>(a, static_cast<const float*>(scal), gc);
   return static_cast<int>(cudaGetLastError());
+}
+
+p2v::vit_item::Items fused_items(const void* qkv, void* out, int N, int C, int H) {
+  auto q = static_cast<const int8_t*>(qkv);
+  const int hd = C / H;
+  return p2v::vit_item::Items{q, q + C, q + 2 * C, static_cast<int8_t*>(out), 3 * C, C, (size_t)N * 3 * C,
+                              (size_t)N * C, N, H, hd, hd % 16 == 0 && (3 * C) % 16 == 0};
+}
+
+p2v::vit_item::Items split_items(const void* q, const void* k, const void* v, void* out, int N, int d) {
+  return p2v::vit_item::Items{static_cast<const int8_t*>(q), static_cast<const int8_t*>(k),
+                              static_cast<const int8_t*>(v), static_cast<int8_t*>(out), d, d, (size_t)N * d,
+                              (size_t)N * d, N, 1, d, d % 16 == 0};
 }
 
 // A launch of `clusters` clusters of P.cs CTAs.
@@ -304,27 +335,45 @@ extern "C" int p2v_lis_attention_qkv_info(int N, int lis, void* info) {
   return lis ? qkv_info<true>(N, p) : qkv_info<false>(N, p);
 }
 
-// (B, N, 3C) qkv codes -> (B, N, C)
-extern "C" int p2v_lis_attention_fused(const void* qkv, const void* scal, void* out, int B, int N,
-                                       int C, int H, int lis, void* stream) {
-  if (B == 0) return 0;
-  auto q = static_cast<const int8_t*>(qkv);
-  auto s = static_cast<cudaStream_t>(stream);
-  const size_t in_outer = (size_t)N * 3 * C, out_outer = (size_t)N * C;
-  return lis ? launch_rows<true>(q, q + C, q + 2 * C, 3 * C, in_outer, scal, out, C, out_outer, N, H,
-                                 B * H, s)
-             : launch_rows<false>(q, q + C, q + 2 * C, 3 * C, in_outer, scal, out, C, out_outer, N, H,
-                                  B * H, s);
+// (B, N, 3C) qkv codes -> (B, N, C), head_dim C/H ≤ 64; force_gc > 0: that
+// many query groups a chunk (a measurement hook)
+extern "C" int p2v_lis_attention_fused_forced(const void* qkv, const void* scal, void* out, int B, int N, int C,
+                                              int H, int lis, int force_gc, void* stream) {
+  if (H < 1 || C % H) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_rows(fused_items(qkv, out, N, C, H), scal, B * H, lis, force_gc, static_cast<cudaStream_t>(stream));
 }
 
-// (BH, N, D) q, k, v codes -> (BH, N, D)
-extern "C" int p2v_lis_attention(const void* q, const void* k, const void* v, const void* scal,
-                                 void* out, int BH, int N, int lis, void* stream) {
-  if (BH == 0) return 0;
-  auto qp = static_cast<const int8_t*>(q), kp = static_cast<const int8_t*>(k),
-       vp = static_cast<const int8_t*>(v);
-  auto s = static_cast<cudaStream_t>(stream);
-  const size_t outer = (size_t)N * D;
-  return lis ? launch_rows<true>(qp, kp, vp, D, outer, scal, out, D, outer, N, 1, BH, s)
-             : launch_rows<false>(qp, kp, vp, D, outer, scal, out, D, outer, N, 1, BH, s);
+extern "C" int p2v_lis_attention_fused(const void* qkv, const void* scal, void* out, int B, int N, int C, int H,
+                                       int lis, void* stream) {
+  return p2v_lis_attention_fused_forced(qkv, scal, out, B, N, C, H, lis, 0, stream);
+}
+
+// (BH, N, d) q, k, v codes -> (BH, N, d), d ≤ 64; force_gc as above
+extern "C" int p2v_lis_attention_forced(const void* q, const void* k, const void* v, const void* scal, void* out,
+                                        int BH, int N, int d, int lis, int force_gc, void* stream) {
+  return launch_rows(split_items(q, k, v, out, N, d), scal, BH, lis, force_gc, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int p2v_lis_attention(const void* q, const void* k, const void* v, const void* scal, void* out, int BH,
+                                 int N, int d, int lis, void* stream) {
+  return p2v_lis_attention_forced(q, k, v, scal, out, BH, N, d, lis, 0, stream);
+}
+
+// The rows kernel's launch facts at N tokens and head_dim hd (force_gc as
+// above): out = {padded head_dim, query groups a chunk, dynamic shared
+// memory, registers per thread, spill bytes per thread, CTAs per SM}.
+extern "C" int p2v_vit_attention_info(int N, int hd, int lis, int force_gc, void* out) {
+  if (N < 1 || N > NMAX || hd < 1 || hd > D) return static_cast<int>(cudaErrorInvalidValue);
+  const int gc = rows_gc(N, hd, lis != 0, force_gc);
+  const p2v::vit_item::Layout L = p2v::vit_item::layout(N, hd, lis != 0, 1, gc);
+  const RowsKernel kern = rows_kernel(lis != 0, L.hdp);
+  cudaError_t err = p2v::set_smem(kern, L.total);
+  cudaFuncAttributes fa{};
+  int per_sm = 0;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kern);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, p2v::kThreads, L.total);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vals[6] = {L.hdp, gc, L.total, fa.numRegs, static_cast<int>(fa.localSizeBytes), per_sm};
+  for (int i = 0; i < 6; ++i) static_cast<int*>(out)[i] = vals[i];
+  return 0;
 }

@@ -1,8 +1,12 @@
 // Per-tile bodies of the int8 attention kernels on mma.sync: the ViT
 // cluster kernel (csrc/attention_lis.cu, p2v_lis_attention_qkv_fused: one
 // (image, head) of head_dim 64 and N ≤ 256 tokens, its query rows split
-// across a cluster of ceil(N/64) CTAs) and the Swin windowed kernel
-// (csrc/swin_attention.cu: (window, head) items of head_dim 32, N ≤ 64).
+// across a cluster of ceil(N/64) CTAs), the ViT per-item body of the other
+// two ViT kernels and the fused encoder layer (attention_rows.cuh: one
+// (image, head) item of head_dim ≤ 64 per CTA) and the Swin windowed
+// kernel (csrc/swin_attention.cu: (window, head) items of head_dim 32,
+// N ≤ 64). NW, where a body takes it, is the block's warps (8 but in the
+// fused layer's 12-warp block).
 //
 // * QkvPlan (vit_attn): the cluster size, each CTA's 16-row query groups and
 //   the shared-memory layout (ops/attention_lis.py qkv_cluster_plan mirrors it).
@@ -17,26 +21,38 @@
 //   unchanged), and writes each weight w = 2^(15−q) ∈ {0, 1, …, 2^15} as two
 //   u8 planes hi = w >> 8, lo = w & 0xFF (both ≤ 128); the hi plane may lie
 //   over an int8 score tile (each lane writes only the bytes it read).
-// * av_mma<HD>: attn@v as 256·(hi·V) + lo·V on mma.sync m16n8k32 u8·s8
+// * av_mma_to<HD> (av_mma: its two-byte-store form): attn@v as
+//   256·(hi·V) + lo·V on mma.sync m16n8k32 u8·s8
 //   against V transposed (d × keys, keys contiguous: the col B operand). Each
 //   partial sum is ≤ 256·128·128 = 2^22 in magnitude, so av_int is the exact
 //   integer Σ_j w_j·v_j, the scalar shift-accumulate's bit for bit; out =
 //   clip(round(av_int·2^-15·ro)).
-// * softmax_av_rows (LIS off, head_dim 64): p2v::softmax_row and the
-//   float64 Σ_j p_j·v_j of attend_rows (attention_rows.cuh), bit for bit,
-//   on the caller's scores and row-major V: an exact product makes each fma
-//   round as attend_rows' multiply-then-add, and v reaches float64 by
-//   integer ops and a DADD. (The Swin kernel sums its LIS-off rows itself,
-//   over v codes it converts to float64 once per item.)
+// * softmax_av_to (softmax_av_rows: its head_dim-64, two-byte-store form;
+//   LIS off, head_dim 32 or 64, R rows a warp side by side):
+//   p2v::softmax_row and the float64 Σ_j p_j·v_j in key order, on the
+//   caller's scores and row-major V: each product is exact, so each fma
+//   rounds as a multiply-then-add, and v reaches float64 by integer ops and
+//   a DADD. (The Swin kernel sums
+//   its LIS-off rows itself, over v codes it converts to float64 once per
+//   item.)
 //
 // Warps take (16-row group, 8-column tile) pairs in turn in both products.
 // Keys past N carry weight 0 and zero q/k/v codes (padded to a multiple of
-// 32), never garbage. Output rows go through the caller's out_row(row).
+// 32), never garbage. Output codes go through the caller's out_row(row) or,
+// in the *_to forms, its store(row, col, code, code of col + 1).
 #pragma once
 
-#include "attention_rows.cuh"
+#include "common.cuh"
 
 namespace p2v {
+namespace vit_attn {
+
+constexpr int D = 64;          // the cluster kernel's head_dim; the per-item body's widest (padded) one
+constexpr int NMAX = 256;      // tokens the ViT attention kernels take
+constexpr int JT = NMAX / 32;  // key slots per lane of a score row
+
+}  // namespace vit_attn
+
 namespace mma_attn {
 
 constexpr int QGROUP = 16;  // query rows per MMA row tile
@@ -44,12 +60,12 @@ constexpr int QGROUP = 16;  // query rows per MMA row tile
 // Scores of ng query groups (q rows qm + r·ld) against keys [0, nk) (k
 // rows ka + j·ld; nk a multiple of 8), head_dim HD. epi(r, j, acc_j,
 // acc_j+1) takes the scores of row r at keys j and j + 1.
-template <int HD, class Epi>
+template <int HD, int NW = kThreads / 32, class Epi>
 __device__ __forceinline__ void scores_mma(const int8_t* qm, const int8_t* ka, int ld, int ng, int nk,
                                            Epi&& epi) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   const int ntn = nk / 8;
-  for (int p = warp; p < ng * ntn; p += kThreads / 32) {
+  for (int p = warp; p < ng * ntn; p += NW) {
     const int r0 = (p / ntn) * QGROUP, n0 = (p % ntn) * 8;
     int c[4] = {0, 0, 0, 0};
 #pragma unroll
@@ -84,11 +100,11 @@ __device__ __forceinline__ void load_scores(const int8_t* s, int n, float (&ac)[
 // LIS weights of query rows r = 0 … nrows−1 (global row row0 + r; rows
 // ≥ n get weight 0): load(r, ac) gives row r's scores in lis_row's lane
 // layout → hi plane hi[r·ld + j], lo plane lo[r·ld + j], keys j < kpad.
-template <int JT, class Load>
+template <int JT, int NW = kThreads / 32, class Load>
 __device__ __forceinline__ void lis_weight_rows(Load&& load, int8_t* hi, int8_t* lo, int ld, int nrows, int row0,
                                                 int n, int kpad, float x0, float b_int, float c_int) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < nrows; r += kThreads / 32) {
+  for (int r = warp; r < nrows; r += NW) {
     int wt[JT];
     if (row0 + r < n) {
       float ac[JT];
@@ -111,16 +127,16 @@ __device__ __forceinline__ void lis_weight_rows(Load&& load, int8_t* hi, int8_t*
 
 // attn@v of ng query groups, head_dim HD: weight planes hi/lo (row r at
 // r·ld) against V transposed (dim d at vt + d·ld), keys [0, kpad). Warps
-// take (group, 8-dim tile) pairs in turn (HD = 64: warp w owns dims
-// [8w, 8w + 8) of every group). Output row r (global row0 + r < n) at
-// out_row(row0 + r).
-template <int HD, class OutRow>
-__device__ __forceinline__ void av_mma(const int8_t* hi, const int8_t* lo, const int8_t* vt, int ld, int ng,
-                                       int kpad, int row0, int n, float ro, OutRow&& out_row) {
+// take (group, 8-dim tile) pairs in turn (HD = 64 on 8 warps: warp w owns
+// dims [8w, 8w + 8) of every group). The codes of output row r (global row
+// row0 + r < n) at dims col, col + 1 go to store(row0 + r, col, c0, c1).
+template <int HD, int NW = kThreads / 32, class Store>
+__device__ __forceinline__ void av_mma_to(const int8_t* hi, const int8_t* lo, const int8_t* vt, int ld, int ng,
+                                          int kpad, int row0, int n, float ro, Store&& store) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  constexpr int NT = HD / 8;          // 8-dim tiles
-  constexpr bool ONE = NT == kThreads / 32;  // one dim tile per warp, every group in turn
-  for (int p = ONE ? 0 : warp; p < (ONE ? ng : ng * NT); p += ONE ? 1 : kThreads / 32) {
+  constexpr int NT = HD / 8;        // 8-dim tiles
+  constexpr bool ONE = NT == NW;    // one dim tile per warp, every group in turn
+  for (int p = ONE ? 0 : warp; p < (ONE ? ng : ng * NT); p += ONE ? 1 : NW) {
     const int r0 = (ONE ? p : p / NT) * QGROUP, n0 = (ONE ? warp : p % NT) * 8;
     int ch[4] = {0, 0, 0, 0}, cl[4] = {0, 0, 0, 0};
     for (int kk = 0; kk < kpad; kk += 32) {
@@ -137,13 +153,23 @@ __device__ __forceinline__ void av_mma(const int8_t* hi, const int8_t* lo, const
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + r0 + g + 8 * h;
       if (row >= n) continue;
-      char2 o;
       const int a0 = ch[2 * h] * 256 + cl[2 * h], a1 = ch[2 * h + 1] * 256 + cl[2 * h + 1];
-      o.x = to_i8(requant(__fmul_rn(__fmul_rn(__int2float_rn(a0), 0x1p-15f), ro), -128.f, 127.f));
-      o.y = to_i8(requant(__fmul_rn(__fmul_rn(__int2float_rn(a1), 0x1p-15f), ro), -128.f, 127.f));
-      *reinterpret_cast<char2*>(out_row(row) + n0 + 2 * t) = o;
+      store(row, n0 + 2 * t, to_i8(requant(__fmul_rn(__fmul_rn(__int2float_rn(a0), 0x1p-15f), ro), -128.f, 127.f)),
+            to_i8(requant(__fmul_rn(__fmul_rn(__int2float_rn(a1), 0x1p-15f), ro), -128.f, 127.f)));
     }
   }
+}
+
+// av_mma_to with output row r's codes at out_row(r) + col, two bytes at a time.
+template <int HD, class OutRow>
+__device__ __forceinline__ void av_mma(const int8_t* hi, const int8_t* lo, const int8_t* vt, int ld, int ng,
+                                       int kpad, int row0, int n, float ro, OutRow&& out_row) {
+  av_mma_to<HD>(hi, lo, vt, ld, ng, kpad, row0, n, ro, [&](int row, int col, int8_t c0, int8_t c1) {
+    char2 o;
+    o.x = c0;
+    o.y = c1;
+    *reinterpret_cast<char2*>(out_row(row) + col) = o;
+  });
 }
 
 // The exact double of an int8 code given as its byte: 2^52 + (byte ^ 0x80)
@@ -156,39 +182,82 @@ __device__ __forceinline__ double i8_to_f64(uint32_t byte) {
 // LIS off: query rows r < nrows with global row row0 + r < n: load(r, ac)
 // → p2v::softmax_row at scale s_attn → Σ_j p_j·v_j in float64 over
 // row-major v rows (v + j·vld, zeros from n to the next multiple of 32),
-// keys in order, as attend_rows; lane l owns dims 2l and 2l + 1 of head_dim
-// 64. Each product p_j·v_j is exact in float64 (24 + 8 bits), so
-// fma(p_j, v_j, a) rounds exactly as attend_rows' a + p_j·v_j; p_j goes to
-// double once, by the lane that holds it. Output row at out_row(row0 + r).
-template <int JT, class Load, class OutRow>
-__device__ __forceinline__ void softmax_av_rows(Load&& load, const int8_t* v, int vld, int nrows, int row0, int n,
-                                                float s_attn, float ro, OutRow&& out_row) {
+// keys in order; lane l owns dims 2l and 2l + 1 (HD = 64) or dim l (HD =
+// 32). Each product p_j·v_j is exact in float64 (24 + 8 bits), so
+// fma(p_j, v_j, a) rounds exactly as a + p_j·v_j; p_j goes to double once,
+// by the lane that holds it. A warp sums R rows side by side (rows r,
+// r + NW, …: independent chains, each in key order; v converted once for
+// all). Codes of dims col, col + 1 of output row row0 + r go to
+// store(row0 + r, col, c0, c1).
+template <int JT, int HD = 64, int NW = kThreads / 32, int R = 1, class Load, class Store>
+__device__ __forceinline__ void softmax_av_to(Load&& load, const int8_t* v, int vld, int nrows, int row0, int n,
+                                              float s_attn, float ro, Store&& store) {
+  static_assert(HD == 32 || HD == 64, "a lane owns one or two dims");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < nrows && row0 + r < n; r += kThreads / 32) {
-    float ac[JT], p[JT];
-    load(r, ac);
-    softmax_row<JT>(ac, n, s_attn, p);
-    double a0 = 0.0, a1 = 0.0;
+  for (int r = warp; r < nrows && row0 + r < n; r += R * NW) {
+    bool has[R];
+    float p[R][JT];
+    double a0[R], a1[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int rk = r + k * NW;
+      has[k] = k == 0 || (rk < nrows && row0 + rk < n);  // a missing row reruns row r, dropped
+      float ac[JT];
+      load(has[k] ? rk : r, ac);
+      softmax_row<JT>(ac, n, s_attn, p[k]);
+      a0[k] = 0.0, a1[k] = 0.0;
+    }
 #pragma unroll
     for (int t = 0; t < JT; ++t) {
       if (32 * t >= n) break;
       // keys 32t … 32t + 31, unrolled: past n, p = 0 and the v rows are
-      // zeros, and a + (+0) = a (a is never −0), so the sum is attend_rows'
-      const double pt = static_cast<double>(p[t]);
-      const int8_t* vt = v + 32 * t * vld + 2 * lane;
+      // zeros, and a + (+0) = a (a is never −0)
+      double pt[R];
+#pragma unroll
+      for (int k = 0; k < R; ++k) pt[k] = static_cast<double>(p[k][t]);
+      const int8_t* vt = v + 32 * t * vld + (HD / 32) * lane;
 #pragma unroll
       for (int src = 0; src < 32; ++src) {
-        const double pj = __shfl_sync(0xffffffffu, pt, src);
-        const uint32_t v2 = *reinterpret_cast<const uint16_t*>(vt + src * vld);
-        a0 = __fma_rn(pj, i8_to_f64(v2), a0);
-        a1 = __fma_rn(pj, i8_to_f64(v2 >> 8), a1);
+        if constexpr (HD == 64) {
+          const uint32_t v2 = *reinterpret_cast<const uint16_t*>(vt + src * vld);
+          const double v0 = i8_to_f64(v2), v1 = i8_to_f64(v2 >> 8);
+#pragma unroll
+          for (int k = 0; k < R; ++k) {
+            const double pj = __shfl_sync(0xffffffffu, pt[k], src);
+            a0[k] = __fma_rn(pj, v0, a0[k]);
+            a1[k] = __fma_rn(pj, v1, a1[k]);
+          }
+        } else {
+          const double v0 = i8_to_f64(*reinterpret_cast<const uint8_t*>(vt + src * vld));
+#pragma unroll
+          for (int k = 0; k < R; ++k) a0[k] = __fma_rn(__shfl_sync(0xffffffffu, pt[k], src), v0, a0[k]);
+        }
       }
     }
-    char2 o;
-    o.x = to_i8(requant(__fmul_rn(__double2float_rn(a0), ro), -128.f, 127.f));
-    o.y = to_i8(requant(__fmul_rn(__double2float_rn(a1), ro), -128.f, 127.f));
-    *reinterpret_cast<char2*>(out_row(row0 + r) + 2 * lane) = o;
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int8_t c0 = to_i8(requant(__fmul_rn(__double2float_rn(a0[k]), ro), -128.f, 127.f));
+      if constexpr (HD == 64) {
+        if (has[k])
+          store(row0 + r + k * NW, 2 * lane, c0, to_i8(requant(__fmul_rn(__double2float_rn(a1[k]), ro), -128.f, 127.f)));
+      } else {  // lane l's code and lane l + 1's, stored by the even lane
+        const int8_t c1 = static_cast<int8_t>(__shfl_down_sync(0xffffffffu, static_cast<int>(c0), 1));
+        if (has[k] && (lane & 1) == 0) store(row0 + r + k * NW, lane, c0, c1);
+      }
+    }
   }
+}
+
+// softmax_av_to at head_dim 64 with output row r's codes at out_row(r) + col.
+template <int JT, class Load, class OutRow>
+__device__ __forceinline__ void softmax_av_rows(Load&& load, const int8_t* v, int vld, int nrows, int row0, int n,
+                                                float s_attn, float ro, OutRow&& out_row) {
+  softmax_av_to<JT>(load, v, vld, nrows, row0, n, s_attn, ro, [&](int row, int col, int8_t c0, int8_t c1) {
+    char2 o;
+    o.x = c0;
+    o.y = c1;
+    *reinterpret_cast<char2*>(out_row(row) + col) = o;
+  });
 }
 
 }  // namespace mma_attn

@@ -1,110 +1,210 @@
-// The per-row attention body of the ViT attention kernels
-// (csrc/attention_lis.cu), shared with the fused encoder layer
-// (csrc/layer_fused.cu): one (image, head) item over q/k/v rows held in
-// shared memory, head_dim 64, N ≤ 256. See attention_lis.cu for the
-// arithmetic of both softmax arms.
+// The per-item body of the ViT attention kernels over q/k/v codes in device
+// memory (csrc/attention_lis.cu: p2v_lis_attention_fused over (B, N, 3C)
+// qkv codes, p2v_lis_attention over split (BH, N, d) q/k/v), shared with the
+// fused encoder layer's attention phase (csrc/layer_fused.cu): one (outer,
+// head) item of head_dim hd ≤ 64 and N ≤ 256 tokens on attention_mma.cuh's
+// int8 mma.sync bodies.
+//
+// * Staging (stage_item): the item's q rows (16·⌈N/16⌉ of them), k rows and
+//   v rows (⌈N/32⌉·32 of them) into one stage buffer, q and k rows QLD =
+//   HDP + 16 bytes apart (conflict-free fragments), v rows dense; every byte
+//   past N or past hd written as a zero code, so a stage needs no clearing
+//   and the zero-padded head_dim (HDP = 32 for hd ≤ 32, else 64) and keys add
+//   nothing to any integer sum. 16-byte cp.async where hd, the row stride
+//   and the item's offset are multiples of 16 (every ViT width), else byte
+//   loads. The caller waits for the copies (cp_async_wait) and syncs.
+// * attend_item: LIS on, V transposed into vt (dim d at vt + d·VLD, keys
+//   contiguous, the col B operand of attn@v); then per chunk of gc 16-row
+//   query groups: scores_mma<HDP> writes clip(round(acc·rq)) codes into the
+//   score plane; lis_weight_rows (p2v::lis_row unchanged) writes the hi plane
+//   over it and the lo plane; av_mma_to<HDP> sums 256·(hi·V) + lo·V, the
+//   exact integer Σ_j w_j·v_j, and stores clip(round(av·2^-15·ro)). LIS off:
+//   softmax_av_to, p2v::softmax_row and the float64 Σ_j p_j·v_j in key
+//   order over the stage's row-major v, two rows a warp side by side. Output columns past hd are never
+//   written: codes go out two bytes at a time where aligned, else one.
+//
+// Layout (ops/attention_lis.vit_attention_layout mirrors it): `stages`
+// stage buffers, then (LIS) vt, then the score / hi plane and (LIS) the lo
+// plane, 16·gc rows of VLD = kpad + 16 bytes each. gc < ⌈N/16⌉ trades
+// barriers for shared memory.
 #pragma once
 
-#include "common.cuh"
+#include "attention_mma.cuh"
 
 namespace p2v {
-namespace vit_attn {
+namespace vit_item {
 
-constexpr int D = 64;
-constexpr int QROW = 68;  // smem bytes per q/k/v row
-constexpr int NMAX = 256;
-constexpr int JT = NMAX / 32;  // key slots per lane
+using vit_attn::JT;
+using vit_attn::NMAX;
 
-// Query rows warp, warp + 8, ... of one (image, head). qs/ks/vs: the head's
-// q/k/v rows, ld bytes apart; out: the head's output row 0, rows out_ld bytes
-// apart. scal: rq, s_attn, ro, x0_int, b_int, c_int.
-template <bool LIS>
-__device__ __forceinline__ void attend_rows(const int8_t* qs, const int8_t* ks, const int8_t* vs, int ld,
-                                            int N, const float* __restrict__ scal, int8_t* out,
-                                            size_t out_ld) {
-  const float rq = scal[0], s_attn = scal[1], ro = scal[2];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = warp; i < N; i += kThreads / 32) {
-    uint32_t qv[D / 4];
-#pragma unroll
-    for (int u = 0; u < D / 4; ++u) qv[u] = ld32(qs + i * ld + 4 * u);
+struct Layout {
+  int hdp;     // head_dim padded to 32 or 64
+  int qld;     // bytes per staged q / k row
+  int kpad;    // keys padded to a multiple of 32 (the MMA depth)
+  int ng;      // 16-row query groups, ⌈N/16⌉
+  int vld;     // bytes per row of V transposed and of the planes
+  int gc;      // query groups per chunk
+  int k_off;   // k rows in a stage
+  int v_off;   // v rows in a stage
+  int stage;   // bytes of one stage buffer
+  int vt;      // V transposed (LIS)
+  int s;       // the score / hi plane
+  int lo;      // the lo plane (LIS)
+  int total;   // bytes
+};
 
-    float ac[JT];
-#pragma unroll
-    for (int t = 0; t < JT; ++t) {
-      const int j = lane + 32 * t;
-      ac[t] = 0.f;
-      if (j < N) {
-        int s = 0;
-#pragma unroll
-        for (int u = 0; u < D / 4; ++u)
-          s = __dp4a(static_cast<int>(qv[u]), static_cast<int>(ld32(ks + j * ld + 4 * u)), s);
-        ac[t] = requant(__fmul_rn(__int2float_rn(s), rq), -128.f, 127.f);
-      }
-    }
+__host__ __device__ inline int pad_hd(int hd) { return hd <= 32 ? 32 : 64; }
 
-    float o0, o1;
-    if constexpr (LIS) {
-      int wt[JT];
-      lis_row<JT>(ac, N, scal[3], scal[4], scal[5], wt);
-      int a0 = 0, a1 = 0;
-#pragma unroll
-      for (int t = 0; t < JT; ++t) {
-        for (int src = 0; src < 32; ++src) {
-          const int j = 32 * t + src;
-          if (j >= N) break;
-          const int wj = __shfl_sync(0xffffffffu, wt[t], src);
-          const uint16_t v2 = *reinterpret_cast<const uint16_t*>(vs + j * ld + 2 * lane);
-          a0 += wj * static_cast<int>(static_cast<int8_t>(v2 & 0xFF));
-          a1 += wj * static_cast<int>(static_cast<int8_t>(v2 >> 8));
-        }
-      }
-      o0 = __fmul_rn(__fmul_rn(__int2float_rn(a0), 0x1p-15f), ro);
-      o1 = __fmul_rn(__fmul_rn(__int2float_rn(a1), 0x1p-15f), ro);
+__host__ __device__ inline Layout layout(int n, int hd, bool lis, int stages, int gc) {
+  Layout l{};
+  l.hdp = pad_hd(hd);
+  l.qld = l.hdp + 16;
+  l.kpad = (n + 31) / 32 * 32;
+  l.ng = (n + 15) / 16;
+  l.vld = l.kpad + 16;
+  l.gc = gc;
+  l.k_off = 16 * l.ng * l.qld;
+  l.v_off = l.k_off + l.kpad * l.qld;
+  l.stage = l.v_off + l.kpad * l.hdp;
+  l.vt = stages * l.stage;
+  l.s = l.vt + (lis ? l.hdp * l.vld : 0);
+  l.lo = l.s + 16 * gc * l.vld;
+  l.total = l.lo + (lis ? 16 * gc * l.vld : 0);
+  return l;
+}
+
+// Groups per chunk within `budget` bytes: the fewest chunks that fit, their
+// groups balanced (⌈ng/chunks⌉); force > 0 takes min(force, ng). 0 where
+// one group does not fit.
+__host__ __device__ inline int fit_gc(int n, int hd, bool lis, int stages, int budget, int force) {
+  const int ng = (n + 15) / 16;
+  if (force > 0) return force < ng ? force : ng;
+  int most = 0;
+  for (int g = ng; g >= 1 && most == 0; --g)
+    if (layout(n, hd, lis, stages, g).total <= budget) most = g;
+  if (most == 0) return 0;
+  const int chunks = (ng + most - 1) / most;
+  return (ng + chunks - 1) / chunks;
+}
+
+// Where item `item` = (outer, head) = (item / H, item % H) lives: its q/k/v
+// row i at {q,k,v} + outer·in_outer + head·hd + i·in_ld; its output row i at
+// out + outer·out_outer + head·hd + i·out_ld.
+struct Items {
+  const int8_t *q, *k, *v;
+  int8_t* out;
+  int in_ld, out_ld;
+  size_t in_outer, out_outer;
+  int N, H, hd;
+  bool vec16;  // 16-byte copies: hd, in_ld and in_outer multiples of 16
+};
+
+// The item's q, k and v rows into stage buffer `st` (zeros past N and hd);
+// NT threads. Commits one cp.async group.
+template <int NT>
+__device__ __forceinline__ void stage_item(const Layout& L, const Items& a, int item, int8_t* st) {
+  const int outer = item / a.H, head = item - outer * a.H;
+  const size_t off = outer * a.in_outer + (size_t)head * a.hd;
+  const int cpr = L.hdp / 16, rq = 16 * L.ng;  // 16-byte chunks a row; q rows
+  const int total = (rq + 2 * L.kpad) * cpr;
+  for (int i = threadIdx.x; i < total; i += NT) {
+    const int r = i / cpr, c = i - r * cpr;
+    const int8_t* src;
+    int8_t* dst;
+    int row;
+    if (r < rq) {
+      row = r, src = a.q, dst = st + row * L.qld;
+    } else if (r < rq + L.kpad) {
+      row = r - rq, src = a.k, dst = st + L.k_off + row * L.qld;
     } else {
-      float p[JT];
-      softmax_row<JT>(ac, N, s_attn, p);
-      double a0 = 0.0, a1 = 0.0;
-#pragma unroll
-      for (int t = 0; t < JT; ++t) {
-        for (int src = 0; src < 32; ++src) {
-          const int j = 32 * t + src;
-          if (j >= N) break;
-          const double pj = static_cast<double>(__shfl_sync(0xffffffffu, p[t], src));
-          const uint16_t v2 = *reinterpret_cast<const uint16_t*>(vs + j * ld + 2 * lane);
-          a0 = __dadd_rn(a0, __dmul_rn(pj, static_cast<double>(static_cast<int8_t>(v2 & 0xFF))));
-          a1 = __dadd_rn(a1, __dmul_rn(pj, static_cast<double>(static_cast<int8_t>(v2 >> 8))));
-        }
-      }
-      o0 = __fmul_rn(__double2float_rn(a0), ro);
-      o1 = __fmul_rn(__double2float_rn(a1), ro);
+      row = r - rq - L.kpad, src = a.v, dst = st + L.v_off + row * L.hdp;
     }
-    char2 o;
-    o.x = to_i8(requant(o0, -128.f, 127.f));
-    o.y = to_i8(requant(o1, -128.f, 127.f));
-    *reinterpret_cast<char2*>(out + i * out_ld + 2 * lane) = o;
+    dst += 16 * c;
+    if (row < a.N && 16 * c < a.hd) {
+      src += off + (size_t)row * a.in_ld + 16 * c;
+      if (a.vec16) {
+        cp_async16(dst, src);
+      } else {
+        uint32_t w[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          w[u] = 0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (16 * c + 4 * u + e < a.hd)
+              w[u] |= static_cast<uint32_t>(static_cast<uint8_t>(src[4 * u + e])) << (8 * e);
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    } else {
+      *reinterpret_cast<int4*>(dst) = make_int4(0, 0, 0, 0);
+    }
+  }
+  cp_async_commit();
+}
+
+// Attention of the item staged in `st` (landed and synced); `sm`: the
+// layout's base (vt and the planes). NT threads, NW = NT/32 warps. scal:
+// rq, s_attn, ro, x0_int, b_int, c_int. Ends with __syncthreads.
+template <bool LIS, int HDP, int NT>
+__device__ __forceinline__ void attend_item(const Layout& L, const Items& a, int item, const int8_t* st, int8_t* sm,
+                                            const float* __restrict__ scal) {
+  namespace ma = mma_attn;
+  constexpr int NW = NT / 32;
+  const int outer = item / a.H, head = item - outer * a.H;
+  int8_t* ob = a.out + outer * a.out_outer + (size_t)head * a.hd;
+  const bool pairs = (a.out_ld & 1) == 0 && (reinterpret_cast<uintptr_t>(ob) & 1) == 0;
+  const int hd = a.hd, out_ld = a.out_ld, N = a.N;
+  auto store = [&](int row, int col, int8_t c0, int8_t c1) {
+    int8_t* p = ob + (size_t)row * out_ld + col;
+    if (pairs && col + 1 < hd) {
+      char2 o;
+      o.x = c0;
+      o.y = c1;
+      *reinterpret_cast<char2*>(p) = o;
+    } else {
+      if (col < hd) p[0] = c0;
+      if (col + 1 < hd) p[1] = c1;
+    }
+  };
+  const int8_t* qs = st;
+  const int8_t* ks = st + L.k_off;
+  const int8_t* vs = st + L.v_off;
+  int8_t* vt = sm + L.vt;
+  int8_t* s = sm + L.s;
+  const float rq = scal[0];
+  if constexpr (LIS) {
+    // V transposed: thread (d, 8-key group) moves 8 keys of dim d
+    for (int i = threadIdx.x; i < HDP * (L.kpad / 8); i += NT) {
+      const int d = i % HDP, j8 = i / HDP;
+      uint32_t w[2] = {0, 0};
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        w[e >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(vs[(8 * j8 + e) * HDP + d])) << (8 * (e & 3));
+      *reinterpret_cast<uint2*>(vt + d * L.vld + 8 * j8) = make_uint2(w[0], w[1]);
+    }
+    __syncthreads();
+  }
+  for (int g0 = 0; g0 < L.ng; g0 += L.gc) {
+    const int ngc = min(L.gc, L.ng - g0), row0 = 16 * g0;
+    ma::scores_mma<HDP, NW>(qs + row0 * L.qld, ks, L.qld, ngc, L.kpad, [&](int r, int j, int a0, int a1) {
+      char2 c;
+      c.x = to_i8(ma::score_code(a0, rq));
+      c.y = to_i8(ma::score_code(a1, rq));
+      *reinterpret_cast<char2*>(s + r * L.vld + j) = c;
+    });
+    __syncthreads();
+    auto load = [&](int r, float(&ac)[JT]) { ma::load_scores<JT>(s + r * L.vld, N, ac); };
+    if constexpr (LIS) {
+      ma::lis_weight_rows<JT, NW>(load, s, sm + L.lo, L.vld, 16 * ngc, row0, N, L.kpad, scal[3], scal[4], scal[5]);
+      __syncthreads();
+      ma::av_mma_to<HDP, NW>(s, sm + L.lo, vt, L.vld, ngc, L.kpad, row0, N, scal[2], store);
+    } else {
+      ma::softmax_av_to<JT, HDP, NW, 2>(load, vs, HDP, 16 * ngc, row0, N, scal[1], scal[2], store);
+    }
+    __syncthreads();  // the planes are rewritten by the next chunk or item
   }
 }
 
-// One (outer, head) item: copy the head's q/k/v rows, row i at
-// {q,k,v} + outer·in_outer + head·D + i·in_ld, into smem (3·N·QROW bytes),
-// then attend_rows into out + outer·out_outer + head·D, rows out_ld apart.
-template <bool LIS>
-__device__ __forceinline__ void attention_item(const int8_t* q, const int8_t* k, const int8_t* v, int in_ld,
-                                               size_t in_outer, const float* scal, int8_t* out, int out_ld,
-                                               size_t out_outer, int N, int H, int item, int8_t* smem) {
-  const int outer = item / H, head = item % H;
-  const size_t off = outer * in_outer + head * D;
-  for (int idx = threadIdx.x; idx < 3 * N * (D / 4); idx += kThreads) {
-    const int r = idx / (D / 4), u = idx % (D / 4);
-    const int which = r / N, i = r % N;  // which: 0 q, 1 k, 2 v
-    const int8_t* src = which == 0 ? q : (which == 1 ? k : v);
-    *reinterpret_cast<uint32_t*>(smem + r * QROW + 4 * u) = ld32(src + off + (size_t)i * in_ld + 4 * u);
-  }
-  __syncthreads();
-  attend_rows<LIS>(smem, smem + N * QROW, smem + 2 * N * QROW, QROW, N, scal,
-                   out + outer * out_outer + head * D, out_ld);
-}
-
-}  // namespace vit_attn
+}  // namespace vit_item
 }  // namespace p2v

@@ -182,10 +182,6 @@ struct PackedInt4Rows {
 // Smem rows are padded to 80 bytes so the fragment loads are free of bank
 // conflicts. The int32 accumulation is exact, so staging never changes a bit.
 //
-// run_resident takes an A tile that already lies in shared memory (row r at
-// sa + r·lda, K % 64 == 0) and stages only B; the fused layer feeds its
-// MLP input and GELU tiles that way.
-//
 // b_row may instead be a PackedInt4Rows: B rows are then unpacked from the
 // int4 store by plain loads into the stage (no cp.async); the stage is read
 // only after the __syncthreads that follows the wait, as for the copies.
@@ -200,11 +196,10 @@ struct Gemm {
   static_assert(WM * WN * 32 == kThreads, "Gemm runs 8 warps");
   static_assert(WTM % 16 == 0 && WTN % 8 == 0, "warp tile must be whole m16n8 fragments");
 
-  // issue the copies of K slice [k0, k0 + BK) into one stage (B rows only
-  // when A is resident)
-  template <bool RESIDENT, class ARow, class BRow>
+  // issue the copies of K slice [k0, k0 + BK) into one stage
+  template <class ARow, class BRow>
   __device__ static void load(ARow& a_row, BRow& b_row, int K, int k0, int8_t* stage) {
-    for (int idx = threadIdx.x + (RESIDENT ? BM * 4 : 0); idx < (BM + BN) * 4; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < (BM + BN) * 4; idx += kThreads) {
       const int r = idx >> 2, k = k0 + (idx & 3) * 16;
       int8_t* dst = stage + r * LDS + (idx & 3) * 16;
       const int8_t* p;
@@ -227,19 +222,6 @@ struct Gemm {
 
   template <class ARow, class BRow>
   __device__ static void run(ARow a_row, BRow b_row, int K, int8_t* smem, int (&acc)[MT][NT][4]) {
-    run_impl<false>(a_row, nullptr, 0, b_row, K, smem, acc);
-  }
-
-  template <class BRow>
-  __device__ static void run_resident(const int8_t* sa, int lda, BRow b_row, int K, int8_t* smem,
-                                      int (&acc)[MT][NT][4]) {
-    auto none = [](int) -> const int8_t* { return nullptr; };
-    run_impl<true>(none, sa, lda, b_row, K, smem, acc);
-  }
-
-  template <bool RESIDENT, class ARow, class BRow>
-  __device__ static void run_impl(ARow& a_row, const int8_t* sa, int lda, BRow& b_row, int K,
-                                  int8_t* smem, int (&acc)[MT][NT][4]) {
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int wm = warp / WN, wn = warp % WN, g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -250,28 +232,27 @@ struct Gemm {
         for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 
     const int nk = (K + BK - 1) / BK;
-    const int ald = RESIDENT ? lda : LDS;
-    load<RESIDENT>(a_row, b_row, K, 0, smem);
+    load(a_row, b_row, K, 0, smem);
     for (int kt = 0; kt < nk; ++kt) {
       if (kt + 1 < nk) {
-        load<RESIDENT>(a_row, b_row, K, (kt + 1) * BK, smem + ((kt + 1) & 1) * STAGE);
+        load(a_row, b_row, K, (kt + 1) * BK, smem + ((kt + 1) & 1) * STAGE);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
       }
       __syncthreads();
-      const int8_t* sA = RESIDENT ? sa + kt * BK : smem + (kt & 1) * STAGE;
+      const int8_t* sA = smem + (kt & 1) * STAGE;
       const int8_t* sB = smem + (kt & 1) * STAGE + BM * LDS;
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 32) {
         uint32_t a[MT][4], b[NT][2];
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
-          const int8_t* base = sA + (wm * WTM + i * 16 + g) * ald + kk + t * 4;
+          const int8_t* base = sA + (wm * WTM + i * 16 + g) * LDS + kk + t * 4;
           a[i][0] = ld32(base);
-          a[i][1] = ld32(base + 8 * ald);
+          a[i][1] = ld32(base + 8 * LDS);
           a[i][2] = ld32(base + 16);
-          a[i][3] = ld32(base + 8 * ald + 16);
+          a[i][3] = ld32(base + 8 * LDS + 16);
         }
 #pragma unroll
         for (int j = 0; j < NT; ++j) {

@@ -70,40 +70,6 @@ inline RowPlan res_ln_plan(int M, int N, const int* resident, int force_cs = 0, 
   return whole_row_plan(M, N, kLnWidths, 5, res_ln_smem, resident, force_cs, force_nc);
 }
 
-// The junction on one chunk's accumulators: thread (w, l) holds
-// acc[4j + 2h + e] at row g + 8h of its warp's rows (g = l/4), column
-// n0 + 8j + 2q + e (q = l%4). The residual code in the tile is read and
-// replaced by the new one; x = code·mask goes into the row sums.
-template <int BN>
-__device__ __forceinline__ void junction_chunk(const int (&acc)[BN / 2], int8_t* ct, int ldc, int n0, const float* vs,
-                                               int nw, int g, int q, float lo, float hi, int (&sx)[2],
-                                               long long (&sxx)[2]) {
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int col = n0 + 8 * j + 2 * q;
-    const float2 r = *reinterpret_cast<const float2*>(vs + col);
-    const float2 b = *reinterpret_cast<const float2*>(vs + nw + col);
-    const float2 sm = *reinterpret_cast<const float2*>(vs + 2 * nw + col);
-    const float2 sr = *reinterpret_cast<const float2*>(vs + 3 * nw + col);
-    const float2 inv = *reinterpret_cast<const float2*>(vs + 4 * nw + col);
-    const float2 mk = *reinterpret_cast<const float2*>(vs + 5 * nw + col);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      uint16_t* p = reinterpret_cast<uint16_t*>(ct + (g + 8 * h) * ldc + col);
-      const uint32_t rr = *p;  // the two residual codes
-      const float t0 = junction_code(acc[4 * j + 2 * h], r.x, b.x, sm.x, __int2float_rn(static_cast<int8_t>(rr)),
-                                     sr.x, inv.x, lo, hi);
-      const float t1 = junction_code(acc[4 * j + 2 * h + 1], r.y, b.y, sm.y,
-                                     __int2float_rn(static_cast<int8_t>(rr >> 8)), sr.y, inv.y, lo, hi);
-      *p = static_cast<uint16_t>(code_byte(t0) | (code_byte(t1) << 8));
-      const int x0 = __float2int_rz(__fmul_rn(unbias(t0), mk.x)), x1 = __float2int_rz(__fmul_rn(unbias(t1), mk.y));
-      sx[h] += x0 + x1;
-      sxx[h] += static_cast<long long>(x0) * x0;
-      sxx[h] += static_cast<long long>(x1) * x1;
-    }
-  }
-}
-
 // vecs rows: r, b, s_mid, s_res, inv_s_out, mask, w_os, b_os, ratio (each N).
 // Launched in clusters of cs CTAs (cs = 1: one CTA a cluster).
 template <int BN>

@@ -48,7 +48,10 @@ SIGNATURES = {
     "p2v_lis_attention_qkv_fused_timed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "p2v_lis_attention_qkv_info": [_I, _I, _P],
     "p2v_lis_attention_fused": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "p2v_lis_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "p2v_lis_attention_fused_forced": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "p2v_lis_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "p2v_lis_attention_forced": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "p2v_vit_attention_info": [_I, _I, _I, _I, _P],
     "p2v_fused_patch_embed": [_P] * 10 + [_I] * 5 + [_P],
     "p2v_fused_patch_embed_forced": [_P] * 10 + [_I] * 7 + [_P, _P],
     "p2v_fused_patch_embed_info": [_I, _I, _I, _I, _P],
@@ -65,6 +68,8 @@ SIGNATURES = {
     "p2v_fused_swin_stem_forced": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "p2v_fused_swin_stem_info": [_I, _I, _I, _P],
     "p2v_fused_vit_layer": [_P] * 15 + [_I] * 6 + [_P],
+    "p2v_fused_vit_layer_forced": [_P] * 15 + [_I] * 9 + [_P],
+    "p2v_fused_vit_layer_info": [_I] * 9 + [_P],
     "p2v_int4_matmul_requant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "p2v_wstream_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "p2v_wstream_matmul_blocks": [_I, _I],

@@ -38,10 +38,10 @@ expression, and the two agree bit for bit. JAX sums in float32 in its own
 order and its float32 ``exp`` is not correctly rounded, so against JAX the
 LIS-off arm is held to |Δcode| ≤ 1 on a stated share of codes.
 
-CUDA kernels (``csrc/attention_lis.cu``, head_dim 64, N ≤ 256) replace the
-Pallas kernels ``lis_attention_qkv_fused`` (``_qkv_fused_kernel``),
-``lis_attention_fused`` (``_fused_kernel``) and ``lis_attention``
-(``_kernel``).
+CUDA kernels (``csrc/attention_lis.cu``, N ≤ 256) replace the Pallas
+kernels ``lis_attention_qkv_fused`` (``_qkv_fused_kernel``, head_dim 64),
+``lis_attention_fused`` (``_fused_kernel``, head_dim 16, 32 or 64) and
+``lis_attention`` (``_kernel``, any head_dim ≤ 64).
 
 The qkv-fused kernel runs one thread-block cluster per (image, head) of
 ceil(N/64) CTAs (``qkv_cluster_plan``). CTA r computes the head's q/k/v
@@ -56,10 +56,15 @@ hi = w >> 8 and lo = w & 0xFF both ≤ 128, which keeps the integer sum
 exact. LIS off keeps ``p2v::softmax_row`` and the scalar float64 attn@v.
 What bounds it on the H100: the per-row LIS chain, about half of a CTA's
 time, and the qkv GEMM on ``mma.sync``, about a third (``phase_ns``); LIS
-off, the float64 attn@v. The other two kernels run one block per (image,
-head) over q/k/v rows copied into shared memory, warps owning query rows:
-dp4a scores, then ``p2v::lis_row`` and the shift-accumulate, or
-``p2v::softmax_row`` and the float64 attn@v (``attend_rows``).
+off, the float64 attn@v. The other two kernels run one (image, head) item
+per CTA on the same bodies (``csrc/attention_rows.cuh``, which the fused
+encoder layer's attention phase runs too): the item's q/k/v rows staged by
+``cp.async`` with the keys padded to 32 and the head_dim to 32 or 64 by
+zero codes, q·kᵀ, ``p2v::lis_row`` into the hi/lo planes and attn@v on
+``mma.sync``; LIS off ``p2v::softmax_row`` and the float64 attn@v in key
+order. The query groups go in chunks of ``gc`` so that as many CTAs as
+shared memory allows share an SM (``vit_attention_plan``); output columns
+past the true head_dim are never written.
 
 CUDA kernels (``csrc/swin_attention.cu``) replace the Pallas kernels
 ``p2vit_tpu/ops/attention_lis.py:swin_lis_attention`` (``_swin_kernel`` →
@@ -184,8 +189,96 @@ def _attend(scores, v_q, s_attn, out_requant, lis_bits, lis):
     return torch.clamp(torch.round(av * ro), -128, 127).to(torch.int8)
 
 
-HEAD_DIM = 64  # the ViT attention kernels' head_dim (every ViT/DeiT in the zoo)
+HEAD_DIM = 64  # the qkv-fused kernel's head_dim (every ViT/DeiT in the zoo)
 MAX_N = 256  # tokens the ViT attention kernels take (197 at 224²/16²)
+MAX_HEAD_DIM = 64  # the widest head_dim of the per-item kernels (lis_attention takes any d up to it)
+FUSED_HEAD_DIMS = (16, 32, 64)  # lis_attention_fused's: the divisors of 128 JAX admits, up to 64
+MAX_SMEM = 232_448  # dynamic shared memory one CTA may use on the H100
+SM_SMEM = 233_472  # an SM's shared memory, 1 KB of it reserved per CTA
+
+
+def vit_attention_layout(n: int, hd: int, lis: bool = True, stages: int = 1, gc: int = 1) -> dict:
+    """Byte offsets of the per-item attention body's shared memory
+    (``csrc/attention_rows.cuh`` ``layout``): ``stages`` stage buffers of
+    the item's q rows (16·⌈N/16⌉), k and v rows (⌈N/32⌉·32), q/k rows
+    HDP + 16 bytes apart, v rows dense; then, with LIS, V transposed; the
+    score / hi plane and, with LIS, the lo plane, 16·gc rows of kpad + 16
+    bytes each. HDP: the head_dim padded to 32 or 64."""
+    hdp = 32 if hd <= 32 else 64
+    qld, kpad, ng = hdp + 16, -(-n // 32) * 32, -(-n // 16)
+    vld = kpad + 16
+    k_off = 16 * ng * qld
+    v_off = k_off + kpad * qld
+    stage = v_off + kpad * hdp
+    vt = stages * stage
+    s_off = vt + (hdp * vld if lis else 0)
+    lo = s_off + 16 * gc * vld
+    total = lo + (16 * gc * vld if lis else 0)
+    return dict(hdp=hdp, qld=qld, kpad=kpad, groups=ng, vld=vld, k_off=k_off, v_off=v_off, stage=stage, vt=vt,
+                s=s_off, lo=lo, total=total)
+
+
+def vit_attention_gc(n: int, hd: int, lis: bool, stages: int, budget: int, force: int = 0) -> int:
+    """Query groups a chunk (``csrc/attention_rows.cuh`` ``fit_gc``): the
+    fewest chunks whose layout fits ``budget``, their groups balanced;
+    ``force`` > 0 takes min(force, groups); 0 where one group does not fit."""
+    ng = -(-n // 16)
+    if force > 0:
+        return min(force, ng)
+    most = next((g for g in range(ng, 0, -1) if vit_attention_layout(n, hd, lis, stages, g)["total"] <= budget), 0)
+    if most == 0:
+        return 0
+    chunks = -(-ng // most)
+    return -(-ng // chunks)
+
+
+@dataclasses.dataclass(frozen=True)
+class VitAttentionPlan:
+    """The launch of ``lis_attention_fused`` / ``lis_attention`` at N tokens
+    and head_dim hd (``csrc/attention_lis.cu`` ``launch_rows``): one item
+    per CTA of 256 threads, one stage buffer."""
+
+    hdp: int  # head_dim padded to 32 or 64
+    kpad: int  # keys padded to a multiple of 32
+    groups: int  # 16-row query groups
+    gc: int  # groups a chunk
+    smem_bytes: int  # dynamic shared memory per CTA
+
+    @property
+    def chunks(self) -> int:
+        return -(-self.groups // self.gc)
+
+
+def vit_attention_plan(n: int, hd: int, lis: bool = True, gc: int = 0) -> VitAttentionPlan:
+    """The per-item kernels' plan (``csrc/attention_lis.cu`` ``rows_gc``):
+    the most CTAs an SM, 4, 3 or 2, whose shared memory (``SM_SMEM``/k −
+    1 KB each) holds one query group a chunk, then the fewest balanced
+    chunks within it; or ``gc`` > 0 groups a chunk (a measurement hook, up
+    to a whole CTA's shared memory). Raises where the kernels do not run
+    (N > 256, head_dim > 64)."""
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"attention kernel needs 1 <= N <= {MAX_N}; got N={n}")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"attention kernel needs head_dim <= {MAX_HEAD_DIM}; got head_dim {hd}")
+    budgets = [SM_SMEM // k - 1024 for k in (4, 3, 2)] + [MAX_SMEM]
+    g = vit_attention_gc(n, hd, lis, 1, MAX_SMEM, gc) if gc > 0 else next(
+        (g for g in (vit_attention_gc(n, hd, lis, 1, b) for b in budgets) if g > 0), 0)
+    lay = vit_attention_layout(n, hd, lis, 1, g)
+    if g == 0 or lay["total"] > MAX_SMEM:
+        raise ValueError(f"attention kernel needs {lay['total']} B of shared memory at N={n}, gc={gc}")
+    return VitAttentionPlan(lay["hdp"], lay["kpad"], lay["groups"], g, lay["total"])
+
+
+def vit_attention_info(n: int, hd: int, lis: bool = True, gc: int = 0) -> dict:
+    """The built per-item kernel's launch facts, from the CUDA runtime:
+    padded head_dim, groups a chunk, shared memory, registers and spill
+    bytes per thread, CTAs per SM. Needs the card."""
+    lib, _ = library()
+    info = (ctypes.c_int * 6)()
+    rc = lib.p2v_vit_attention_info(int(n), int(hd), int(bool(lis)), int(gc), ctypes.cast(info, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"p2v_vit_attention_info: CUDA error {rc}: {lib.p2v_error_string(rc).decode()}")
+    return dict(zip(("hdp", "gc", "smem_bytes", "registers", "spill_bytes", "ctas_per_sm"), list(info)))
 
 
 def _check_lis_bits(lis, lis_bits):
@@ -208,6 +301,16 @@ def lis_attention_plain(q_q, k_q, v_q, score_requant, attn_scale, out_requant,
     return _attend(_scores(q_q, k_q, score_requant), v_q, sa, out_requant, lis_bits, lis)
 
 
+def _split_operands(q_q, k_q, v_q, lis, lis_bits, gc=0):
+    """The split kernel's operand checks; returns (BH, N, d)."""
+    bh, n, d = q_q.shape
+    for name, t in (("q_q", q_q), ("k_q", k_q), ("v_q", v_q)):
+        check_cuda_operand(t, name, torch.int8, (bh, n, d))
+    _check_lis_bits(lis, lis_bits)
+    vit_attention_plan(n, d, lis, gc)
+    return bh, n, d
+
+
 def lis_attention(q_q, k_q, v_q, score_requant, attn_scale, out_requant, lis_bits=4, lis=True):
     """Attention per (batch·head) over split codes.
 
@@ -216,23 +319,27 @@ def lis_attention(q_q, k_q, v_q, score_requant, attn_scale, out_requant, lis_bit
       score_requant: s_qkv²·head_scale/s_attn; attn_scale: s_attn (the
         softmax input scale); out_requant: s_qkv/s_out.
     Returns (BH, N, d) int8 codes of the qact2 node. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (d = 64, N ≤ 256) or raise.
+    plain version; CUDA tensors launch the kernel (d ≤ 64, N ≤ 256) or raise.
     """
     dev = device_of(q_q, k_q, v_q)
     if dev.type == "cpu":
         return lis_attention_plain(q_q, k_q, v_q, score_requant, attn_scale, out_requant,
                                    lis_bits, lis)
-    bh, n, d = q_q.shape
-    for name, t in (("q_q", q_q), ("k_q", k_q), ("v_q", v_q)):
-        check_cuda_operand(t, name, torch.int8, (bh, n, d))
-    _check_lis_bits(lis, lis_bits)
-    if d != HEAD_DIM or n > MAX_N:
-        raise ValueError(f"attention kernel needs head_dim {HEAD_DIM} and N <= {MAX_N}; "
-                         f"got d={d}, N={n}")
+    bh, n, d = _split_operands(q_q, k_q, v_q, lis, lis_bits)
     out = torch.empty((bh, n, d), dtype=torch.int8, device=dev)
     launch("p2v_lis_attention", q_q, k_q, v_q,
-           _vit_scalars(score_requant, attn_scale, out_requant, dev), out, bh, n, int(bool(lis)))
+           _vit_scalars(score_requant, attn_scale, out_requant, dev), out, bh, n, d, int(bool(lis)))
     lis_attention.launches += 1
+    return out
+
+
+def lis_attention_forced(q_q, k_q, v_q, score_requant, attn_scale, out_requant, lis_bits=4, lis=True, *, gc):
+    """``lis_attention`` on CUDA tensors with ``gc`` query groups a chunk
+    (``vit_attention_plan``'s hook); not counted as a launch."""
+    bh, n, d = _split_operands(q_q, k_q, v_q, lis, lis_bits, gc)
+    out = torch.empty((bh, n, d), dtype=torch.int8, device=q_q.device)
+    launch("p2v_lis_attention_forced", q_q, k_q, v_q,
+           _vit_scalars(score_requant, attn_scale, out_requant, q_q.device), out, bh, n, d, int(bool(lis)), gc)
     return out
 
 
@@ -259,6 +366,19 @@ def lis_attention_fused_plain(qkv_q, num_heads, score_requant, attn_scale, out_r
                                             lis_bits, lis))
 
 
+def _fused_operands(qkv_q, num_heads, lis, lis_bits, gc=0):
+    """The fused kernel's operand checks; returns (B, N, C)."""
+    b, n, c3 = qkv_q.shape
+    c = c3 // 3
+    check_cuda_operand(qkv_q, "qkv_q", torch.int8)
+    _check_lis_bits(lis, lis_bits)
+    if c3 != 3 * c or c % num_heads or c // num_heads not in FUSED_HEAD_DIMS or n > MAX_N:
+        raise ValueError(f"attention kernel needs head_dim in {FUSED_HEAD_DIMS} and N <= {MAX_N}; "
+                         f"got C={c}, heads={num_heads}, N={n}")
+    vit_attention_plan(n, c // num_heads, lis, gc)
+    return b, n, c
+
+
 def lis_attention_fused(qkv_q, num_heads, score_requant, attn_scale, out_requant,
                         lis_bits=4, lis=True):
     """Attention over the (B, N, 3C) fused-qkv codes: the heads are sliced
@@ -266,24 +386,30 @@ def lis_attention_fused(qkv_q, num_heads, score_requant, attn_scale, out_requant
 
     Args as ``lis_attention``. Returns (B, N, C) int8 codes of the qact2
     node. CPU tensors take the plain version; CUDA tensors launch the kernel
-    (head_dim 64, N ≤ 256) or raise.
+    (head_dim 16, 32 or 64, N ≤ 256) or raise.
     """
     dev = qkv_q.device
     if dev.type == "cpu":
         return lis_attention_fused_plain(qkv_q, num_heads, score_requant, attn_scale,
                                          out_requant, lis_bits, lis)
-    b, n, c3 = qkv_q.shape
-    c = c3 // 3
-    check_cuda_operand(qkv_q, "qkv_q", torch.int8)
-    _check_lis_bits(lis, lis_bits)
-    if c3 != 3 * c or c != HEAD_DIM * num_heads or n > MAX_N:
-        raise ValueError(f"attention kernel needs head_dim {HEAD_DIM} and N <= {MAX_N}; "
-                         f"got C={c}, heads={num_heads}, N={n}")
+    b, n, c = _fused_operands(qkv_q, num_heads, lis, lis_bits)
     out = torch.empty((b, n, c), dtype=torch.int8, device=dev)
     launch("p2v_lis_attention_fused", qkv_q,
            _vit_scalars(score_requant, attn_scale, out_requant, dev), out, b, n, c, num_heads,
            int(bool(lis)))
     lis_attention_fused.launches += 1
+    return out
+
+
+def lis_attention_fused_forced(qkv_q, num_heads, score_requant, attn_scale, out_requant, lis_bits=4, lis=True,
+                               *, gc):
+    """``lis_attention_fused`` on CUDA tensors with ``gc`` query groups a
+    chunk (``vit_attention_plan``'s hook); not counted as a launch."""
+    b, n, c = _fused_operands(qkv_q, num_heads, lis, lis_bits, gc)
+    out = torch.empty((b, n, c), dtype=torch.int8, device=qkv_q.device)
+    launch("p2v_lis_attention_fused_forced", qkv_q,
+           _vit_scalars(score_requant, attn_scale, out_requant, qkv_q.device), out, b, n, c, num_heads,
+           int(bool(lis)), gc)
     return out
 
 
@@ -303,7 +429,6 @@ def lis_attention_qkv_fused_plain(h_q, w_q, requant_vec, bias_vec, num_heads,
 ROWS_PER_CTA = 64  # token rows whose q/k/v codes one CTA of the cluster computes
 QGROUP = 16  # query rows per MMA row tile
 GEMM_STAGE_BYTES = 2 * (64 + 3 * HEAD_DIM) * 80  # Gemm<64, 192>'s two cp.async stages
-MAX_SMEM = 232_448  # dynamic shared memory one CTA may use on the H100
 
 
 @dataclasses.dataclass(frozen=True)

@@ -459,14 +459,65 @@ def test_lis_attention_fused_kernel(dev, n, lis):
 
 @pytest.mark.parametrize("lis", [True, False])
 def test_lis_attention_kernel(dev, lis):
-    """Split (B·H, N, 64) q/k/v; another head_dim raises."""
+    """Split (B·H, N, 64) q/k/v; head_dim 32 is served too, 65 raises."""
     rng = np.random.RandomState(5)
     q, k, v = (_i8(rng, (18, 197, 64)).to(dev) for _ in range(3))
     a = (q, k, v, 2.0**-11, 2.0**-4, 2.0)
     _same(attention_lis.lis_attention(*a, lis=lis), attention_lis.lis_attention_plain(*a, lis=lis))
+    half = [t[..., :32].contiguous() for t in (q, k, v)]
+    _same(attention_lis.lis_attention(*half, *a[3:], lis=lis),
+          attention_lis.lis_attention_plain(*half, *a[3:], lis=lis))
+    wide = [_i8(rng, (2, 17, 65)).to(dev) for _ in range(3)]
     with pytest.raises(ValueError, match="head_dim"):
-        attention_lis.lis_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
-                                    v[..., :32].contiguous(), *a[3:], lis=lis)
+        attention_lis.lis_attention(*wide, *a[3:], lis=lis)
+
+
+# (B, N, C, heads) at head_dims 16, 32 and 64 and the item's edges: N = 5
+# (one query group, one key block), 65 (a group and a key block over), 197,
+# 256 (the maximum)
+FUSED_ATTN_SHAPES = [(3, n, c, h) for n in (5, 65, 197, 256) for c, h in ((96, 6), (192, 6), (384, 6))]
+
+
+@pytest.mark.parametrize("lis", [True, False])
+@pytest.mark.parametrize("shape", FUSED_ATTN_SHAPES, ids=lambda s: "b{}n{}c{}h{}".format(*s))
+def test_lis_attention_fused_head_dims(dev, shape, lis):
+    """Every head_dim the kernel serves (16, 32, 64), bitwise against the
+    plain version, on the plan's query-group chunks and on forced ones."""
+    b, n, c, heads = shape
+    rng = np.random.RandomState(n + c)
+    qkv = _i8(rng, (b, n, 3 * c)).to(dev)
+    a = (qkv, heads, 2.0**-11, 2.0**-11 if lis else 2.0**-4, 2.0)
+    want = attention_lis.lis_attention_fused_plain(*a, lis=lis)
+    _same(attention_lis.lis_attention_fused(*a, lis=lis), want)
+    groups = -(-n // 16)
+    for gc in sorted({1, 2, max(1, groups // 2), groups}):
+        _same(attention_lis.lis_attention_fused_forced(*a, lis=lis, gc=gc), want)
+
+
+@pytest.mark.parametrize("lis", [True, False])
+@pytest.mark.parametrize("d", [1, 5, 16, 17, 31, 32, 33, 48, 63, 64])
+def test_lis_attention_any_head_dim(dev, d, lis):
+    """``lis_attention`` at head_dims up to 64: rows that are no multiple of
+    16 bytes take the byte loads, odd widths the byte stores; output columns
+    past d are never written."""
+    rng = np.random.RandomState(d)
+    q, k, v = (_i8(rng, (7, 65, d)).to(dev) for _ in range(3))
+    a = (q, k, v, 2.0**-11, 2.0**-11 if lis else 2.0**-4, 2.0)
+    _same(attention_lis.lis_attention(*a, lis=lis), attention_lis.lis_attention_plain(*a, lis=lis))
+    _same(attention_lis.lis_attention_forced(*a, lis=lis, gc=1), attention_lis.lis_attention_plain(*a, lis=lis))
+
+
+@pytest.mark.parametrize("lis", [True, False])
+@pytest.mark.parametrize("n,hd", [(5, 16), (197, 64), (256, 64), (197, 32), (256, 16)])
+def test_vit_attention_plan_matches_kernel(dev, n, hd, lis):
+    """The CUDA runtime's view of the per-item kernel agrees with
+    ``vit_attention_plan`` (padded head_dim, groups a chunk, shared memory),
+    holds the CTAs an SM the plan sized it for and spills nothing."""
+    plan = attention_lis.vit_attention_plan(n, hd, lis)
+    info = attention_lis.vit_attention_info(n, hd, lis)
+    assert (info["hdp"], info["gc"], info["smem_bytes"]) == (plan.hdp, plan.gc, plan.smem_bytes)
+    per_sm = next(k for k in (4, 3, 2, 1) if plan.smem_bytes <= attention_lis.SM_SMEM // k - 1024)
+    assert info["ctas_per_sm"] >= min(per_sm, 3) and info["spill_bytes"] == 0  # registers may hold a 4th back
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -1006,7 +1057,8 @@ def test_fused_vit_layer_kernel(dev, b, dead, lis):
 
 
 def test_fused_vit_layer_raises_where_it_does_not_fit(dev):
-    """head_dim 16 (a TINY layer) on the card: ValueError naming fuse_layer=False."""
+    """C = 32 (a TINY layer, head_dim 16) on the card: ValueError naming
+    fuse_layer=False."""
     rng = np.random.RandomState(12)
     c, hid = 32, 128
     v = lambda n: torch.ones(n, device=dev)  # noqa: E731
@@ -1014,8 +1066,87 @@ def test_fused_vit_layer_raises_where_it_does_not_fit(dev):
             v(3 * c), v(3 * c), 2, 1.0, 0.0625, 1.0, _i8(rng, (c, c)).to(dev), v(c), v(c), 1.0, v(c),
             v(c), v(c), v(c), v(c), 1.0, _i8(rng, (hid, c)).to(dev), v(hid), v(hid), 1.0,
             _i8(rng, (c, hid)).to(dev), v(c), v(c), 1.0, v(c), v(c), v(c), v(c), 1.0]
-    with pytest.raises(ValueError, match="head_dim 16.*fuse_layer=False"):
+    with pytest.raises(ValueError, match="multiples of 64.*fuse_layer=False"):
         layer_fused.fused_vit_layer(*args)
+
+
+def _small_layer_args(dev, b, n, c, heads, hid, seed=21):
+    """A layer's arguments at any width (as ``_layer_args``)."""
+    rng = np.random.RandomState(seed)
+
+    def f(a):
+        return torch.from_numpy(np.asarray(a, np.float32))
+
+    args = [_i8(rng, (b, n, c)), _i8(rng, (b, n, c)), _i8(rng, (3 * c, c), -8, 8), _pot(rng, 3 * c, -8, -6),
+            f(rng.randn(3 * c)), heads, 2.0**-9, 2.0**-4, 4.0,
+            _i8(rng, (c, c), -8, 8), _pot(rng, c, -8, -6), f(rng.randn(c)), 2.0**-5, _ptf(rng, c, 0.011),
+            _ptf(rng, c, 0.03), f(rng.randn(c)), f(rng.randn(c) * 0.1), f(np.abs(rng.randn(c)) * 0.03 + 0.01),
+            _pot(rng, c, -1, 2), _i8(rng, (hid, c), -8, 8), _pot(rng, hid, -10, -8), f(rng.randn(hid) * 0.5), 16.0,
+            _i8(rng, (c, hid), -8, 8), _pot(rng, c, -10, -8), f(rng.randn(c)), 2.0**-4, _ptf(rng, c, 0.04),
+            f(rng.randn(c)), f(rng.randn(c) * 0.1), f(np.abs(rng.randn(c)) * 0.03 + 0.01), 1.0]
+    return [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
+
+
+# (B, N, C, heads, hid): head_dims 16 (C = 64, 4 heads), 32 (2 heads) and 64;
+# N = 5, 65, 197 and 256; DeiT-T's width
+LAYER_SHAPES = [(3, 5, 64, 4, 256), (3, 65, 64, 2, 256), (1, 197, 128, 2, 512), (3, 256, 192, 3, 768),
+                (3, 197, 192, 6, 768), (2, 65, 384, 12, 1536), (1, 256, 384, 6, 1536)]
+
+
+@pytest.mark.parametrize("lis", [True, False])
+@pytest.mark.parametrize("shape", LAYER_SHAPES, ids=lambda s: "b{}n{}c{}h{}hid{}".format(*s))
+def test_fused_vit_layer_shapes(dev, shape, lis):
+    """Every head_dim and token count the kernel takes, bitwise against the
+    four-kernel pipeline's plain versions, with one counted launch."""
+    a = _small_layer_args(dev, *shape)
+    before = layer_fused.fused_vit_layer.launches
+    got = layer_fused.fused_vit_layer(*a, lis=lis)
+    assert layer_fused.fused_vit_layer.launches == before + 1
+    _same(got, layer_fused.fused_vit_layer_plain(*a, lis=lis))
+
+
+@pytest.mark.parametrize("lis", [True, False])
+@pytest.mark.parametrize("grid,gc,br", [(1, 0, 0), (1, 0, 64), (2, 0, 0), (7, 0, 64), (0, 1, 0), (0, 4, 0),
+                                        (0, 13, 64), (5, 3, 32), (0, 0, 64)])
+def test_fused_vit_layer_forced_plans(dev, grid, gc, br, lis):
+    """Forced plans at DeiT-S width, batch 3: one CTA walks every tile, item
+    and block (each warpgroup's ring phases carried across hundreds of
+    chunks and across blocks), a few CTAs, the attention in chunks of 1, 3,
+    4 and 13 query groups, phase C in blocks of 32 rows, of 64 and of both;
+    each bitwise against the plain version."""
+    a = _layer_args(dev, 3)
+    _same(layer_fused.fused_vit_layer_forced(*a, lis=lis, grid=grid, gc=gc, br=br),
+          layer_fused.fused_vit_layer_plain(*a, lis=lis))
+
+
+@pytest.mark.parametrize("lis", [True, False])
+@pytest.mark.parametrize("b,n,c,heads,hid", [(64, 197, 384, 6, 1536), (64, 197, 192, 3, 768), (3, 65, 64, 4, 256)])
+def test_fused_vit_layer_plan_matches_kernel(dev, b, n, c, heads, hid, lis):
+    """The CUDA runtime's view of the launch agrees with ``layer_plan``
+    (threads, grid, shared memory per phase, groups a chunk, padded
+    head_dim, phase C's blocks); one CTA fits an SM within the 168
+    registers a thread that 384 threads leave."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = layer_fused.layer_plan(b, n, c, heads, hid, lis, sms=sms)
+    info = layer_fused.layer_kernel_info(b, n, c, heads, hid, lis)
+    assert (info["threads"], info["grid"], info["smem_bytes"], info["smem_a"], info["smem_b"], info["smem_c"],
+            info["gc"], info["hdp"], info["blocks_64"], info["blocks"]) == (
+        plan.threads, plan.grid, plan.smem_bytes, plan.smem_a, plan.smem_b, plan.smem_c, plan.gc, plan.hdp,
+        plan.blocks_64, plan.blocks)
+    assert info["ctas_per_sm"] >= 1 and info["registers"] <= 168
+
+
+@pytest.mark.parametrize("lis", [True, False])
+def test_fused_vit_layer_phase_hook(dev, lis):
+    """The phase clock: the same codes, one counted launch, four stamps in
+    order."""
+    a = _layer_args(dev, 8)
+    stamps = torch.zeros(4, dtype=torch.int64, device=dev)
+    before = layer_fused.fused_vit_layer.launches
+    _same(layer_fused.fused_vit_layer(*a, lis=lis, phase_ns=stamps), layer_fused.fused_vit_layer_plain(*a, lis=lis))
+    assert layer_fused.fused_vit_layer.launches == before + 1
+    st = stamps.cpu()
+    assert int(st[0]) > 0 and bool((st[1:] >= st[:-1]).all())
 
 
 @pytest.mark.parametrize("lis", [True, False])

@@ -341,15 +341,15 @@ def test_check_fits_zoo(name, fits):
     else:
         with pytest.raises(ValueError, match="shared memory.*fuse_layer=False"):
             layer_fused.check_fits(*args)
-    assert layer_fused.smem_bytes(197, 384, 1536) == 149_504
+    assert layer_fused.smem_bytes(197, 384, 1536) == 229_992
 
 
 @pytest.mark.parametrize("dims,why", [
-    ((17, 32, 2, 128), "head_dim 16"), ((300, 384, 6, 1536), "N = 300"),
+    ((17, 32, 2, 128), "multiples of 64"), ((300, 384, 6, 1536), "N = 300"),
     ((197, 96, 1, 384), "head_dim 96"), ((197, 128, 2, 520), "multiples of 64"),
 ])
 def test_check_fits_rejects(dims, why):
-    """TINY (head_dim 16), too many tokens, another head_dim, a ragged
-    hidden width: ValueError naming the reason and fuse_layer=False."""
+    """TINY (C = 32), too many tokens, another head_dim, a ragged hidden
+    width: ValueError naming the reason and fuse_layer=False."""
     with pytest.raises(ValueError, match=f"{why}.*fuse_layer=False"):
         layer_fused.check_fits(*dims)
