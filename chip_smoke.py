@@ -37,19 +37,24 @@ weight-only serving of both models and the two weight-store GEMM tools:
 * ``w4pack`` / ``wstream``: the ported tools (``p2vit_tpu_torch/tools``) at
   the DeiT-S GEMMs, M = 197·batch, depth 12. Phase 1: ``int4_matmul_requant``
   against its plain version and the int8 kernel (also on the ``deit``
-  path's fc1 and head arguments, packed), ``wstream_matmul`` in each store
+  path's fc1 and head arguments, packed, and on forced grids: one CTA, three,
+  one tile a CTA), ``wstream_matmul`` in each store
   against its plain version (also on x rows spanning 25 binades); phase
   2/3: one depth-12 chain per arm and M, 4·12 launches each; phase 5: the
   tools' lines (ms per GEMM and chain) and each kernel's ms against its
   plain version, its bound and, for ``wstream_matmul``, the bf16
   ``torch.matmul`` over the same codes, its TFLOP/s and share of the float64
   tensor-core peak (fc1 at M = 12608, and per chain), and its blocks at
-  M = 197. After the build, the DMMA instructions in the built
+  M = 197; ``int4_matmul_requant``'s launch line per GEMM (the packed plan:
+  tile width, consumers, ring stages, grid; shared memory, registers,
+  spills, CTAs per SM) and, per M, both stores' chains in device ms beside
+  their bounds. After the build, the DMMA instructions in the built
   ``wstream_matmul`` kernels, the IMMA instructions in the cluster
   attention kernel and in the Swin attention kernel, and the warpgroup-MMA
   (IGMMA) and TMA-load (UTMALDG)
   instructions in the Hopper ``int8_matmul_requant``, ``int8_matmul_res_ln``,
-  ``fused_patch_embed`` and ``fused_vit_layer`` kernels, the IMMA
+  ``fused_patch_embed`` and ``fused_vit_layer`` kernels and, on their own,
+  the int4-store instances of the requant kernel, the IMMA
   instructions of the fused layer and of the per-item attention kernel, and
   the shared loads (LDS) against the
   multiplies of ``fused_swin_stem``'s inner loop (``cuobjdump -sass``,
@@ -64,10 +69,11 @@ Phases of the int8 serving paths, one line each, per path:
      batch 8 and 64): mismatch counts; must be 0. The staged path also holds
      ``lis_attention`` against its plain version, on the captured qkv codes
      split to (B·H, N, 64), and both per-item attention kernels on the same
-     codes read at head_dims 32 and 16 and on forced query-group chunks;
-     the fused-layer paths hold ``fused_vit_layer`` on forced plans (7
-     CTAs; 1 and 4 query groups a chunk; blocks of 32 and 64 rows) and at
-     head_dim 32; the Swin paths hold the Swin attention on each
+     codes read at head_dims 32 and 16 and, at batch 8, at 8, 4, 2 and 1,
+     and on forced query-group chunks; the fused-layer paths hold
+     ``fused_vit_layer`` on forced plans (7 CTAs; 1 and 4 query groups a
+     chunk; blocks of 32 and 64 rows) and at head_dim 32 and, at batch 8,
+     at 8, 4, 2 and 1; the Swin paths hold the Swin attention on each
      panel call's arguments on forced grids (one item per CTA, 7 CTAs) and
      the folded entry, at shift 0 and ws // 2, on the raster grid the
      panels tile. The prologue kernels are also held on forced plans:
@@ -186,7 +192,10 @@ REDESIGNED = {"wstream_matmul": "float64 tensor cores (mma.sync.m16n8k16) on exa
                                  "tiles; attention on the per-item mma.sync body, the next item prefetched",
               "lis_attention_fused": "per-item body: q/k/v by cp.async, keys and head_dim zero-padded, int8 "
                                      "mma.sync scores and LIS attn@v over hi/lo planes, query groups in chunks",
-              "lis_attention": "the same body over split q/k/v, any head_dim up to 64"}
+              "lis_attention": "the same body over split q/k/v, any head_dim up to 64",
+              "int4_matmul_requant": "the int8 store's body (TMA ring, int8 wgmma, persistent warp-specialized "
+                                     "grid) on boxes of the packed store, unpacked chunk to chunk in shared memory "
+                                     "by the producer warpgroup's idle warps"}
 # kernel → (plain version's module, its name, CUDA source, the TPU kernel it replaces)
 SOURCES = {
     "fused_patch_embed": ("embed_fused", "fused_patch_embed_plain", "embed_fused.cu",
@@ -657,7 +666,8 @@ def _vit_plan_checks(ops, name, a, k, want):
     plans (the layer on 7 CTAs, on 1 and 4 query groups a chunk and on
     phase-C blocks of 32 and 64 rows, the attention on 1 and 4 groups a
     chunk) and with the codes read at head_dims 32 and 16 (the layer at
-    32)."""
+    32) and, on the batch-8 calls (the plain versions' score tensors grow
+    with the heads), at 8, 4, 2 and 1."""
     out = {}
     al, lf = ops.attention_lis, ops.layer_fused
     want = _as_tuple(want)
@@ -670,7 +680,8 @@ def _vit_plan_checks(ops, name, a, k, want):
         for gc in (1, 4):
             out[f"{name} gc {gc}"] = _diff(forced(*a, **k, gc=gc), want[0])[0]
     plain = getattr(getattr(ops, SOURCES[name][0]), SOURCES[name][1])
-    for hd in ((32,) if name == "fused_vit_layer" else (32, 16)):
+    small = (8, 4, 2, 1) if a[0].numel() <= 2_000_000 else ()  # DeiT-S at batch 8, not 64
+    for hd in ((32,) if name == "fused_vit_layer" else (32, 16)) + small:
         b = _vit_head_dim(a, name, hd)
         out[f"{name} head_dim {hd}"] = sum(_diff(g, w)[0] for g, w in zip(
             _as_tuple(getattr(ops, name)(*b, **k)), _as_tuple(plain(*b, **k))))
@@ -1194,7 +1205,7 @@ def run_w4pack(batches, reps, depth, dev, deit, ops, counts_api):
     reset_launch_counts, launch_counts = counts_api
     mi, name = ops.matmul_int8, "w4pack"
     ms = [197 * b for b in batches]
-    mism = {"vs plain": 0, "vs int8 kernel": 0}
+    mism = {"vs plain": 0, "vs int8 kernel": 0, "forced grids": 0}
     worst = 0
 
     def hold(a, k):
@@ -1206,15 +1217,21 @@ def run_w4pack(batches, reps, depth, dev, deit, ops, counts_api):
         worst = max(worst, e)
         mism["vs int8 kernel"] += _diff(got, mi.int8_matmul_requant(x, w, *a[2:], **k))[0]
 
-    rows = []
+    rows, launch_lines = [], []
     for m in ms:
         rng = np.random.RandomState(m)
         for gname, k, n, gelu in (*gb.DEIT_S_GEMMS, gb.CONTROL):
             x, stores, r, b, kw = wl.gemm_case(m, k, n, gelu, rng, dev)
             hold((x, stores["i8"], r, b), kw)
-            if m == ms[-1] and gname != gb.CONTROL[0]:
-                rows.append((mi.int4_matmul_requant, mi.int4_matmul_requant_plain, (x, stores["w4p"], r, b),
-                             kw, depth, f"{name} phase 5 kernel int4_matmul_requant {gname} M={m}", None))
+            if m == ms[-1]:
+                a4 = (x, stores["w4p"], r, b)
+                want = mi.int4_matmul_requant_plain(*a4, **kw)
+                for grid in (1, 3, mi.int4_requant_plan(m, n, k, 1, gelu).tiles):
+                    mism["forced grids"] += _diff(mi.int4_matmul_requant_grid(*a4, **kw, grid=grid), want)[0]
+                launch_lines.append(_int4_launch_report(mi, gname, m, n, k, gelu))
+                if gname != gb.CONTROL[0]:
+                    rows.append((mi.int4_matmul_requant, mi.int4_matmul_requant_plain, a4, kw, depth,
+                                 f"{name} phase 5 kernel int4_matmul_requant {gname} M={m}", None))
     s, cfg = deit["s"], deit["cfg"]
     seen = {}
     for bsz in sorted({8, max(batches)}):
@@ -1225,9 +1242,9 @@ def run_w4pack(batches, reps, depth, dev, deit, ops, counts_api):
     for a, k in seen.values():
         hold(a, k)
     torch.cuda.synchronize()
-    print(f"{name} phase 1 int4_matmul_requant (the tool's constants at M={ms}, and the deit path's "
-          f"{len(seen)} fc1/head argument shapes, codes packed with pack_int4): mismatches "
-          f"{json.dumps(mism)}", flush=True)
+    print(f"{name} phase 1 int4_matmul_requant (the tool's constants at M={ms}, on forced grids of 1 and 3 "
+          f"CTAs and one tile a CTA at M={ms[-1]}, and the deit path's {len(seen)} fc1/head argument shapes, "
+          f"codes packed with pack_int4): mismatches {json.dumps(mism)}", flush=True)
     if any(mism.values()):
         _fail(f"{name}: int4_matmul_requant disagrees: {mism}")
 
@@ -1246,6 +1263,8 @@ def run_w4pack(batches, reps, depth, dev, deit, ops, counts_api):
     if not same or counts != want:
         _fail(f"{name}: chain pin {same} or launch counts {counts} != {want}")
 
+    for line in launch_lines:
+        print(f"{name} phase 5 {line}", flush=True)
     for m in ms:
         print(f"{name} phase 5 DeiT-S GEMMs at M={m} (tool lines)")
         rng = np.random.RandomState(m)
@@ -1253,10 +1272,44 @@ def run_w4pack(batches, reps, depth, dev, deit, ops, counts_api):
             wl.run_gemm(gname, m, k, n, gelu, rng, reps, dev)
         wl.run_depth_chain(m, m + 1, max(2, reps // 4), depth, dev)
     res = _timed_rows("int4_matmul_requant", rows, reps)
-    res.update(launches=counts["int4_matmul_requant"], max_abs_err=worst,
-               device_ms=_chain_device_ms(name, ("i8", "w4p"), lambda arm: wl.chain(arm, *cases[-1]),
-                                          depth, ms[-1])["w4p"][0])
+    chains = {}
+    for m, case in zip(ms, cases):
+        chains[m] = _chain_device_ms(name, ("i8", "w4p"), lambda arm, case=case: wl.chain(arm, *case), depth, m)
+        port = {arm: chains[m][arm][1] for arm in ("i8", "w4p")}
+        bound = {arm: _w4pack_chain_bound(gb, m, depth, arm == "w4p") for arm in ("i8", "w4p")}
+        ratio = f"{port['w4p'] / port['i8']:.3f}" if None not in port.values() else "not measured"
+        print(f"{name} phase 5 depth-{depth} chains at M={m}, the port's kernels' device ms: "
+              + "; ".join(f"{arm} {'not measured' if port[arm] is None else f'{port[arm]:.4f}'} (bound "
+                          f"{bound[arm][0]:.6f} ms, {bound[arm][1]})" for arm in ("i8", "w4p"))
+              + f"; w4p / i8 {ratio}", flush=True)
+    res.update(launches=counts["int4_matmul_requant"], max_abs_err=worst, device_ms=chains[ms[-1]]["w4p"][0])
     return {"int4_matmul_requant": res}
+
+
+def _int4_launch_report(mi, gname, m, n, k, gelu):
+    """The int4-store kernel's packed plan and launch facts at one GEMM
+    (CUDA runtime)."""
+    info = mi.int4_kernel_info(m, n, k, gelu)
+    return (f"int4_matmul_requant launch {gname} M={m} K={k} N={n}: BN {info['bn']}, {info['nc']} consumer "
+            f"warpgroups, {info['stages']} stages of {mi.stage_bytes(info['bn'])} B (a packed box and two x boxes "
+            f"of 64-byte rows, the high B tile), {info['tiles_m'] * info['tiles_n']} tiles on a persistent grid of "
+            f"{info['grid']} CTAs ({info['ctas_per_sm']} per SM of {info['sms']}), {info['smem_bytes']} B shared "
+            f"memory, {info['registers']} registers at launch, {info['consumer_registers']} per consumer thread, "
+            f"{info['spill_bytes']} B spilled")
+
+
+def _w4pack_chain_bound(gb, m, depth, packed):
+    """(ms, what sets it) of a depth-``depth`` chain of the tools' DeiT-S
+    GEMMs at M rows: per GEMM the larger of its bytes (x, the store: N·K or,
+    packed, N·K/2; r, b and the int8 output) over the HBM rate and its int8
+    products over their peak, summed."""
+    total, by = 0.0, {"bytes": 0.0, "operations": 0.0}
+    for _, k, n, _ in gb.DEIT_S_GEMMS:
+        nbytes = m * k + n * k // (2 if packed else 1) + 8 * n + m * n
+        t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, 2 * m * n * k / INT8_OPS_S * 1e3
+        by["bytes" if t_bytes >= t_ops else "operations"] += max(t_bytes, t_ops) * depth
+        total += max(t_bytes, t_ops) * depth
+    return total, max(by, key=by.get)
 
 
 def _chain_device_ms(name, arms, run, depth, m):
@@ -1390,9 +1443,10 @@ def print_wstream_rates(name, mw, wsb, gb, dev_ms, depth, ms, reps, dev):
     print(f"{name} phase 5 wstream_matmul blocks at M=197 on {sms} SMs: {json.dumps(blocks)}", flush=True)
 
 
-def sass_count(lib_path: str, kernel: str, opcode: str) -> str:
+def sass_count(lib_path: str, kernel: str, opcode: str, also: str = "") -> str:
     """The instructions whose opcode starts with ``opcode`` in the built
-    instances of ``kernel``, by opcode (cuobjdump -sass; report only)."""
+    instances of ``kernel`` (whose mangled names also hold ``also``), by
+    opcode (cuobjdump -sass; report only)."""
     import os
     import shutil
 
@@ -1406,7 +1460,7 @@ def sass_count(lib_path: str, kernel: str, opcode: str) -> str:
     pat = re.compile(rf"\b({re.escape(opcode)}[\w.]*)")
     for ln in sass.splitlines():
         if "Function :" in ln:
-            cur = kernel in ln
+            cur = kernel in ln and also in ln
             fns += cur
         elif cur and (m := pat.search(ln)):
             found[m.group(1)] = found.get(m.group(1), 0) + 1
@@ -1506,6 +1560,9 @@ def main() -> None:
     for kern in ("wg14requant_kernel", "wg13res_ln_kernel", "wg12embed_kernel", "fused_vit_layer_kernel"):
         for op in ("IGMMA", "UTMALDG"):
             print(f"sass: {op} instructions {sass_count(so, kern, op)}", flush=True)
+    for op in ("IGMMA", "UTMALDG"):  # the int4-store instances: PACKED, the last template argument, true
+        print(f"sass: {op} instructions {sass_count(so, 'wg14requant_kernel', op, also='Lb1EEEv')} "
+              f"(int4_matmul_requant)", flush=True)
     bad = ops.intln.ln_chain_check(dev)
     print(f"int-LN chain rewrites (2^N bits, unit-ratio fold) against ln_elem over all 2^32 floats: "
           f"mismatches {bad}", flush=True)

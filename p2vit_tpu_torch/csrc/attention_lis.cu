@@ -34,7 +34,7 @@
 //   peer copy take the rest. LIS off: the scalar float64 attn@v.
 // * p2v_lis_attention_fused replaces lis_attention_fused (_fused_kernel ->
 //   heads_attention): (image, head) items over the (B, N, 3C) qkv codes,
-//   head_dim 16, 32 or 64.
+//   head_dim 1, 2, 4, 8, 16, 32 or 64 (the divisors of 128 up to 64).
 // * p2v_lis_attention replaces lis_attention (_kernel): (batch·head) items
 //   over split (BH, N, d) q, k and v, any head_dim d ≤ 64.
 //

@@ -33,6 +33,32 @@
 //   16-byte stores (8, 4 or 1 where N is not a multiple of 16).
 // The plan (RequantPlan; ops/matmul_int8.requant_plan mirrors it) picks BN
 // and the consumers, the ring depth from shared memory, and the grid.
+//
+// The same body serves the int4-packed store (PACKED; replaces the Pallas
+// kernel p2vit_tpu/ops/matmul_int8.py:int4_matmul_requant, _packed_kernel):
+// pack_int4's (N, K/2) bytes, byte j of row n holding w[n, j] in its low
+// nibble and w[n, K/2 + j] in its high one, kh = K/2 a multiple of 16.
+// * A ring stage holds one 64-byte box of the packed store (BN rows) and
+//   the two x boxes it multiplies, at columns s·64 and kh + s·64: 128 codes
+//   of K a stage, as the int8 store's stage, in as many bytes (the unpacked
+//   tiles), and half its weight bytes read from HBM. The boxes are 64-byte
+//   swizzled, as the wgmma descriptors read them. TMA coordinates need no
+//   alignment, and zeros fill past kh in the packed box: a zero byte
+//   unpacks to two zero codes, so the x columns that the low box reads past
+//   kh (the high half's) multiply zeros. No padding and no masking past the
+//   wrapper's 16.
+// * Warps 1–3 of the producer warpgroup unpack each packed box once it has
+//   landed (its own barrier): in the swizzle a 16-byte chunk of the packed
+//   box and its two unpacked int8 chunks sit at the same offset of their
+//   tiles, so chunk i of the box becomes chunk i of the low B tile (in
+//   place) and of the high one, no swizzle arithmetic. They fence their
+//   writes to the async proxy and arrive on the stage's full barrier, which
+//   the x boxes' bytes complete beside them.
+// * The consumer issues the low slice's wgmmas, then the high slice's, on
+//   the same accumulators; the epilogue is the int8 store's, so the two
+//   stores give the same codes. Where |qmin| or |qmax| exceeds kMaxCode
+//   (beyond rint_clip), the tile rounds with requant (rintf, then the clip)
+//   and converts to int8 as the plain version does.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (types only: the library links no libcuda)
@@ -44,6 +70,7 @@ namespace wg {
 
 constexpr int kBM = 64;                // output rows per consumer tile: one m64 wgmma
 constexpr int kBK = 128;               // K bytes per ring stage: the 128-byte swizzle span
+constexpr int kPBK = 64;               // packed store: bytes of a B row per stage, the 64-byte swizzle span
 constexpr int kMaxStages = 8;
 constexpr int kMaxSmem = 232448;       // dynamic shared memory one block may use
 constexpr int kMaxCode = 1 << 22;      // |qmin|, |qmax| bound of rint_clip
@@ -63,20 +90,27 @@ struct RequantPlan {
 };
 
 constexpr int threads_of(int nc) { return 128 * (nc + 1); }  // warpgroup 0 produces
+constexpr int kUnpackers = 96;  // the packed store's unpacking threads: producer warps 1–3
 
-// Shared memory: 1024 B of alignment slack, the ring ((64 + BN)·128 B a
-// stage), a 64 × (BN + 16) output tile and r and b per consumer, with GELU a
-// 64 × (BN + 8) int32 accumulator tile per consumer, a full and an empty
-// barrier per stage and an order barrier per consumer.
-inline int requant_smem(int bn, int nc, int stages, bool gelu) {
-  return 1024 + stages * (kBM + bn) * kBK + nc * kBM * (bn + 16) + nc * 8 * bn +
-         (gelu ? nc * kBM * (bn + 8) * 4 : 0) + 16 * stages + 8 * nc;
+// A ring stage: the int8 store's 64 x rows and BN w rows of 128 bytes; the
+// packed store's two x boxes of 64 rows, its packed box of BN rows
+// (unpacked in place into the low B tile) and the high B tile, 64 bytes
+// each: the same bytes.
+__host__ __device__ constexpr int ring_stage_bytes(int bn) { return (kBM + bn) * kBK; }
+
+// Shared memory: 1024 B of alignment slack, the ring, a 64 × (BN + 16)
+// output tile and r and b per consumer, with GELU a 64 × (BN + 8) int32
+// accumulator tile per consumer, a full and an empty barrier per stage (and
+// the packed box's), and an order barrier per consumer.
+inline int requant_smem(int bn, int nc, int stages, bool gelu, bool packed = false) {
+  return 1024 + stages * ring_stage_bytes(bn) + nc * kBM * (bn + 16) + nc * 8 * bn +
+         (gelu ? nc * kBM * (bn + 8) * 4 : 0) + (packed ? 24 : 16) * stages + 8 * nc;
 }
 
-// The launch plan at (M, N) on a card of `sms` SMs (any K % 16 == 0). BN:
-// the width that wastes the fewest columns, ⌈N/BN⌉·BN − N, the widest on a
-// tie.
-inline RequantPlan requant_plan(int M, int N, int sms, bool gelu) {
+// The launch plan at (M, N) on a card of `sms` SMs (any K % 16 == 0; for
+// the packed store K/2 % 16 == 0). BN: the width that wastes the fewest
+// columns, ⌈N/BN⌉·BN − N, the widest on a tie.
+inline RequantPlan requant_plan(int M, int N, int sms, bool gelu, bool packed = false) {
   RequantPlan p{};
   const Width* ws = gelu ? kGeluWidths : kWidths;
   const int nw = gelu ? sizeof(kGeluWidths) / sizeof(Width) : sizeof(kWidths) / sizeof(Width);
@@ -85,13 +119,14 @@ inline RequantPlan requant_plan(int M, int N, int sms, bool gelu) {
     const long long x = (long long)((N + ws[i].bn - 1) / ws[i].bn) * ws[i].bn - N;
     if (waste < 0 || x < waste) waste = x, p.bn = ws[i].bn, p.nc = ws[i].nc;
   }
-  p.stages = (kMaxSmem - requant_smem(p.bn, p.nc, 0, gelu)) / ((kBM + p.bn) * kBK + 16);
+  p.stages =
+      (kMaxSmem - requant_smem(p.bn, p.nc, 0, gelu, packed)) / (ring_stage_bytes(p.bn) + (packed ? 24 : 16));
   if (p.stages > kMaxStages) p.stages = kMaxStages;
   p.tiles_m = (M + kBM - 1) / kBM;
   p.tiles_n = (N + p.bn - 1) / p.bn;
   const long long tiles = (long long)p.tiles_m * p.tiles_n;
   p.grid = static_cast<int>(tiles < sms ? tiles : sms);
-  p.smem = requant_smem(p.bn, p.nc, p.stages, gelu);
+  p.smem = requant_smem(p.bn, p.nc, p.stages, gelu, packed);
   return p;
 }
 
@@ -118,17 +153,19 @@ inline EncodeTiled encode_tiled() {
 }
 
 // The TMA map of a (rows, K) int8 matrix, boxes of 128 K bytes × box_rows,
-// 128-byte swizzle, zeros outside the matrix; no L2 promotion (256-byte
-// promotion slowed the rows of K < 128 bytes).
-inline bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int K, int box_rows) {
+// 128-byte swizzle (box_k 64: 64 bytes, 64-byte swizzle), zeros outside the
+// matrix; no L2 promotion (256-byte promotion slowed the rows of K < 128
+// bytes).
+inline bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int K, int box_rows, int box_k = kBK) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
-  const cuuint32_t box[2] = {kBK, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_k), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
+  const CUtensorMapSwizzle swizzle = box_k == kPBK ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_NONE,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -196,6 +233,14 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// The same for a tile of 64-byte rows written with the 64-byte swizzle:
+// stride 512 B between 8-row groups, layout 2 (SWIZZLE_64B); 512-byte
+// aligned, 32·j bytes select the j-th 32-byte K step.
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (static_cast<uint64_t>(2) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -491,6 +536,18 @@ __device__ __forceinline__ int requant_code(int acc, float r, float b, float out
   return rint_clip(y, lo, hi);
 }
 
+// The code where |lo| or |hi| exceeds kMaxCode, past rint_clip's range:
+// requant_epilogue's rintf, then the clip, then the float → int8 conversion
+// of the plain version's .to(int8) on the card.
+template <bool WIDE>
+__device__ __forceinline__ int tile_code(int acc, float r, float b, float out_inv, bool gelu, float lo, float hi) {
+  if constexpr (WIDE) {
+    return static_cast<int8_t>(requant_epilogue(acc, r, b, out_inv, gelu, lo, hi));
+  } else {
+    return requant_code(acc, r, b, out_inv, gelu, lo, hi);
+  }
+}
+
 // The junction on one chunk's accumulators (the whole-row kernels of
 // csrc/matmul_ln.cu and csrc/layer_fused.cu): thread (w, l) holds
 // acc[4j + 2h + e] at row g + 8h of its warp's rows (g = l/4), column
@@ -530,7 +587,7 @@ __device__ __forceinline__ void junction_chunk(const int (&acc)[BN / 2], int8_t*
 
 // Thread (warp w of the warpgroup, lane l) holds d[4j + 2h + e] of the
 // 64 × BN tile at row 16w + l/4 + 8h, column 8j + 2(l%4) + e.
-template <int BN>
+template <int BN, bool WIDE = false>
 __device__ __forceinline__ void requant_epilogue_tile(const int (&acc)[BN / 2], const float* rs, const float* bs,
                                                       int8_t* ot, float out_inv, float lo, float hi) {
   constexpr int LD = BN + 16;
@@ -542,8 +599,8 @@ __device__ __forceinline__ void requant_epilogue_tile(const int (&acc)[BN / 2], 
     const float2 bb = *reinterpret_cast<const float2*>(bs + c);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int c0 = requant_code(acc[4 * j + 2 * h], rr.x, bb.x, out_inv, false, lo, hi);
-      const int c1 = requant_code(acc[4 * j + 2 * h + 1], rr.y, bb.y, out_inv, false, lo, hi);
+      const int c0 = tile_code<WIDE>(acc[4 * j + 2 * h], rr.x, bb.x, out_inv, false, lo, hi);
+      const int c1 = tile_code<WIDE>(acc[4 * j + 2 * h + 1], rr.y, bb.y, out_inv, false, lo, hi);
       *reinterpret_cast<uint16_t*>(ot + (16 * w + g + 8 * h) * LD + c) =
           static_cast<uint16_t>((c0 & 0xFF) | ((c1 & 0xFF) << 8));
     }
@@ -556,7 +613,7 @@ __device__ __forceinline__ void requant_epilogue_tile(const int (&acc)[BN / 2], 
 // cannot interleave two), and a trip's code stays in the instruction cache
 // that an unrolled tile's (~70 KB) overran. Each thread keeps one column,
 // so r and b stay in registers.
-template <int BN>
+template <int BN, bool WIDE = false>
 __device__ __forceinline__ void gelu_epilogue_tile(const int* sacc, const float* rs, const float* bs, int8_t* ot,
                                                    float out_inv, float lo, float hi) {
   static_assert(128 % BN == 0, "a thread keeps one column");
@@ -567,7 +624,7 @@ __device__ __forceinline__ void gelu_epilogue_tile(const int* sacc, const float*
   int8_t* dst = ot + row * LD + col;
 #pragma unroll 2
   for (int i = 0; i < kBM * BN / 128; ++i, src += 128 / BN * LDA, dst += 128 / BN * LD)
-    *dst = static_cast<int8_t>(requant_code(*src, r, b, out_inv, true, lo, hi));
+    *dst = static_cast<int8_t>(tile_code<WIDE>(*src, r, b, out_inv, true, lo, hi));
 }
 
 // The tile's rows and columns inside out[M, N], V bytes at a time (N % V == 0).
@@ -596,12 +653,36 @@ struct Regs {
   static_assert(kConsumer <= 256 && 128 * kProducer + NC * 128 * kConsumer <= threads_of(NC) * kLaunch, "");
 };
 
-template <int BN, int NC, bool GELU>
+// The packed box of a stage unpacked by the kUnpackers threads u: 16-byte
+// chunk i of the box (bytes j of a row, two codes each) becomes chunk i of
+// the low B tile, in place, and of the high one; the same swizzled offset
+// in all three tiles holds the same row and chunk.
+template <int BN>
+__device__ __forceinline__ void unpack_box(uint8_t* box, int u) {
+  constexpr int kChunks = BN * kPBK / 16;
+  uint4* lo = reinterpret_cast<uint4*>(box);
+  uint4* hi = lo + kChunks;
+#pragma unroll 1
+  for (int i = u; i < kChunks; i += kUnpackers) {
+    const uint4 v = lo[i];
+    lo[i] = make_uint4(nib_sext(v.x & 0x0F0F0F0Fu), nib_sext(v.y & 0x0F0F0F0Fu), nib_sext(v.z & 0x0F0F0F0Fu),
+                       nib_sext(v.w & 0x0F0F0F0Fu));
+    hi[i] = make_uint4(nib_sext((v.x >> 4) & 0x0F0F0F0Fu), nib_sext((v.y >> 4) & 0x0F0F0F0Fu),
+                       nib_sext((v.z >> 4) & 0x0F0F0F0Fu), nib_sext((v.w >> 4) & 0x0F0F0F0Fu));
+  }
+}
+
+// out = the requant epilogue of x (M, K) · Bᵀ: B the int8 store w (N, K)
+// through tmw, or (PACKED) pack_int4's (N, K/2) store through tmw, x read at
+// both halves. wide (PACKED only): |qmin| or |qmax| > kMaxCode.
+template <int BN, int NC, bool GELU, bool PACKED>
 __global__ void __launch_bounds__(threads_of(NC), 1)
     requant_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
                    const float* __restrict__ r, const float* __restrict__ b, const float* __restrict__ scal,
-                   int8_t* __restrict__ out, int M, int N, int K, int stages, float lo, float hi) {
-  constexpr int STAGE = (kBM + BN) * kBK, LD = BN + 16;
+                   int8_t* __restrict__ out, int M, int N, int K, int stages, float lo, float hi, int wide) {
+  constexpr int STAGE = ring_stage_bytes(BN), LD = BN + 16;
+  constexpr int SK = PACKED ? kPBK : kBK;  // bytes of a B row a stage: codes, or packed pairs
+  constexpr int XB = (PACKED ? 2 : 1) * kBM * SK;  // the x boxes' bytes in a stage, before B
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   int8_t* otiles = reinterpret_cast<int8_t*>(smem + stages * STAGE);
@@ -610,13 +691,16 @@ __global__ void __launch_bounds__(threads_of(NC), 1)
   uint64_t* full = reinterpret_cast<uint64_t*>(accs + (GELU ? NC * kBM * (BN + 8) : 0));
   uint64_t* empty = full + stages;
   uint64_t* order = empty + stages;  // one per consumer: its main loop of a tile is done
+  uint64_t* pfull = order + NC;      // PACKED: the packed box of a stage has landed
 
   const int tiles_n = (N + BN - 1) / BN, tiles = ((M + kBM - 1) / kBM) * tiles_n;
-  const int nk = (K + kBK - 1) / kBK;
+  const int kw = PACKED ? K / 2 : K;  // K bytes of a B row: codes, or packed pairs
+  const int nk = (kw + SK - 1) / SK;
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
-      mbar_init(full + s, 1);
+      mbar_init(full + s, PACKED ? 1 + kUnpackers : 1);
       mbar_init(empty + s, 1);
+      if constexpr (PACKED) mbar_init(pfull + s, 1);
     }
     for (int c = 0; c < NC; ++c) mbar_init(order + c, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -634,11 +718,33 @@ __global__ void __launch_bounds__(threads_of(NC), 1)
         const int m0 = (t / tiles_n) * kBM, n0 = (t % tiles_n) * BN;
         for (int s = 0; s < nk; ++s, ++pos) {
           const int st = pos % stages;
+          uint8_t* base = smem + st * STAGE;
           mbar_wait(empty + st, ((pos / stages) & 1) ^ 1);
-          mbar_expect_tx(full + st, STAGE);
-          tma_load_2d(smem + st * STAGE, &tmx, s * kBK, m0, full + st);
-          tma_load_2d(smem + st * STAGE + kBM * kBK, &tmw, s * kBK, n0, full + st);
+          if constexpr (PACKED) {
+            mbar_expect_tx(full + st, XB);
+            mbar_expect_tx(pfull + st, BN * SK);
+            tma_load_2d(base, &tmx, s * SK, m0, full + st);
+            tma_load_2d(base + kBM * SK, &tmx, kw + s * SK, m0, full + st);
+            tma_load_2d(base + XB, &tmw, s * SK, n0, pfull + st);
+          } else {
+            mbar_expect_tx(full + st, STAGE);
+            tma_load_2d(base, &tmx, s * kBK, m0, full + st);
+            tma_load_2d(base + XB, &tmw, s * kBK, n0, full + st);
+          }
         }
+      }
+    } else if constexpr (PACKED) {
+      // ---- unpackers: each packed box into the stage's two B tiles ----------
+      if (threadIdx.x >= 32) {
+        int pos = 0;
+        for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+          for (int s = 0; s < nk; ++s, ++pos) {
+            const int st = pos % stages;
+            mbar_wait(pfull + st, (pos / stages) & 1);
+            unpack_box<BN>(smem + st * STAGE + XB, threadIdx.x - 32);
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for the wgmmas
+            mbar_arrive(full + st);
+          }
       }
     }
   } else {
@@ -677,18 +783,25 @@ __global__ void __launch_bounds__(threads_of(NC), 1)
         if (t128 + 128 * h < BN) rs[t128 + 128 * h] = rn[h], bs[t128 + 128 * h] = bn[h];
       fetch(t + NC * gridDim.x);
       if (i > 0) mbar_wait(order + prev, ((i - 1) / NC) & 1);
-      // main loop: one ring stage per 128 bytes of K, one slice's wgmmas in flight
+      // main loop: one ring stage per 128 bytes of a B row, one slice's wgmmas in flight
       for (int s = 0; s < nk; ++s) {
         const int pos = i * nk + s, st = pos % stages;
         mbar_wait(full + st, (pos / stages) & 1);
         const uint32_t a = smem_u32(smem + st * STAGE);
-        const uint64_t da = sw128_desc(a), db = sw128_desc(a + kBM * kBK);
-        const int ksteps = (min(kBK, K - s * kBK) + 31) / 32;
+        const uint64_t da = PACKED ? sw64_desc(a) : sw128_desc(a);
+        const uint64_t db = PACKED ? sw64_desc(a + XB) : sw128_desc(a + XB);
+        const int ksteps = (min(SK, kw - s * SK) + 31) / 32;
         wgmma_fence();
         fence_regs(acc);
 #pragma unroll
-        for (int kk = 0; kk < kBK / 32; ++kk)
+        for (int kk = 0; kk < SK / 32; ++kk)
           if (kk < ksteps) wgmma_s8(acc, da + 2 * kk, db + 2 * kk, s + kk);
+        if constexpr (PACKED) {  // the high half: x at kh + s·64 against the high B tile
+          const uint64_t dah = sw64_desc(a + kBM * SK), dbh = sw64_desc(a + XB + BN * SK);
+#pragma unroll
+          for (int kk = 0; kk < SK / 32; ++kk)
+            if (kk < ksteps) wgmma_s8(acc, dah + 2 * kk, dbh + 2 * kk, 1);
+        }
         wgmma_commit();
         fence_regs(acc);
         if (s > 0) {
@@ -714,10 +827,16 @@ __global__ void __launch_bounds__(threads_of(NC), 1)
             *reinterpret_cast<int2*>(sacc + (16 * w + g + 8 * h) * LDA + 8 * j + 2 * q) =
                 make_int2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
         named_sync(1 + c, 128);  // acc, r, b staged; the last tile's stores have read ot
-        gelu_epilogue_tile<BN>(sacc, rs, bs, ot, out_inv, lo, hi);
+        if (PACKED && wide)
+          gelu_epilogue_tile<BN, PACKED>(sacc, rs, bs, ot, out_inv, lo, hi);
+        else
+          gelu_epilogue_tile<BN, false>(sacc, rs, bs, ot, out_inv, lo, hi);
       } else {
         named_sync(1 + c, 128);  // r, b staged; the last tile's stores have read ot
-        requant_epilogue_tile<BN>(acc, rs, bs, ot, out_inv, lo, hi);
+        if (PACKED && wide)
+          requant_epilogue_tile<BN, PACKED>(acc, rs, bs, ot, out_inv, lo, hi);
+        else
+          requant_epilogue_tile<BN, false>(acc, rs, bs, ot, out_inv, lo, hi);
       }
       named_sync(1 + c, 128);  // ot written; r, b (and acc) read
       if (vec == 16)

@@ -339,7 +339,11 @@ __global__ void __launch_bounds__(kThreadsL, 1)
   // ---- B: attention per (image, head) → qact2 codes
   {
     const vit_item::Layout AL = vit_item::layout(N, hd, LIS, 2, L.gc);
-    const vit_item::Items it{qkv, qkv + C, qkv + 2 * C, attn, C3, C, (size_t)N * C3, (size_t)N * C, N, H, hd, true};
+    // 16-byte copies where head_dim is a multiple of 16 (C % 64 == 0 makes
+    // the rows and the item offsets so; HDP 64 is head_dim 64); byte loads
+    // below, which a 16-byte copy would read into the next head's codes
+    const vit_item::Items it{qkv, qkv + C, qkv + 2 * C, attn, C3, C, (size_t)N * C3, (size_t)N * C, N, H, hd,
+                             HDP == 64 || hd % 16 == 0};
     int8_t* base = reinterpret_cast<int8_t*>(sm);
     const int items = B * H;
     if (blockIdx.x < items) vit_item::stage_item<kThreadsL>(AL, it, blockIdx.x, base);
@@ -483,8 +487,8 @@ LayerKernel kernel_of(bool lis, int hdp) {
 // The shapes the kernel takes (the wrapper's check_fits mirrors them).
 bool takes(int B, int N, int C, int H, int hid) {
   if (B < 1 || N < 1 || N > p2v::vit_attn::NMAX || H < 1 || C % H || C % kBN || hid % kBN || C > 1024) return false;
-  const int hd = C / H;
-  return hd == 16 || hd == 32 || hd == 64;
+  const int hd = C / H;  // every divisor of 128 up to 64, as JAX's assert admits
+  return hd <= 64 && 128 % hd == 0;
 }
 
 struct Launch {

@@ -1,9 +1,8 @@
-// The per-element epilogue chains of the int8 matmul kernels, and the int4
-// matmul's tile (csrc/matmul_int8.cu): the requant chain, the junction's
-// chain, the LN code and the biased-code helpers that the Hopper kernels
-// (gemm_wgmma.cuh, matmul_ln.cu, embed_fused.cu, layer_fused.cu) share, so
-// that every path runs the same arithmetic and the fused layer equals the
-// four-kernel path bit for bit by construction.
+// The per-element epilogue chains of the int8 matmul kernels: the requant
+// chain, the junction's chain, the LN code and the biased-code helpers that
+// the Hopper kernels (gemm_wgmma.cuh, matmul_ln.cu, embed_fused.cu,
+// layer_fused.cu) share, so that every path runs the same arithmetic and the
+// fused layer equals the four-kernel path bit for bit by construction.
 #pragma once
 
 #include "common.cuh"
@@ -60,31 +59,6 @@ __device__ __forceinline__ float ln_code(const LnRow& row, float x, float w_os, 
 // plain version's row_sums.
 __device__ __forceinline__ LnRow ln_row_exact(int sx, long long sxx, float s1, float c) {
   return ln_row(__int2float_rn(sx), __ll2float_rn(sxx), s1, c);
-}
-
-using RequantGemm = Gemm<128, 128, 2, 4>;
-
-// Output tile (m0, n0) of out[M, N] = requant_epilogue(x[M, K] · Bᵀ), B's
-// rows from b_row (int8 rows, or a PackedInt4Rows store); edges are masked in
-// the loads and the stores.
-template <class BRow>
-__device__ __forceinline__ void requant_tile(const int8_t* x, BRow b_row, const float* r, const float* b,
-                                             float out_inv, int8_t* out, int M, int N, int K, float lo,
-                                             float hi, bool gelu, int m0, int n0, int8_t* smem) {
-  using G = RequantGemm;
-  int acc[G::MT][G::NT][4];
-  G::run([&](int rr) -> const int8_t* { return m0 + rr < M ? x + (size_t)(m0 + rr) * K : nullptr; },
-         b_row, K, smem, acc);
-#pragma unroll
-  for (int i = 0; i < G::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < G::NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + G::row_of(i, e), n = n0 + G::col_of(j, e);
-        if (m >= M || n >= N) continue;
-        out[(size_t)m * N + n] = to_i8(requant_epilogue(acc[i][j][e], r[n], b[n], out_inv, gelu, lo, hi));
-      }
 }
 
 }  // namespace p2v

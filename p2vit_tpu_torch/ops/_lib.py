@@ -71,6 +71,8 @@ SIGNATURES = {
     "p2v_fused_vit_layer_forced": [_P] * 15 + [_I] * 9 + [_P],
     "p2v_fused_vit_layer_info": [_I] * 9 + [_P],
     "p2v_int4_matmul_requant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "p2v_int4_matmul_requant_grid": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "p2v_int4_matmul_requant_info": [_I, _I, _I, _I, _P],
     "p2v_wstream_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "p2v_wstream_matmul_blocks": [_I, _I],
     "p2v_dmma_rate_probe": [_I, _P, _I, _I, _P],

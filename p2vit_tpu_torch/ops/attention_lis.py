@@ -40,7 +40,7 @@ LIS-off arm is held to |Δcode| ≤ 1 on a stated share of codes.
 
 CUDA kernels (``csrc/attention_lis.cu``, N ≤ 256) replace the Pallas
 kernels ``lis_attention_qkv_fused`` (``_qkv_fused_kernel``, head_dim 64),
-``lis_attention_fused`` (``_fused_kernel``, head_dim 16, 32 or 64) and
+``lis_attention_fused`` (``_fused_kernel``, head_dim 1, 2, 4, 8, 16, 32 or 64) and
 ``lis_attention`` (``_kernel``, any head_dim ≤ 64).
 
 The qkv-fused kernel runs one thread-block cluster per (image, head) of
@@ -192,7 +192,9 @@ def _attend(scores, v_q, s_attn, out_requant, lis_bits, lis):
 HEAD_DIM = 64  # the qkv-fused kernel's head_dim (every ViT/DeiT in the zoo)
 MAX_N = 256  # tokens the ViT attention kernels take (197 at 224²/16²)
 MAX_HEAD_DIM = 64  # the widest head_dim of the per-item kernels (lis_attention takes any d up to it)
-FUSED_HEAD_DIMS = (16, 32, 64)  # lis_attention_fused's: the divisors of 128 JAX admits, up to 64
+# lis_attention_fused's head_dims: those JAX's assert (d % 128 == 0 or 128 % d == 0) admits up to 64,
+# the divisors of 128
+FUSED_HEAD_DIMS = (1, 2, 4, 8, 16, 32, 64)
 MAX_SMEM = 232_448  # dynamic shared memory one CTA may use on the H100
 SM_SMEM = 233_472  # an SM's shared memory, 1 KB of it reserved per CTA
 
@@ -386,7 +388,7 @@ def lis_attention_fused(qkv_q, num_heads, score_requant, attn_scale, out_requant
 
     Args as ``lis_attention``. Returns (B, N, C) int8 codes of the qact2
     node. CPU tensors take the plain version; CUDA tensors launch the kernel
-    (head_dim 16, 32 or 64, N ≤ 256) or raise.
+    (head_dim 1, 2, 4, 8, 16, 32 or 64, N ≤ 256) or raise.
     """
     dev = qkv_q.device
     if dev.type == "cpu":

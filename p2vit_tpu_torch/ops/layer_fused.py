@@ -28,9 +28,9 @@ standalone kernels' own device functions, so kernel and plain version agree
 bit for bit. ``layer_plan`` mirrors the launch. The JAX kernel's
 ``images_per_step`` (a Mosaic tiling knob that changes no value) and its
 VMEM guard belong to the TPU; in their place ``check_fits`` raises where
-this kernel cannot run: head_dim other than 16, 32 or 64, N > 256, C or the
-hidden width not a multiple of 64, C > 1024, or more than an H100 block's
-227 KB of shared memory (of the zoo, DeiT-T and DeiT-S fit; DeiT-B, ViT-B
+this kernel cannot run: head_dim other than 1, 2, 4, 8, 16, 32 or 64,
+N > 256, C or the hidden width not a multiple of 64, C > 1024, or more than
+an H100 block's 227 KB of shared memory (of the zoo, DeiT-T and DeiT-S fit; DeiT-B, ViT-B
 and ViT-L need more, as they need more than JAX's VMEM budget).
 """
 

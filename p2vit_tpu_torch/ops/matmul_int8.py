@@ -28,15 +28,21 @@ The rounding is ``clip`` then ``+ 1.5·2^23`` (no conversion instruction),
 equal to the plain version's round-then-clip for every float32
 (``requant_rint_check`` proves it on the card).
 
-``int4_matmul_requant`` (the same CUDA source) replaces the Pallas kernel
-``p2vit_tpu/ops/matmul_int8.py:int4_matmul_requant`` (``_packed_kernel``):
-the weights come as ``pack_int4``'s store, two int4 codes per byte (half the
-bytes). The kernel unpacks each 16-code chunk of a B row into the int8
-shared-memory stage of the ``mma.sync`` tile of ``csrc/matmul_tiles.cuh``
-(the fused layer's) and runs its epilogue; the accumulation is exact, so
-kernel, plain version (unpack, then ``int8_matmul_requant_plain``) and JAX
-kernel agree bit for bit. Bound on the card: the weight bytes only at small
-M; the int8 products above.
+``int4_matmul_requant`` (the same CUDA source and body) replaces the Pallas
+kernel ``p2vit_tpu/ops/matmul_int8.py:int4_matmul_requant``
+(``_packed_kernel``): the weights come as ``pack_int4``'s store, two int4
+codes per byte (half the bytes). A ring stage holds one 64-byte box of the
+packed store and the two x boxes it multiplies, at columns s·64 and
+K/2 + s·64 (as many codes and bytes as the int8 store's stage); the
+producer warpgroup's idle warps unpack the box in shared memory, chunk to
+chunk at the same 64-byte-swizzled offset, into a low and a high int8 B
+tile; the consumers run the low slice's then the high slice's
+``wgmma``s and the int8 store's epilogue. The accumulation is exact, so
+kernel, plain version (unpack, then ``int8_matmul_requant_plain``),
+``int8_matmul_requant`` over the unpacked codes and the JAX kernel agree bit
+for bit. Bound on the card: the weight bytes at small M (half the int8
+store's); above, as the int8 store. ``int4_requant_plan`` gives its plan,
+``packed_slices`` its walk over K.
 """
 
 from __future__ import annotations
@@ -98,6 +104,7 @@ def int8_matmul_requant_plain(x_q, w_q, requant_scale, bias_scaled, out_inv=1.0,
 # The Hopper kernel's tiling (csrc/gemm_wgmma.cuh, p2v::wg)
 TILE_M = 64  # output rows per consumer tile: one m64 wgmma
 TILE_K = 128  # K bytes per ring stage: the 128-byte swizzle span
+PACKED_K = 64  # the packed store's bytes of a B row per stage: the 64-byte swizzle span
 # (BN, consumer warpgroups per CTA) built, BN a legal m64nNk32 width; the
 # GELU epilogue runs from an int32 tile in shared memory: narrow tiles, many
 # consumers
@@ -138,12 +145,21 @@ class RequantPlan:
                 yield c, i % self.nc, i, t
 
 
-def requant_smem(bn: int, nc: int, stages: int, gelu: bool) -> int:
+def stage_bytes(bn: int) -> int:
+    """A ring stage: 64 x rows and bn w rows of 128 bytes; for the packed
+    store its two x boxes of 64 rows, its packed box of bn rows (unpacked in
+    place into the low B tile) and the high B tile, 64 bytes each: the same
+    bytes."""
+    return (TILE_M + bn) * TILE_K
+
+
+def requant_smem(bn: int, nc: int, stages: int, gelu: bool, packed: bool = False) -> int:
     """Alignment slack, ring, a 64 × (bn + 16) output tile and r and b per
     consumer, with GELU a 64 × (bn + 8) int32 accumulator tile per consumer,
-    a full and an empty barrier per stage, an order barrier per consumer."""
-    return (1024 + stages * (TILE_M + bn) * TILE_K + nc * TILE_M * (bn + 16) + nc * 8 * bn
-            + (nc * TILE_M * (bn + 8) * 4 if gelu else 0) + 16 * stages + 8 * nc)
+    a full and an empty barrier per stage (and, packed, the packed box's),
+    an order barrier per consumer."""
+    return (1024 + stages * stage_bytes(bn) + nc * TILE_M * (bn + 16) + nc * 8 * bn
+            + (nc * TILE_M * (bn + 8) * 4 if gelu else 0) + (24 if packed else 16) * stages + 8 * nc)
 
 
 @functools.lru_cache(maxsize=256)
@@ -158,15 +174,42 @@ def requant_plan(m: int, n: int, k: int, sms: int, gelu: bool = False) -> Requan
     many stages as shared memory holds, up to ``MAX_STAGES``."""
     if k <= 0 or k % 16:
         raise ValueError(f"int8_matmul_requant kernel needs K % 16 == 0 and K > 0, got K={k}")
+    return _plan(m, n, sms, gelu, False, "int8_matmul_requant")
+
+
+def _plan(m, n, sms, gelu, packed, name):
     if not (0 <= m < 2 ** 31 and 0 <= n < 2 ** 31):
-        raise ValueError(f"int8_matmul_requant kernel needs 0 <= M, N < 2^31, got M={m}, N={n}")
+        raise ValueError(f"{name} kernel needs 0 <= M, N < 2^31, got M={m}, N={n}")
     if sms < 1:
-        raise ValueError(f"int8_matmul_requant kernel needs at least one SM, got {sms}")
+        raise ValueError(f"{name} kernel needs at least one SM, got {sms}")
     bn, nc = min(GELU_WIDTHS if gelu else WIDTHS, key=lambda w: (-(-n // w[0]) * w[0] - n, -w[0]))
-    stages = min(MAX_STAGES, (MAX_SMEM - requant_smem(bn, nc, 0, gelu)) // ((TILE_M + bn) * TILE_K + 16))
+    stages = min(MAX_STAGES, (MAX_SMEM - requant_smem(bn, nc, 0, gelu, packed))
+                 // (stage_bytes(bn) + (24 if packed else 16)))
     tiles_m, tiles_n = -(-m // TILE_M), -(-n // bn)
     return RequantPlan(bn, nc, stages, tiles_m, tiles_n, min(sms, tiles_m * tiles_n),
-                       requant_smem(bn, nc, stages, gelu))
+                       requant_smem(bn, nc, stages, gelu, packed))
+
+
+@functools.lru_cache(maxsize=256)
+def int4_requant_plan(m: int, n: int, k: int, sms: int, gelu: bool = False) -> RequantPlan:
+    """The int4-store kernel's plan at (M, N) and x's K = 2·kh (the
+    wrapper's padded K, kh % 16 == 0), as the C entry computes it: the int8
+    store's widths, rules and ``stage_bytes``, each ring stage a packed box,
+    two x boxes and the high B tile, with one more barrier; raises where the
+    kernel does not run."""
+    if k <= 0 or k % 32:
+        raise ValueError(f"int4_matmul_requant kernel needs K/2 % 16 == 0 and K > 0, got K={k}")
+    return _plan(m, n, sms, gelu, True, "int4_matmul_requant")
+
+
+def packed_slices(k: int) -> list:
+    """The int4-store kernel's walk over x's K = 2·kh, one entry per ring
+    stage s: (x column of the low box s·64, x column of the high box
+    kh + s·64, packed column s·64, 32-code wgmma steps of each half). TMA
+    fills zeros past x's K columns and past the store's kh; a zero byte
+    unpacks to two zero codes."""
+    kh = k // 2
+    return [(s, kh + s, s, -(-min(PACKED_K, kh - s) // 32)) for s in range(0, kh, PACKED_K)]
 
 
 @functools.cache
@@ -174,19 +217,28 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _kernel_info(entry: str, m: int, n: int, k: int, gelu: bool) -> dict:
+    lib, _ = library()
+    info = (ctypes.c_int * 12)()
+    rc = getattr(lib, entry)(int(m), int(n), int(k), int(bool(gelu)), ctypes.cast(info, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"{entry}: CUDA error {rc}: {lib.p2v_error_string(rc).decode()}")
+    keys = ("bn", "nc", "stages", "tiles_m", "tiles_n", "grid", "smem_bytes", "registers", "spill_bytes",
+            "consumer_registers", "ctas_per_sm", "sms")
+    return dict(zip(keys, list(info)))
+
+
 def requant_kernel_info(m: int, n: int, k: int, gelu: bool = False) -> dict:
     """The built int8 kernel's launch facts at (M, N, K) from the CUDA
     runtime: the plan, registers and spill bytes per thread, CTAs per SM and
     SMs. Needs the card."""
-    lib, _ = library()
-    info = (ctypes.c_int * 12)()
-    rc = lib.p2v_int8_matmul_requant_info(int(m), int(n), int(k), int(bool(gelu)),
-                                          ctypes.cast(info, ctypes.c_void_p))
-    if rc != 0:
-        raise RuntimeError(f"p2v_int8_matmul_requant_info: CUDA error {rc}: {lib.p2v_error_string(rc).decode()}")
-    keys = ("bn", "nc", "stages", "tiles_m", "tiles_n", "grid", "smem_bytes", "registers", "spill_bytes",
-            "consumer_registers", "ctas_per_sm", "sms")
-    return dict(zip(keys, list(info)))
+    return _kernel_info("p2v_int8_matmul_requant_info", m, n, k, gelu)
+
+
+def int4_kernel_info(m: int, n: int, k: int, gelu: bool = False) -> dict:
+    """``requant_kernel_info`` of the int4-store kernel at (M, N) and x's
+    padded K. Needs the card."""
+    return _kernel_info("p2v_int4_matmul_requant_info", m, n, k, gelu)
 
 
 def requant_rint_check(qmin: int, qmax: int, device=None) -> int:
@@ -308,6 +360,51 @@ def int4_matmul_requant_plain(x_q, w_packed, requant_scale, bias_scaled, out_inv
                                      out_inv, qmin, qmax, gelu)
 
 
+def int4_pad(x_q, w_packed):
+    """x (M, K) and the store (N, K/2) with each half of x and the store's
+    rows zero-padded to a multiple of 16 codes (the kernel's TMA rows; JAX
+    pads both halves to its lane width); zeros add nothing to the exact
+    sum."""
+    kh = w_packed.shape[1]
+    pad = (-kh) % 16
+    if not pad:
+        return x_q, w_packed
+    f = torch.nn.functional.pad
+    return torch.cat([f(x_q[:, :kh], (0, pad)), f(x_q[:, kh:], (0, pad))], dim=1), f(w_packed, (0, pad))
+
+
+def _int4_args(x_q, w_packed, requant_scale, bias_scaled, out_inv, gelu):
+    """Checked CUDA launch arguments of the int4-store kernel, (x, store, r,
+    b, scalars, out), both halves padded by ``int4_pad``; raises where it
+    does not run (``int4_requant_plan`` at the padded K)."""
+    dev = x_q.device
+    m = x_q.shape[0]
+    n, kh = w_packed.shape
+    check_cuda_operand(x_q, "x_q", torch.int8)
+    check_cuda_operand(w_packed, "w_packed", torch.int8, (n, kh))
+    x_q, w_packed = int4_pad(x_q, w_packed)
+    int4_requant_plan(m, n, x_q.shape[1],
+                      _sm_count(dev.index if dev.index is not None else torch.cuda.current_device()), bool(gelu))
+    r = f32_vec(requant_scale, n, dev)
+    b = f32_vec(bias_scaled, n, dev)
+    s = f32_scalars(out_inv, device=dev)
+    return x_q, w_packed, r, b, s, torch.empty((m, n), dtype=torch.int8, device=dev)
+
+
+def int4_matmul_requant_grid(x_q, w_packed, requant_scale, bias_scaled, out_inv=1.0,
+                             qmin=-128, qmax=127, gelu=False, grid=0):
+    """The int4-store kernel launched on ``grid`` CTAs (0: the plan's
+    persistent grid; ``int4_requant_plan(...).tiles``: one tile per CTA). A
+    measurement hook for CUDA tensors; not counted in
+    ``int4_matmul_requant.launches``."""
+    _check_packed(x_q, w_packed)
+    x_q, w_packed, r, b, s, out = _int4_args(x_q, w_packed, requant_scale, bias_scaled, out_inv, gelu)
+    (m, k), n = x_q.shape, w_packed.shape[0]
+    launch("p2v_int4_matmul_requant_grid", x_q, w_packed, r, b, s, out, m, n, k, qmin, qmax, int(bool(gelu)),
+           grid)
+    return out
+
+
 def int4_matmul_requant(x_q, w_packed, requant_scale, bias_scaled, out_inv=1.0,
                         qmin=-128, qmax=127, gelu=False):
     """``int8_matmul_requant`` over the int4-packed store ``pack_int4(w_q)``.
@@ -315,31 +412,21 @@ def int4_matmul_requant(x_q, w_packed, requant_scale, bias_scaled, out_inv=1.0,
     Args:
       x_q: (M, K) int8 activation codes, K even. w_packed: (N, K/2) int8.
       requant_scale, bias_scaled, out_inv, qmin, qmax, gelu: as
-        ``int8_matmul_requant``.
+        ``int8_matmul_requant`` (any qmin, qmax: past |2^22| the kernel
+        rounds as the plain version, rintf then the clip).
     Returns (M, N) int8. CPU tensors take the plain version; CUDA tensors
     launch the kernel or raise. Where K/2 is not a multiple of 16 the wrapper
-    pads both halves of x and the store with zero codes, as the JAX wrapper
-    pads them to its lane width (zeros add nothing to the exact sum).
+    pads both halves of x and the store with zero codes (``int4_pad``), as
+    the JAX wrapper pads them to its lane width.
     """
     dev = device_of(x_q, w_packed)
     _check_packed(x_q, w_packed)
     if dev.type == "cpu":
         return int4_matmul_requant_plain(x_q, w_packed, requant_scale, bias_scaled,
                                          out_inv, qmin, qmax, gelu)
-    m, k = x_q.shape
-    n, kh = w_packed.shape
-    check_cuda_operand(x_q, "x_q", torch.int8)
-    check_cuda_operand(w_packed, "w_packed", torch.int8, (n, kh))
-    pad = (-kh) % 16
-    if pad:
-        x_q = torch.cat([torch.nn.functional.pad(x_q[:, :kh], (0, pad)),
-                         torch.nn.functional.pad(x_q[:, kh:], (0, pad))], dim=1)
-        w_packed = torch.nn.functional.pad(w_packed, (0, pad))
-    r = f32_vec(requant_scale, n, dev)
-    b = f32_vec(bias_scaled, n, dev)
-    s = f32_scalars(out_inv, device=dev)
-    out = torch.empty((m, n), dtype=torch.int8, device=dev)
-    launch("p2v_int4_matmul_requant", x_q, w_packed, r, b, s, out, m, n, 2 * (kh + pad),
+    x_q, w_packed, r, b, s, out = _int4_args(x_q, w_packed, requant_scale, bias_scaled, out_inv, gelu)
+    (m, k), n = x_q.shape, w_packed.shape[0]
+    launch("p2v_int4_matmul_requant", x_q, w_packed, r, b, s, out, m, n, k,
            qmin, qmax, int(bool(gelu)))
     int4_matmul_requant.launches += 1
     return out

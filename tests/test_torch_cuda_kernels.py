@@ -495,7 +495,7 @@ def test_lis_attention_fused_head_dims(dev, shape, lis):
 
 
 @pytest.mark.parametrize("lis", [True, False])
-@pytest.mark.parametrize("d", [1, 5, 16, 17, 31, 32, 33, 48, 63, 64])
+@pytest.mark.parametrize("d", [1, 2, 4, 5, 8, 16, 17, 31, 32, 33, 48, 63, 64])
 def test_lis_attention_any_head_dim(dev, d, lis):
     """``lis_attention`` at head_dims up to 64: rows that are no multiple of
     16 bytes take the byte loads, odd widths the byte stores; output columns
@@ -507,8 +507,30 @@ def test_lis_attention_any_head_dim(dev, d, lis):
     _same(attention_lis.lis_attention_forced(*a, lis=lis, gc=1), attention_lis.lis_attention_plain(*a, lis=lis))
 
 
+# (B, N, C, heads) at head_dims 8, 4, 2 and 1: q/k/v rows of fewer than 16
+# bytes (byte loads), items of odd offsets (byte stores), at C = 64 and at
+# DeiT-S width
+SMALL_HEAD_DIM_SHAPES = [(3, n, c, c // d) for d in (8, 4, 2, 1) for n, c in ((65, 64), (197, 384))]
+
+
 @pytest.mark.parametrize("lis", [True, False])
-@pytest.mark.parametrize("n,hd", [(5, 16), (197, 64), (256, 64), (197, 32), (256, 16)])
+@pytest.mark.parametrize("shape", SMALL_HEAD_DIM_SHAPES, ids=lambda s: "b{}n{}c{}h{}".format(*s))
+def test_lis_attention_fused_small_head_dims(dev, shape, lis):
+    """head_dims 8, 4, 2 and 1 (the divisors of 128 below 16, which JAX
+    admits), bitwise against the plain version on the plan's chunks and on
+    one group a chunk; no column of a neighbouring head is read or
+    written."""
+    b, n, c, heads = shape
+    rng = np.random.RandomState(n + heads)
+    qkv = _i8(rng, (b, n, 3 * c)).to(dev)
+    a = (qkv, heads, 2.0**-11, 2.0**-11 if lis else 2.0**-4, 2.0)
+    want = attention_lis.lis_attention_fused_plain(*a, lis=lis)
+    _same(attention_lis.lis_attention_fused(*a, lis=lis), want)
+    _same(attention_lis.lis_attention_fused_forced(*a, lis=lis, gc=1), want)
+
+
+@pytest.mark.parametrize("lis", [True, False])
+@pytest.mark.parametrize("n,hd", [(5, 16), (197, 64), (256, 64), (197, 32), (256, 16), (197, 8), (65, 1)])
 def test_vit_attention_plan_matches_kernel(dev, n, hd, lis):
     """The CUDA runtime's view of the per-item kernel agrees with
     ``vit_attention_plan`` (padded head_dim, groups a chunk, shared memory),
@@ -1105,6 +1127,26 @@ def test_fused_vit_layer_shapes(dev, shape, lis):
     _same(got, layer_fused.fused_vit_layer_plain(*a, lis=lis))
 
 
+# (B, N, C, heads, hid): head_dims 8, 4, 2 and 1 at C = 64, 8 and 4 at
+# DeiT-S width
+LAYER_SMALL_HEAD_DIMS = [(3, 65, 64, 8, 256), (3, 65, 64, 16, 256), (2, 197, 64, 32, 256), (2, 70, 64, 64, 256),
+                         (1, 197, 384, 48, 1536), (1, 197, 384, 96, 1536)]
+
+
+@pytest.mark.parametrize("lis", [True, False])
+@pytest.mark.parametrize("shape", LAYER_SMALL_HEAD_DIMS, ids=lambda s: "b{}n{}c{}h{}hid{}".format(*s))
+def test_fused_vit_layer_small_head_dims(dev, shape, lis):
+    """The fused layer at head_dims below 16: its attention phase stages
+    rows of fewer than 16 bytes by byte loads (a 16-byte copy would read
+    the next head's codes); bitwise against the plain version, also on one
+    query group a chunk."""
+    a = _small_layer_args(dev, *shape)
+    layer_fused.check_fits(shape[1], shape[2], shape[3], shape[4])
+    want = layer_fused.fused_vit_layer_plain(*a, lis=lis)
+    _same(layer_fused.fused_vit_layer(*a, lis=lis), want)
+    _same(layer_fused.fused_vit_layer_forced(*a, lis=lis, gc=1), want)
+
+
 @pytest.mark.parametrize("lis", [True, False])
 @pytest.mark.parametrize("grid,gc,br", [(1, 0, 0), (1, 0, 64), (2, 0, 0), (7, 0, 64), (0, 1, 0), (0, 4, 0),
                                         (0, 13, 64), (5, 3, 32), (0, 0, 64)])
@@ -1188,6 +1230,96 @@ def test_int4_matmul_requant_kernel(dev, m, k, n, gelu):
     _same(got, matmul_int8.int4_matmul_requant_plain(x, wp, r, b, **kw))
     if k % 16 == 0:
         _same(got, matmul_int8.int8_matmul_requant(x, w, r, b, **kw))
+
+
+def _int4_case(dev, seed, m, k, n, gelu, rexp=None):
+    """int4_matmul_requant arguments: int8 x, int4-valued w and its packed
+    store, PoT requant scales, a normal bias; returns ((x, store, r, b),
+    kwargs, w)."""
+    rng = np.random.RandomState(seed)
+    x, w = _i8(rng, (m, k)).to(dev), _i8(rng, (n, k), -8, 8).to(dev)
+    r = _pot(rng, n, *(rexp or ((-14, -10) if gelu else (-12, -7)))).to(dev)
+    b = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
+    kw = dict(out_inv=torch.tensor(16.0, device=dev), gelu=True) if gelu else {}
+    return (x, matmul_int8.pack_int4(w), r, b), kw, w
+
+
+@pytest.mark.parametrize("n,gelu,bn", [(96, False, 96), (288, False, 144), (384, False, 192), (1152, False, 192),
+                                       (1536, False, 256), (128, False, 128), (1000, False, 144),
+                                       (384, True, 64), (1536, True, 64)])
+def test_int4_matmul_requant_each_tile_width(dev, n, gelu, bn):
+    """Every width the plan picks, on TMA loads of the packed store and int8
+    wgmma: the C entry's plan equals ``int4_requant_plan``'s, its registers
+    are those the setmaxnreg hand-over assumes, nothing spills; bitwise
+    against the plain version and the int8 kernel on the unpacked codes."""
+    m, k = (37_632, 96) if n <= 384 and not gelu else (12_608, 384)
+    a, kw, w = _int4_case(dev, n + gelu, m, k, n, gelu)
+    info = matmul_int8.int4_kernel_info(m, n, k, gelu)
+    plan = matmul_int8.int4_requant_plan(m, n, k, info["sms"], gelu)
+    assert info["bn"] == plan.bn == bn
+    assert (info["nc"], info["stages"], info["grid"], info["smem_bytes"]) == (
+        plan.nc, plan.stages, plan.grid, plan.smem_bytes)
+    assert plan.stages >= 2 and info["registers"] == (65536 // (128 * (plan.nc + 1))) // 8 * 8
+    assert info["spill_bytes"] == 0 and info["ctas_per_sm"] == 1
+    got = matmul_int8.int4_matmul_requant(*a, **kw)
+    _same(got, matmul_int8.int4_matmul_requant_plain(*a, **kw))
+    _same(got, matmul_int8.int8_matmul_requant(a[0], w, *a[2:], **kw))
+
+
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 12608])
+@pytest.mark.parametrize("k,n", [(260, 33), (384, 1000), (96, 1536), (3072, 384), (48, 200)])
+def test_int4_matmul_requant_edges(dev, m, k, n):
+    """M below, at and past a 64-row tile; N not a multiple of 16 (33:
+    one-byte stores; 1000: a masked 8-column edge); K/2 = 130 (padded to
+    144), 192 and 1536 (K/2 % 128 != 0: the last packed box reads zeros past
+    K/2, and the low x box reads high-half codes against them), 48 and 24
+    (below one box)."""
+    gelu = (m + n) % 2 == 1
+    a, kw, w = _int4_case(dev, m + k + n, m, k, n, gelu)
+    _same(matmul_int8.int4_matmul_requant(*a, **kw), matmul_int8.int4_matmul_requant_plain(*a, **kw))
+
+
+@pytest.mark.parametrize("gelu", [False, True])
+@pytest.mark.parametrize("m,k,n", [(1576, 384, 1536), (197, 1536, 384), (12608, 384, 1152)])
+def test_int4_matmul_requant_forced_grids(dev, m, k, n, gelu):
+    """One CTA walks every tile through one ring (the unpackers' and the
+    consumers' barrier phases carried across hundreds of stages), and one
+    tile a CTA; the grid hook counts no launch."""
+    a, kw, _ = _int4_case(dev, m + n, m, k, n, gelu)
+    want = matmul_int8.int4_matmul_requant_plain(*a, **kw)
+    plan = matmul_int8.int4_requant_plan(m, n, k, 1, gelu)
+    before = matmul_int8.int4_matmul_requant.launches
+    for grid in (1, 3, plan.tiles):
+        _same(matmul_int8.int4_matmul_requant_grid(*a, **kw, grid=grid), want)
+    assert matmul_int8.int4_matmul_requant.launches == before
+
+
+@pytest.mark.parametrize("qmin,qmax", [(-8, 7), (0, 15), (-128, 127)])
+@pytest.mark.parametrize("gelu", [False, True])
+def test_int4_matmul_requant_clamp_arms(dev, qmin, qmax, gelu):
+    """The int4 clamp, an unsigned 4-bit clamp and the full int8 range,
+    with requant scales 8× larger, so that many codes saturate at both
+    ends."""
+    a, kw, _ = _int4_case(dev, qmax - qmin, 1576, 384, 1536, gelu)
+    a = (a[0], a[1], a[2] * 8, a[3])
+    _same(matmul_int8.int4_matmul_requant(*a, qmin=qmin, qmax=qmax, **kw),
+          matmul_int8.int4_matmul_requant_plain(*a, qmin=qmin, qmax=qmax, **kw))
+
+
+@pytest.mark.parametrize("qmin,qmax", [(-2 ** 23, 2 ** 23), (-2 ** 22 - 1, 5), (-2 ** 24, 2 ** 24)])
+@pytest.mark.parametrize("gelu", [False, True])
+def test_int4_matmul_requant_wide_clamp(dev, qmin, qmax, gelu):
+    """|qmin| or |qmax| past 2^22, where the int8 kernel's rounding by
+    adding 1.5·2^23 no longer holds: the int4 kernel rounds as the plain
+    version (rintf, the clip, the conversion to int8), bit for bit, with
+    values of magnitude past 2^22 (up to ~2^24) clipped or kept."""
+    a, kw, _ = _int4_case(dev, qmax, 1576, 384, 1536, gelu, rexp=(-2, 0) if gelu else (7, 10))
+    if gelu:
+        kw["out_inv"] = torch.tensor(1024.0, device=dev)
+    want = matmul_int8.int4_matmul_requant_plain(*a, qmin=qmin, qmax=qmax, **kw)
+    y = matmul_int8.int_matmul_nt(a[0], matmul_int8.unpack_int4(a[1])).abs().max() * a[2].max()
+    assert float(y) * (1024 if gelu else 1) > 2 ** 22
+    _same(matmul_int8.int4_matmul_requant(*a, qmin=qmin, qmax=qmax, **kw), want)
 
 
 @pytest.mark.parametrize("gelu", [False, True])

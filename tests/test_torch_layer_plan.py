@@ -119,7 +119,7 @@ def test_vit_attention_plan(n):
     """The per-item kernels' plan at every head_dim: head_dim padded to 32 or
     64, keys to 32; the most CTAs an SM (4, 3, 2) whose shared memory holds
     one query group a chunk, then the fewest balanced chunks within it."""
-    for hd in (1, 16, 17, 32, 33, 64):
+    for hd in (1, 2, 4, 8, 16, 17, 32, 33, 64):
         for lis in (True, False):
             p = attention_lis.vit_attention_plan(n, hd, lis)
             assert p.hdp == (32 if hd <= 32 else 64) and p.kpad == -(-n // 32) * 32 and p.groups == -(-n // 16)
@@ -196,7 +196,7 @@ def _attn_case(n, hd, heads=2, b=2, seed=0):
 
 @pytest.mark.parametrize("lis", [True, False])
 @pytest.mark.parametrize("n", [5, 17, 64, 197])
-@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("hd", [4, 8, 16, 32, 64])
 def test_attention_item_replay(hd, n, lis):
     """The item replayed per (image, head), with the plan's chunks and with
     one group a chunk, equals ``lis_attention_fused_plain`` bit for bit; the
@@ -311,9 +311,9 @@ def replay_phase_c(attn, xc, args):
 
 
 @pytest.mark.parametrize("lis", [True, False])
-@pytest.mark.parametrize("heads", [4, 2])
+@pytest.mark.parametrize("heads", [16, 8, 4, 2])
 def test_layer_replay(heads, lis):
-    """C = 64 at head_dims 16 and 32, hid 256, two images of 70 tokens (three
+    """C = 64 at head_dims 4, 8, 16 and 32, hid 256, two images of 70 tokens (three
     blocks of 64 rows, the last of 12): phase A's qkv tiles, the attention
     items and phase C replayed equal ``fused_vit_layer_plain`` bit for bit,
     which equals JAX's kernel in interpret mode on both arms (no LIS-off

@@ -2,8 +2,11 @@
 plain versions) at the tiny shapes of tests/test_bench_tools_smoke.py,
 depth 2: their lines and pins, and each tool's chain against the same
 chain built from the JAX package's functions on the same numpy draws (the
-Pallas kernels in interpret mode).
+Pallas kernels in interpret mode); and ``w4pack_bench``, the stores'
+device-time A/B, on the CPU (its pins and bounds).
 """
+
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -47,6 +50,21 @@ def test_w4pack_latency_smoke(tiny, capsys):
     assert "MISMATCH" not in out and "FAILED" not in out
     assert "depth-2 chain" in out and out.count("bitwise=ok") == 12
     assert all(r["bitwise"] for r in res.values())
+
+
+def test_w4pack_bench_smoke(tiny, capsys):
+    """The device-time A/B tool on the CPU: both stores' chains and GEMMs
+    agree, and it prints the bounds (the int4 store's weight bytes half the
+    int8 store's) and no device time."""
+    from p2vit_tpu_torch.tools import w4pack_bench
+
+    (line,) = w4pack_bench.main(["--device", "cpu", "--ms", "64", "--depth", "2"])
+    assert json.loads(capsys.readouterr().out) == line
+    assert not any(key.startswith("chain_us") for key in line)
+    assert line["chain_bound_us w4p"] < line["chain_bound_us i8"]
+    assert line["fc2_b_bound_us i8"] == round(w4pack_bench.gemm_bound_us(64, 256, 64, False), 3)
+    assert w4pack_bench.gemm_bound_us(64, 256, 64, True) * 3.35e6 == pytest.approx(
+        64 * 256 + 64 * 128 + 8 * 64 + 64 * 64, rel=1e-12)
 
 
 def test_wstream_bench_smoke(tiny, capsys):
