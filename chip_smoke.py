@@ -1,7 +1,7 @@
-"""Drive the PyTorch/CUDA port's serving paths and weight-store tools once
-on one GPU.
+"""Drive the PyTorch/CUDA port's serving paths, weight-store tools and CLI
+once on one GPU.
 
-    python3 chip_smoke.py            # sixteen paths, batches 1, 8, 64
+    python3 chip_smoke.py            # seventeen paths, batches 1, 8, 64
 
 Builds the fourteen CUDA kernels from ``p2vit_tpu_torch/csrc`` (one nvcc per
 source, in parallel, sm_90a), then drives twelve int8 serving paths of two
@@ -34,6 +34,21 @@ weight-only serving of both models and the two weight-store GEMM tools:
   all four stores against its plain version on blocks 0 and 11's GEMMs,
   with the activations of the weight-only forward (1/cs folded into x) and
   with a draw of the same shapes whose rows span 25 binades.
+* ``cli``: the port's CLI (``p2vit_tpu_torch/cli.py``) in process, its own
+  steps, on a folder of seeded 256 × 320 PNGs it writes (32 train images,
+  136 val: batches of 64, 64 and a short 8), decoded by the port's native
+  loader where it builds, else PIL (with neither, the CLI's device half
+  runs over seeded images: "cli decode: none on this machine"):
+  ``deit_small --quant --serve --checkpoint <a .pth of the seeded DeiT-S
+  params> --calib-batchsize 32 --val-batchsize 64 --limit-val 3`` saving
+  its quant state, then ``--u8-ingest`` on the loaded state, then the
+  state reloaded, then ``swin_tiny --quant --serve --random-init``. Each
+  run: its val logits against ``serving_forward`` on the same state and
+  images (must be 0 differing; after the reload, against the first run's
+  too), Prec@1/5 against ``accuracy`` recomputed from the logits, the val
+  loop's launch counts against ``launches_per_forward`` × batches, and host
+  ms per val batch split into the wait on the prefetch queue and the
+  forward, beside the card's name and power limit.
 * ``w4pack`` / ``wstream``: the ported tools (``p2vit_tpu_torch/tools``) at
   the DeiT-S GEMMs, M = 197·batch, depth 12. Phase 1: ``int4_matmul_requant``
   against its plain version and the int8 kernel (also on the ``deit``
@@ -61,6 +76,11 @@ weight-only serving of both models and the two weight-store GEMM tools:
   report only), and
   the int-LN kernels' two chain rewrites against ``ln_elem`` over all 2^32
   float32 inputs (mismatches; must be 0).
+
+Before the paths, when ``swin`` runs: the JAX tests' TINY Swin (head_dims
+8 and 16, zero-padded to the kernels' 32 by the wrappers), LIS on and off:
+both Swin attention entries against their plain versions on its captured
+arguments, and its ``serving_forward`` against the plain path (0 mismatches).
 
 Phases of the int8 serving paths, one line each, per path:
 
@@ -228,7 +248,7 @@ SOURCES = {
 }
 PATHS = ("deit", "deit_staged", "deit_layer", "deit_lisoff", "deit_staged_lisoff", "deit_layer_lisoff",
          "swin", "swin_lisoff", "swin_fold", "swin_fold_lisoff", "swin_stem", "swin_int_stem_unfused",
-         "deit_wonly", "swin_wonly", "w4pack", "wstream")
+         "deit_wonly", "swin_wonly", "w4pack", "wstream", "cli")
 # DeiT-S paths by key suffix: (display name suffix, serving flags)
 DEIT_FLAGS = {"": ("", dict(fuse_embed=True, fuse_qkv=True)),
               "_staged": (" staged", dict(fuse_embed=False, fuse_qkv=False)),
@@ -1443,6 +1463,263 @@ def print_wstream_rates(name, mw, wsb, gb, dev_ms, depth, ms, reps, dev):
     print(f"{name} phase 5 wstream_matmul blocks at M=197 on {sms} SMs: {json.dumps(blocks)}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The cli path: the port's CLI in process, on a folder of images it writes
+# ---------------------------------------------------------------------------
+
+CLI_TRAIN = (4, 8)  # classes × images: 32, one calibration batch
+CLI_VAL = (4, 34)  # 136 images: val batches of 64, 64 and a short 8
+CLI_HW = (256, 320)  # image height, width (resized to 256 × 292, crop 224)
+
+
+def _write_png(path: str, rgb: np.ndarray) -> None:
+    """An 8-bit RGB PNG written with zlib and struct only (no image library)."""
+    import struct
+    import zlib
+
+    h, w, _ = rgb.shape
+    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))  # filter 0 per row
+
+    def chunk(tag, data):
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def _seeded_image(rng) -> np.ndarray:
+    """A blocky seeded image with pixel noise, CLI_HW, uint8 HWC."""
+    h, w = CLI_HW
+    base = np.repeat(np.repeat(rng.randint(0, 256, (h // 32, w // 32, 3)), 32, 0), 32, 1)
+    return np.clip(base + rng.randint(-24, 25, (h, w, 3)), 0, 255).astype(np.uint8)
+
+
+def write_image_folder(root: str, seed: int) -> None:
+    """train/ and val/ in the ImageFolder layout, seeded PNGs."""
+    import os
+
+    rng = np.random.RandomState(seed)
+    for split, (classes, per) in (("train", CLI_TRAIN), ("val", CLI_VAL)):
+        for c in range(classes):
+            d = os.path.join(root, split, f"class{c}")
+            os.makedirs(d)
+            for i in range(per):
+                _write_png(os.path.join(d, f"{i:03d}.png"), _seeded_image(rng))
+
+
+class _SeededImages:
+    """The folder's stand-in where the machine has no decoder: seeded uint8
+    images of the crop size, normalized on the host unless ``raw``."""
+
+    def __init__(self, n, classes, size, seed, raw, mean, std):
+        self.n, self.classes, self.size, self.seed, self.raw = n, classes, size, seed, raw
+        self.mean = np.asarray(mean, np.float32).reshape(3, 1, 1)
+        self.std = np.asarray(std, np.float32).reshape(3, 1, 1)
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        u8 = np.random.RandomState(self.seed * 100003 + i).randint(0, 256, (3, self.size, self.size)).astype(np.uint8)
+        img = u8 if self.raw else (u8.astype(np.float32) / np.float32(255.0) - self.mean) / self.std
+        return img, i % self.classes
+
+
+def decode_route() -> str:
+    """How this machine decodes the folder: the port's native loader if it
+    builds, else PIL, else none."""
+    from p2vit_tpu_torch import native
+
+    if native.available():
+        return "native"
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        return "none"
+    return "PIL"
+
+
+def _vit_state_dict(params, cfg) -> dict:
+    """The timm/DeiT layout of the port's ViT params (a ``--checkpoint``)."""
+    c, ps = cfg.embed_dim, cfg.patch_size
+    sd = {"cls_token": params["cls_token"], "pos_embed": params["pos_embed"],
+          "patch_embed.proj.weight": params["patch_embed"]["w"].reshape(c, cfg.in_chans, ps, ps),
+          "patch_embed.proj.bias": params["patch_embed"]["b"], "norm.weight": params["norm"]["w"],
+          "norm.bias": params["norm"]["b"], "head.weight": params["head"]["w"], "head.bias": params["head"]["b"]}
+    names = {"norm1": "norm1", "qkv": "attn.qkv", "proj": "attn.proj", "norm2": "norm2", "fc1": "mlp.fc1",
+             "fc2": "mlp.fc2"}
+    for i, blk in enumerate(params["blocks"]):
+        for key, name in names.items():
+            sd[f"blocks.{i}.{name}.weight"] = blk[key]["w"]
+            sd[f"blocks.{i}.{name}.bias"] = blk[key]["b"]
+    return {"model": {k: v.detach().cpu().contiguous() for k, v in sd.items()}}
+
+
+def _cli_run(label, argv, route, dev, smi, counts_api):
+    """The CLI's own steps (``p2vit_tpu_torch.cli.main``'s) on ``argv``,
+    with every val batch seen; then each batch's logits against
+    ``serving_forward`` on the same state and images, Prec@1/5 against
+    ``accuracy`` on those logits, the launch counts of the val loop against
+    ``launches_per_forward``, and host ms per batch. Returns the logits."""
+    from p2vit_tpu_torch import cli, serving, serving_swin
+    from p2vit_tpu_torch.config import make_policy
+    from p2vit_tpu_torch.models import MODEL_ZOO, PREPROCESS, swin, vit
+
+    reset_launch_counts, launch_counts = counts_api
+    args = cli.build_parser().parse_args(argv)
+    if cli.unported_flag(args):
+        _fail(f"cli {label}: {cli.unported_flag(args)}")
+    cfg = MODEL_ZOO[cli.FULL_NAME[args.model]]
+    is_swin = args.model.startswith("swin")
+    family = swin if is_swin else vit
+    policy = make_policy(args.ptf, args.lis, args.quant_method)
+    pp = PREPROCESS[args.model.split("_")[0]]
+    u8 = args.u8_ingest
+    orig_make_dataset = cli.make_dataset
+    if route == "none":  # the device half over seeded images in place of the decoded folder
+        def seeded(a, c, split, raw=False):
+            n, k = (CLI_TRAIN[0] * CLI_TRAIN[1], CLI_TRAIN[0]) if split == "train" else (CLI_VAL[0] * CLI_VAL[1],
+                                                                                          CLI_VAL[0])
+            return _SeededImages(n, k, c.img_size, a.seed + (split == "val"), raw, pp["mean"], pp["std"])
+        cli.make_dataset = seeded
+    try:
+        t0 = time.time()
+        params = cli.load_model(args, cfg, family, dev)
+        calib = cli.calibrate_or_load(args, cfg, family, params, policy, dev)
+        val = cli.make_dataset(args, cfg, "val", raw=u8)
+        model_fn = cli.build_model_fn(args, cfg, family, params, calib, policy, u8)
+        torch.cuda.synchronize()
+        t_setup = time.time() - t0
+        seen = []
+        bits = [4] * cfg.num_matmuls
+        reset_launch_counts()
+        p1, p5 = cli.validate(args, val, model_fn, bits, dev,
+                              on_batch=lambda i, imgs, t, lg, w, f: seen.append((imgs, t, lg, w, f)))
+        counts = launch_counts()
+    finally:
+        cli.make_dataset = orig_make_dataset
+    if not seen:
+        _fail(f"cli {label}: no val batch")
+    # the same state and images through serving_forward
+    s = (serving_swin if is_swin else serving).convert(params, calib.qstate, cfg, policy, bits)
+    if u8:
+        (serving_swin if is_swin else serving).attach_u8_ingest(s, pp["mean"], pp["std"])
+    differ = 0
+    for imgs, _, lg, _, _ in seen:
+        x = torch.from_numpy(imgs).to(dev)
+        ref = (serving_swin.serving_forward(s, calib.qstate, cfg, policy, x) if is_swin
+               else serving.serving_forward(s, cfg, x, lis=policy.int_softmax))
+        differ += int((ref.cpu().numpy() != lg).sum())
+    logits = np.concatenate([b[2] for b in seen])
+    targets = np.concatenate([b[1] for b in seen])
+    r1, r5 = cli.accuracy(logits, targets, topk=(1, 5))
+    per_forward = (serving_swin if is_swin else serving).launches_per_forward(cfg)
+    want = {k: v * len(seen) for k, v in per_forward.items()}
+    got = {k: v for k, v in counts.items() if v}
+    sizes = [len(b[1]) for b in seen]
+    print(f"cli {label}: setup (load, calibrate or load the quant state, datasets) {t_setup:.1f} s; "
+          f"{len(seen)} val batches of {sizes} images, decode {route}", flush=True)
+    print(f"cli {label}: logits against serving_forward on the same state and images: {differ} of "
+          f"{logits.size} differ; all finite {bool(np.isfinite(logits).all())}", flush=True)
+    print(f"cli {label}: Prec@1 {p1:.6f} Prec@5 {p5:.6f}; recomputed by accuracy from the logits "
+          f"{r1:.6f} {r5:.6f}", flush=True)
+    print(f"cli {label}: launches over {len(seen)} forwards {json.dumps(got)}; launches_per_forward × "
+          f"{len(seen)} {json.dumps(want)}", flush=True)
+    waits, fwds = [1e3 * b[3] for b in seen], [1e3 * b[4] for b in seen]
+    print(f"cli {label}: host ms per val batch, wait on the prefetch queue {[round(w, 3) for w in waits]}, "
+          f"forward to logits on the host {[round(f, 3) for f in fwds]} (batch 0's forward builds the "
+          f"serving state); past batch 0 the wait is {sum(waits[1:]) / max(sum(waits[1:]) + sum(fwds[1:]), 1e-9):.3f} "
+          f"of the loop; card {smi}", flush=True)
+    if differ:
+        _fail(f"cli {label}: {differ} logits differ from serving_forward")
+    if abs(p1 - r1) > 1e-9 or abs(p5 - r5) > 1e-9:
+        _fail(f"cli {label}: Prec@1/5 {p1}, {p5} against {r1}, {r5} recomputed")
+    if got != want:
+        _fail(f"cli {label}: launches {got} against {want}")
+    if not np.isfinite(logits).all() or logits.shape != (sum(sizes), cfg.num_classes):
+        _fail(f"cli {label}: logits not finite or of shape {logits.shape}")
+    return logits
+
+
+def run_cli_path(dev, smi, seed, counts_api):
+    """The ``cli`` path: a folder of seeded PNGs and a ``.pth`` of the seeded
+    DeiT-S params; the CLI at full width with ``--quant --serve`` on DeiT-S
+    (saving the quant state), then ``--u8-ingest`` on the saved state, then
+    the state reloaded (logits against the first run's), then Swin-T."""
+    import os
+    import tempfile
+
+    from p2vit_tpu_torch.models import MODEL_ZOO, vit
+
+    route = decode_route()
+    print("cli decode: none on this machine" if route == "none" else f"cli decode: {route}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        t0 = time.time()
+        if route != "none":
+            write_image_folder(data, seed)
+        pth, q = os.path.join(tmp, "deit_small.pth"), os.path.join(tmp, "deit_small_quant.npz")
+        cfg = MODEL_ZOO["deit_small_patch16_224"]
+        torch.save(_vit_state_dict(vit.init_params(seed, cfg, device=dev), cfg), pth)
+        print(f"cli: wrote {CLI_TRAIN[0] * CLI_TRAIN[1] + CLI_VAL[0] * CLI_VAL[1] if route != 'none' else 0} "
+              f"images of {CLI_HW} and the checkpoint in {time.time() - t0:.1f} s", flush=True)
+        common = ["--quant", "--serve", "--calib-batchsize", "32", "--val-batchsize", "64", "--limit-val", "3",
+                  "--seed", str(seed), "--print-freq", "1"] + (["--native-loader"] if route == "native" else [])
+        deit = ["deit_small", data, "--checkpoint", pth] + common
+        first = _cli_run("deit_small", deit + ["--save-quant-state", q], route, dev, smi, counts_api)
+        _cli_run("deit_small --u8-ingest (loaded state)", deit + ["--u8-ingest", "--load-quant-state", q], route,
+                 dev, smi, counts_api)
+        again = _cli_run("deit_small --load-quant-state", deit + ["--load-quant-state", q], route, dev, smi,
+                         counts_api)
+        n_re = int((first != again).sum())
+        print(f"cli deit_small: logits after the quant-state reload against the first run: {n_re} of "
+              f"{first.size} differ", flush=True)
+        if n_re:
+            _fail(f"cli: {n_re} logits differ after the quant-state reload")
+        _cli_run("swin_tiny", ["swin_tiny", data, "--random-init"] + common, route, dev, smi, counts_api)
+
+
+def tiny_swin_checks(dev, ops) -> None:
+    """Phase 1 at the JAX tests' TINY Swin (embed 16, heads (2, 2), 4×4
+    windows: head_dims 8 and 16, which the wrappers zero-pad to 32): both
+    attention entries against their plain versions on the path's captured
+    arguments, and serving_forward whole against the plain path, LIS on and
+    off. Any difference fails."""
+    from p2vit_tpu_torch import serving_swin
+    from p2vit_tpu_torch.config import make_policy
+    from p2vit_tpu_torch.models import swin
+
+    cfg = swin.SwinConfig(img_size=32, patch_size=4, num_classes=10, embed_dim=16, depths=(2, 2),
+                          num_heads=(2, 2), window_size=4)
+    al = ops.attention_lis
+    for lis in (True, False):
+        policy = make_policy(lis=lis)
+        params = swin.init_params(3, cfg, device=dev)
+        x = torch.randn((8, 3, 32, 32), generator=torch.Generator().manual_seed(4)).to(dev)
+        calib = swin.calibrate(params, cfg, policy, x)
+        s = serving_swin.convert(params, calib.qstate, cfg, policy, 4)
+        fwd = lambda k: serving_swin.serving_forward(s, calib.qstate, cfg, policy, x, use_kernels=k)  # noqa: E731
+        calls = _capture([al], ["swin_lis_attention_plain"], lambda: fwd(False))["swin_lis_attention_plain"]
+        bad, dims = 0, set()
+        for a, k in calls:
+            dims.add(a[0].shape[-1] // 3 // a[3])
+            bad += int((al.swin_lis_attention(*a, **k) != al.swin_lis_attention_plain(*a, **k)).sum())
+            if a[4] == 4:  # stage 0's 2×2 windows: the folded entry on their raster grid
+                raster = swin.window_reverse(a[0], 4, 8, 8).contiguous()
+                for shift in (0, 2):
+                    fa = (raster, a[1], a[2], a[3], 4) + tuple(a[5:])
+                    bad += int((al.swin_lis_attention_folded(*fa, **k, shift=shift)
+                                != al.swin_lis_attention_folded_plain(*fa, **k, shift=shift)).sum())
+        got, want = fwd(True), fwd(False)
+        n_bad = int((got != want).sum())
+        print(f"phase 1 TINY Swin (head_dims {sorted(dims)}, padded to 32) LIS {'on' if lis else 'off'}: "
+              f"attention entries vs plain mismatches {bad} over {len(calls)} calls; serving_forward vs plain "
+              f"path {n_bad} of {got.numel()} logits differ", flush=True)
+        if bad or n_bad or dims != {8, 16}:
+            _fail(f"TINY Swin head_dims {sorted(dims)}, LIS {lis}: {bad} attention and {n_bad} logit mismatches")
+
+
 def sass_count(lib_path: str, kernel: str, opcode: str, also: str = "") -> str:
     """The instructions whose opcode starts with ``opcode`` in the built
     instances of ``kernel`` (whose mangled names also hold ``also``), by
@@ -1591,6 +1868,11 @@ def main() -> None:
         print(f"{name} setup: calibrate({args.calib} images) + convert {time.time() - t0:.1f} s")
         return params, calib.qstate, policy, s
 
+    if "swin" in models:
+        t0 = time.time()
+        tiny_swin_checks(dev, ops)
+        print(f"TINY Swin head_dim checks in {time.time() - t0:.1f} s", flush=True)
+
     paths = []
     states = {}  # the LIS-on DeiT-S and Swin-T states, for the weight-only and w4pack paths
     deit = [m for m in models if m.startswith("deit") or m == "w4pack"]
@@ -1698,6 +1980,11 @@ def main() -> None:
             t0 = time.time()
             per_model[key] = run()
             print(f"{key}: phases 1-5 in {time.time() - t0:.1f} s", flush=True)
+
+    if "cli" in models:
+        t0 = time.time()
+        run_cli_path(dev, smi, args.seed, counts_api)
+        print(f"cli: the path in {time.time() - t0:.1f} s", flush=True)
 
     print_comparisons(summary, max(batches))
     print_flag_comparisons(paths, summary, max(batches))

@@ -1,5 +1,6 @@
 """Model zoo (counterpart of ``p2vit_tpu/models/__init__.py``): the ViT/DeiT
-and Swin constructors."""
+and Swin constructors, ``MODEL_ZOO`` over both, and each family's
+preprocessing (``PREPROCESS``)."""
 
 from __future__ import annotations
 
@@ -19,4 +20,13 @@ SWIN_ZOO = {
     "swin_tiny_patch4_window7_224": SwinConfig(embed_dim=96, depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24)),
     "swin_small_patch4_window7_224": SwinConfig(embed_dim=96, depths=(2, 2, 18, 2), num_heads=(3, 6, 12, 24)),
     "swin_base_patch4_window7_224": SwinConfig(embed_dim=128, depths=(2, 2, 18, 2), num_heads=(4, 8, 16, 32)),
+}
+
+MODEL_ZOO = {**VIT_ZOO, **SWIN_ZOO}
+
+# Per-family preprocessing: normalize mean/std and the resize crop_pct
+PREPROCESS = {
+    "deit": {"mean": (0.485, 0.456, 0.406), "std": (0.229, 0.224, 0.225), "crop_pct": 0.875},
+    "vit": {"mean": (0.5, 0.5, 0.5), "std": (0.5, 0.5, 0.5), "crop_pct": 0.9},
+    "swin": {"mean": (0.485, 0.456, 0.406), "std": (0.229, 0.224, 0.225), "crop_pct": 0.9},
 }

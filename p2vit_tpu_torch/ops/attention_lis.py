@@ -548,7 +548,7 @@ lis_attention_qkv_fused.launches = 0
 # Swin windowed attention
 # ---------------------------------------------------------------------------
 
-SWIN_HEAD_DIM = 32  # every Swin in the zoo
+SWIN_HEAD_DIM = 32  # the kernel's head_dim (every Swin in the zoo); smaller ones are zero-padded to it
 SWIN_MAX_N = 64  # tokens per window the kernel takes (49 for 7×7 windows)
 _SWIN_QLD = SWIN_HEAD_DIM + 16  # bytes per staged q / k row
 _SWIN_STAGE = 2 * SWIN_MAX_N * _SWIN_QLD + SWIN_MAX_N * SWIN_HEAD_DIM  # one item's q, k, v rows
@@ -694,20 +694,42 @@ def swin_lis_attention_plain(qkv_q, bias, mask, num_heads, n_windows, score_requ
 
 
 def _check_swin_operands(qkv, bias, mask, c3, n, num_heads, n_windows, lis, lis_bits):
-    """The Swin kernels' operand checks; returns (C, bias, mask) as the
-    kernels take them."""
+    """The Swin kernels' operand checks; returns (head_dim, bias, mask) as
+    the kernels take them."""
     c = c3 // 3
     check_cuda_operand(qkv, "qkv", torch.int8)
     _check_lis_bits(lis, lis_bits)
-    if c3 != 3 * c or c != SWIN_HEAD_DIM * num_heads or n > SWIN_MAX_N:
-        raise ValueError(f"Swin attention kernel needs head_dim {SWIN_HEAD_DIM} and "
+    d = c // num_heads
+    if c3 != 3 * c or c != d * num_heads or not 1 <= d <= SWIN_HEAD_DIM or n > SWIN_MAX_N:
+        raise ValueError(f"Swin attention kernel needs head_dim <= {SWIN_HEAD_DIM} and "
                          f"N <= {SWIN_MAX_N}; got C={c}, heads={num_heads}, N={n}")
     bias = bias.to(torch.float32).contiguous()
     check_cuda_operand(bias, "bias", torch.float32, (num_heads, n, n))
     if mask is not None:
         mask = mask.to(torch.float32).contiguous()
         check_cuda_operand(mask, "mask", torch.float32, (n_windows, n, n))
-    return c, bias, mask
+    return d, bias, mask
+
+
+def swin_pad_heads(qkv, num_heads: int, d: int):
+    """(..., 3·H·d) qkv codes → (..., 3·H·32): each head's q, k and v
+    columns zero-padded to the kernel's head_dim. Zero columns add nothing
+    to the integer scores (``score_requant`` carries the true d^-0.5) and
+    give zero output columns, which ``swin_unpad_heads`` drops."""
+    if d == SWIN_HEAD_DIM:
+        return qkv
+    lead = qkv.shape[:-1]
+    out = qkv.new_zeros((*lead, 3 * num_heads, SWIN_HEAD_DIM))
+    out[..., :d] = qkv.reshape(*lead, 3 * num_heads, d)
+    return out.reshape(*lead, 3 * num_heads * SWIN_HEAD_DIM)
+
+
+def swin_unpad_heads(out, num_heads: int, d: int):
+    """(..., H·32) output codes → (..., H·d), each head's first d columns."""
+    if d == SWIN_HEAD_DIM:
+        return out
+    lead = out.shape[:-1]
+    return out.reshape(*lead, num_heads, SWIN_HEAD_DIM)[..., :d].reshape(*lead, num_heads * d).contiguous()
 
 
 def _swin_hooks(grid, phase_ns, cta_ns, items, n, lis, fold):
@@ -737,9 +759,10 @@ def swin_lis_attention(qkv_q, bias, mask, num_heads, n_windows, score_requant, a
       score_requant: s_qkv²·d^-0.5/s_attn1; attn_scale: s_attn1;
       s2: the qact2 scale (LIS input); out_requant: s_qkv/s_qact3.
     Returns (W, N, C) int8 codes of the qact3 node. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (head_dim 32, N ≤ 64;
-    ``swin_attention_plan``) or raise. Measurement hooks: ``grid`` > 0
-    launches that many CTAs instead of the plan's; ``phase_ns``, a (9,)
+    plain version; CUDA tensors launch the kernel (N ≤ 64;
+    ``swin_attention_plan``; a head_dim d < 32 runs with each head's q, k,
+    v zero-padded to 32 by ``swin_pad_heads``) or raise. Measurement
+    hooks: ``grid`` > 0 launches that many CTAs instead of the plan's; ``phase_ns``, a (9,)
     int64 CUDA tensor, receives the middle CTA's time per phase summed over
     its items (``SWIN_PHASES``; LIS off ``SWIN_PHASES_LISOFF`` and a zero),
     its total ns, its items, the grid and its bias stagings; ``cta_ns``, a
@@ -751,11 +774,13 @@ def swin_lis_attention(qkv_q, bias, mask, num_heads, n_windows, score_requant, a
         return swin_lis_attention_plain(qkv_q, bias, mask, num_heads, n_windows, score_requant,
                                         attn_scale, s2, out_requant, lis_bits, lis)
     w, n, c3 = qkv_q.shape
-    c, bias, mask = _check_swin_operands(qkv_q, bias, mask, c3, n, num_heads, n_windows, lis,
+    d, bias, mask = _check_swin_operands(qkv_q, bias, mask, c3, n, num_heads, n_windows, lis,
                                          lis_bits)
     if mask is not None and w % n_windows:
         raise ValueError(f"{w} windows are not whole images of {n_windows} windows")
     scal = swin_attention_scalars(score_requant, attn_scale, s2, out_requant, dev, lis)
+    qkv_q = swin_pad_heads(qkv_q, num_heads, d)
+    c = SWIN_HEAD_DIM * num_heads
     out = torch.empty((w, n, c), dtype=torch.int8, device=dev)
     nw = n_windows if mask is not None else 1
     if grid or phase_ns is not None or cta_ns is not None:
@@ -765,7 +790,7 @@ def swin_lis_attention(qkv_q, bias, mask, num_heads, n_windows, score_requant, a
         launch("p2v_swin_lis_attention", qkv_q, bias, mask, scal, out, w, n, c, num_heads, nw,
                int(bool(lis)))
     swin_lis_attention.launches += 1
-    return out
+    return swin_unpad_heads(out, num_heads, d)
 
 
 swin_lis_attention.launches = 0
@@ -818,8 +843,9 @@ def swin_lis_attention_folded(qkv_r, bias, mask, num_heads, window, score_requan
     Returns (B, res, res, C) int8 qact3 codes in raster layout, bit for bit
     roll(+shift) of window_reverse of ``swin_lis_attention`` on the
     partitioned panels of roll(−shift) of ``qkv_r``. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (head_dim 32, N ≤ 64) or
-    raise. ``grid``, ``phase_ns`` and ``cta_ns``: the measurement hooks of
+    plain version; CUDA tensors launch the kernel (head_dim ≤ 32, padded as
+    ``swin_lis_attention`` pads it; N ≤ 64) or raise. ``grid``,
+    ``phase_ns`` and ``cta_ns``: the measurement hooks of
     ``swin_lis_attention``.
     """
     dev = device_of(qkv_r, bias, *(() if mask is None else (mask,)))
@@ -828,9 +854,11 @@ def swin_lis_attention_folded(qkv_r, bias, mask, num_heads, window, score_requan
                                                score_requant, attn_scale, s2, out_requant,
                                                lis_bits, lis, shift)
     b, res, g, n = _folded_geometry(qkv_r, mask, window)
-    c, bias, mask = _check_swin_operands(qkv_r, bias, mask, qkv_r.shape[-1], n, num_heads, g * g,
+    d, bias, mask = _check_swin_operands(qkv_r, bias, mask, qkv_r.shape[-1], n, num_heads, g * g,
                                          lis, lis_bits)
     scal = swin_attention_scalars(score_requant, attn_scale, s2, out_requant, dev, lis)
+    qkv_r = swin_pad_heads(qkv_r, num_heads, d)
+    c = SWIN_HEAD_DIM * num_heads
     out = torch.empty((b, res, res, c), dtype=torch.int8, device=dev)
     shift = int(shift) % res
     if grid or phase_ns is not None or cta_ns is not None:
@@ -840,7 +868,7 @@ def swin_lis_attention_folded(qkv_r, bias, mask, num_heads, window, score_requan
         launch("p2v_swin_lis_attention_folded", qkv_r, bias, mask, scal, out, b, res, window, c,
                num_heads, shift, int(bool(lis)))
     swin_lis_attention_folded.launches += 1
-    return out
+    return swin_unpad_heads(out, num_heads, d)
 
 
 swin_lis_attention_folded.launches = 0

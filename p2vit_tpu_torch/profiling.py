@@ -1,6 +1,7 @@
-"""Timing of one call on the device (counterpart of ``device_time`` and
-``device_time_ms`` in ``p2vit_tpu/profiling.py``; the cost model and the
-meters are not ported yet).
+"""Timing of one call on the device and the running average of the
+evaluation loop (counterpart of ``device_time``, ``device_time_ms`` and
+``AverageMeter`` in ``p2vit_tpu/profiling.py``; the cost model and
+``trace`` are not ported yet).
 
 On CUDA tensors the time comes from CUDA events around ``iters`` calls on
 the current stream (stream order serializes the calls, so no data
@@ -41,3 +42,16 @@ def device_time(step, x, *consts, iters: int = 10, repeats: int = 3) -> float:
 def device_time_ms(fn, x, *consts, iters: int = 20, repeats: int = 3) -> float:
     """``device_time`` in milliseconds, the tools' unit."""
     return device_time(fn, x, *consts, iters=iters, repeats=repeats) * 1e3
+
+
+class AverageMeter:
+    """Running average of a per-batch value weighted by the batch size."""
+
+    def __init__(self):
+        self.val = self.sum = self.count = self.avg = 0.0
+
+    def update(self, val: float, n: int = 1):
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / max(self.count, 1)

@@ -895,6 +895,51 @@ def test_swin_serving_forward_small_model(dev):
     assert torch.equal(got, want) and bool(torch.isfinite(got).all())
 
 
+@pytest.mark.parametrize("lis", [True, False])
+@pytest.mark.parametrize("d", [8, 16])
+def test_swin_attention_small_head_dims(dev, d, lis):
+    """TINY Swin's head_dims 8 and 16 (4×4 windows on an 8×8 grid, 2 heads):
+    the wrappers zero-pad each head to 32, and both entries, at shift 0 and
+    2, equal their plain versions bit for bit; each call launches its kernel
+    once."""
+    rng = np.random.RandomState(d)
+    heads, c, s2 = 2, 2 * d, 2.0**-4
+    qkv = _i8(rng, (3, 8, 8, 3 * c)).to(dev)
+    bias = torch.from_numpy((rng.randn(heads, 16, 16) * 0.3).astype(np.float32)).to(dev)
+    mask = torch.from_numpy((swin.shift_attn_mask(8, 8, 4, 2) / s2).astype(np.float32)).to(dev)
+    sc = (2.0**-12 * d**-0.5, 2.0**-4, s2, 2.0**-1)
+    for m in (None, mask):
+        panels = swin.window_partition(qkv, 4).contiguous()
+        a = (panels, bias, m, heads, 4) + sc
+        before = attention_lis.swin_lis_attention.launches
+        got = attention_lis.swin_lis_attention(*a, lis=lis)
+        assert attention_lis.swin_lis_attention.launches == before + 1 and got.shape == (12, 16, c)
+        _same(got, attention_lis.swin_lis_attention_plain(*a, lis=lis))
+        for shift in (0, 2):
+            a = (qkv, bias, m, heads, 4) + sc
+            _same(attention_lis.swin_lis_attention_folded(*a, lis=lis, shift=shift),
+                  attention_lis.swin_lis_attention_folded_plain(*a, lis=lis, shift=shift))
+
+
+@pytest.mark.parametrize("lis", [True, False])
+def test_swin_serving_forward_tiny(dev, lis):
+    """The JAX tests' TINY Swin (embed 16, heads (2, 2), 4×4 windows: head_dims
+    8 and 16): serving_forward through the kernels equals the plain path bit
+    for bit, LIS on and off."""
+    cfg = swin.SwinConfig(img_size=32, patch_size=4, num_classes=10, embed_dim=16, depths=(2, 2),
+                          num_heads=(2, 2), window_size=4)
+    policy = make_policy(lis=lis)
+    params = swin.init_params(0, cfg, device=dev)
+    x = torch.randn((5, 3, 32, 32), generator=torch.Generator().manual_seed(1)).to(dev)
+    calib = swin.calibrate(params, cfg, policy, x)
+    s = serving_swin.convert(params, calib.qstate, cfg, policy, 4)
+    reset_launch_counts()
+    got = serving_swin.serving_forward(s, calib.qstate, cfg, policy, x)
+    assert launch_counts()["swin_lis_attention"] == 4
+    want = serving_swin.serving_forward(s, calib.qstate, cfg, policy, x, use_kernels=False)
+    assert torch.equal(got, want) and bool(torch.isfinite(got).all())
+
+
 @pytest.mark.parametrize("case", ["randn", "pot"])
 def test_fused_swin_stem_kernel(dev, case):
     """Swin-T's stem (K = 48, C = 96), ragged M: random-normal inputs, where
