@@ -35,20 +35,29 @@ weight-only serving of both models and the two weight-store GEMM tools:
   with the activations of the weight-only forward (1/cs folded into x) and
   with a draw of the same shapes whose rows span 25 binades.
 * ``cli``: the port's CLI (``p2vit_tpu_torch/cli.py``) in process, its own
-  steps, on a folder of seeded 256 × 320 PNGs it writes (32 train images,
-  136 val: batches of 64, 64 and a short 8), decoded by the port's native
+  steps, on a folder of seeded 256 × 320 PNGs it writes (64 train images,
+  two calibration batches of 32; 136 val: batches of 64, 64 and a short 8), decoded by the port's native
   loader where it builds, else PIL (with neither, the CLI's device half
   runs over seeded images: "cli decode: none on this machine"):
   ``deit_small --quant --serve --checkpoint <a .pth of the seeded DeiT-S
   params> --calib-batchsize 32 --val-batchsize 64 --limit-val 3`` saving
   its quant state, then ``--u8-ingest`` on the loaded state, then the
-  state reloaded, then ``swin_tiny --quant --serve --random-init``. Each
-  run: its val logits against ``serving_forward`` on the same state and
-  images (must be 0 differing; after the reload, against the first run's
-  too), Prec@1/5 against ``accuracy`` recomputed from the logits, the val
-  loop's launch counts against ``launches_per_forward`` × batches, and host
-  ms per val batch split into the wait on the prefetch queue and the
-  forward, beside the card's name and power limit.
+  state reloaded, then ``swin_tiny --quant --serve --random-init``, then
+  ``deit_small ... --calib-iter 2 --quant-method omse`` (a state whose
+  activation scales are not powers of two), ``deit_small ... --calib-iter 2
+  --mixed --live-hessian --hessian-batches 1 --limit-val 1`` (the
+  mixed-precision search: the Hessian's seconds, the front's size, the
+  configs validated and seconds per validation split into the wait on the
+  decode and the forward, the five best configs, and the best config's
+  logits against the plain path, bitwise, with its launch counts) and
+  ``swin_tiny ... --calib-iter 2 --quant-method percentile``. Each run: its
+  val logits against ``serving_forward`` on the same state and images and
+  against its plain path (``use_kernels=False``; must be 0 differing; after
+  the reload, against the first run's too), Prec@1/5 against ``accuracy``
+  recomputed from the logits, the val loop's launch counts against
+  ``launches_per_forward`` × batches, and host ms per val batch split into
+  the wait on the prefetch queue and the forward, beside the card's name
+  and power limit.
 * ``w4pack`` / ``wstream``: the ported tools (``p2vit_tpu_torch/tools``) at
   the DeiT-S GEMMs, M = 197·batch, depth 12. Phase 1: ``int4_matmul_requant``
   against its plain version and the int8 kernel (also on the ``deit``
@@ -1467,7 +1476,7 @@ def print_wstream_rates(name, mw, wsb, gb, dev_ms, depth, ms, reps, dev):
 # The cli path: the port's CLI in process, on a folder of images it writes
 # ---------------------------------------------------------------------------
 
-CLI_TRAIN = (4, 8)  # classes × images: 32, one calibration batch
+CLI_TRAIN = (4, 16)  # classes × images: 64, two calibration batches of 32
 CLI_VAL = (4, 34)  # 136 images: val batches of 64, 64 and a short 8
 CLI_HW = (256, 320)  # image height, width (resized to 256 × 292, crop 224)
 
@@ -1556,11 +1565,32 @@ def _vit_state_dict(params, cfg) -> dict:
     return {"model": {k: v.detach().cpu().contiguous() for k, v in sd.items()}}
 
 
+def _non_pot_scales(qstate) -> str:
+    """How many of the state's layer-wise activation scales (every node's
+    but the PTF nodes' per-channel ones) are not powers of two."""
+    found = []
+
+    def walk(node, key=""):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, k)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v, key)
+        elif isinstance(node, torch.Tensor) and (key == "qact0_scale" or (key == "scale" and node.ndim == 0)):
+            found.extend(node.reshape(-1).tolist())
+
+    walk(qstate)
+    non_pot = sum(1 for v in found if not _is_pot(v))
+    return f"{non_pot} of {len(found)} layer-wise activation scales are not powers of two"
+
+
 def _cli_run(label, argv, route, dev, smi, counts_api):
     """The CLI's own steps (``p2vit_tpu_torch.cli.main``'s) on ``argv``,
     with every val batch seen; then each batch's logits against
-    ``serving_forward`` on the same state and images, Prec@1/5 against
-    ``accuracy`` on those logits, the launch counts of the val loop against
+    ``serving_forward`` on the same state and images, and against its plain
+    path (``use_kernels=False``, bitwise), Prec@1/5 against ``accuracy`` on
+    those logits, the launch counts of the val loop against
     ``launches_per_forward``, and host ms per batch. Returns the logits."""
     from p2vit_tpu_torch import cli, serving, serving_swin
     from p2vit_tpu_torch.config import make_policy
@@ -1587,6 +1617,8 @@ def _cli_run(label, argv, route, dev, smi, counts_api):
         t0 = time.time()
         params = cli.load_model(args, cfg, family, dev)
         calib = cli.calibrate_or_load(args, cfg, family, params, policy, dev)
+        torch.cuda.synchronize()
+        t_calib = time.time() - t0
         val = cli.make_dataset(args, cfg, "val", raw=u8)
         model_fn = cli.build_model_fn(args, cfg, family, params, calib, policy, u8)
         torch.cuda.synchronize()
@@ -1605,12 +1637,14 @@ def _cli_run(label, argv, route, dev, smi, counts_api):
     s = (serving_swin if is_swin else serving).convert(params, calib.qstate, cfg, policy, bits)
     if u8:
         (serving_swin if is_swin else serving).attach_u8_ingest(s, pp["mean"], pp["std"])
-    differ = 0
+    differ = differ_plain = 0
     for imgs, _, lg, _, _ in seen:
         x = torch.from_numpy(imgs).to(dev)
-        ref = (serving_swin.serving_forward(s, calib.qstate, cfg, policy, x) if is_swin
-               else serving.serving_forward(s, cfg, x, lis=policy.int_softmax))
-        differ += int((ref.cpu().numpy() != lg).sum())
+        for kernels in (True, False):
+            ref = (serving_swin.serving_forward(s, calib.qstate, cfg, policy, x, use_kernels=kernels) if is_swin
+                   else serving.serving_forward(s, cfg, x, lis=policy.int_softmax, use_kernels=kernels))
+            n = int((ref.cpu().numpy() != lg).sum())
+            differ, differ_plain = (differ + n, differ_plain) if kernels else (differ, differ_plain + n)
     logits = np.concatenate([b[2] for b in seen])
     targets = np.concatenate([b[1] for b in seen])
     r1, r5 = cli.accuracy(logits, targets, topk=(1, 5))
@@ -1618,10 +1652,12 @@ def _cli_run(label, argv, route, dev, smi, counts_api):
     want = {k: v * len(seen) for k, v in per_forward.items()}
     got = {k: v for k, v in counts.items() if v}
     sizes = [len(b[1]) for b in seen]
-    print(f"cli {label}: setup (load, calibrate or load the quant state, datasets) {t_setup:.1f} s; "
-          f"{len(seen)} val batches of {sizes} images, decode {route}", flush=True)
+    print(f"cli {label}: setup (load, calibrate or load the quant state, datasets) {t_setup:.1f} s, of it "
+          f"load and calibration {t_calib:.1f} s; {len(seen)} val batches of {sizes} images, decode {route}; "
+          f"{_non_pot_scales(calib.qstate)}", flush=True)
     print(f"cli {label}: logits against serving_forward on the same state and images: {differ} of "
-          f"{logits.size} differ; all finite {bool(np.isfinite(logits).all())}", flush=True)
+          f"{logits.size} differ; against its plain path (use_kernels=False): {differ_plain} differ; all "
+          f"finite {bool(np.isfinite(logits).all())}", flush=True)
     print(f"cli {label}: Prec@1 {p1:.6f} Prec@5 {p5:.6f}; recomputed by accuracy from the logits "
           f"{r1:.6f} {r5:.6f}", flush=True)
     print(f"cli {label}: launches over {len(seen)} forwards {json.dumps(got)}; launches_per_forward × "
@@ -1631,8 +1667,8 @@ def _cli_run(label, argv, route, dev, smi, counts_api):
           f"forward to logits on the host {[round(f, 3) for f in fwds]} (batch 0's forward builds the "
           f"serving state); past batch 0 the wait is {sum(waits[1:]) / max(sum(waits[1:]) + sum(fwds[1:]), 1e-9):.3f} "
           f"of the loop; card {smi}", flush=True)
-    if differ:
-        _fail(f"cli {label}: {differ} logits differ from serving_forward")
+    if differ or differ_plain:
+        _fail(f"cli {label}: {differ} logits differ from serving_forward, {differ_plain} from its plain path")
     if abs(p1 - r1) > 1e-9 or abs(p5 - r5) > 1e-9:
         _fail(f"cli {label}: Prec@1/5 {p1}, {p5} against {r1}, {r5} recomputed")
     if got != want:
@@ -1642,11 +1678,94 @@ def _cli_run(label, argv, route, dev, smi, counts_api):
     return logits
 
 
+def _cli_search_run(label, argv, route, dev, smi, counts_api):
+    """``--mixed`` through the CLI's own steps: calibration, the
+    sensitivities (live Hessian traces, timed), ``mixed_search`` with every
+    validation timed and split into the wait on the decode queue and the
+    forward; then the best config's logits on the first val batch through
+    the CLI's serving state against the plain path (bitwise) and its launch
+    counts against ``launches_per_forward``."""
+    from p2vit_tpu_torch import cli, serving
+    from p2vit_tpu_torch.config import make_policy
+    from p2vit_tpu_torch.models import MODEL_ZOO, vit
+
+    reset_launch_counts, launch_counts = counts_api
+    args = cli.build_parser().parse_args(argv)
+    if cli.unported_flag(args):
+        _fail(f"cli {label}: {cli.unported_flag(args)}")
+    cfg = MODEL_ZOO[cli.FULL_NAME[args.model]]
+    policy = make_policy(args.ptf, args.lis, args.quant_method)
+    if route == "none":
+        _fail(f"cli {label}: no image decoder on this machine")
+    t0 = time.time()
+    params = cli.load_model(args, cfg, vit, dev)
+    calib = cli.calibrate_or_load(args, cfg, vit, params, policy, dev)
+    val = cli.make_dataset(args, cfg, "val")
+    model_fn = cli.build_model_fn(args, cfg, vit, params, calib, policy, False)
+    torch.cuda.synchronize()
+    t_setup = time.time() - t0
+    t0 = time.time()
+    mean_hessian = cli.sensitivities(args, cfg, params, dev)
+    torch.cuda.synchronize()
+    t_hessian = time.time() - t0
+    runs, first = [], []
+
+    def validate_fn(bits):
+        waits, fwds = [], []
+
+        def seen(i, imgs, targets, logits, wait_s, fwd_s):
+            waits.append(wait_s)
+            fwds.append(fwd_s)
+            if not first:
+                first.append(imgs)
+
+        t = time.perf_counter()
+        out = cli.validate(args, val, model_fn, bits, dev, on_batch=seen)
+        runs.append((time.perf_counter() - t, sum(waits), sum(fwds)))
+        return out
+
+    t0 = time.time()
+    front, result = cli.mixed_search(args, cfg, False, calib, mean_hessian, validate_fn)
+    t_search = time.time() - t0
+    total, wait, fwd = (sum(r[i] for r in runs) for i in range(3))
+    print(f"cli {label}: setup (load, calibration over {args.calib_iter} batches, datasets) {t_setup:.1f} s; "
+          f"live Hessian traces over {args.hessian_batches} batch of {args.calib_batchsize} images "
+          f"{t_hessian:.2f} s; card {smi}", flush=True)
+    print(f"cli {label}: Pareto front {len(front)} configs; {len(runs)} configs validated in {t_search:.1f} s, "
+          f"{total / max(len(runs), 1):.3f} s per validation ({args.limit_val} val batch of "
+          f"{args.val_batchsize}); of the validations' time the wait on the decode queue is "
+          f"{wait / max(total, 1e-9):.3f} and the forward (with each new config's convert) "
+          f"{fwd / max(total, 1e-9):.3f}", flush=True)
+    for bits, prec1 in result[:5]:
+        print(f"cli {label}: best config {bits} Prec@1 {prec1:.6f} "
+              f"({sum(b == 8 for b in bits)} of {len(bits)} layers at 8 bits)", flush=True)
+    best = result[0][0]
+    x = torch.from_numpy(first[0]).to(dev)
+    reset_launch_counts()
+    got = model_fn(x, best)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    s = serving.convert(params, calib.qstate, cfg, policy, best)
+    want = serving.serving_forward(s, cfg, x, lis=policy.int_softmax, use_kernels=False)
+    n_bad = int((got != want).sum())
+    per_forward = serving.launches_per_forward(cfg)
+    print(f"cli {label}: best mixed config's logits on val batch 0 against the plain path: {n_bad} of "
+          f"{got.numel()} differ; launches {json.dumps(counts)} against {json.dumps(per_forward)}", flush=True)
+    if n_bad:
+        _fail(f"cli {label}: the best mixed config's logits differ from the plain path in {n_bad} places")
+    if counts != per_forward:
+        _fail(f"cli {label}: launches {counts} against {per_forward}")
+    if 8 not in best[1:]:
+        print(f"cli {label}: note: the best config holds no 8-bit layer past the patch embedding", flush=True)
+
+
 def run_cli_path(dev, smi, seed, counts_api):
     """The ``cli`` path: a folder of seeded PNGs and a ``.pth`` of the seeded
     DeiT-S params; the CLI at full width with ``--quant --serve`` on DeiT-S
     (saving the quant state), then ``--u8-ingest`` on the saved state, then
-    the state reloaded (logits against the first run's), then Swin-T."""
+    the state reloaded (logits against the first run's), then Swin-T; then
+    DeiT-S calibrated over two batches by omse (activation scales that are
+    not powers of two), the mixed-precision search on DeiT-S with live
+    Hessian traces, and Swin-T calibrated over two batches by percentile."""
     import os
     import tempfile
 
@@ -1678,6 +1797,17 @@ def run_cli_path(dev, smi, seed, counts_api):
         if n_re:
             _fail(f"cli: {n_re} logits differ after the quant-state reload")
         _cli_run("swin_tiny", ["swin_tiny", data, "--random-init"] + common, route, dev, smi, counts_api)
+        two = ["--calib-iter", "2"]
+        _cli_run("deit_small --calib-iter 2 --quant-method omse", deit + two + ["--quant-method", "omse"], route,
+                 dev, smi, counts_api)
+        t0 = time.time()
+        search = ["--calib-iter", "2", "--mixed", "--live-hessian", "--hessian-batches", "1", "--limit-val", "1",
+                  "--print-freq", "1000"]
+        _cli_search_run("deit_small --mixed --live-hessian", deit + search, route, dev, smi, counts_api)
+        print(f"cli deit_small --mixed --live-hessian: the run in {time.time() - t0:.1f} s", flush=True)
+        _cli_run("swin_tiny --calib-iter 2 --quant-method percentile",
+                 ["swin_tiny", data, "--random-init"] + common + two + ["--quant-method", "percentile"], route,
+                 dev, smi, counts_api)
 
 
 def tiny_swin_checks(dev, ops) -> None:
@@ -1720,17 +1850,28 @@ def tiny_swin_checks(dev, ops) -> None:
             _fail(f"TINY Swin head_dims {sorted(dims)}, LIS {lis}: {bad} attention and {n_bad} logit mismatches")
 
 
+_SASS: dict = {}
+
+
+def _sass(lib_path: str) -> str:
+    """``cuobjdump -sass`` of the built library, run once and kept."""
+    import os
+    import shutil
+
+    if lib_path not in _SASS:
+        tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                                                         "cuobjdump")
+        _SASS[lib_path] = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                                         timeout=120).stdout
+    return _SASS[lib_path]
+
+
 def sass_count(lib_path: str, kernel: str, opcode: str, also: str = "") -> str:
     """The instructions whose opcode starts with ``opcode`` in the built
     instances of ``kernel`` (whose mangled names also hold ``also``), by
     opcode (cuobjdump -sass; report only)."""
-    import os
-    import shutil
-
-    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
-                                                     "cuobjdump")
     try:
-        sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, timeout=120).stdout
+        sass = _sass(lib_path)
     except (OSError, subprocess.SubprocessError) as e:
         return f"not measured ({e})"
     fns, cur, found = 0, False, {}
@@ -1749,13 +1890,8 @@ def sass_loop_counts(lib_path: str, kernel: str) -> str:
     of the backward branches' bodies with 8 FMULs or more, the densest in
     FMULs (the k loop, not the block loop around it), and its LDS, FMUL and
     FADD counts (shared loads a product = LDS/FMUL; report only)."""
-    import os
-    import shutil
-
-    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
-                                                     "cuobjdump")
     try:
-        sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, timeout=120).stdout
+        sass = _sass(lib_path)
     except (OSError, subprocess.SubprocessError) as e:
         return f"not measured ({e})"
     out, fns, cur = {}, [], None
@@ -1827,6 +1963,7 @@ def main() -> None:
     for ln in regs:
         print(f"  ptxas {ln}")
     so = _lib.library()[0]._name
+    t0 = time.time()
     print(f"sass: DMMA instructions {sass_count(so, 'wstream_matmul_kernel', 'DMMA')}", flush=True)
     print(f"sass: IMMA instructions {sass_count(so, 'lis_attention_qkv_kernel', 'IMMA')}", flush=True)
     print(f"sass: IMMA instructions {sass_count(so, 'swin_attention_kernel', 'IMMA')}", flush=True)
@@ -1840,6 +1977,7 @@ def main() -> None:
     for op in ("IGMMA", "UTMALDG"):  # the int4-store instances: PACKED, the last template argument, true
         print(f"sass: {op} instructions {sass_count(so, 'wg14requant_kernel', op, also='Lb1EEEv')} "
               f"(int4_matmul_requant)", flush=True)
+    print(f"sass counts in {time.time() - t0:.1f} s (one cuobjdump)", flush=True)
     bad = ops.intln.ln_chain_check(dev)
     print(f"int-LN chain rewrites (2^N bits, unit-ratio fold) against ln_elem over all 2^32 floats: "
           f"mismatches {bad}", flush=True)

@@ -3,6 +3,8 @@ card (counterpart of the JAX package's ``test_quant.py`` CLI).
 
     python -m p2vit_tpu_torch.cli deit_small <dir> --quant [--serve]
     python -m p2vit_tpu_torch.cli deit_tiny <dir> --quant --serve --device cpu --random-init --limit-val 1
+    python -m p2vit_tpu_torch.cli deit_small <dir> --quant --calib-iter 4 --quant-method omse
+    python -m p2vit_tpu_torch.cli deit_small <dir> --quant --serve --mixed --live-hessian
 
 ``<dir>`` holds ``train/`` (calibration) and ``val/`` (evaluation) in the
 ImageFolder layout. The flags are the JAX CLI's, with the same names and
@@ -12,18 +14,28 @@ is not ported yet exits with status 2 and one line naming the ROADMAP.md
 item that ports it.
 
 JAX's ``[plan]`` hint (its TPU crossover tables) is not printed: the
-planner is not ported (ROADMAP.md queue 1 item 4).
+planner is not ported (ROADMAP.md queue 1 item 5).
+
+``--mode 1`` calibrates on Gaussian noise from the port's own
+``torch.Generator`` seeded by ``--seed``; the JAX CLI draws with
+``jax.random``, so the two calibrate on different noise.
 
 ``main`` runs these steps, which tests call one by one at small sizes:
 ``make_dataset`` (PIL or the native loader, float32 or uint8 batches),
-``calibrate_or_load`` (one-batch calibration, or a saved quant state),
-``build_model_fn`` (the forward the flags ask for) and ``validate`` (top-1
-and top-5 over the val split).
+``calibrate_or_load`` (statistics over ``--calib-iter`` − 1 batches and the
+solve on the last, calibration on noise, or a saved quant state),
+``build_model_fn`` (the forward the flags ask for), ``validate`` (top-1 and
+top-5 over the val split) and, under ``--mixed``, ``sensitivities`` (the
+mean Hessian table, or live Hutchinson traces) and ``mixed_search`` (the
+Pareto front by Hessian-weighted distance, then the evolutionary search,
+each candidate validated).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import random
 import sys
 import time
 
@@ -85,7 +97,8 @@ def build_parser():
     p.add_argument("--calib-batchsize", default=100, type=int)
     p.add_argument(
         "--mode", default=0, type=int,
-        help="calibration data: 0 real, 1 gaussian noise, 2 data-free generated",
+        help="calibration data: 0 real, 1 gaussian noise (drawn from a torch.Generator seeded by "
+             "--seed, not the JAX CLI's jax.random stream), 2 data-free generated",
     )
     p.add_argument(
         "--calib-iter", default=1, type=int,
@@ -136,23 +149,16 @@ def build_parser():
 
 
 # flags whose module the port does not have yet: (is it set, the flag, the ROADMAP.md item)
-_SEARCH = "ROADMAP.md queue 1 item 4 (search and tools)"
-_CALIB = "ROADMAP.md queue 1 item 3 (the rest of calibration)"
-_PARALLEL = "ROADMAP.md queue 1 item 5 (parallelism)"
+_DATAFREE = "ROADMAP.md queue 1 item 5 (data-free calibration, analysis, the planner and tools)"
+_PARALLEL = "ROADMAP.md queue 1 item 6 (parallelism)"
 
 
 def unported_flag(args) -> str | None:
     """The first flag set on ``args`` that the port cannot run yet, as the
     one line to exit with, or None."""
     checks = (
-        (args.mixed, "--mixed", _SEARCH),
-        (args.live_hessian, "--live-hessian", _SEARCH),
-        (args.hessian_batches != 2, "--hessian-batches", _SEARCH),
-        (args.plot, "--plot", _SEARCH),
-        (args.mode == 1, "--mode 1", _SEARCH + ", with datafree"),
-        (args.mode == 2, "--mode 2", _SEARCH),
-        (args.calib_iter > 1, f"--calib-iter {args.calib_iter}", _CALIB),
-        (args.quant_method != "minmax", f"--quant-method {args.quant_method}", _CALIB),
+        (args.plot, "--plot", _DATAFREE),
+        (args.mode == 2, "--mode 2", _DATAFREE),
         (args.dp != 0, "--dp", _PARALLEL),
         (args.tp != 0, "--tp", _PARALLEL),
         (args.sp, "--sp", _PARALLEL),
@@ -192,25 +198,41 @@ def make_dataset(args, cfg, split: str, raw: bool = False):
 
 
 def calibrate_or_load(args, cfg, family, params, policy, device):
-    """The quant state: loaded from ``--load-quant-state``, or calibrated on
-    the first shuffled, full batch of the train split (``--calib-iter 1``),
-    then written to ``--save-quant-state`` if given."""
+    """The quant state: loaded from ``--load-quant-state``; or calibrated on
+    Gaussian noise (``--mode 1``); or on the shuffled, full batches of the
+    train split, statistics over the first ``--calib-iter`` − 1 and the
+    solve on the last. Then written to ``--save-quant-state`` if given."""
     from . import checkpoints, data
 
     if args.load_quant_state:
         calib = checkpoints.load_quant_state(args.load_quant_state, device=device)
         print(f"Loaded quantization state from {args.load_quant_state}")
         return calib
-    print("Calibrating with real data...")
-    train = make_dataset(args, cfg, "train")
-    it = data.iterate_batches(train, args.calib_batchsize, shuffle=True, seed=args.seed,
-                              drop_last=True)
-    imgs = next(it, None)
-    it.close()
-    if imgs is None:
-        raise SystemExit(f"{args.data}/train holds fewer than --calib-batchsize "
-                         f"{args.calib_batchsize} images")
-    calib = family.calibrate(params, cfg, policy, torch.from_numpy(imgs[0]).to(device))
+    stats = None
+    if args.mode == 1:
+        print("Calibrating with Gaussian noise...")
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        cal = torch.randn((args.calib_batchsize, 3, cfg.img_size, cfg.img_size), generator=gen, device=device)
+    else:
+        print("Calibrating with real data...")
+        train = make_dataset(args, cfg, "train")
+        it = data.iterate_batches(train, args.calib_batchsize, shuffle=True, seed=args.seed, drop_last=True)
+        batches = []
+        try:
+            for imgs, _ in it:
+                batches.append(imgs)
+                if len(batches) >= args.calib_iter:
+                    break
+        finally:
+            it.close()
+        if not batches:
+            raise SystemExit(f"{args.data}/train holds fewer than --calib-batchsize "
+                             f"{args.calib_batchsize} images")
+        for bi, imgs in enumerate(batches[:-1]):
+            stats = family.collect_stats(params, cfg, policy, torch.from_numpy(imgs).to(device), stats)
+            print(f"  stats batch {bi + 1}/{len(batches)}")
+        cal = torch.from_numpy(batches[-1]).to(device)
+    calib = family.calibrate(params, cfg, policy, cal, stats=stats)
     if args.save_quant_state:
         checkpoints.save_quant_state(args.save_quant_state, calib)
         print(f"Saved quantization state to {args.save_quant_state}")
@@ -317,6 +339,70 @@ def validate(args, val, model_fn, bit_config, device, on_batch=None):
     return top1.avg, top5.avg
 
 
+def sensitivities(args, cfg, params, device) -> list:
+    """The mixed-precision search's per-layer weights (n − 1 values): the
+    normalized mean of Hutchinson Hessian traces over ``--hessian-batches``
+    shuffled train batches under ``--live-hessian`` (batch i's probes from a
+    generator seeded by ``--seed`` + i), else the model's table in
+    ``hessian_tables.MEAN_HESSIAN``."""
+    if not args.live_hessian:
+        from .hessian_tables import MEAN_HESSIAN
+
+        if args.model not in MEAN_HESSIAN:
+            raise SystemExit(f"no hardcoded Hessian table for {args.model}; use --live-hessian")
+        return MEAN_HESSIAN[args.model]
+    from . import data
+    from .hessian import hessian_traces, normalized_mean_hessian
+
+    print("Calculating sensitivities via the averaged Hessian trace...")
+    train = make_dataset(args, cfg, "train")
+    it = data.iterate_batches(train, args.calib_batchsize, shuffle=True, seed=args.seed + 1, drop_last=True)
+    traces = []
+    try:
+        for i, (imgs, targets) in enumerate(it):
+            if i >= args.hessian_batches:
+                break
+            gen = torch.Generator(device=device).manual_seed(args.seed + i)
+            traces.append(hessian_traces(params, cfg, torch.from_numpy(imgs).to(device),
+                                         torch.from_numpy(targets).to(device), gen))
+    finally:
+        it.close()
+    return normalized_mean_hessian(traces)
+
+
+def mixed_search(args, cfg, is_swin, calib, mean_hessian, validate_fn):
+    """The Hessian-guided mixed-precision search: the Pareto front of
+    sampled bit configs by Ω (Hessian-weighted quantization distance), its
+    five best validated, then the evolutionary search from the front.
+    ``validate_fn(bit_config) -> (prec1, prec5)``. Prints the JAX CLI's
+    lines and returns (front, population)."""
+    from . import search
+    from .models import swin
+
+    n = cfg.num_matmuls
+    layout = swin.mixed_layout(cfg)[0] if is_swin else None
+    # ViT distances omit the patch row; Swin's calibration records one per weight layer
+    assert len(calib.flops) == n
+    assert len(calib.global_distance) == (n if is_swin else n - 1)
+    assert len(mean_hessian) == n - 1
+    distance = calib.global_distance.detach().cpu().numpy()
+
+    print("Pareto Frontier.......")
+    rng = random.Random(args.seed)
+    front = search.pareto_front(calib.flops, distance, mean_hessian, rng, layout=layout,
+                                distances_include_patch=is_swin)
+    print("Hessian-Based Validating...")
+    for bits, _ in front[:5]:
+        print(bits)
+        validate_fn(bits)
+    print("Start Evolutionary.......")
+    result = search.evolutionary_search(lambda bc: validate_fn(bc)[0], [c for c, _ in front], calib.flops, rng)
+    print("Best mixed-precision configs:")
+    for bits, prec1 in result[:5]:
+        print(json.dumps({"bit_config": bits, "prec1": prec1}))
+    return front, result
+
+
 def load_model(args, cfg, family, device):
     """Params on ``device``: seeded random init under ``--random-init``,
     else the pretrained checkpoint (``--checkpoint`` or the hub cache)."""
@@ -352,6 +438,12 @@ def main(argv=None):
         print("--u8-ingest needs --quant --serve; ignoring")
     val = make_dataset(args, cfg, "val", raw=u8)
     model_fn = build_model_fn(args, cfg, family, params, calib, policy, u8)
+    if args.mixed:
+        if not args.quant:
+            raise SystemExit("--mixed requires --quant")
+        mean_hessian = sensitivities(args, cfg, params, device)
+        return mixed_search(args, cfg, family is swin, calib, mean_hessian,
+                            lambda bits: validate(args, val, model_fn, bits, device))
     bit_config = [4] * cfg.num_matmuls
     print(bit_config)
     return validate(args, val, model_fn, bit_config, device)

@@ -5,9 +5,10 @@ Plain functions over a parameter dict with the JAX package's structure
 PatchMerging after every stage but the last):
 
   * ``fp_forward(params, cfg, x)``: the float forward.
-  * ``calibrate(params, cfg, policy, x)``: one pass over one calibration
-    batch giving the QuantState dict. Multi-batch statistics
-    (``collect_stats``) are not ported yet.
+  * ``collect_stats(params, cfg, policy, x, prev=None)``: the statistics
+    pass over one calibration batch; ``calibrate(params, cfg, policy, x,
+    stats=None)``: the solve over the last batch, with the ranges of
+    earlier batches in ``stats``, giving the QuantState dict.
   * ``quant_forward`` / ``quant_forward_mixed``: the fake-quant simulation
     with a uniform or per-layer weight bit width.
 
@@ -31,7 +32,7 @@ from ..quant.fake_quant import fake_quant
 from ..quant.intops import int_layernorm, log_int_softmax
 from ..quant.solve import accumulate_act_stats, solve_act, solve_weight_all_bits
 from .common import gelu, layer_norm, linear, target_device, trunc_normal
-from .vit import _fq_weight, bits_to_idx
+from .vit import _fq_weight, _sget, bits_to_idx
 
 INT8 = BIT_TYPE_DICT["int8"]
 
@@ -328,9 +329,10 @@ class SwinCalibResult:
     flops: list = dataclasses.field(default_factory=list)
 
 
-def _qact(method, x, bit_type=INT8):
-    """Solve one activation node → its qstate entry."""
-    out = solve_act(method, x, bit_type, stats=accumulate_act_stats(method, x))
+def _qact(method, x, bit_type=INT8, prev=None):
+    """Solve one activation node → its qstate entry (``prev``: the running
+    stats of earlier batches)."""
+    out = solve_act(method, x, bit_type, stats=accumulate_act_stats(method, x, prev))
     if len(out) == 3:
         return {"scale": out[0], "zp": out[1], "mask": out[2]}
     return {"scale": out[0], "zp": out[1]}
@@ -338,11 +340,9 @@ def _qact(method, x, bit_type=INT8):
 
 @torch.no_grad()
 def calibrate(params, cfg: SwinConfig, policy: QuantPolicy, x, stats=None) -> SwinCalibResult:
-    """Single-batch calibration pass (stats and parameter solve, quant off),
-    node for node as the JAX twin."""
-    if stats is not None:
-        raise NotImplementedError("multi-batch Swin calibration (collect_stats) is not ported "
-                                  "yet (ROADMAP.md)")
+    """Calibration pass (stats and parameter solve, quant off), node for node
+    as the JAX twin; ``stats`` from ``collect_stats`` over earlier batches,
+    or None for this batch alone."""
     a, a_ln = policy.observer_a, policy.observer_a_ln
     eps = cfg.ln_eps
     dists: list = []
@@ -354,13 +354,13 @@ def calibrate(params, cfg: SwinConfig, policy: QuantPolicy, x, stats=None) -> Sw
         return scale
 
     # the input quantizer observes the raw image; it only bites at eval
-    qs["qact_input"] = _qact(a, x)
+    qs["qact_input"] = _qact(a, x, prev=_sget(stats, "qact_input"))
     patches = _patches(x, cfg.patch_size)
     qs["patch_wscale"] = wsolve(params["patch_embed"]["w"], patches)
     x = linear(patches, params["patch_embed"]["w"], params["patch_embed"]["b"])
-    qs["patch_qact_bn"] = _qact(a, x)
+    qs["patch_qact_bn"] = _qact(a, x, prev=_sget(stats, "patch_qact_bn"))
     x = layer_norm(x, params["patch_norm"]["w"], params["patch_norm"]["b"], eps)
-    qs["patch_qact"] = _qact(a, x)
+    qs["patch_qact"] = _qact(a, x, prev=_sget(stats, "patch_qact"))
 
     qs["stages"] = []
     for i, stage in enumerate(params["stages"]):
@@ -368,65 +368,142 @@ def calibrate(params, cfg: SwinConfig, policy: QuantPolicy, x, stats=None) -> Sw
         heads = cfg.num_heads[i]
         sq: dict = {"blocks": []}
         for j, blk in enumerate(stage["blocks"]):
+            pbq = _sget(stats, "stages", i, "blocks", j)
             shift = cfg.shift(i, j)
             b, l, c = x.shape
             hd = c // heads
             bq: dict = {}
             shortcut = x
             h = layer_norm(x, blk["norm1"]["w"], blk["norm1"]["b"], eps)
-            bq["qact1"] = _qact(a, h)
+            bq["qact1"] = _qact(a, h, prev=_sget(pbq, "qact1"))
             hw = window_partition(_roll(h.reshape(b, res, res, c), -shift), ws)
             aq: dict = {}
             aq["qkv_wscale"] = wsolve(blk["qkv"]["w"], hw)
             hw2 = linear(hw, blk["qkv"]["w"], blk["qkv"]["b"])
-            aq["qact1"] = _qact(a, hw2)
+            aq["qact1"] = _qact(a, hw2, prev=_sget(pbq, "attn", "qact1"))
             q, k, v = _split_heads(hw2, heads)
             attn = (q * hd**-0.5) @ k.transpose(-1, -2)
-            aq["qact_attn1"] = _qact(a, attn)
-            aq["qact_table"] = _qact(a, blk["bias_table"])
+            aq["qact_attn1"] = _qact(a, attn, prev=_sget(pbq, "attn", "qact_attn1"))
+            aq["qact_table"] = _qact(a, blk["bias_table"], prev=_sget(pbq, "attn", "qact_table"))
             attn = attn + _gather_bias(blk["bias_table"], ws)[None]
-            aq["qact2"] = _qact(a, attn)
+            aq["qact2"] = _qact(a, attn, prev=_sget(pbq, "attn", "qact2"))
             attn = _add_mask(attn, shift_mask_tensor(cfg, i, shift, x.device))
             if policy.int_softmax:
                 attn = log_int_softmax(attn, aq["qact2"]["scale"], policy.bit_type_s)
             else:
                 attn = torch.softmax(attn, dim=-1)
             hw = _merge_heads(attn @ v)
-            aq["qact3"] = _qact(a, hw)
+            aq["qact3"] = _qact(a, hw, prev=_sget(pbq, "attn", "qact3"))
             aq["proj_wscale"] = wsolve(blk["proj"]["w"], hw)
             hw = linear(hw, blk["proj"]["w"], blk["proj"]["b"])
-            aq["qact4"] = _qact(a, hw)
+            aq["qact4"] = _qact(a, hw, prev=_sget(pbq, "attn", "qact4"))
             bq["attn"] = aq
             x = shortcut + _roll(window_reverse(hw, ws, res, res), shift).reshape(b, l, c)
-            bq["qact2"] = _qact(a_ln, x)
+            bq["qact2"] = _qact(a_ln, x, prev=_sget(pbq, "qact2"))
             h = layer_norm(x, blk["norm2"]["w"], blk["norm2"]["b"], eps)
-            bq["qact3"] = _qact(a, h)
+            bq["qact3"] = _qact(a, h, prev=_sget(pbq, "qact3"))
             bq["fc1_wscale"] = wsolve(blk["fc1"]["w"], h)
             h = gelu(linear(h, blk["fc1"]["w"], blk["fc1"]["b"]))
-            bq["mlp_qact1"] = _qact(a, h)
+            bq["mlp_qact1"] = _qact(a, h, prev=_sget(pbq, "mlp_qact1"))
             bq["fc2_wscale"] = wsolve(blk["fc2"]["w"], h)
             h = linear(h, blk["fc2"]["w"], blk["fc2"]["b"])
-            bq["mlp_qact2"] = _qact(a_ln, h)
+            bq["mlp_qact2"] = _qact(a_ln, h, prev=_sget(pbq, "mlp_qact2"))
             x = x + h
-            bq["qact4"] = _qact(a_ln, x)
+            bq["qact4"] = _qact(a_ln, x, prev=_sget(pbq, "qact4"))
             sq["blocks"].append(bq)
         if "downsample" in stage:
             ds = stage["downsample"]
             x = layer_norm(_merge_patches(x, res), ds["norm"]["w"], ds["norm"]["b"], eps)
-            dq = {"qact1": _qact(a, x), "red_wscale": wsolve(ds["reduction"]["w"], x)}
+            pdq = _sget(stats, "stages", i, "downsample")
+            dq = {"qact1": _qact(a, x, prev=_sget(pdq, "qact1")), "red_wscale": wsolve(ds["reduction"]["w"], x)}
             x = linear(x, ds["reduction"]["w"], None)
-            dq["qact2"] = _qact(a_ln, x)
+            dq["qact2"] = _qact(a_ln, x, prev=_sget(pdq, "qact2"))
             sq["downsample"] = dq
         qs["stages"].append(sq)
 
     x = layer_norm(x, params["norm"]["w"], params["norm"]["b"], eps)
-    qs["qact2"] = _qact(a, x)
+    qs["qact2"] = _qact(a, x, prev=_sget(stats, "qact2"))
     x = x.mean(dim=1)
-    qs["qact3"] = _qact(a, x)
+    qs["qact3"] = _qact(a, x, prev=_sget(stats, "qact3"))
     qs["head_wscale"] = wsolve(params["head"]["w"], x)
     x = linear(x, params["head"]["w"], params["head"]["b"])
-    qs["act_out"] = _qact(a, x)
+    qs["act_out"] = _qact(a, x, prev=_sget(stats, "act_out"))
     return SwinCalibResult(qstate=qs, global_distance=torch.stack(dists), flops=swin_flops(cfg))
+
+
+@torch.no_grad()
+def collect_stats(params, cfg: SwinConfig, policy: QuantPolicy, x, prev=None) -> dict:
+    """The statistics pass over one calibration batch: the float forward,
+    every activation node merging its range into ``prev`` (keys as the
+    qstate's); the attention takes the float softmax (no LIS scale yet)."""
+    a, a_ln = policy.observer_a, policy.observer_a_ln
+    eps = cfg.ln_eps
+    st: dict = {}
+
+    def acc(method, v, *path):
+        return accumulate_act_stats(method, v, _sget(prev, *path))
+
+    st["qact_input"] = acc(a, x, "qact_input")
+    x = linear(_patches(x, cfg.patch_size), params["patch_embed"]["w"], params["patch_embed"]["b"])
+    st["patch_qact_bn"] = acc(a, x, "patch_qact_bn")
+    x = layer_norm(x, params["patch_norm"]["w"], params["patch_norm"]["b"], eps)
+    st["patch_qact"] = acc(a, x, "patch_qact")
+
+    st["stages"] = []
+    for i, stage in enumerate(params["stages"]):
+        res, ws = cfg.stage_res(i), cfg.window(i)
+        heads = cfg.num_heads[i]
+        ss: dict = {"blocks": []}
+        for j, blk in enumerate(stage["blocks"]):
+            P = ("stages", i, "blocks", j)
+            shift = cfg.shift(i, j)
+            b, l, c = x.shape
+            hd = c // heads
+            bs: dict = {"attn": {}}
+            shortcut = x
+            h = layer_norm(x, blk["norm1"]["w"], blk["norm1"]["b"], eps)
+            bs["qact1"] = acc(a, h, *P, "qact1")
+            hw = window_partition(_roll(h.reshape(b, res, res, c), -shift), ws)
+            hw2 = linear(hw, blk["qkv"]["w"], blk["qkv"]["b"])
+            bs["attn"]["qact1"] = acc(a, hw2, *P, "attn", "qact1")
+            q, k, v = _split_heads(hw2, heads)
+            attn = (q * hd**-0.5) @ k.transpose(-1, -2)
+            bs["attn"]["qact_attn1"] = acc(a, attn, *P, "attn", "qact_attn1")
+            bs["attn"]["qact_table"] = acc(a, blk["bias_table"], *P, "attn", "qact_table")
+            attn = attn + _gather_bias(blk["bias_table"], ws)[None]
+            bs["attn"]["qact2"] = acc(a, attn, *P, "attn", "qact2")
+            attn = torch.softmax(_add_mask(attn, shift_mask_tensor(cfg, i, shift, x.device)), dim=-1)
+            hw = _merge_heads(attn @ v)
+            bs["attn"]["qact3"] = acc(a, hw, *P, "attn", "qact3")
+            hw = linear(hw, blk["proj"]["w"], blk["proj"]["b"])
+            bs["attn"]["qact4"] = acc(a, hw, *P, "attn", "qact4")
+            x = shortcut + _roll(window_reverse(hw, ws, res, res), shift).reshape(b, l, c)
+            bs["qact2"] = acc(a_ln, x, *P, "qact2")
+            h = layer_norm(x, blk["norm2"]["w"], blk["norm2"]["b"], eps)
+            bs["qact3"] = acc(a, h, *P, "qact3")
+            h = gelu(linear(h, blk["fc1"]["w"], blk["fc1"]["b"]))
+            bs["mlp_qact1"] = acc(a, h, *P, "mlp_qact1")
+            h = linear(h, blk["fc2"]["w"], blk["fc2"]["b"])
+            bs["mlp_qact2"] = acc(a_ln, h, *P, "mlp_qact2")
+            x = x + h
+            bs["qact4"] = acc(a_ln, x, *P, "qact4")
+            ss["blocks"].append(bs)
+        if "downsample" in stage:
+            ds = stage["downsample"]
+            x = layer_norm(_merge_patches(x, res), ds["norm"]["w"], ds["norm"]["b"], eps)
+            dq = {"qact1": acc(a, x, "stages", i, "downsample", "qact1")}
+            x = linear(x, ds["reduction"]["w"], None)
+            dq["qact2"] = acc(a_ln, x, "stages", i, "downsample", "qact2")
+            ss["downsample"] = dq
+        st["stages"].append(ss)
+
+    x = layer_norm(x, params["norm"]["w"], params["norm"]["b"], eps)
+    st["qact2"] = acc(a, x, "qact2")
+    x = x.mean(dim=1)
+    st["qact3"] = acc(a, x, "qact3")
+    x = linear(x, params["head"]["w"], params["head"]["b"])
+    st["act_out"] = acc(a, x, "act_out")
+    return st
 
 
 # ---------------------------------------------------------------------------

@@ -25,9 +25,14 @@ from .observers import (
     MinMaxStats,
     channel_view,
     collect_minmax,
+    collect_percentile,
+    float_scale_params,
+    merge_ema,
     merge_minmax,
+    merge_percentile,
     minmax_pot_act_params,
     minmax_pot_weight_params,
+    omse_params,
     ptf_params,
 )
 from .smoothquant import pot_smooth_channel_scale

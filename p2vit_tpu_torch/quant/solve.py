@@ -1,8 +1,9 @@
 """Per-node calibration solvers (counterpart of ``p2vit_tpu/quant/solve.py``).
 
-Observe one calibration tensor, emit its quantization parameters. Only the
-methods whose observers are ported are served here: ``minmax`` for
-activations and ``ptf`` for LayerNorm inputs.
+Observe one calibration tensor, emit its quantization parameters, for every
+activation method of the reference CLI (``ACT_METHODS``). Multi-batch
+statistics accumulate through ``accumulate_act_stats(..., prev=)`` and reach
+the solve through ``stats``.
 """
 
 from __future__ import annotations
@@ -13,43 +14,68 @@ from .bit_type import WEIGHT_CALIB_BIT_TYPES, BitType
 from .fake_quant import fake_quant, lp_loss, weight_scale_reshape
 from .observers import (
     MinMaxStats,
-    _not_ported,
     collect_minmax,
+    collect_percentile,
+    float_scale_params,
+    merge_ema,
     merge_minmax,
+    merge_percentile,
     minmax_pot_act_params,
     minmax_pot_weight_params,
+    omse_params,
     ptf_params,
 )
 
-ACT_METHODS = ("minmax", "ptf")
-
-
-def _check_method(method: str):
-    if method in ("ema", "omse", "percentile"):
-        _not_ported(method)
-    if method not in ACT_METHODS:
-        raise NotImplementedError(method)
+ACT_METHODS = ("minmax", "ema", "omse", "percentile", "ptf")
 
 
 def accumulate_act_stats(method: str, x: torch.Tensor, prev: MinMaxStats | None = None) -> MinMaxStats:
     """Observe one calibration batch for an activation node, merged into the
-    running stats of earlier batches (``prev=None``: this batch alone)."""
-    _check_method(method)
-    cur = collect_minmax(x, "activation", layer_wise=method != "ptf")
-    return cur if prev is None else merge_minmax(prev, cur)
+    running stats of earlier batches (``prev=None``: this batch alone).
+
+    minmax, omse and ptf keep the running min/max (ptf per channel, the
+    others layer-wise); ema merges the layer-wise min/max by EMA; percentile
+    merges its clipped range by EMA."""
+    if method == "ptf":
+        cur = collect_minmax(x, "activation", layer_wise=False)
+        return cur if prev is None else merge_minmax(prev, cur)
+    if method == "percentile":
+        cur = collect_percentile(x, "activation")
+        return cur if prev is None else merge_percentile(prev, cur)
+    if method not in ACT_METHODS:
+        raise NotImplementedError(method)
+    cur = collect_minmax(x, "activation", layer_wise=True)
+    if prev is None:
+        return cur
+    if method == "ema":
+        return merge_ema(prev, cur)
+    return merge_minmax(prev, cur)
 
 
 def solve_act(method: str, x: torch.Tensor, bit_type: BitType, stats: MinMaxStats | None = None):
-    """(scale, zero_point) for one activation node; ``ptf`` also returns its
-    mask: (scale[C], zp, mask[C])."""
-    _check_method(method)
+    """(scale, zero_point) for one activation node, all on the symmetric
+    path; ``ptf`` also returns its mask: (scale[C], zp, mask[C]).
+
+    minmax: the 4-candidate PoT search; ema and percentile: the plain float
+    scale of their range; omse: the 90-step range-shrink search; ptf: the
+    per-channel power-of-two factor. ``stats`` defaults to this batch's."""
     if method == "ptf":
         if stats is None:
             stats = collect_minmax(x, "activation", layer_wise=False)
         return ptf_params(stats, x, bit_type)
+    if method == "percentile":
+        if stats is None:
+            stats = collect_percentile(x, "activation")
+        return float_scale_params(stats, bit_type, symmetric=True)
+    if method not in ACT_METHODS:
+        raise NotImplementedError(method)
     if stats is None:
         stats = collect_minmax(x, "activation", layer_wise=True)
-    return minmax_pot_act_params(stats, x, bit_type)
+    if method == "minmax":
+        return minmax_pot_act_params(stats, x, bit_type)
+    if method == "ema":
+        return float_scale_params(stats, bit_type, symmetric=True)
+    return omse_params(stats, x, bit_type)
 
 
 def solve_weight_all_bits(weight2d: torch.Tensor, x2d: torch.Tensor):

@@ -3,7 +3,20 @@
 
 * ``build_parser``: the same destinations, defaults and choices but
   ``--device``; ``accuracy`` and ``AverageMeter`` equal JAX's; each flag
-  whose module is not ported exits 2 with one line naming ROADMAP.md.
+  whose module is not ported (``--plot``, ``--mode 2``, the parallel
+  flags) exits 2 with one line naming ROADMAP.md.
+* The flags of the rest of calibration and the search, against the JAX
+  CLI's flow (``test_quant.py:304-350, 549-608``) through JAX's functions:
+  ``--calib-iter 2`` with each ``--quant-method`` (statistics over the
+  first shuffled batch, the solve on the second; decisions bit for bit,
+  float scales within 1e-6 relative); ``--mode 1`` (the port's seeded
+  noise, through JAX's calibration too); ``--mixed`` with
+  ``MEAN_HESSIAN["deit_tiny"]`` at deit_tiny's 50 slots and TINY width
+  over one shared calibration (the printed front and the best configs
+  equal JAX's search over JAX's simulation); ``--live-hessian`` with
+  ``--hessian-batches`` 1 and 2 (the CLI's sensitivities equal the
+  module's functions on the same batches and generators; the front equals
+  JAX's ``pareto_front`` on them).
 * The CLI's own steps (``load_model`` from a ``--checkpoint`` ``.pth`` of
   the JAX package's seeded params, ``calibrate_or_load``,
   ``build_model_fn``, ``validate``) at TINY ViT and TINY Swin size on a
@@ -32,9 +45,12 @@
   swin_tiny size, which run full-size calibrations on the CPU.
 """
 
+import contextlib
 import dataclasses
 import importlib.util
+import json
 import os
+import random
 import re
 import subprocess
 import sys
@@ -50,6 +66,7 @@ from PIL import Image
 from p2vit_tpu import checkpoints as jck
 from p2vit_tpu import data as jdata
 from p2vit_tpu import serving as jserving
+from p2vit_tpu import search as jsearch
 from p2vit_tpu import serving_swin as jserving_swin
 from p2vit_tpu.config import make_policy
 from p2vit_tpu.models import PREPROCESS, swin, vit
@@ -128,12 +145,9 @@ def test_accuracy_and_average_meter_match_jax():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--mixed"], "item 4"), (["--live-hessian"], "item 4"), (["--hessian-batches", "3"], "item 4"),
-    (["--plot"], "item 4"), (["--mode", "1"], "item 4"), (["--mode", "2"], "item 4"),
-    (["--calib-iter", "2"], "item 3"), (["--quant-method", "ema"], "item 3"),
-    (["--quant-method", "omse"], "item 3"), (["--quant-method", "percentile"], "item 3"),
-    (["--dp", "2"], "item 5"), (["--tp", "2"], "item 5"), (["--sp"], "item 5"), (["--pp", "2"], "item 5"),
-    (["--pp-micro", "4"], "item 5"),
+    (["--plot"], "item 5"), (["--mode", "2"], "item 5"),
+    (["--dp", "2"], "item 6"), (["--tp", "2"], "item 6"), (["--sp"], "item 6"), (["--pp", "2"], "item 6"),
+    (["--pp-micro", "4"], "item 6"),
 ])
 def test_unported_flags_exit_2(capsys, extra, item):
     with pytest.raises(SystemExit) as e:
@@ -329,6 +343,191 @@ def test_cli_flow_matches_jax(folder, models, fam, flags):
     else:
         assert rel < 2e-2, rel
     assert (t.argmax(1) == j.argmax(1)).all()
+
+
+# ---------------------------------------------------------------------------
+# --calib-iter, --quant-method, --mode 1, --mixed, --live-hessian
+# ---------------------------------------------------------------------------
+
+FLOAT_METHODS = ("ema", "percentile", "omse")
+V12 = dataclasses.replace(VTINY, depth=12)  # deit_tiny's 50 matmul slots at TINY width
+
+
+@contextlib.contextmanager
+def _torch_threads(n):
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
+@pytest.fixture
+def one_thread():
+    """The search and Hessian cases run thousands of small PyTorch ops: on
+    one thread, as the entry-point smoke, since a thread per core beside
+    the other test workers multiplied their time by 10-60."""
+    with _torch_threads(1):
+        yield
+
+
+def _assert_decisions_equal(jq, tq, method):
+    """Decisions (PoT exponents, masks, zero points, channel and weight
+    scales) bit for bit; the floats of fp activations within 1e-6 relative:
+    PTF base scales, and every activation scale of the float observers."""
+    jl, tl = _leaves(jq), _leaves(jax.tree.map(lambda t: t.numpy(), tq))
+    assert len(jl) == len(tl) > 60
+    for (pa, a), (pb, b) in zip(jl, tl):
+        key = jax.tree_util.keystr(pa)
+        assert key == jax.tree_util.keystr(pb) and a.shape == b.shape, key
+        is_scale = key.endswith("['scale']") or key.endswith("['qact0_scale']")
+        if is_scale and (method in FLOAT_METHODS or (a.ndim == 1 and "qact0" not in key)):
+            np.testing.assert_allclose(b, a, rtol=1e-6, err_msg=key)
+        else:
+            np.testing.assert_array_equal(b, a, err_msg=key)
+
+
+@pytest.mark.parametrize("fam,method", [("vit", "minmax"), ("vit", "ema"), ("vit", "percentile"),
+                                        ("vit", "omse"), ("swin", "percentile")])
+def test_calib_iter_2_decisions_equal_jax(folder, models, capsys, fam, method):
+    """``--calib-iter 2 --quant-method <method>`` through the port CLI's
+    ``calibrate_or_load``, against the JAX CLI's flow: the first two
+    shuffled full train batches, ``collect_stats`` on the first,
+    ``calibrate(stats=)`` on the second."""
+    f, m = FAMILIES[fam], models[fam]
+    args = _args(fam, folder, ["--quant", "--checkpoint", m["pth"], "--calib-iter", "2", "--quant-method", method])
+    tc = tcli.calibrate_or_load(args, f["tcfg"], f["tmod"], m["tparams"], tmake_policy(quant_method=method), "cpu")
+    assert capsys.readouterr().out == "Calibrating with real data...\n  stats batch 1/2\n"
+    pp = PREPROCESS[f["model"].split("_")[0]]
+    train = jdata.ImageFolder(f"{folder}/train", jdata.build_transform(
+        f["cfg"].img_size, pp["mean"], pp["std"], pp["crop_pct"]))
+    it = jdata.iterate_batches(train, 4, shuffle=True, seed=0, drop_last=True)
+    first, second = next(it)[0], next(it)[0]
+    policy = make_policy(quant_method=method)
+    stats = f["jmod"].collect_stats(m["params"], f["cfg"], policy, jnp.asarray(first))
+    jc = f["jmod"].calibrate(m["params"], f["cfg"], policy, jnp.asarray(second), stats=stats)
+    _assert_decisions_equal(jc.qstate, tc.qstate, method)
+    np.testing.assert_allclose(tc.global_distance.numpy(), np.asarray(jc.global_distance), rtol=1e-5)
+
+
+def test_mode_1_calibrates_on_seeded_noise(folder, models, capsys):
+    """``--mode 1``: the port's noise is ``torch.randn`` from a generator
+    seeded by ``--seed`` (JAX's CLI draws with jax.random); JAX's calibration
+    of the same noise takes the same decisions."""
+    f, m = FAMILIES["vit"], models["vit"]
+    args = _args("vit", folder, ["--quant", "--checkpoint", m["pth"], "--mode", "1", "--seed", "5"])
+    tc = tcli.calibrate_or_load(args, f["tcfg"], f["tmod"], m["tparams"], tmake_policy(), "cpu")
+    assert capsys.readouterr().out == "Calibrating with Gaussian noise...\n"
+    noise = torch.randn((4, 3, 32, 32), generator=torch.Generator().manual_seed(5))
+    own = tvit.calibrate(m["tparams"], f["tcfg"], tmake_policy(), noise)
+    for (_, a), (_, b) in zip(_leaves(jax.tree.map(lambda t: t.numpy(), own.qstate)),
+                              _leaves(jax.tree.map(lambda t: t.numpy(), tc.qstate))):
+        np.testing.assert_array_equal(b, a)
+    jc = vit.calibrate(m["params"], f["cfg"], make_policy(), jnp.asarray(noise.numpy()))
+    _assert_decisions_equal(jc.qstate, tc.qstate, "minmax")
+
+
+@pytest.fixture(scope="module")
+def deep(folder, tmp_path_factory):
+    """deit_tiny's slot layout at TINY width: JAX's seeded params, a .pth of
+    them, and the port CLI's calibration of them, saved: the shared quant
+    state of both searches."""
+    tmp = tmp_path_factory.mktemp("deep")
+    params = vit.init_params(jax.random.PRNGKey(8), V12)
+    pth, q = str(tmp / "deep.pth"), str(tmp / "deep.npz")
+    torch.save(state_dicts.vit_state_dict(jax.tree.map(np.asarray, params), V12), pth)
+    tcfg = tcommon.ViTConfig(**dataclasses.asdict(V12))
+    args = tcli.build_parser().parse_args(["deit_tiny", folder, "--device", "cpu", *BATCH, "--quant",
+                                           "--checkpoint", pth, "--save-quant-state", q])
+    with _torch_threads(1):
+        tcli.calibrate_or_load(args, tcfg, tvit, tcli.load_model(args, tcfg, tvit, "cpu"), tmake_policy(), "cpu")
+    return dict(params=params, pth=pth, q=q, tcfg=tcfg, calib=tck.load_quant_state(q, device="cpu"))
+
+
+SEARCH_LINES = ("Pareto Frontier", "Hessian-Based", "Start Evolutionary", "Best mixed", "[", "{")
+
+
+def test_mixed_front_and_best_configs_equal_jax(folder, deep, one_thread, capsys, monkeypatch):
+    """``main`` with ``--quant --mixed`` (MEAN_HESSIAN["deit_tiny"]) on the
+    shared state, against JAX's ``pareto_front`` and ``evolutionary_search``
+    with the same seed, validating with JAX's jitted simulation on the same
+    val batches: the same printed front, configs validated and best configs
+    with their Prec@1."""
+    from p2vit_tpu.hessian_tables import MEAN_HESSIAN
+    from p2vit_tpu_torch import models as tmodels
+
+    monkeypatch.setitem(tmodels.MODEL_ZOO, tcli.FULL_NAME["deit_tiny"], deep["tcfg"])
+    tcli.main(["deit_tiny", folder, "--device", "cpu", *BATCH, "--quant", "--mixed", "--checkpoint", deep["pth"],
+               "--load-quant-state", deep["q"], "--print-freq", "1000"])
+    got = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith(SEARCH_LINES)]
+
+    calib, policy = deep["calib"], make_policy()
+    qstate = jax.tree.map(lambda t: jnp.asarray(t.numpy()), calib.qstate)
+    fwd = jax.jit(lambda p, q, x, bi: vit.quant_forward(p, q, V12, policy, x, bi))
+    pp = PREPROCESS["deit"]
+    val = jdata.ImageFolder(f"{folder}/val", jdata.build_transform(32, pp["mean"], pp["std"], pp["crop_pct"]))
+    batches = list(jdata.iterate_batches(val, 3))
+    seen = []
+
+    def validate(bits):
+        top1, top5 = JAverageMeter(), JAverageMeter()
+        for imgs, targets in batches:
+            lg = np.asarray(fwd(deep["params"], qstate, jnp.asarray(imgs), vit.bits_to_idx(bits)))
+            p1, p5 = jcli.accuracy(lg, targets, topk=(1, 5))
+            top1.update(p1, len(targets))
+            top5.update(p5, len(targets))
+        seen.append(list(bits))
+        return top1.avg, top5.avg
+
+    rng = random.Random(0)
+    front = jsearch.pareto_front(calib.flops, np.asarray(calib.global_distance), MEAN_HESSIAN["deit_tiny"], rng)
+    for bits, _ in front[:5]:
+        validate(bits)
+    result = jsearch.evolutionary_search(lambda bc: validate(bc)[0], [c for c, _ in front], calib.flops, rng)
+    want = (["Pareto Frontier.......", "Hessian-Based Validating..."] + [str(c) for c, _ in front[:5]]
+            + ["Start Evolutionary.......", "Best mixed-precision configs:"]
+            + [json.dumps({"bit_config": c, "prec1": p}) for c, p in result[:5]])
+    assert len(front) > 5 and len(seen) > 25
+    assert got == want
+
+
+@pytest.mark.parametrize("n_batches", [1, 2])
+def test_live_hessian_sensitivities_and_front(folder, deep, one_thread, capsys, n_batches):
+    """``--live-hessian --hessian-batches N``: the CLI's sensitivities equal
+    ``normalized_mean_hessian`` of ``hessian_traces`` on the same batches
+    (shuffled with --seed + 1) and generators (--seed + i); the CLI's front
+    on them equals JAX's ``pareto_front`` on the shared calibration."""
+    from p2vit_tpu_torch import data as tdata
+    from p2vit_tpu_torch import hessian as th
+
+    args = tcli.build_parser().parse_args(["deit_tiny", folder, "--device", "cpu", *BATCH, "--quant", "--mixed",
+                                           "--live-hessian", "--hessian-batches", str(n_batches),
+                                           "--checkpoint", deep["pth"]])
+    tp = tcli.load_model(args, deep["tcfg"], tvit, "cpu")
+    mh = tcli.sensitivities(args, deep["tcfg"], tp, "cpu")
+    assert "Calculating sensitivities via the averaged Hessian trace...\n" in capsys.readouterr().out
+    train = tcli.make_dataset(args, deep["tcfg"], "train")
+    traces = [th.hessian_traces(tp, deep["tcfg"], torch.from_numpy(imgs), torch.from_numpy(targets),
+                                torch.Generator().manual_seed(i))
+              for i, (imgs, targets) in zip(range(n_batches), tdata.iterate_batches(
+                  train, 4, shuffle=True, seed=1, drop_last=True))]
+    assert len(mh) == 49 and mh == th.normalized_mean_hessian(traces)
+    front, pop = tcli.mixed_search(args, deep["tcfg"], False, deep["calib"], mh, lambda bits: (0.0, 0.0))
+    assert front == jsearch.pareto_front(deep["calib"].flops, deep["calib"].global_distance.numpy(), mh,
+                                         random.Random(0))
+    assert 0 < len(pop) <= 25
+
+
+def test_mixed_needs_quant_and_a_table(folder, deep, monkeypatch):
+    from p2vit_tpu_torch import models as tmodels
+
+    monkeypatch.setitem(tmodels.MODEL_ZOO, tcli.FULL_NAME["deit_tiny"], deep["tcfg"])
+    with pytest.raises(SystemExit, match="--mixed requires --quant"):
+        tcli.main(["deit_tiny", folder, "--device", "cpu", *BATCH, "--mixed", "--random-init"])
+    args = tcli.build_parser().parse_args(["deit_small", folder, "--device", "cpu", "--quant", "--mixed"])
+    with pytest.raises(SystemExit, match="no hardcoded Hessian table for deit_small; use --live-hessian"):
+        tcli.sensitivities(args, deep["tcfg"], None, "cpu")
 
 
 # ---------------------------------------------------------------------------

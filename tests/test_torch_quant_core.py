@@ -231,12 +231,3 @@ def test_smoothquant_scale_bitwise():
         cs_j = jsq.pot_smooth_channel_scale(jnp.asarray(x), jnp.asarray(w), alpha)
         cs_t = tsq.pot_smooth_channel_scale(T(x), T(w), alpha)
         assert_same(cs_j, cs_t)
-
-
-@pytest.mark.parametrize("method", ["ema", "percentile", "omse"])
-def test_unported_observers_raise(method):
-    x = torch.randn(2, 5, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tsolve.solve_act(method, x, TBT["int8"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tsolve.accumulate_act_stats(method, x)

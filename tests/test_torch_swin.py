@@ -140,8 +140,3 @@ def test_init_params_seeded():
     assert float(blk["qkv"]["w"].abs().max()) <= 0.04 + 1e-7
     assert a["stages"][0]["downsample"]["reduction"]["b"] is None
     assert "downsample" not in a["stages"][1]
-
-
-def test_calibrate_rejects_multi_batch_stats(setup):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tswin.calibrate(setup["tp"], TTINY, tmake_policy(), torch.from_numpy(setup["x"]), stats={})
