@@ -1,7 +1,7 @@
-"""Drive the PyTorch/CUDA port's serving paths, weight-store tools and CLI
-once on one GPU.
+"""Drive the PyTorch/CUDA port's serving paths, weight-store tools, CLI,
+data-free calibration and serving planner once on one GPU.
 
-    python3 chip_smoke.py            # seventeen paths, batches 1, 8, 64
+    python3 chip_smoke.py            # nineteen paths, batches 1, 8, 64
 
 Builds the fourteen CUDA kernels from ``p2vit_tpu_torch/csrc`` (one nvcc per
 source, in parallel, sm_90a), then drives twelve int8 serving paths of two
@@ -58,6 +58,34 @@ weight-only serving of both models and the two weight-store GEMM tools:
   ``launches_per_forward`` × batches, and host ms per val batch split into
   the wait on the prefetch queue and the forward, beside the card's name
   and power limit.
+* ``datafree``: the CLI's ``--mode 2`` at DeiT-S width on the folder the
+  ``cli`` path writes (``deit_small --quant --serve --mode 2 --checkpoint
+  <the seeded .pth> --calib-batchsize 32 --val-batchsize 64 --limit-val
+  3``): ``datafree.generate_data``'s 2 × 500 Adam steps at batch 32, timed
+  (seconds, steps per second, peak memory, the three loss terms at the first
+  and last step), then the run held as the ``cli`` path holds its runs
+  (logits bitwise against ``serving_forward`` and its plain path, launch
+  counts); Swin-T's ``generate_data(iterations_per_epoch=25)`` called
+  directly (2 × 25 steps, a cut from 2 × 500 that keeps the script inside
+  its time limit), calibrated, converted (W4) and served at batch 64,
+  bitwise against its plain path, with its launch counts; and ``--plot`` at
+  DeiT-S: ``collect_activations`` on the card against the same call on the
+  CPU (1e-4 relative a tensor), the SVGs written only where matplotlib
+  imports (else one line says it is absent).
+* ``plan``: the port's ``tools/latency_ab.py`` sweep at DeiT-T, DeiT-S and
+  Swin-T, batches 1, 8, 32, 64, 128, 256 (``PLAN_ITERS`` forwards a
+  timing window): the table in ms per forward (CUDA events), device ms
+  (profiler) and img/s; at each (model, batch) every int8 arm's logits
+  bitwise against its plain path, its launches of one forward against
+  ``launches_per_forward`` and the fused layer bitwise against the default,
+  and every ViT int8 arm again at batch 256 on a calibrated W8 state (any
+  difference fails); and for each (model, batch) whether
+  ``plan.recommend(prefer_exact=False)`` names the arm measured fastest (a
+  disagreement is printed, not failed).
+* With ``swin_stem``, before the paths: ``fused_swin_stem`` past C = 256,
+  at C = 384 and at ``MAX_STEM_C`` (clusters of 2 and 4 CTAs), on
+  random-normal inputs and a calibrated state's kinds, against its plain
+  version (0 mismatches), with its launch facts and ms per call.
 * ``w4pack`` / ``wstream``: the ported tools (``p2vit_tpu_torch/tools``) at
   the DeiT-S GEMMs, M = 197·batch, depth 12. Phase 1: ``int4_matmul_requant``
   against its plain version and the int8 kernel (also on the ``deit``
@@ -215,7 +243,8 @@ REDESIGNED = {"wstream_matmul": "float64 tensor cores (mma.sync.m16n8k16) on exa
               "fused_patch_embed": "TMA ring, int8 wgmma chunks into a whole-row code tile, clusters splitting C, "
                                    "[CLS] rows once per CTA, a Markstein-corrected PTF divide, 16-byte LN pass",
               "fused_swin_stem": "4 rows × C/16 channels a thread in registers, summed in k order; cp.async "
-                                 "double buffer, persistent grid, exact lane sums",
+                                 "double buffer, persistent grid, exact lane sums; past C = 256 clusters of "
+                                 "⌈C/256⌉ CTAs split C and add their row sums through distributed shared memory",
               "fused_vit_layer": "one cooperative launch, 384 threads an SM: qkv GEMM and the 64-row MLP chain on "
                                  "a TMA ring and int8 wgmma chunks, MLP input and GELU codes in swizzled shared "
                                  "tiles; attention on the per-item mma.sync body, the next item prefetched",
@@ -257,7 +286,9 @@ SOURCES = {
 }
 PATHS = ("deit", "deit_staged", "deit_layer", "deit_lisoff", "deit_staged_lisoff", "deit_layer_lisoff",
          "swin", "swin_lisoff", "swin_fold", "swin_fold_lisoff", "swin_stem", "swin_int_stem_unfused",
-         "deit_wonly", "swin_wonly", "w4pack", "wstream", "cli")
+         "deit_wonly", "swin_wonly", "w4pack", "wstream", "cli", "datafree", "plan")
+PLAN_BATCHES = (1, 8, 32, 64, 128, 256)  # the plan path's sweep
+PLAN_ITERS = 10  # forwards a timing window there (latency_ab's default windows, up to 200, take ~10 min)
 # DeiT-S paths by key suffix: (display name suffix, serving flags)
 DEIT_FLAGS = {"": ("", dict(fuse_embed=True, fuse_qkv=True)),
               "_staged": (" staged", dict(fuse_embed=False, fuse_qkv=False)),
@@ -1810,6 +1841,268 @@ def run_cli_path(dev, smi, seed, counts_api):
                  dev, smi, counts_api)
 
 
+class _Generation:
+    """``datafree.generate_data`` timed: each call's seconds, Adam steps,
+    peak memory (``torch.cuda.max_memory_allocated`` from a reset at its
+    start), and the three loss terms of its first and last step."""
+
+    def __init__(self, real):
+        self.real, self.runs = real, []
+
+    def __call__(self, *a, **k):
+        terms, steps = {}, [0]
+
+        def on_step(epoch, it, t):
+            terms.setdefault("first", t)
+            terms["last"] = t  # tensors: no sync a step
+            steps[0] += 1
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        out = self.real(*a, **k, on_step=on_step)
+        torch.cuda.synchronize()
+        self.runs.append(dict(s=time.time() - t0, steps=steps[0], peak=torch.cuda.max_memory_allocated(),
+                              batch=out.shape[0], finite=bool(torch.isfinite(out).all()),
+                              first=[round(float(v), 6) for v in terms["first"]],
+                              last=[round(float(v), 6) for v in terms["last"]]))
+        return out
+
+    def report(self, label, smi, want_steps) -> None:
+        r = self.runs[-1]
+        print(f"datafree {label}: {r['steps']} Adam steps at batch {r['batch']} in {r['s']:.2f} s, "
+              f"{r['steps'] / r['s']:.2f} steps/s; peak memory {r['peak'] / 2**30:.3f} GiB; loss terms "
+              f"(-entropy, cross-entropy, |TV - target|) first step {r['first']}, last step {r['last']}; "
+              f"images finite {r['finite']}; card {smi}", flush=True)
+        if r["steps"] != want_steps or not r["finite"]:
+            _fail(f"datafree {label}: {r['steps']} steps (want {want_steps}), images finite {r['finite']}")
+
+
+def _rel(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def run_datafree_path(dev, smi, seed, counts_api):
+    """The ``datafree`` path: DeiT-S through the CLI with ``--mode 2`` (the
+    2 × 500 Adam steps of ``generate_data`` at batch 32, then calibration
+    and serving, held as the ``cli`` path holds its runs); Swin-T's
+    ``generate_data(iterations_per_epoch=25)`` called directly, calibrated,
+    converted (W4) and served at batch 64 bitwise against its plain path,
+    with its launch counts; and ``--plot`` on DeiT-S: ``collect_activations``
+    on the card against the same call on the CPU (1e-4 relative a tensor:
+    float32 GEMMs in another order), the SVGs written only where
+    matplotlib imports."""
+    import importlib.util
+    import os
+    import tempfile
+
+    from p2vit_tpu_torch import analysis, cli, datafree, serving_swin
+    from p2vit_tpu_torch.config import make_policy
+    from p2vit_tpu_torch.models import MODEL_ZOO, swin, vit
+
+    reset_launch_counts, launch_counts = counts_api
+    route = decode_route()
+    gen = _Generation(datafree.generate_data)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        if route != "none":
+            write_image_folder(data, seed)
+        pth = os.path.join(tmp, "deit_small.pth")
+        cfg = MODEL_ZOO["deit_small_patch16_224"]
+        torch.save(_vit_state_dict(vit.init_params(seed, cfg, device=dev), cfg), pth)
+        deit = ["deit_small", data, "--checkpoint", pth, "--quant", "--serve", "--calib-batchsize", "32",
+                "--val-batchsize", "64", "--limit-val", "3", "--seed", str(seed), "--print-freq", "1"] + (
+            ["--native-loader"] if route == "native" else [])
+        datafree.generate_data = gen
+        try:
+            t0 = time.time()
+            _cli_run("deit_small --mode 2", deit + ["--mode", "2"], route, dev, smi, counts_api)
+            print(f"datafree deit_small --mode 2: the CLI run in {time.time() - t0:.1f} s", flush=True)
+            gen.report("deit_small --mode 2 (2 x 500 steps, lr 0.2)", smi, 1000)
+
+            scfg = MODEL_ZOO["swin_tiny_patch4_window7_224"]
+            policy = make_policy()
+            params = swin.init_params(seed, scfg, device=dev)
+            imgs = datafree.generate_data(params, scfg, batch_size=32, seed=seed, iterations_per_epoch=25)
+        finally:
+            datafree.generate_data = gen.real
+        gen.report("swin_tiny generate_data(iterations_per_epoch=25)", smi, 50)
+        t0 = time.time()
+        calib = swin.calibrate(params, scfg, policy, imgs)
+        s = serving_swin.convert(params, calib.qstate, scfg, policy, 4)
+        x = torch.randn((64, 3, 224, 224), generator=torch.Generator().manual_seed(seed + 9)).to(dev)
+        reset_launch_counts()
+        got = serving_swin.serving_forward(s, calib.qstate, scfg, policy, x)
+        counts = {k: v for k, v in launch_counts().items() if v}
+        want = serving_swin.serving_forward(s, calib.qstate, scfg, policy, x, use_kernels=False)
+        n_bad, per_forward = int((got != want).sum()), serving_swin.launches_per_forward(scfg)
+        print(f"datafree swin_tiny: calibrated on the generated batch, W4, batch 64 served in "
+              f"{time.time() - t0:.1f} s: {n_bad} of {got.numel()} logits differ from the plain path; finite "
+              f"{bool(torch.isfinite(got).all())}; launches {json.dumps(counts)} against "
+              f"{json.dumps(per_forward)}", flush=True)
+        if n_bad or counts != per_forward or not bool(torch.isfinite(got).all()):
+            _fail(f"datafree swin_tiny: {n_bad} logits differ, launches {counts} against {per_forward}")
+
+        args = cli.build_parser().parse_args(deit + ["--plot"])
+        params = cli.load_model(args, cfg, vit, dev)
+        seen = []
+        real = analysis.collect_activations
+        analysis.collect_activations = lambda p, c, xx, **k: seen.append((xx, real(p, c, xx, **k))) or seen[-1][1]
+        orig_make_dataset = cli.make_dataset
+        if route == "none":
+            cli.make_dataset = lambda a, c, split, raw=False: _SeededImages(
+                CLI_VAL[0] * CLI_VAL[1], CLI_VAL[0], c.img_size, a.seed + 1, raw, MEAN, STD)
+        cwd = os.getcwd()
+        try:
+            val = cli.make_dataset(args, cfg, "val")
+            if importlib.util.find_spec("matplotlib") is not None:
+                os.chdir(tmp)
+                paths = cli.plot_activations(args, cfg, False, params, val, False, dev)
+                svgs = sum(os.path.exists(os.path.join(tmp, p)) for p in paths)
+                print(f"datafree deit_small --plot: {svgs} SVGs written", flush=True)
+                if svgs != 7:
+                    _fail(f"--plot wrote {svgs} SVGs, not 7")
+            else:
+                print("datafree deit_small --plot: matplotlib is absent on this machine; no SVGs written, the "
+                      "activations collected alone", flush=True)
+                imgs8 = torch.from_numpy(np.stack([val[i][0] for i in range(8)])).to(dev)
+                analysis.collect_activations(params, cfg, imgs8)
+        finally:
+            os.chdir(cwd)
+            analysis.collect_activations = real
+            cli.make_dataset = orig_make_dataset
+        xx, acts = seen[0]
+        cpu = real(_cast_tree(params, "cpu"), cfg, xx.cpu())
+        errs = {k: _rel(acts[k].cpu(), cpu[k]) for k in acts}
+        print(f"datafree deit_small --plot: collect_activations on the card against the CPU, relative error a "
+              f"tensor {json.dumps({k: round(v, 9) for k, v in errs.items()})} ({len(acts)} tensors of "
+              f"{xx.shape[0]} images)", flush=True)
+        if len(acts) != 7 or max(errs.values()) > 1e-4:
+            _fail(f"--plot activations: {len(acts)} tensors, largest relative error {max(errs.values())}")
+
+
+def run_plan_path(dev, smi, batches, iters):
+    """The ``plan`` path: the port's ``latency_ab`` sweep at DeiT-T, DeiT-S
+    and Swin-T over ``batches`` (``iters`` forwards a window); the table in
+    ms per forward (CUDA events), device ms (profiler) and img/s; every
+    int8 arm's logits at each (model, batch) against its plain path
+    (bitwise), its launches of one forward against ``launches_per_forward``
+    and the fused layer's logits against the default's (bitwise), any
+    difference failing; and for each (model, batch) whether
+    ``plan.recommend(prefer_exact=False)`` names the arm measured fastest
+    (a disagreement is printed, not failed: near a crossover the two arms
+    are within noise)."""
+    from p2vit_tpu_torch import plan
+    from p2vit_tpu_torch.models import MODEL_ZOO
+    from p2vit_tpu_torch.tools import latency_ab
+
+    names = ["deit_tiny_patch16_224", "deit_small_patch16_224", "swin_tiny_patch4_window7_224"]
+    print(f"plan: the table of p2vit_tpu_torch/plan.py: INT8_MIN_BATCH {plan.INT8_MIN_BATCH}, VIT_MIN_EMBED_DIM "
+          f"{plan.VIT_MIN_EMBED_DIM}, INT8_FLAGS {plan.INT8_FLAGS}, FASTEST_LIS {plan.FASTEST_LIS}", flush=True)
+    res = latency_ab.run(names, batches, dev, iters=iters, reps=1)
+    agree = 0
+    for key, row in res.items():
+        name, b = key.split("@b")
+        b = int(b)
+        arms = [k[:-3] for k in row if k.endswith("_ms") and not k.endswith("_dev_ms")]
+        checked = [a for a in arms if a + "_bad" in row]
+        bad = {a: row[a + "_bad"] for a in checked}
+        wrong = {a: (row[a + "_launches"], row[a + "_launches_want"]) for a in checked
+                 if row[a + "_launches"] != row[a + "_launches_want"]}
+        print(f"plan check {name} batch {b}: logits differing from the plain path (use_kernels=False, same flags) "
+              f"{json.dumps(bad)} of {b * MODEL_ZOO[name].num_classes} each; launches of one forward against "
+              f"launches_per_forward {'all equal' if not wrong else json.dumps(wrong)}; fused layer bitwise "
+              f"against the default {row.get('fl_bitwise', 'no fused-layer arm')}", flush=True)
+        if any(bad.values()) or wrong or row.get("fl_bitwise") is False or len(checked) < 2:
+            _fail(f"plan {name} batch {b}: differing {bad}, launches {wrong}, fl_bitwise {row.get('fl_bitwise')}")
+        dev_ms = lambda a: "not measured" if row[a + "_dev_ms"] is None else f"{row[a + '_dev_ms']:.4f} ms"  # noqa: E731
+        print(f"plan table {name} batch {b}: " + "; ".join(
+            f"{a} {row[a + '_ms']:.4f} ms / device {dev_ms(a)} / {b / row[a + '_ms'] * 1e3:.1f} img/s"
+            for a in arms) + f"; fastest {row['best']}; card {smi}", flush=True)
+        rec = plan.recommend(MODEL_ZOO[name], b, prefer_exact=False)
+        named = latency_ab.arm_of(rec)
+        ok = named == row["best"] or (rec.path == "bf16" and row["best"] in ("bf16", "wonly"))
+        agree += ok
+        print(f"plan {name} batch {b}: recommend(prefer_exact=False) -> {named} (path {rec.path}, lis {rec.lis}); "
+              f"measured fastest {row['best']}: {'agrees' if ok else 'DISAGREES'}; recommend(prefer_exact=True) "
+              f"-> {latency_ab.arm_of(plan.recommend(MODEL_ZOO[name], b))}", flush=True)
+    print(f"plan: recommend agrees with the measured fastest arm at {agree} of {len(res)} (model, batch) points",
+          flush=True)
+    calibrated_arm_checks(dev, names[:2], max(batches), latency_ab)
+
+
+def calibrated_arm_checks(dev, names, batch, latency_ab):
+    """Every ViT int8 arm of ``latency_ab`` at ``batch`` on a calibrated W8
+    state (calibrated on the first 32 of the batch's images): logits bitwise
+    against the plain path at the same flags and the launches of one
+    forward against ``launches_per_forward``; any difference fails. The
+    sweep's ``synthetic_qstate`` leaves most codes zero (every [CLS] row),
+    so its logits see little of the kernels' work."""
+    from p2vit_tpu_torch import serving
+    from p2vit_tpu_torch.config import make_policy
+    from p2vit_tpu_torch.models import MODEL_ZOO, vit
+    from p2vit_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    policy = make_policy()
+    for name in names:
+        cfg = MODEL_ZOO[name]
+        params = vit.init_params(0, cfg, device=dev)
+        x = latency_ab._images(batch, cfg, dev)
+        s = serving.convert(params, vit.calibrate(params, cfg, policy, x[:32]).qstate, cfg, policy,
+                            [8] * cfg.num_matmuls)
+        for arm, kw in latency_ab.VIT_ARMS.items():
+            reset_launch_counts()
+            got = serving.serving_forward(s, cfg, x, **kw)
+            counts = {k: v for k, v in launch_counts().items() if v}
+            want = serving.launches_per_forward(cfg, **{k: v for k, v in kw.items() if k != "lis"})
+            n_bad = int((got != serving.serving_forward(s, cfg, x, use_kernels=False, **kw)).sum())
+            print(f"plan check {name} batch {batch} {arm} on a calibrated W8 state: {n_bad} of {got.numel()} "
+                  f"logits differ from the plain path; launches {'equal' if counts == want else counts}; "
+                  f"finite {bool(torch.isfinite(got).all())}", flush=True)
+            if n_bad or counts != want or not bool(torch.isfinite(got).all()):
+                _fail(f"plan {name} batch {batch} {arm} calibrated: {n_bad} logits differ, launches {counts} "
+                      f"against {want}")
+
+
+def wide_stem_checks(dev, ops) -> None:
+    """``fused_swin_stem`` past C = 256 (clusters of ⌈C/256⌉ CTAs): at C =
+    384 and the largest C it serves, K = 48, M = 8·3136 + 77, on
+    random-normal inputs and on a calibrated state's kinds (PTF masks up to
+    16, a zero patch row): the kernel against its plain version (must be 0
+    mismatches), the launch facts, and the kernel's ms per call beside the
+    plain version's (CUDA events)."""
+    st = ops.swin_stem
+    m, k = 8 * 3136 + 77, 48
+    for c in (384, st.MAX_STEM_C):
+        rng = np.random.RandomState(c)
+        bias = torch.from_numpy((rng.randn(c) * 0.05).astype(np.float32))
+        ln_w = torch.from_numpy(rng.randn(c).astype(np.float32))
+        ln_b = torch.from_numpy((rng.randn(c) * 0.1).astype(np.float32))
+        cases = {"randn": (torch.from_numpy(rng.randn(m, k).astype(np.float32)),
+                           torch.from_numpy((rng.randn(c, k) * 0.2).astype(np.float32)), bias,
+                           torch.tensor(0.04), ln_w, ln_b, torch.tensor(0.03))}
+        px = torch.from_numpy(rng.randint(-128, 128, (m, k)).astype(np.float32)) * 2.0**-5
+        px[100] = 0
+        w = (torch.from_numpy(rng.randint(-8, 8, (c, k)).astype(np.float32))
+             * torch.from_numpy((2.0 ** rng.randint(-9, -6, c)).astype(np.float32))[:, None])
+        cases["pot"] = (px, w, torch.zeros(c), torch.from_numpy((2.0**-4 * 2.0 ** rng.randint(0, 5, c)).astype(
+            np.float32)), ln_w, ln_b, torch.tensor(2.0**-4))
+        bad = {}
+        for name, case in cases.items():
+            a = [t.to(dev) for t in case]
+            bad[name] = int((st.fused_swin_stem(*a) != st.fused_swin_stem_plain(*a)).sum())
+        info = st.stem_kernel_info(m, k, c)
+        t_k, t_p = _time_ms(lambda: st.fused_swin_stem(*a), 5), _time_ms(lambda: st.fused_swin_stem_plain(*a), 2)
+        print(f"stem C={c}: kernel vs plain mismatches {json.dumps(bad)} over {m} x {c} codes; clusters of "
+              f"{info['cs']} CTAs x {info['cc']} channels a thread ({info['c_pad']} padded), {info['grid']} CTAs "
+              f"({info['clusters']} clusters resident), {info['smem_bytes']} B shared memory a CTA, "
+              f"{info['registers']} registers ({info['spill_bytes']} B spilled); {t_k:.4f} ms per call against "
+              f"the plain version's {t_p:.4f}", flush=True)
+        if any(bad.values()):
+            _fail(f"fused_swin_stem at C = {c}: {bad} codes differ from the plain version")
+
+
 def tiny_swin_checks(dev, ops) -> None:
     """Phase 1 at the JAX tests' TINY Swin (embed 16, heads (2, 2), 4×4
     windows: head_dims 8 and 16, which the wrappers zero-pad to 32): both
@@ -2010,6 +2303,10 @@ def main() -> None:
         t0 = time.time()
         tiny_swin_checks(dev, ops)
         print(f"TINY Swin head_dim checks in {time.time() - t0:.1f} s", flush=True)
+    if "swin_stem" in models:
+        t0 = time.time()
+        wide_stem_checks(dev, ops)
+        print(f"wide stem checks in {time.time() - t0:.1f} s", flush=True)
 
     paths = []
     states = {}  # the LIS-on DeiT-S and Swin-T states, for the weight-only and w4pack paths
@@ -2123,6 +2420,14 @@ def main() -> None:
         t0 = time.time()
         run_cli_path(dev, smi, args.seed, counts_api)
         print(f"cli: the path in {time.time() - t0:.1f} s", flush=True)
+    if "datafree" in models:
+        t0 = time.time()
+        run_datafree_path(dev, smi, args.seed, counts_api)
+        print(f"datafree: the path in {time.time() - t0:.1f} s", flush=True)
+    if "plan" in models:
+        t0 = time.time()
+        run_plan_path(dev, smi, list(PLAN_BATCHES), PLAN_ITERS)
+        print(f"plan: the path in {time.time() - t0:.1f} s", flush=True)
 
     print_comparisons(summary, max(batches))
     print_flag_comparisons(paths, summary, max(batches))

@@ -5,6 +5,7 @@ card (counterpart of the JAX package's ``test_quant.py`` CLI).
     python -m p2vit_tpu_torch.cli deit_tiny <dir> --quant --serve --device cpu --random-init --limit-val 1
     python -m p2vit_tpu_torch.cli deit_small <dir> --quant --calib-iter 4 --quant-method omse
     python -m p2vit_tpu_torch.cli deit_small <dir> --quant --serve --mixed --live-hessian
+    python -m p2vit_tpu_torch.cli deit_small <dir> --quant --serve --mode 2 --plot
 
 ``<dir>`` holds ``train/`` (calibration) and ``val/`` (evaluation) in the
 ImageFolder layout. The flags are the JAX CLI's, with the same names and
@@ -13,18 +14,27 @@ and raises when it asks for a card and there is none. A flag whose module
 is not ported yet exits with status 2 and one line naming the ROADMAP.md
 item that ports it.
 
-JAX's ``[plan]`` hint (its TPU crossover tables) is not printed: the
-planner is not ported (ROADMAP.md queue 1 item 5).
+Under ``--serve`` or ``--serve-weight-only``, a ``[plan]`` line gives
+``plan.recommend``'s reason where the chosen path disagrees with the
+card's measured table at ``--val-batchsize``.
 
 ``--mode 1`` calibrates on Gaussian noise from the port's own
-``torch.Generator`` seeded by ``--seed``; the JAX CLI draws with
-``jax.random``, so the two calibrate on different noise.
+``torch.Generator`` seeded by ``--seed``; ``--mode 2`` on images that
+``datafree.generate_data`` synthesizes from the float model (2 × 500 Adam
+steps from noise of a CPU ``torch.Generator`` seeded by ``--seed``). The
+JAX CLI draws with ``jax.random``, so the two calibrate on different
+noise.
+
+``--plot`` (ViT/DeiT) writes the per-channel ranges of the last block's
+activations on the first val images (up to 8) as SVGs into ``figs/``;
+``plot_distribution`` needs matplotlib.
 
 ``main`` runs these steps, which tests call one by one at small sizes:
 ``make_dataset`` (PIL or the native loader, float32 or uint8 batches),
 ``calibrate_or_load`` (statistics over ``--calib-iter`` − 1 batches and the
-solve on the last, calibration on noise, or a saved quant state),
-``build_model_fn`` (the forward the flags ask for), ``validate`` (top-1 and
+solve on the last, calibration on noise or on synthesized images, or a
+saved quant state), ``build_model_fn`` (the forward the flags ask for),
+``plan_hint``, ``plot_activations``, ``validate`` (top-1 and
 top-5 over the val split) and, under ``--mixed``, ``sensitivities`` (the
 mean Hessian table, or live Hutchinson traces) and ``mixed_search`` (the
 Pareto front by Hessian-weighted distance, then the evolutionary search,
@@ -149,7 +159,6 @@ def build_parser():
 
 
 # flags whose module the port does not have yet: (is it set, the flag, the ROADMAP.md item)
-_DATAFREE = "ROADMAP.md queue 1 item 5 (data-free calibration, analysis, the planner and tools)"
 _PARALLEL = "ROADMAP.md queue 1 item 6 (parallelism)"
 
 
@@ -157,8 +166,6 @@ def unported_flag(args) -> str | None:
     """The first flag set on ``args`` that the port cannot run yet, as the
     one line to exit with, or None."""
     checks = (
-        (args.plot, "--plot", _DATAFREE),
-        (args.mode == 2, "--mode 2", _DATAFREE),
         (args.dp != 0, "--dp", _PARALLEL),
         (args.tp != 0, "--tp", _PARALLEL),
         (args.sp, "--sp", _PARALLEL),
@@ -199,7 +206,9 @@ def make_dataset(args, cfg, split: str, raw: bool = False):
 
 def calibrate_or_load(args, cfg, family, params, policy, device):
     """The quant state: loaded from ``--load-quant-state``; or calibrated on
-    Gaussian noise (``--mode 1``); or on the shuffled, full batches of the
+    Gaussian noise (``--mode 1``); or on ``--calib-batchsize`` images that
+    ``datafree.generate_data`` synthesizes on ``device`` (``--mode 2``,
+    seeded by ``--seed``); or on the shuffled, full batches of the
     train split, statistics over the first ``--calib-iter`` − 1 and the
     solve on the last. Then written to ``--save-quant-state`` if given."""
     from . import checkpoints, data
@@ -213,6 +222,12 @@ def calibrate_or_load(args, cfg, family, params, policy, device):
         print("Calibrating with Gaussian noise...")
         gen = torch.Generator(device=device).manual_seed(args.seed)
         cal = torch.randn((args.calib_batchsize, 3, cfg.img_size, cfg.img_size), generator=gen, device=device)
+    elif args.mode == 2:
+        from . import datafree
+
+        print("Generating data...")
+        cal = datafree.generate_data(params, cfg, batch_size=args.calib_batchsize, seed=args.seed, device=device)
+        print("Calibrating with generated data...")
     else:
         print("Calibrating with real data...")
         train = make_dataset(args, cfg, "train")
@@ -285,6 +300,54 @@ def build_model_fn(args, cfg, family, params, calib, policy, u8: bool):
         def model_fn(x, bit_config):
             return family.fp_forward(params, cfg, x)
     return torch.no_grad()(model_fn)
+
+
+def plan_hint(args, cfg) -> str | None:
+    """Under ``--quant`` with ``--serve`` or ``--serve-weight-only``, the
+    ``[plan]`` line where the chosen path disagrees with
+    ``plan.recommend(cfg, --val-batchsize)`` (printed), else None."""
+    if not (args.quant and (args.serve or args.serve_weight_only)):
+        return None
+    from . import plan
+
+    rec = plan.recommend(cfg, args.val_batchsize)
+    line = None
+    if args.serve and rec.path != "int8":
+        line = f"[plan] {rec.reason}"
+    elif args.serve_weight_only and rec.path == "int8":
+        line = f"[plan] int8 serving (--serve) beats bf16 here: {rec.reason}"
+    if line:
+        print(line)
+    return line
+
+
+def plot_activations(args, cfg, is_swin, params, val, u8, device):
+    """``--plot``: the last block's activations of the float forward on the
+    first val images (up to 8; uint8 batches under ``--u8-ingest``
+    normalized here as the float path's transform does), drawn by
+    ``analysis.plot_distribution`` into ``figs/``. Returns the SVG paths,
+    or None for Swin, which the reference does not plot."""
+    if is_swin:
+        print("--plot is ViT/DeiT-only (reference plots vit_base); skipping")
+        return None
+    from . import analysis, data
+    from .models import PREPROCESS
+
+    it = data.iterate_batches(val, min(args.val_batchsize, 8))
+    try:
+        imgs, _ = next(it)
+    finally:
+        it.close()
+    x = torch.from_numpy(imgs).to(device)
+    if u8:
+        pp = PREPROCESS[args.model.split("_")[0]]
+        mean = torch.tensor(pp["mean"], dtype=torch.float32, device=device)[:, None, None]
+        std = torch.tensor(pp["std"], dtype=torch.float32, device=device)[:, None, None]
+        x = (x.to(torch.float32) / torch.tensor(255.0, device=device) - mean) / std
+    acts = analysis.collect_activations(params, cfg, x)
+    paths = analysis.plot_distribution(acts, args.model, args.quant)
+    print(f"wrote {len(paths)} activation plots to figs/")
+    return paths
 
 
 def _to_bf16(tree):
@@ -438,6 +501,9 @@ def main(argv=None):
         print("--u8-ingest needs --quant --serve; ignoring")
     val = make_dataset(args, cfg, "val", raw=u8)
     model_fn = build_model_fn(args, cfg, family, params, calib, policy, u8)
+    plan_hint(args, cfg)
+    if args.plot:
+        plot_activations(args, cfg, family is swin, params, val, u8, device)
     if args.mixed:
         if not args.quant:
             raise SystemExit("--mixed requires --quant")

@@ -48,10 +48,13 @@ __device__ __forceinline__ float junction_code(int acc, float r, float b, float 
 }
 
 // The LN code of one aligned element x of a row, clip(round(ln_elem·ratio)),
-// biased.
+// biased. A NaN (a row of zero codes: mean/std = 0/0) gives the int8 cast of
+// NaN, as the plain version's torch.clamp keeps NaN and .to(int8) casts it;
+// clampf would take it to lo.
 __device__ __forceinline__ float ln_code(const LnRow& row, float x, float w_os, float b_os, float ratio, float lo,
                                          float hi) {
-  return biased(__fmul_rn(ln_elem(row, x, w_os, b_os), ratio), lo, hi);
+  const float v = __fmul_rn(ln_elem(row, x, w_os, b_os), ratio);
+  return v != v ? __fadd_rn(static_cast<float>(static_cast<int8_t>(v)), 12582912.f) : biased(v, lo, hi);
 }
 
 // The LN row constants from the exact integer row sums (Σx² in 64 bits:

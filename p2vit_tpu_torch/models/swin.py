@@ -4,7 +4,9 @@ Plain functions over a parameter dict with the JAX package's structure
 (``stages`` → ``blocks`` with a per-block ``bias_table``, a ``downsample``
 PatchMerging after every stage but the last):
 
-  * ``fp_forward(params, cfg, x)``: the float forward.
+  * ``fp_forward(params, cfg, x, attn_tap=None)``: the float forward;
+    ``attn_tap``, a list, receives each block's merged attn@v windows
+    (B·nW, N, C), the data-free generator's tap.
   * ``collect_stats(params, cfg, policy, x, prev=None)``: the statistics
     pass over one calibration batch; ``calibrate(params, cfg, policy, x,
     stats=None)``: the solve over the last batch, with the ranges of
@@ -279,18 +281,23 @@ def _merge_heads(x):
     return x.permute(0, 2, 1, 3).reshape(b_, n, heads * d)
 
 
-def _window_attention_fp(blk, cfg, stage, xw, mask):
-    """fp windowed attention on (B·nW, N, C) windows, through proj."""
+def _window_attention_fp(blk, cfg, stage, xw, mask, attn_tap=None):
+    """fp windowed attention on (B·nW, N, C) windows, through proj; the
+    merged attn@v windows are appended to ``attn_tap`` when given."""
     heads = cfg.num_heads[stage]
     hd = xw.shape[-1] // heads
     q, k, v = _split_heads(linear(xw, blk["qkv"]["w"], blk["qkv"]["b"]), heads)
     attn = (q * hd**-0.5) @ k.transpose(-1, -2) + _gather_bias(blk["bias_table"], cfg.window(stage))[None]
     attn = torch.softmax(_add_mask(attn, mask), dim=-1)
-    return linear(_merge_heads(attn @ v), blk["proj"]["w"], blk["proj"]["b"])
+    out = _merge_heads(attn @ v)
+    if attn_tap is not None:
+        attn_tap.append(out)
+    return linear(out, blk["proj"]["w"], blk["proj"]["b"])
 
 
-def fp_forward(params, cfg: SwinConfig, x):
-    """Float Swin forward in the dtype of ``x`` and ``params``."""
+def fp_forward(params, cfg: SwinConfig, x, attn_tap=None):
+    """Float Swin forward in the dtype of ``x`` and ``params``; each block's
+    merged attn@v windows are appended to ``attn_tap`` when given."""
     eps = cfg.ln_eps
     x = linear(_patches(x, cfg.patch_size), params["patch_embed"]["w"], params["patch_embed"]["b"])
     x = layer_norm(x, params["patch_norm"]["w"], params["patch_norm"]["b"], eps)
@@ -304,7 +311,7 @@ def fp_forward(params, cfg: SwinConfig, x):
             mask = shift_mask_tensor(cfg, i, shift, x.device)
             if mask is not None:
                 mask = mask.to(x.dtype)
-            hw = _window_attention_fp(blk, cfg, i, hw, mask)
+            hw = _window_attention_fp(blk, cfg, i, hw, mask, attn_tap)
             x = x + _roll(window_reverse(hw, ws, res, res), shift).reshape(b, l, c)
             h = layer_norm(x, blk["norm2"]["w"], blk["norm2"]["b"], eps)
             h = gelu(linear(h, blk["fc1"]["w"], blk["fc1"]["b"]))

@@ -2,16 +2,24 @@
 
 Plain functions over a parameter dict with the JAX package's structure:
 
-  * ``fp_forward(params, cfg, x)``: the float forward.
+  * ``fp_forward(params, cfg, x, attn_tap=None, hook=None)``: the float
+    forward; ``attn_tap``, a list, receives each block's merged attn@v
+    (B, N, C), the tap the data-free generator's loss reads (it stays
+    differentiable); ``hook`` sees the seven tensors a block that
+    ``analysis.collect_activations`` plots.
   * ``collect_stats(params, cfg, policy, x, prev=None)``: the statistics
     pass over one calibration batch (running activation ranges only).
   * ``calibrate(params, cfg, policy, x, stats=None)``: the solve over the
     last calibration batch, with the ranges of earlier batches in
     ``stats``, giving the ``QuantState`` dict (scales, PoT exponents, PTF
     masks, per-bit SmoothQuant caches) and the mixed-precision artifacts.
-  * ``quant_forward(params, qstate, cfg, policy, x, bit_idx)``: the
-    fake-quant simulation. ``bit_idx`` is an index tensor, so one code path
-    serves every mixed-precision config.
+  * ``quant_forward(params, qstate, cfg, policy, x, bit_idx,
+    block_tap=None)``: the fake-quant simulation. ``bit_idx`` is an index
+    tensor, so one code path serves every mixed-precision config;
+    ``block_tap``, a list, receives each block's output (the qact4 node).
+  * ``synthetic_qstate(cfg)``: a structurally correct QuantState with
+    placeholder power-of-two scales, for the tools that time the serving
+    paths without calibrating.
 
 The quantization nodes sit where the JAX package puts them (its module
 docstring lists the chain). ``policy.smoothquant=False`` calibrates qkv and
@@ -108,27 +116,45 @@ def init_params(seed: int, cfg: ViTConfig, device="cuda") -> dict:
     }
 
 
-def fp_forward(params, cfg: ViTConfig, x):
-    """Float ViT forward in the dtype of ``x`` and ``params``."""
+def fp_forward(params, cfg: ViTConfig, x, attn_tap=None, hook=None):
+    """Float ViT forward in the dtype of ``x`` and ``params``; each block's
+    merged attn@v (B, N, C) is appended to ``attn_tap`` when given.
+    ``hook(i, name, t)``, when given, sees block i's ``attn_in``,
+    ``qkv_out``, ``attn_scores`` (before the softmax), ``attn_v``,
+    ``proj_out``, ``mlp_in`` and ``mlp_out`` in that order."""
+
+    def tap(i, name, t):
+        if hook is not None:
+            hook(i, name, t)
+        if attn_tap is not None and name == "attn_v":
+            attn_tap.append(t)
+
     eps = cfg.ln_eps
     b = x.shape[0]
     x = extract_patches(x, cfg.patch_size)
     x = linear(x, params["patch_embed"]["w"], params["patch_embed"]["b"])
     cls = params["cls_token"].expand(b, 1, cfg.embed_dim)
     x = torch.cat([cls, x], dim=1) + params["pos_embed"]
-    for blk in params["blocks"]:
+    for i, blk in enumerate(params["blocks"]):
         h = layer_norm(x, blk["norm1"]["w"], blk["norm1"]["b"], eps)
+        tap(i, "attn_in", h)
         h = linear(h, blk["qkv"]["w"], blk["qkv"]["b"])
+        tap(i, "qkv_out", h)
         q, k, v = split_qkv(h, cfg.num_heads)
         attn = (q @ k.transpose(-1, -2)) * cfg.attn_scale
+        tap(i, "attn_scores", attn)
         attn = torch.softmax(attn, dim=-1)
         h = merge_heads(attn @ v)
+        tap(i, "attn_v", h)
         h = linear(h, blk["proj"]["w"], blk["proj"]["b"])
+        tap(i, "proj_out", h)
         x = x + h
         h = layer_norm(x, blk["norm2"]["w"], blk["norm2"]["b"], eps)
+        tap(i, "mlp_in", h)
         h = linear(h, blk["fc1"]["w"], blk["fc1"]["b"])
         h = gelu(h)
         h = linear(h, blk["fc2"]["w"], blk["fc2"]["b"])
+        tap(i, "mlp_out", h)
         x = x + h
     x = layer_norm(x, params["norm"]["w"], params["norm"]["b"], eps)[:, 0]
     return linear(x, params["head"]["w"], params["head"]["b"])
@@ -383,6 +409,53 @@ def collect_stats(params, cfg: ViTConfig, policy: QuantPolicy, x, prev=None) -> 
     return st
 
 
+def synthetic_qstate(cfg: ViTConfig, device="cuda") -> dict:
+    """A structurally correct QuantState with placeholder PoT scales (0.125
+    for activations, 0.0625 for weights, unit masks and channel scales), on
+    the card unless ``device`` says otherwise. Serving from it runs the
+    same shapes and kernels as a calibrated state; only the values differ."""
+    device = target_device(device)
+    c, h3, hid = cfg.embed_dim, 3 * cfg.embed_dim, cfg.hidden_dim
+    full = lambda shape, v: torch.full(shape, v, dtype=torch.float32, device=device)  # noqa: E731
+
+    def act(chan=None):
+        s = full((chan,) if chan else (), 0.125)
+        d = {"scale": s, "zp": torch.zeros_like(s)}
+        if chan:
+            d["mask"] = full((chan,), 1.0)
+        return d
+
+    def wdic(o):
+        return full((4, o), 0.0625)
+
+    def smooth(o):
+        return {
+            "channel_scale": full((N_EVAL_BITS, c), 1.0),
+            "qact0_scale": full((N_EVAL_BITS,), 0.125),
+            "qact0_zp": full((N_EVAL_BITS,), 0.0),
+            "wscale": torch.stack([wdic(o)] * N_EVAL_BITS),
+        }
+
+    blocks = []
+    for _ in range(cfg.depth):
+        attn = smooth(h3)
+        attn.update(qact1=act(), qact_attn1=act(), qact2=act(), proj_wscale=wdic(c), qact3=act(c))
+        mlp = smooth(hid)
+        mlp.update(qact1=act(), fc2_wscale=wdic(c), qact2=act(c))
+        blocks.append({"attn": attn, "qact2": act(c), "mlp": mlp, "qact4": act(c)})
+    return {
+        "qact_input": act(),
+        "patch": {"wscale": wdic(c), "qact": act()},
+        "qact_embed": act(),
+        "qact_pos": act(),
+        "qact1": act(c),
+        "blocks": blocks,
+        "qact2": act(),
+        "head_wscale": wdic(cfg.num_classes),
+        "act_out": act(),
+    }
+
+
 # ---------------------------------------------------------------------------
 # Quantized forward (simulation)
 # ---------------------------------------------------------------------------
@@ -408,8 +481,10 @@ def _intln_or_ln(x, ln_params, policy, in_q, out_scale, eps):
 
 
 @torch.no_grad()
-def quant_forward(params, qstate, cfg: ViTConfig, policy: QuantPolicy, x, bit_idx):
-    """Fully-quantized simulation forward; ``bit_idx`` from ``bits_to_idx``."""
+def quant_forward(params, qstate, cfg: ViTConfig, policy: QuantPolicy, x, bit_idx, block_tap=None):
+    """Fully-quantized simulation forward; ``bit_idx`` from ``bits_to_idx``.
+    Each block's output (the qact4 node) is appended to ``block_tap`` when
+    given."""
     eps = cfg.ln_eps
     b = x.shape[0]
     bit_idx = bit_idx.to(x.device)
@@ -472,6 +547,8 @@ def quant_forward(params, qstate, cfg: ViTConfig, policy: QuantPolicy, x, bit_id
         x = x + h
         x = _fq(x, bq["qact4"])
         last_q = bq["qact4"]
+        if block_tap is not None:
+            block_tap.append(x)
 
     x = _intln_or_ln(x, params["norm"], policy, last_q, qstate["qact2"]["scale"], eps)[:, 0]
     x = _fq(x, qstate["qact2"])

@@ -29,7 +29,10 @@ CTAs take blocks of 64 contiguous patch rows (cp.async, double-buffered);
 each thread holds 4 rows × CC channels of h in registers (CC = C_pad/16)
 and reads, per k, 4 x values and CC weights from shared memory, so the
 FP32 pipe and not the shared-memory pipe sets the pace; the epilogue and
-the LN run in registers with exact row sums (``stem_plan``).
+the LN run in registers with exact row sums (``stem_plan``). Past C = 256
+a cluster of CS = ⌈C/256⌉ CTAs (at most 4, so C ≤ 1024) splits the
+channels, each CTA 16·CC of them, and the CTAs add their exact partial row
+sums through distributed shared memory before the LN.
 """
 
 from __future__ import annotations
@@ -43,7 +46,8 @@ from ._lib import check_cuda_operand, device_of, f32_vec, launch, library, pad_c
 from .intln import ln_codes
 
 _I8 = (-128, 127)
-MAX_STEM_C = 256  # 16 channels a thread at most
+MAX_STEM_CLUSTER = 4  # CTAs a cluster splitting C
+MAX_STEM_C = 256 * MAX_STEM_CLUSTER  # 16 channels a thread, 256 a CTA, at most
 MAX_STEM_SMEM = 232_448  # dynamic shared memory one block may use
 ROWS = 64  # patch rows a CTA block: 16 row groups of 4
 CC_SET = (2, 4, 6, 8, 12, 16)  # channels a thread holds, as the kernel is built
@@ -85,12 +89,13 @@ def fused_swin_stem_plain(patches, w, bias, s_bn, ln_w, ln_b, out_scale):
 class StemPlan:
     """Launch plan of the stem kernel (``csrc/swin_stem.cu``)."""
 
-    cc: int  # channels a thread holds (4 rows each); the CTA's 16 channel groups cover c_pad
-    c_pad: int  # 16·cc
+    cc: int  # channels a thread holds (4 rows each); a CTA's 16 channel groups cover 16·cc
+    c_pad: int  # cs·16·cc
     k_pad: int  # K, padded to a multiple of 4
     blocks: int  # blocks of 64 patch rows
-    grid: int  # persistent CTAs: min(blocks, SMs × CTAs per SM)
-    smem_bytes: int
+    grid: int  # persistent CTAs: min(blocks, resident clusters) × cs
+    smem_bytes: int  # a CTA's
+    cs: int = 1  # CTAs a cluster, splitting C: ⌈C/256⌉
 
     @property
     def loads_per_product(self) -> float:
@@ -101,38 +106,45 @@ class StemPlan:
         return (4 + 4 * self.cc / g) / (16 * self.cc)
 
 
-def stem_smem(k_pad: int, c_pad: int) -> int:
-    """The transposed weight (K, C), five vectors, two buffers of 64 patch
-    rows (float32) and the 64 × C code tile."""
-    return 4 * (k_pad * c_pad + 5 * c_pad + 2 * ROWS * k_pad) + ROWS * c_pad
+def stem_smem(k_pad: int, c_cta: int, cs: int = 1) -> int:
+    """A CTA's shared memory: its transposed weight slice (K, c_cta), five
+    vectors, two buffers of 64 patch rows (float32), the 64 × c_cta code
+    tile and, in a cluster (cs > 1), two buffers of 64 rows' int64 partial
+    sums."""
+    return 4 * (k_pad * c_cta + 5 * c_cta + 2 * ROWS * k_pad) + ROWS * c_cta + (2 * ROWS * 16 if cs > 1 else 0)
 
 
-def stem_plan(m: int, k: int, c: int, sms: int = 132, ctas_per_sm: int = 3) -> StemPlan:
+def stem_plan(m: int, k: int, c: int, sms: int = 132, ctas_per_sm: int = 3, clusters: int | None = None) -> StemPlan:
     """The stem kernel's plan at (M, K, C), as the C entry computes it on
-    ``sms`` SMs holding ``ctas_per_sm`` CTAs each (``stem_kernel_info``
-    reads both on the card): cc the least of ``CC_SET`` with 16·cc ≥ C;
-    raises past C = 256 or where the CTA's shared memory does not fit."""
+    ``sms`` SMs holding ``ctas_per_sm`` CTAs each, or ``clusters``
+    resident clusters (``stem_kernel_info`` reads all three on the card):
+    cs = ⌈C/256⌉ CTAs a cluster, cc the least of ``CC_SET`` with
+    cs·16·cc ≥ C; raises past C = 1024 or where a CTA's shared memory does
+    not fit."""
     k_pad = -(-k // 4) * 4
-    cc = next((v for v in CC_SET if 16 * v >= c), None)
-    if c < 1 or cc is None or stem_smem(k_pad, 16 * cc) > MAX_STEM_SMEM:
-        raise ValueError(f"fused_swin_stem kernel needs C <= {MAX_STEM_C} and its (K, C) weight with two "
-                         f"blocks of 64 patch rows in shared memory (4·(K·C + 5·C + 128·K) + 64·C <= "
-                         f"{MAX_STEM_SMEM} bytes at the padded widths); got C={c}, K={k}")
+    cs = -(-c // 256)
+    cc = next((v for v in CC_SET if cs * 16 * v >= c), None) if 1 <= cs <= MAX_STEM_CLUSTER else None
+    if c < 1 or cc is None or stem_smem(k_pad, 16 * cc, cs) > MAX_STEM_SMEM:
+        raise ValueError(f"fused_swin_stem kernel needs C <= {MAX_STEM_C} (clusters of at most "
+                         f"{MAX_STEM_CLUSTER} CTAs of 256 channels) and each CTA's (K, C/CS) weight slice with two "
+                         f"blocks of 64 patch rows in shared memory (4·(K·C' + 5·C' + 128·K) + 64·C' <= "
+                         f"{MAX_STEM_SMEM} bytes at the padded widths, C' = C/CS); got C={c}, K={k}")
     blocks = -(-m // ROWS)
-    return StemPlan(cc, 16 * cc, k_pad, blocks, min(blocks, sms * ctas_per_sm), stem_smem(k_pad, 16 * cc))
+    resident = clusters if clusters is not None else sms * ctas_per_sm // cs
+    return StemPlan(cc, cs * 16 * cc, k_pad, blocks, min(blocks, resident) * cs, stem_smem(k_pad, 16 * cc, cs), cs)
 
 
 _INFO_KEYS = ("cc", "c_pad", "rows", "blocks", "grid", "smem_bytes", "registers", "spill_bytes", "ctas_per_sm",
-              "sms")
+              "sms", "cs", "clusters")
 
 
 def stem_kernel_info(m: int, k: int, c: int) -> dict:
     """The built stem kernel's launch facts at (M, K, C) from the CUDA
-    runtime (the plan, registers, spill bytes, CTAs per SM, SMs). Needs the
-    card."""
+    runtime (the plan, registers, spill bytes, CTAs per SM, SMs, CTAs a
+    cluster, resident clusters). Needs the card."""
     plan = stem_plan(m, k, c)
     lib, _ = library()
-    info = (ctypes.c_int * 10)()
+    info = (ctypes.c_int * len(_INFO_KEYS))()
     rc = lib.p2v_fused_swin_stem_info(int(m), plan.k_pad, plan.c_pad, ctypes.cast(info, ctypes.c_void_p))
     if rc != 0:
         raise RuntimeError(f"p2v_fused_swin_stem_info: CUDA error {rc}: {lib.p2v_error_string(rc).decode()}")
@@ -149,7 +161,7 @@ def fused_swin_stem(patches, w, bias, s_bn, ln_w, ln_b, out_scale):
         (C,)). ln_w/ln_b: (C,) patch-norm affine. out_scale: the patch_qact
         scale (scalar or (C,)).
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (C ≤ 256, K and C zero-padded to the plan's widths, ``stem_plan``) or
+    (C ≤ 1024, K and C zero-padded to the plan's widths, ``stem_plan``) or
     raise.
     """
     if device_of(patches, w).type == "cpu":
@@ -178,9 +190,10 @@ def _stem_launch(entry, patches, w, bias, s_bn, ln_w, ln_b, out_scale, *extra):
 
 
 def fused_swin_stem_forced(patches, w, bias, s_bn, ln_w, ln_b, out_scale, grid=0):
-    """The kernel launched on ``grid`` CTAs (0: the plan's persistent grid;
-    ``plan.blocks``: one block a CTA). A measurement hook for CUDA tensors;
-    not counted in ``fused_swin_stem.launches``."""
+    """The kernel launched on ``grid`` clusters of ``plan.cs`` CTAs (CTAs
+    where C ≤ 256; 0: the plan's persistent grid; ``plan.blocks``: one block
+    a cluster). A measurement hook for CUDA tensors; not counted in
+    ``fused_swin_stem.launches``."""
     return _stem_launch("p2v_fused_swin_stem_forced", patches, w, bias, s_bn, ln_w, ln_b, out_scale, grid)
 
 

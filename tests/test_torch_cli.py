@@ -3,8 +3,8 @@
 
 * ``build_parser``: the same destinations, defaults and choices but
   ``--device``; ``accuracy`` and ``AverageMeter`` equal JAX's; each flag
-  whose module is not ported (``--plot``, ``--mode 2``, the parallel
-  flags) exits 2 with one line naming ROADMAP.md.
+  whose module is not ported (the parallel flags) exits 2 with one line
+  naming ROADMAP.md.
 * The flags of the rest of calibration and the search, against the JAX
   CLI's flow (``test_quant.py:304-350, 549-608``) through JAX's functions:
   ``--calib-iter 2`` with each ``--quant-method`` (statistics over the
@@ -145,7 +145,6 @@ def test_accuracy_and_average_meter_match_jax():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--plot"], "item 5"), (["--mode", "2"], "item 5"),
     (["--dp", "2"], "item 6"), (["--tp", "2"], "item 6"), (["--sp"], "item 6"), (["--pp", "2"], "item 6"),
     (["--pp-micro", "4"], "item 6"),
 ])
@@ -426,6 +425,94 @@ def test_mode_1_calibrates_on_seeded_noise(folder, models, capsys):
         np.testing.assert_array_equal(b, a)
     jc = vit.calibrate(m["params"], f["cfg"], make_policy(), jnp.asarray(noise.numpy()))
     _assert_decisions_equal(jc.qstate, tc.qstate, "minmax")
+
+
+def test_mode_2_calibrates_on_generated_data(folder, models, capsys, monkeypatch):
+    """``--mode 2``: the CLI calls ``datafree.generate_data(params, cfg,
+    batch_size=--calib-batchsize, seed=--seed)`` at its defaults (2 × 500
+    steps, lr 0.2; cut here to 2 × 2 steps by wrapping the module function,
+    the only change) on the device, and calibrates on the result: its state
+    equals ``calibrate(generate_data(...))`` in process, leaf for leaf."""
+    from p2vit_tpu_torch import datafree
+
+    f, m = FAMILIES["vit"], models["vit"]
+    real, calls = datafree.generate_data, []
+
+    def short(*a, **k):
+        calls.append(k)
+        return real(*a, **k, iterations_per_epoch=2)
+
+    monkeypatch.setattr(datafree, "generate_data", short)
+    args = _args("vit", folder, ["--quant", "--checkpoint", m["pth"], "--mode", "2", "--seed", "5"])
+    tc = tcli.calibrate_or_load(args, f["tcfg"], f["tmod"], m["tparams"], tmake_policy(), "cpu")
+    assert capsys.readouterr().out == "Generating data...\nCalibrating with generated data...\n"
+    assert calls == [dict(batch_size=4, seed=5, device="cpu")]
+    imgs = real(m["tparams"], f["tcfg"], batch_size=4, seed=5, iterations_per_epoch=2)
+    own = tvit.calibrate(m["tparams"], f["tcfg"], tmake_policy(), imgs)
+    for (_, a), (_, b) in zip(_leaves(jax.tree.map(lambda t: t.numpy(), own.qstate)),
+                              _leaves(jax.tree.map(lambda t: t.numpy(), tc.qstate))):
+        np.testing.assert_array_equal(b, a)
+
+
+@pytest.mark.parametrize("u8", [False, True])
+def test_plot_writes_the_vit_svgs(folder, models, tmp_path, monkeypatch, capsys, u8):
+    """``--plot`` at TINY ViT: seven SVGs in ``figs/`` of the working
+    directory, from the first val images; under ``--u8-ingest`` the
+    normalize replayed on the uint8 batch gives the float path's
+    activations (within float32 rounding, 1e-6 relative)."""
+    pytest.importorskip("matplotlib")
+    from p2vit_tpu_torch import analysis
+
+    f, m = FAMILIES["vit"], models["vit"]
+    monkeypatch.chdir(tmp_path)
+    flags = ["--quant", "--serve", "--plot", "--checkpoint", m["pth"]] + (["--u8-ingest"] if u8 else [])
+    args = _args("vit", folder, flags)
+    val = tcli.make_dataset(args, f["tcfg"], "val", raw=u8)
+    seen = {}
+    real = analysis.collect_activations
+    monkeypatch.setattr(analysis, "collect_activations", lambda *a, **k: seen.setdefault("acts", real(*a, **k)))
+    paths = tcli.plot_activations(args, f["tcfg"], False, m["tparams"], val, u8, "cpu")
+    assert capsys.readouterr().out == "wrote 7 activation plots to figs/\n"
+    assert len(paths) == 7 and all((tmp_path / p).exists() and p.startswith("figs/deit_tiny_block1.")
+                                   for p in paths)
+    want = real(m["tparams"], f["tcfg"], torch.from_numpy(next(iter(tcli.make_dataset(
+        _args("vit", folder, flags[:-1] if u8 else flags), f["tcfg"], "val")))[0][None]))
+    assert seen["acts"]["block1.attn_in"].shape[0] == 3  # min(--val-batchsize, 8) images
+    a, b = seen["acts"]["block1.mlp_out"][:1], want["block1.mlp_out"]
+    assert float((a - b).norm() / b.norm()) < 1e-6
+
+
+def test_plot_skips_swin_and_runs_through_main(folder, models, tmp_path, monkeypatch, capsys):
+    """Swin prints JAX's skip line; ``main`` takes ``--plot`` and ``--mode 2``
+    (neither is refused any more): ``unported_flag`` names only the
+    parallel flags."""
+    f, m = FAMILIES["swin"], models["swin"]
+    args = _args("swin", folder, ["--quant", "--plot", "--random-init"])
+    assert tcli.plot_activations(args, f["tcfg"], True, m["tparams"], None, False, "cpu") is None
+    assert capsys.readouterr().out == "--plot is ViT/DeiT-only (reference plots vit_base); skipping\n"
+    assert tcli.unported_flag(_args("vit", folder, ["--quant", "--plot", "--mode", "2"])) is None
+    every = ["--plot", "--mode", "2", "--dp", "2", "--tp", "2", "--sp", "--pp", "2", "--pp-micro", "4"]
+    assert "--dp is not ported" in tcli.unported_flag(_args("vit", folder, every))
+
+
+@pytest.mark.parametrize("flags,batch,line", [
+    (["--quant", "--serve"], "1", "[plan] batch 1 is below the measured vit int8-over-bf16 crossover"),
+    (["--quant", "--serve"], "256", None),
+    (["--quant", "--serve-weight-only"], "256", "[plan] int8 serving (--serve) beats bf16 here: batch 256"),
+    (["--quant", "--serve-weight-only"], "1", None),
+    (["--quant"], "1", None),
+])
+def test_plan_hint(folder, capsys, flags, batch, line):
+    """JAX's ``[plan]`` warning from the port's table: printed where the
+    chosen path disagrees with ``plan.recommend(cfg, --val-batchsize)``,
+    here at DeiT-S width (the table's crossover 128)."""
+    from p2vit_tpu_torch.models import MODEL_ZOO
+
+    args = tcli.build_parser().parse_args(["deit_small", folder, "--val-batchsize", batch, *flags])
+    got = tcli.plan_hint(args, MODEL_ZOO["deit_small_patch16_224"])
+    out = capsys.readouterr().out
+    assert (got is None) == (line is None) and out == ("" if line is None else got + "\n")
+    assert line is None or got.startswith(line)
 
 
 @pytest.fixture(scope="module")

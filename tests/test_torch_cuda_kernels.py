@@ -147,7 +147,10 @@ def _res_ln_args(rng, m, k, n, case="ptf"):
     """Junction arguments: int8 x, int4-valued weights, PoT requant scales,
     residual codes and PTF scales. ``mask16``: every column but one at
     s_out = 16·s1 (PTF mask 16) with the residual scaled so that most codes
-    saturate: |x| = 2048, and at N = 1024 every row's Σx² passes 2^31."""
+    saturate: |x| = 2048, and at N = 1024 every row's Σx² passes 2^31.
+    ``zero_rows``: under a zero bias, the first row, the row at 64 and the
+    last have zero x and residual codes, so zero residual codes and LN
+    constants 0/0 (the NaN cast to code 0, as the plain version and JAX do)."""
     s_out = (0.013 * 2.0 ** rng.randint(0, 4, n)).astype(np.float32)
     s_res = (0.011 * 2.0 ** rng.randint(0, 4, n)).astype(np.float32)
     if case == "mask16":
@@ -164,26 +167,51 @@ def _res_ln_args(rng, m, k, n, case="ptf"):
         torch.from_numpy((np.abs(rng.randn(n)) * 0.03 + 0.01).astype(np.float32)),
         _pot(rng, n, -1, 2),
     ]
+    if case == "zero_rows":
+        rows = sorted({0, min(64, m - 1), m - 1})
+        args[0][rows], args[4][rows], args[3] = 0, 0, torch.zeros(n)
     return args
 
 
-@pytest.mark.parametrize("case", ["ptf", "mask16", "int4_clamp"])
+@pytest.mark.parametrize("case", ["ptf", "mask16", "int4_clamp", "zero_rows"])
 @pytest.mark.parametrize("kmul", [1, 4])
 @pytest.mark.parametrize("n", [96, 128, 192, 256, 384, 512, 768, 1024])
 def test_int8_matmul_res_ln_kernel(dev, n, kmul, case):
     """Every chunk width the plan picks (N = 96 … 1024, one to four chunks),
     K = N (proj) and 4N (fc2), ragged M (one row, one row past a 64-row
     tile, a partial 128-row block, Swin-T stage 3's 3136 + 1); a PTF mask
-    of 16 with saturated codes (Σx² past 2^31 at N = 1024); the int4 clamp."""
+    of 16 with saturated codes (Σx² past 2^31 at N = 1024); the int4 clamp;
+    rows of zero codes (LN 0/0)."""
     rng = np.random.RandomState(n + kmul)
     qmin, qmax = (-8, 7) if case == "int4_clamp" else (-128, 127)
     for m in (1, 65, 394, 3137):
         args = [a.to(dev) for a in _res_ln_args(rng, m, kmul * n, n, case)]
         got = matmul_ln.int8_matmul_res_ln(*args, qmin=qmin, qmax=qmax)
         _same(got, matmul_ln.int8_matmul_res_ln_plain(*args, qmin=qmin, qmax=qmax))
+        if case == "zero_rows":
+            assert not got[1][0].any()
         if case == "mask16" and n == 1024 and m > 1:
             x = got[0].to(torch.int64) * torch.round(args[7] / args[7].min()).to(torch.int64)
             assert int((x * x).sum(1).min()) > 2**31
+
+
+@pytest.mark.parametrize("flags", [{}, {"fuse_qkv": False, "fuse_embed": False}, {"fuse_layer": True},
+                                   {"lis": False}, {"fuse_layer": True, "lis": False}])
+def test_serving_forward_synthetic_state(dev, flags):
+    """DeiT-T at full width on ``synthetic_qstate``: its placeholder weight
+    scale (0.0625) leaves most weight codes 0, so the [CLS] row's residual
+    codes are all zero and every junction's LN (the fused layer's too)
+    meets 0/0 there; each int8 arm equals its plain path bit for bit and
+    launches ``launches_per_forward``'s kernels."""
+    cfg = VIT_ZOO["deit_tiny_patch16_224"]
+    params = vit.init_params(0, cfg, device=dev)
+    s = serving.convert(params, vit.synthetic_qstate(cfg, device=dev), cfg, make_policy(), [8] * cfg.num_matmuls)
+    x = torch.randn((2, 3, 224, 224), generator=torch.Generator().manual_seed(1)).to(dev)
+    reset_launch_counts()
+    got = serving.serving_forward(s, cfg, x, **flags)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    assert counts == serving.launches_per_forward(cfg, **{k: v for k, v in flags.items() if k != "lis"})
+    assert torch.equal(got, serving.serving_forward(s, cfg, x, use_kernels=False, **flags))
 
 
 # (M, N, K) of every junction of the zoo's serving paths at batch 64:
@@ -962,8 +990,8 @@ def test_fused_swin_stem_kernel(dev, case):
     before = swin_stem.fused_swin_stem.launches
     _same(swin_stem.fused_swin_stem(*args), swin_stem.fused_swin_stem_plain(*args))
     assert swin_stem.fused_swin_stem.launches == before + 1
-    with pytest.raises(ValueError, match="C <= 256"):
-        swin_stem.fused_swin_stem(args[0], torch.zeros(300, k, device=dev), *args[2:])
+    with pytest.raises(ValueError, match="C <= 1024"):
+        swin_stem.fused_swin_stem(args[0], torch.zeros(1100, k, device=dev), *args[2:])
 
 
 @pytest.mark.parametrize("case", ["randn", "zero_row_mask16"])
@@ -995,6 +1023,44 @@ def test_fused_swin_stem_widths(dev, c, case):
     assert (info["cc"], info["c_pad"], info["blocks"], info["grid"], info["smem_bytes"]) == (
         plan.cc, plan.c_pad, plan.blocks, plan.grid, plan.smem_bytes)
     _same(swin_stem.fused_swin_stem(*args), swin_stem.fused_swin_stem_plain(*args))
+
+
+@pytest.mark.parametrize("case", ["randn", "zero_row_mask16"])
+@pytest.mark.parametrize("c", [257, 384, 512, 768, 1024])
+def test_fused_swin_stem_wide(dev, c, case):
+    """Past C = 256, clusters of ⌈C/256⌉ CTAs split the channels and add
+    their partial row sums through distributed shared memory: bitwise
+    against the plain version at ragged M on random-normal inputs and on a
+    calibrated state's kinds with PTF masks up to 16 and a zero patch row
+    (LN 0/0); the launch facts equal stem_plan's with the card's resident
+    clusters; forced grids of 1 and 7 clusters and one block a cluster."""
+    rng = np.random.RandomState(c)
+    m, k = 3136 + 77, 48
+    bias = torch.from_numpy((rng.randn(c) * 0.05).astype(np.float32))
+    ln_w = torch.from_numpy(rng.randn(c).astype(np.float32))
+    ln_b = torch.from_numpy((rng.randn(c) * 0.1).astype(np.float32))
+    if case == "randn":
+        px = torch.from_numpy(rng.randn(m, k).astype(np.float32))
+        w = torch.from_numpy((rng.randn(c, k) * 0.2).astype(np.float32))
+        s_bn, s_out = torch.tensor(0.04), torch.tensor(0.03)
+    else:
+        px = _i8(rng, (m, k)).to(torch.float32) * 2.0**-5
+        px[100] = 0
+        w = _i8(rng, (c, k), -8, 8).to(torch.float32) * _pot(rng, c, -9, -6)[:, None]
+        bias = torch.zeros(c)
+        s_bn = torch.from_numpy((2.0**-4 * 2.0 ** rng.randint(0, 5, c)).astype(np.float32))
+        s_out = torch.tensor(2.0**-4)
+    args = [t.to(dev) for t in (px, w, bias, s_bn, ln_w, ln_b, s_out)]
+    info = swin_stem.stem_kernel_info(m, k, c)
+    plan = swin_stem.stem_plan(m, k, c, info["sms"], info["ctas_per_sm"], clusters=info["clusters"])
+    assert (info["cc"], info["c_pad"], info["cs"], info["blocks"], info["grid"], info["smem_bytes"]) == (
+        plan.cc, plan.c_pad, plan.cs, plan.blocks, plan.grid, plan.smem_bytes)
+    want = swin_stem.fused_swin_stem_plain(*args)
+    before = swin_stem.fused_swin_stem.launches
+    _same(swin_stem.fused_swin_stem(*args), want)
+    assert swin_stem.fused_swin_stem.launches == before + 1
+    for g in (1, 7, plan.blocks):
+        _same(swin_stem.fused_swin_stem_forced(*args, grid=g), want)
 
 
 @pytest.mark.parametrize("grid", [0, 1, 7, "blocks"])
