@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port's serving paths, weight-store tools, CLI,
-data-free calibration and serving planner once on one GPU.
+data-free calibration, serving planner and parallel serving once on one GPU.
 
-    python3 chip_smoke.py            # nineteen paths, batches 1, 8, 64
+    python3 chip_smoke.py            # twenty paths, batches 1, 8, 64
 
 Builds the fourteen CUDA kernels from ``p2vit_tpu_torch/csrc`` (one nvcc per
 source, in parallel, sm_90a), then drives twelve int8 serving paths of two
@@ -82,6 +82,27 @@ weight-only serving of both models and the two weight-store GEMM tools:
   difference fails); and for each (model, batch) whether
   ``plan.recommend(prefer_exact=False)`` names the arm measured fastest (a
   disagreement is printed, not failed).
+* ``parallel``: the LIS-on DeiT-S (W4A8 ``[4]*50``) and Swin-T (W4)
+  states to a file, then ``PAR_WORLD`` = 3 ranks of one gloo group on this
+  card (``parallel.dist.run_ranks``; the kernels built once, in this
+  process): DeiT-S ``dp=2``, ``tp=2`` and ``tp=3`` with the qkv-fused
+  attention and with the qkv GEMM then ``lis_attention_fused``, ``tp=2``
+  with sequence-parallel epilogues, ``pp=2`` at 2 and 4 microbatches on
+  the fused layer, and Swin-T ``tp=3``, each at batch 64 and then 61 (pad
+  and trim). Each scenario's logits must equal this process's
+  ``serving_forward`` on the same state and requests bit for bit; on rank
+  0 the kernels at the shard's shapes (rows 3, 8 and 1's fc1 at heads/tp
+  and hid/tp, row 7 at the local heads, row 12 on a stage's layers, each
+  first call at each shape) against their plain versions, 0 mismatches;
+  every rank's launches against the shard's prediction; ms per forward on
+  rank 0 (CUDA events) and the share in host-staged collectives, labelled
+  as ranks time-sliced on one card. The ``cli`` path also runs ``main``
+  with ``--tp 2`` on its saved state: Prec@1/5 equal to one process's.
+* With ``swin``, before the paths: both Swin attention entries at 12×12
+  windows (N = 144, the kernel's unstaged instance), LIS on and off, the
+  panel one with and without the shift mask and the folded one at shift 0
+  and 6, at head_dims 32 and 16, against their plain versions (0
+  mismatches), with the instance's launch facts and µs per call.
 * With ``swin_stem``, before the paths: ``fused_swin_stem`` past C = 256,
   at C = 384 and at ``MAX_STEM_C`` (clusters of 2 and 4 CTAs), on
   random-normal inputs and a calibrated state's kinds, against its plain
@@ -286,7 +307,7 @@ SOURCES = {
 }
 PATHS = ("deit", "deit_staged", "deit_layer", "deit_lisoff", "deit_staged_lisoff", "deit_layer_lisoff",
          "swin", "swin_lisoff", "swin_fold", "swin_fold_lisoff", "swin_stem", "swin_int_stem_unfused",
-         "deit_wonly", "swin_wonly", "w4pack", "wstream", "cli", "datafree", "plan")
+         "deit_wonly", "swin_wonly", "w4pack", "wstream", "cli", "datafree", "plan", "parallel")
 PLAN_BATCHES = (1, 8, 32, 64, 128, 256)  # the plan path's sweep
 PLAN_ITERS = 10  # forwards a timing window there (latency_ab's default windows, up to 200, take ~10 min)
 # DeiT-S paths by key suffix: (display name suffix, serving flags)
@@ -403,24 +424,31 @@ def _is_pot(t) -> bool:
 
 
 def _capture(modules, names, run):
-    """Run ``run()`` with each ``module.name`` plain function wrapped to record
-    its calls' arguments; returns {name: [(args, kwargs), ...]}."""
+    """Run ``run()`` with each ``module.name`` function wrapped to record its
+    calls' arguments; returns {name: [(args, kwargs), ...]}. A kernel
+    wrapper counts its launches on the module attribute it is looked up
+    by, so its recorder carries a ``launches`` count of its own, added back
+    to the wrapper's on restore."""
     calls = {n: [] for n in names}
     saved = []
     for mod, n in zip(modules, names):
         fn = getattr(mod, n)
-        saved.append((mod, n, fn))
 
         def rec(*a, _fn=fn, _n=n, **k):
             calls[_n].append((a, k))
             return _fn(*a, **k)
 
+        if hasattr(fn, "launches"):
+            rec.launches = 0
+        saved.append((mod, n, fn, rec))
         setattr(mod, n, rec)
     try:
         run()
     finally:
-        for mod, n, fn in saved:
+        for mod, n, fn, rec in saved:
             setattr(mod, n, fn)
+            if hasattr(fn, "launches"):
+                fn.launches += rec.launches
     return calls
 
 
@@ -1629,8 +1657,6 @@ def _cli_run(label, argv, route, dev, smi, counts_api):
 
     reset_launch_counts, launch_counts = counts_api
     args = cli.build_parser().parse_args(argv)
-    if cli.unported_flag(args):
-        _fail(f"cli {label}: {cli.unported_flag(args)}")
     cfg = MODEL_ZOO[cli.FULL_NAME[args.model]]
     is_swin = args.model.startswith("swin")
     family = swin if is_swin else vit
@@ -1722,8 +1748,6 @@ def _cli_search_run(label, argv, route, dev, smi, counts_api):
 
     reset_launch_counts, launch_counts = counts_api
     args = cli.build_parser().parse_args(argv)
-    if cli.unported_flag(args):
-        _fail(f"cli {label}: {cli.unported_flag(args)}")
     cfg = MODEL_ZOO[cli.FULL_NAME[args.model]]
     policy = make_policy(args.ptf, args.lis, args.quant_method)
     if route == "none":
@@ -1827,6 +1851,17 @@ def run_cli_path(dev, smi, seed, counts_api):
               f"{first.size} differ", flush=True)
         if n_re:
             _fail(f"cli: {n_re} logits differ after the quant-state reload")
+        if route != "none":  # main itself: one process, then --tp 2 over two ranks on this card
+            from p2vit_tpu_torch import cli
+
+            t0 = time.time()
+            single = cli.main(deit + ["--load-quant-state", q])
+            t1 = time.time()
+            tp2 = cli.main(deit + ["--load-quant-state", q, "--tp", "2"], timeout_s=300)
+            print(f"cli deit_small --tp 2 (2 ranks on one card, gloo through the host): Prec@1/5 {tp2} against "
+                  f"{single} in one process; {time.time() - t1:.1f} s against {t1 - t0:.1f} s ({smi})", flush=True)
+            if tp2 != single:
+                _fail(f"cli: --tp 2 gives Prec@1/5 {tp2}, one process {single}")
         _cli_run("swin_tiny", ["swin_tiny", data, "--random-init"] + common, route, dev, smi, counts_api)
         two = ["--calib-iter", "2"]
         _cli_run("deit_small --calib-iter 2 --quant-method omse", deit + two + ["--quant-method", "omse"], route,
@@ -2143,6 +2178,53 @@ def tiny_swin_checks(dev, ops) -> None:
             _fail(f"TINY Swin head_dims {sorted(dims)}, LIS {lis}: {bad} attention and {n_bad} logit mismatches")
 
 
+def window12_checks(dev, ops) -> None:
+    """Both Swin attention entries past 64 tokens a window: 12×12 windows
+    (N = 144, the kernel's unstaged instance, keys padded to 160) of 8
+    images on a 24×24 grid, 4 heads of 32, random codes and bias, against
+    their plain versions: the panel entry without and with the shift mask,
+    the folded entry at shift 0 and 6, LIS on and off; then at head_dim 16
+    (zero-padded to 32). Prints the instance's launch facts and µs per call;
+    any difference fails."""
+    from p2vit_tpu_torch.models import swin
+
+    al = ops.attention_lis
+    b, res, ws, heads = 8, 24, 12, 4
+    n, g = ws * ws, res // ws
+    gen = torch.Generator().manual_seed(12)
+    s2 = 2.0**-4
+    mask = (torch.from_numpy(swin.shift_attn_mask(res, res, ws, ws // 2)) / s2).to(dev)
+    scales = (2.0**-9, 2.0**-4, s2, 2.0**-2)
+    for d in (32, 16):
+        c = d * heads
+        qkv = torch.randint(-128, 128, (b, res, res, 3 * c), generator=gen, dtype=torch.int8).to(dev)
+        bias = (torch.randn((heads, n, n), generator=gen) * 0.3).to(dev)
+        panels = swin.window_partition(qkv, ws).contiguous()
+        for lis in (True, False):
+            bad, calls = 0, 0
+            for m in (None, mask):
+                a = (panels, bias, m, heads, g * g, *scales)
+                bad += int((al.swin_lis_attention(*a, lis=lis) != al.swin_lis_attention_plain(*a, lis=lis)).sum())
+                calls += 1
+            for shift in (0, ws // 2):
+                fa = (qkv, bias, mask if shift else None, heads, ws, *scales)
+                bad += int((al.swin_lis_attention_folded(*fa, lis=lis, shift=shift)
+                            != al.swin_lis_attention_folded_plain(*fa, lis=lis, shift=shift)).sum())
+                calls += 1
+            info = al.swin_attention_info(n, lis)
+            us = 1e3 * _time_ms(lambda: al.swin_lis_attention(panels, bias, mask, heads, g * g, *scales, lis=lis), 5)
+            print(f"phase 1 Swin window 12×12 (N = {n}, head_dim {d}) LIS {'on' if lis else 'off'}: both entries vs "
+                  f"plain mismatches {bad} over {calls} calls; instance NM {al.swin_instance_n(n)}, shared memory "
+                  f"{info['smem_bytes']} B, registers {info['registers']}, spills {info['spill_bytes']} B, "
+                  f"{info['ctas_per_sm']} CTAs per SM; {us:.1f} µs per panel call ({b * g * g * heads} items)",
+                  flush=True)
+            if bad:
+                _fail(f"Swin attention at N = {n}, head_dim {d}, LIS {lis}: {bad} mismatches")
+            if info["smem_bytes"] != al.swin_attention_smem(n, lis):
+                _fail(f"Swin attention at N = {n}: {info['smem_bytes']} B of shared memory, the plan says "
+                      f"{al.swin_attention_smem(n, lis)}")
+
+
 _SASS: dict = {}
 
 
@@ -2219,6 +2301,203 @@ def sass_loop_counts(lib_path: str, kernel: str) -> str:
             key = f"{kernel}<{tmpl.group(1) if tmpl else '?'}>"
             out[key] = {**best, "loads_per_product": round(best["LDS"] / best["FMUL"], 3)}
     return json.dumps(out)
+
+
+PAR_WORLD = 3  # ranks of the parallel path's group: tp = 3 takes all three, the 2-rank meshes ranks 0 and 1
+PAR_LABEL = "ranks time-sliced on one card, gloo through the host: parallel parity, not speed"
+PAR_REPS = 3  # timed forwards a parallel scenario on rank 0
+# scenario → (family, kind, mesh, options)
+PAR_SCENARIOS = {
+    "dp2": ("vit", "dp", 2, {}),
+    "tp2": ("vit", "tp", 2, dict(fuse_qkv=True)), "tp2_unfused": ("vit", "tp", 2, dict(fuse_qkv=False)),
+    "tp3": ("vit", "tp", 3, dict(fuse_qkv=True)), "tp3_unfused": ("vit", "tp", 3, dict(fuse_qkv=False)),
+    "tp2_sp": ("vit", "tp", 2, dict(seq_parallel=True)),
+    "pp2_m2": ("vit", "pp", 2, dict(n_micro=2)), "pp2_m4": ("vit", "pp", 2, dict(n_micro=4)),
+    "swin_tp3": ("swin", "tp", 3, {}),
+}
+PAR_BATCHES = (64, 61)  # a full batch, then a short one (pad and trim)
+
+
+def _par_predicted(kind, cfg, opts, rank, n):
+    """Launches one forward should make on a rank (n ranks in the mesh)."""
+    from p2vit_tpu_torch import serving, serving_swin
+
+    if kind == "dp":
+        return serving.launches_per_forward(cfg)
+    if kind == "pp":
+        per = cfg.depth // n
+        counts = {"fused_vit_layer": per * opts["n_micro"], "int8_matmul_requant": 1}
+        if rank == 0:
+            counts["fused_patch_embed"] = 1
+        return counts
+    if hasattr(cfg, "depths"):  # Swin TP: proj, the plain fc2s and the fc2 junctions run as exact partials
+        c = serving_swin.launches_per_forward(cfg)
+        blocks, merges = sum(cfg.depths), cfg.num_layers - 1
+        c["int8_matmul_requant"] = 2 * blocks + merges + 1
+        c.pop("int8_matmul_res_ln", None)
+        return c
+    depth = cfg.depth
+    if opts.get("fuse_qkv", True):  # ViT TP: qkv-fused attention, fc1 and the head through kernels
+        return {"fused_patch_embed": 1, "lis_attention_qkv_fused": depth, "int8_matmul_requant": depth + 1}
+    return {"fused_patch_embed": 1, "lis_attention_fused": depth, "int8_matmul_requant": 2 * depth + 1}
+
+
+# the kernels held at shard shapes: (ops module, wrapper, plain version, which calls)
+PAR_HELD = (("attention_lis", "lis_attention_qkv_fused", "lis_attention_qkv_fused_plain", None),
+            ("attention_lis", "lis_attention_fused", "lis_attention_fused_plain", None),
+            ("matmul_int8", "int8_matmul_requant", "int8_matmul_requant_plain", "gelu"),
+            ("attention_lis", "swin_lis_attention", "swin_lis_attention_plain", None),
+            ("layer_fused", "fused_vit_layer", "fused_vit_layer_plain", None))
+
+
+def _par_shape(a):
+    return "×".join(str(d) for d in a.shape) if isinstance(a, torch.Tensor) else str(a)
+
+
+def _parallel_rank(dev, path, names):
+    """One rank of the parallel path: load the states, build every mesh (all
+    ranks, one order), then per scenario on its mesh's ranks: the forward at
+    each of ``PAR_BATCHES`` (launch counts of the first against the shard's
+    prediction; every kernel call's arguments captured), ``PAR_REPS`` timed
+    forwards at the full batch on rank 0 (CUDA events; the seconds in
+    host-staged collectives), and on rank 0 the kernels of ``PAR_HELD`` held
+    against their plain versions on the first captured call at each shape."""
+    from p2vit_tpu_torch import ops, serving
+    from p2vit_tpu_torch.ops import launch_counts, reset_launch_counts
+    from p2vit_tpu_torch.parallel import dist as pdist
+    from p2vit_tpu_torch.parallel import mesh as pmesh
+    from p2vit_tpu_torch.parallel import pipeline, tensor, tensor_swin
+
+    st = torch.load(path, map_location=dev, weights_only=False)
+    rank = pdist.rank()
+    meshes = {n: pmesh.make_mesh(n, 1) for n in (2,)}
+    tp_meshes = {n: pmesh.make_mesh(n, n) for n in (2, 3)}
+    pp_mesh = pipeline.make_pipeline_mesh(2)
+    out = {}
+    for name in names:
+        fam, kind, n, opts = PAR_SCENARIOS[name]
+        mesh = pp_mesh if kind == "pp" else meshes[n] if kind == "dp" else tp_meshes[n]
+        if not mesh.member:
+            continue
+        cfg = st["deit_cfg"] if fam == "vit" else st["swin_cfg"]
+        if kind == "dp":
+            fn = pmesh.dp_serving_fn(lambda x: serving.serving_forward(st["deit"], cfg, x), mesh)
+        elif kind == "pp":
+            fn = pipeline.pp_serving_fn(st["deit"], cfg, mesh, **opts)
+        elif fam == "vit":
+            fn = tensor.tp_serving_fn(st["deit"], cfg, mesh, **opts)
+        else:
+            fn = tensor_swin.tp_serving_fn(st["swin"], st["swin_q"], cfg, mesh, lis=st["swin_policy"].int_softmax)
+        x = st["x_swin" if fam == "swin" else "x"]
+        res = {"logits": [], "counts": None, "predicted": _par_predicted(kind, cfg, opts, rank, n)}
+        calls = {}
+        for b in PAR_BATCHES:
+            reset_launch_counts()
+            got = _capture([getattr(ops, m) for m, *_ in PAR_HELD], [w for _, w, *_ in PAR_HELD],
+                           lambda b=b: res["logits"].append(fn(x[:b])))
+            torch.cuda.synchronize()
+            if res["counts"] is None:
+                res["counts"] = {k: v for k, v in launch_counts().items() if v}
+            for k, v in got.items():
+                calls.setdefault(k, []).extend(v)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        c0 = pdist.COLLECTIVE_S[0]
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(PAR_REPS):
+            fn(x)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res["ms"] = start.elapsed_time(end) / PAR_REPS
+        res["collective_share"] = (pdist.COLLECTIVE_S[0] - c0) / wall
+        if rank == 0:
+            held = {}
+            for mod, wname, pname, which in PAR_HELD:
+                seen = set()
+                for a, k in calls.get(wname, []):
+                    if which == "gelu" and not k.get("gelu"):
+                        continue
+                    key = tuple(_par_shape(v) for v in a[:3] if not (isinstance(v, torch.Tensor) and v.dim() == 0))
+                    if key in seen:
+                        continue
+                    seen.add(key)
+                    m = getattr(ops, mod)
+                    want = getattr(m, pname)(*a, **k)
+                    have = getattr(m, wname)(*a, **k)
+                    pairs = zip(_as_tuple(have), _as_tuple(want))
+                    held.setdefault(wname, []).append((" ".join(key), sum(int((h != w).sum()) for h, w in pairs)))
+            res["held"] = held
+        out[name] = res
+    return out
+
+
+def run_parallel_path(dev, smi, states):
+    """The ``parallel`` path: the ``deit`` and ``swin`` states (DeiT-S W4A8,
+    LIS on; Swin-T W4) to a file, the single-process logits at each batch
+    here, then ``PAR_WORLD`` ranks on this card (``run_ranks``; the kernel
+    library is built already) run every scenario; each scenario's logits at
+    every batch must equal the single-process ones bit for bit, every
+    kernel held at a shard shape must show 0 mismatches, and every rank's
+    launches must equal the shard's prediction."""
+    import os
+    import tempfile
+
+    from p2vit_tpu_torch import serving, serving_swin
+    from p2vit_tpu_torch.parallel import dist as pdist
+
+    d, sw = states["deit"], states["swin"]
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn((max(PAR_BATCHES), 3, d["cfg"].img_size, d["cfg"].img_size), generator=gen).to(dev)
+    xs = torch.randn((max(PAR_BATCHES), 3, sw["cfg"].img_size, sw["cfg"].img_size), generator=gen).to(dev)
+    ref = {}
+    for b in PAR_BATCHES:
+        ref["vit", b] = serving.serving_forward(d["s"], d["cfg"], x[:b]).cpu()
+        ref["vit_layer", b] = serving.serving_forward(d["s"], d["cfg"], x[:b], fuse_layer=True).cpu()
+        ref["swin", b] = serving_swin.serving_forward(sw["s"], sw["qstate"], sw["cfg"], sw["policy"], xs[:b]).cpu()
+    for b in PAR_BATCHES:
+        if not torch.equal(ref["vit", b], ref["vit_layer", b]):
+            _fail(f"parallel: the fused layer's logits at batch {b} differ from the default path's")
+    names = list(PAR_SCENARIOS)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "states.pt")
+        torch.save({"deit": d["s"], "deit_cfg": d["cfg"], "swin": sw["s"], "swin_q": sw["qstate"],
+                    "swin_cfg": sw["cfg"], "swin_policy": sw["policy"], "x": x, "x_swin": xs}, path)
+        t0 = time.time()
+        outs = pdist.run_ranks(_parallel_rank, PAR_WORLD, path, names, device=dev, timeout_s=600)
+        print(f"parallel: {PAR_WORLD} ranks on {dev} ran {len(names)} scenarios in {time.time() - t0:.1f} s "
+              f"({PAR_LABEL})", flush=True)
+    bad = []
+    for name in names:
+        fam, kind, n, opts = PAR_SCENARIOS[name]
+        for r, o in enumerate(outs):
+            if name not in o:
+                continue
+            res = o[name]
+            for b, got in zip(PAR_BATCHES, res["logits"]):
+                n_diff = int((got != ref[fam, b]).sum()) if got.shape == ref[fam, b].shape else got.numel()
+                if n_diff:
+                    bad.append(f"{name} rank {r} batch {b}: {n_diff} logits differ from one process")
+            if res["counts"] != res["predicted"]:
+                bad.append(f"{name} rank {r}: launches {res['counts']} against the shard's {res['predicted']}")
+            print(f"parallel {name} rank {r}: launches at batch {PAR_BATCHES[0]} {res['counts']} "
+                  f"(shard predicts {res['predicted']}); ms per forward at batch {PAR_BATCHES[0]} "
+                  f"{res['ms']:.3f}, host-staged collectives {100 * res['collective_share']:.1f} % of it "
+                  f"({PAR_LABEL}; {smi})", flush=True)
+        for wname, rows in outs[0][name].get("held", {}).items():
+            for shape, mism in rows:
+                print(f"parallel {name}: {wname} at shard shape {shape}: {mism} mismatches against its plain "
+                      f"version", flush=True)
+                if mism:
+                    bad.append(f"{name}: {wname} at {shape}: {mism} mismatches")
+        print(f"parallel {name}: logits at batches {PAR_BATCHES} against one process's serving_forward: "
+              f"{'equal' if not any(m.startswith(name + ' ') for m in bad) else 'DIFFER'}", flush=True)
+    held = {w for o in outs[:1] for r in o.values() for w in r.get("held", {})}
+    for _, wname, *_ in PAR_HELD:
+        if wname not in held:
+            bad.append(f"{wname} was held at no shard shape")
+    if bad:
+        _fail("parallel: " + "; ".join(bad))
 
 
 def main() -> None:
@@ -2303,6 +2582,9 @@ def main() -> None:
         t0 = time.time()
         tiny_swin_checks(dev, ops)
         print(f"TINY Swin head_dim checks in {time.time() - t0:.1f} s", flush=True)
+        t0 = time.time()
+        window12_checks(dev, ops)
+        print(f"Swin window-12 checks in {time.time() - t0:.1f} s", flush=True)
     if "swin_stem" in models:
         t0 = time.time()
         wide_stem_checks(dev, ops)
@@ -2310,7 +2592,7 @@ def main() -> None:
 
     paths = []
     states = {}  # the LIS-on DeiT-S and Swin-T states, for the weight-only and w4pack paths
-    deit = [m for m in models if m.startswith("deit") or m == "w4pack"]
+    deit = [m for m in models if m.startswith("deit") or m in ("w4pack", "parallel")]
     if deit:
         cfg = dataclasses.replace(VIT_ZOO["deit_small_patch16_224"], depth=args.depth)
         bits = [4] * cfg.num_matmuls
@@ -2353,7 +2635,7 @@ def main() -> None:
                   "swin_int_stem_unfused": "Swin-T int stem unfused"}
     for lis in (True, False):
         keys = [m for m in SWIN_FLAGS if m in models and SWIN_FLAGS[m][0] == lis]
-        if not keys and not (lis and "swin_wonly" in models):
+        if not keys and not (lis and ("swin_wonly" in models or "parallel" in models)):
             continue
         cfg = SWIN_ZOO["swin_tiny_patch4_window7_224"]
         base_key = "swin" if lis else "swin_lisoff"
@@ -2428,6 +2710,10 @@ def main() -> None:
         t0 = time.time()
         run_plan_path(dev, smi, list(PLAN_BATCHES), PLAN_ITERS)
         print(f"plan: the path in {time.time() - t0:.1f} s", flush=True)
+    if "parallel" in models:
+        t0 = time.time()
+        run_parallel_path(dev, smi, states)
+        print(f"parallel: the path in {time.time() - t0:.1f} s", flush=True)
 
     print_comparisons(summary, max(batches))
     print_flag_comparisons(paths, summary, max(batches))

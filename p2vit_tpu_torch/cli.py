@@ -6,13 +6,21 @@ card (counterpart of the JAX package's ``test_quant.py`` CLI).
     python -m p2vit_tpu_torch.cli deit_small <dir> --quant --calib-iter 4 --quant-method omse
     python -m p2vit_tpu_torch.cli deit_small <dir> --quant --serve --mixed --live-hessian
     python -m p2vit_tpu_torch.cli deit_small <dir> --quant --serve --mode 2 --plot
+    python -m p2vit_tpu_torch.cli deit_small <dir> --quant --serve --tp 2 [--sp] [--dp 2]
+    python -m p2vit_tpu_torch.cli deit_small <dir> --quant --serve --pp 2 --pp-micro 4
 
 ``<dir>`` holds ``train/`` (calibration) and ``val/`` (evaluation) in the
 ImageFolder layout. The flags are the JAX CLI's, with the same names and
 defaults; ``--device`` chooses the device (the card unless ``--device cpu``)
-and raises when it asks for a card and there is none. A flag whose module
-is not ported yet exits with status 2 and one line naming the ROADMAP.md
-item that ports it.
+and raises when it asks for a card and there is none.
+
+``--dp``, ``--tp`` (``--sp``) and ``--pp`` (``--pp-micro``) serve over a
+group of ranks (``build_parallel_meshes``: the JAX CLI's precedence and
+lines). Under ``torchrun`` each process is one rank; otherwise ``main``
+starts as many ranks as the mesh has (``parallel.dist.run_ranks``), each
+on ``--device`` (so on a one-card machine they share the card), and
+returns rank 0's result. Rank 0 calibrates (or loads) and hands its state
+to the others; rank 0 alone prints.
 
 Under ``--serve`` or ``--serve-weight-only``, a ``[plan]`` line gives
 ``plan.recommend``'s reason where the chosen path disagrees with the
@@ -44,7 +52,11 @@ each candidate validated).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
+import io
 import json
+import os
 import random
 import sys
 import time
@@ -158,24 +170,87 @@ def build_parser():
     return p
 
 
-# flags whose module the port does not have yet: (is it set, the flag, the ROADMAP.md item)
-_PARALLEL = "ROADMAP.md queue 1 item 6 (parallelism)"
+def build_parallel_meshes(args, cfg, is_swin):
+    """Resolve the --dp/--pp/--tp/--sp flags into at most ONE active mesh
+    (``test_quant.py``'s function: the same precedence, pp > tp > dp, the
+    same lines and the same "ignoring" cases).
+
+    Returns (dp_mesh, pp_mesh, tp_mesh). On the ranks of a process group the
+    meshes hold their process groups (every rank must call this in the same
+    order); outside one they are the layouts ``main`` sizes its ranks by."""
+    from .parallel import mesh as pmesh
+    from .parallel import pipeline as ppipe
+    from .parallel import tensor_swin
+
+    dp_mesh = None
+    pp_mesh = None
+    if args.pp and args.pp > 1:
+        if not (args.quant and args.serve):
+            print("--pp needs --quant --serve; ignoring")
+        elif is_swin:
+            print("--pp is ViT/DeiT-only (DESIGN.md: Swin's token pyramid "
+                  "breaks the PP wire format); ignoring")
+        elif args.dp and args.dp > 1:
+            print("--pp and --dp are mutually exclusive (1-D meshes); "
+                  "using --pp")
+            args.dp = 0
+        if args.quant and args.serve and not is_swin and args.pp > 1:
+            pp_mesh = ppipe.make_pipeline_mesh(args.pp)
+            print(f"serving pipeline-parallel over {args.pp} stages, "
+                  f"{args.pp_micro} microbatches")
+    tp_mesh = None
+    if args.tp and args.tp > 1:
+        if not (args.quant and args.serve):
+            print("--tp needs --quant --serve; ignoring")
+        elif pp_mesh is not None:
+            print("--tp and --pp are mutually exclusive; using --pp")
+        elif is_swin:
+            # tp must divide every stage's head count: tiny/small admit
+            # tp=3, base tp in {2,4}
+            try:
+                tensor_swin.check_tp(cfg, args.tp)
+            except ValueError as e:
+                print(f"--tp {args.tp}: {e}; ignoring")
+            else:
+                if args.sp:
+                    print("--sp is ViT/DeiT-only (Swin's token count "
+                          "shrinks 4x per stage — tensor_swin.py docstring);"
+                          " ignoring")
+                dp = args.dp if args.dp and args.dp > 1 else 1
+                tp_mesh = pmesh.make_mesh(dp * args.tp, model_parallel=args.tp)
+                print(f"serving tensor-parallel over {args.tp} model shards"
+                      + (f" x {dp} data shards" if dp > 1 else ""))
+        elif cfg.num_heads % args.tp:
+            print(f"--tp {args.tp} does not divide {args.model}'s "
+                  f"{cfg.num_heads} heads (try "
+                  f"{[t for t in range(2, cfg.num_heads + 1) if cfg.num_heads % t == 0]}); "
+                  "ignoring")
+        elif cfg.hidden_dim % args.tp:
+            print(f"--tp {args.tp} does not divide the MLP hidden width "
+                  f"{cfg.hidden_dim}; ignoring")
+        else:
+            dp = args.dp if args.dp and args.dp > 1 else 1
+            tp_mesh = pmesh.make_mesh(dp * args.tp, model_parallel=args.tp)
+            print(f"serving tensor-parallel over {args.tp} model shards"
+                  + (f" x {dp} data shards" if dp > 1 else "")
+                  + (" with sequence-parallel epilogues" if args.sp else ""))
+    if args.sp and tp_mesh is None:
+        print("--sp needs an active --tp; ignoring")
+    if args.dp and args.dp > 1 and tp_mesh is None:
+        if args.quant and args.serve:
+            dp_mesh = pmesh.make_mesh(args.dp, model_parallel=1)
+            print(f"serving data-parallel over {args.dp} devices")
+        else:
+            print("--dp needs --quant --serve; ignoring")
+    return dp_mesh, pp_mesh, tp_mesh
 
 
-def unported_flag(args) -> str | None:
-    """The first flag set on ``args`` that the port cannot run yet, as the
-    one line to exit with, or None."""
-    checks = (
-        (args.dp != 0, "--dp", _PARALLEL),
-        (args.tp != 0, "--tp", _PARALLEL),
-        (args.sp, "--sp", _PARALLEL),
-        (args.pp != 0, "--pp", _PARALLEL),
-        (args.pp_micro != 2, "--pp-micro", _PARALLEL),
-    )
-    for on, flag, item in checks:
-        if on:
-            return f"{flag} is not ported to p2vit_tpu_torch yet: {item}"
-    return None
+def parallel_world(args, cfg, is_swin) -> int:
+    """The ranks the parallel flags ask for (1: none), resolved as
+    ``build_parallel_meshes`` resolves them, without its lines."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        meshes = build_parallel_meshes(copy.copy(args), cfg, is_swin)
+    return max([1] + [m.size for m in meshes if m is not None])
 
 
 def accuracy(logits, target, topk=(1,)):
@@ -254,22 +329,28 @@ def calibrate_or_load(args, cfg, family, params, policy, device):
     return calib
 
 
-def build_model_fn(args, cfg, family, params, calib, policy, u8: bool):
+def build_model_fn(args, cfg, family, params, calib, policy, u8: bool, meshes=(None, None, None)):
     """``model_fn(x, bit_config) -> float32 logits`` for the flags:
     ``--serve-weight-only`` (the weight codes dequantized, a bf16 float
     forward), ``--serve`` (convert + the int8 serving forward through the
-    kernels, uint8 ingest when ``u8``), ``--quant`` alone (the fake-quant
-    simulation), else the float forward. Serving states are built once per
-    bit config."""
+    kernels, uint8 ingest when ``u8``; on the ranks of a process group
+    over the (dp, pp, tp) ``meshes`` of ``build_parallel_meshes``: GPipe,
+    megatron TP (with ``--sp`` its sequence-parallel epilogues), or DP),
+    ``--quant`` alone (the fake-quant simulation), else the float forward.
+    Serving states and their parallel forms are built once per bit
+    config."""
     from . import serving, serving_swin
     from .models import PREPROCESS, swin, vit
 
     is_swin = family is swin
     srv = serving_swin if is_swin else serving
+    dp_mesh, pp_mesh, tp_mesh = meshes
     cache = {}
     if args.quant and args.serve_weight_only:
         if args.serve:
             raise SystemExit("--serve and --serve-weight-only are mutually exclusive")
+        if args.dp or args.pp > 1 or args.tp > 1:
+            print("--dp/--pp/--tp apply to --serve; ignoring for weight-only")
 
         def model_fn(x, bit_config):
             key = tuple(int(b) for b in bit_config)
@@ -279,16 +360,37 @@ def build_model_fn(args, cfg, family, params, calib, policy, u8: bool):
     elif args.quant and args.serve:
         pp = PREPROCESS[args.model.split("_")[0]]
 
+        def forward(key):
+            s = srv.convert(params, calib.qstate, cfg, policy, list(key))
+            if u8:
+                srv.attach_u8_ingest(s, pp["mean"], pp["std"])
+            if is_swin and tp_mesh is not None:
+                from .parallel import tensor_swin
+
+                return tensor_swin.tp_serving_fn(s, calib.qstate, cfg, tp_mesh, lis=policy.int_softmax)
+            if pp_mesh is not None:
+                from .parallel import pipeline
+
+                return pipeline.pp_serving_fn(s, cfg, pp_mesh, n_micro=args.pp_micro, lis=policy.int_softmax)
+            if tp_mesh is not None:
+                from .parallel import tensor
+
+                return tensor.tp_serving_fn(s, cfg, tp_mesh, lis=policy.int_softmax, seq_parallel=args.sp)
+            if is_swin:
+                fwd = lambda x: serving_swin.serving_forward(s, calib.qstate, cfg, policy, x)  # noqa: E731
+            else:
+                fwd = lambda x: serving.serving_forward(s, cfg, x, lis=policy.int_softmax)  # noqa: E731
+            if dp_mesh is not None:
+                from .parallel import mesh as pmesh
+
+                fwd = pmesh.dp_serving_fn(fwd, dp_mesh)
+            return fwd
+
         def model_fn(x, bit_config):
             key = tuple(int(b) for b in bit_config)
             if key not in cache:
-                cache[key] = srv.convert(params, calib.qstate, cfg, policy, list(key))
-                if u8:
-                    srv.attach_u8_ingest(cache[key], pp["mean"], pp["std"])
-            s = cache[key]
-            if is_swin:
-                return serving_swin.serving_forward(s, calib.qstate, cfg, policy, x)
-            return serving.serving_forward(s, cfg, x, lis=policy.int_softmax)
+                cache[key] = forward(key)
+            return cache[key](x)
     elif args.quant and is_swin:
         def model_fn(x, bit_config):
             return swin.quant_forward_mixed(params, calib.qstate, cfg, policy, x,
@@ -478,37 +580,71 @@ def load_model(args, cfg, family, device):
         checkpoints.load_pretrained(FULL_NAME[args.model], cfg, args.checkpoint), device=device)
 
 
-def main(argv=None):
+RANK_GROUP_TIMEOUT_S = 3600  # a rank waits this long in a collective (rank 0 calibrating) before failing
+
+
+def _rank_main(device, argv):
+    """``main`` on one rank of the group ``main`` started; only rank 0
+    prints."""
+    from .parallel import dist as pdist
+
+    if pdist.rank() != 0:
+        sys.stdout = open(os.devnull, "w")
+    return main(argv)
+
+
+def main(argv=None, timeout_s: float | None = None):
+    """Run the CLI on ``argv``. A parallel flag outside ``torchrun`` starts
+    one rank per mesh position, killed and raising past ``timeout_s``
+    seconds (None: no deadline; a rank waiting longer than
+    ``RANK_GROUP_TIMEOUT_S`` in one collective fails all the same)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    msg = unported_flag(args)
-    if msg:
-        print(msg, file=sys.stderr)
-        raise SystemExit(2)
 
     from .config import make_policy
     from .models import MODEL_ZOO, swin, vit
     from .models.common import target_device
+    from .parallel import dist as pdist
 
     device = target_device(args.device)
     cfg = MODEL_ZOO[FULL_NAME[args.model]]
     family = swin if args.model.startswith("swin") else vit
+    is_swin = family is swin
+    if not pdist.initialized():
+        if pdist.under_torchrun():
+            device = pdist.init_from_env(device, RANK_GROUP_TIMEOUT_S)
+        else:
+            world = parallel_world(args, cfg, is_swin)
+            if world > 1:
+                # one rank per mesh position, every one on ``device`` (a
+                # one-card machine time-slices them); rank 0's result
+                threads = max(1, torch.get_num_threads() // world)
+                return pdist.run_ranks(_rank_main, world, argv, device=device, timeout_s=timeout_s,
+                                       threads=threads, group_timeout_s=RANK_GROUP_TIMEOUT_S)[0]
     policy = make_policy(args.ptf, args.lis, args.quant_method)
     params = load_model(args, cfg, family, device)
 
-    calib = calibrate_or_load(args, cfg, family, params, policy, device) if args.quant else None
+    calib = None
+    if args.quant:
+        if pdist.world_size() > 1:  # rank 0 calibrates (or loads), the others take its state
+            calib = calibrate_or_load(args, cfg, family, params, policy, device) if pdist.rank() == 0 else None
+            calib = pdist.broadcast_object(calib, 0, device)
+        else:
+            calib = calibrate_or_load(args, cfg, family, params, policy, device)
     u8 = args.u8_ingest and args.quant and args.serve
     if args.u8_ingest and not u8:
         print("--u8-ingest needs --quant --serve; ignoring")
     val = make_dataset(args, cfg, "val", raw=u8)
-    model_fn = build_model_fn(args, cfg, family, params, calib, policy, u8)
+    meshes = build_parallel_meshes(args, cfg, is_swin)
+    model_fn = build_model_fn(args, cfg, family, params, calib, policy, u8, meshes)
     plan_hint(args, cfg)
-    if args.plot:
-        plot_activations(args, cfg, family is swin, params, val, u8, device)
+    if args.plot and pdist.rank() == 0:
+        plot_activations(args, cfg, is_swin, params, val, u8, device)
     if args.mixed:
         if not args.quant:
             raise SystemExit("--mixed requires --quant")
         mean_hessian = sensitivities(args, cfg, params, device)
-        return mixed_search(args, cfg, family is swin, calib, mean_hessian,
+        return mixed_search(args, cfg, is_swin, calib, mean_hessian,
                             lambda bits: validate(args, val, model_fn, bits, device))
     bit_config = [4] * cfg.num_matmuls
     print(bit_config)

@@ -4,8 +4,8 @@
 //
 // Replaces the Pallas kernels p2vit_tpu/ops/attention_lis.py:swin_lis_attention
 // (_swin_kernel -> _swin_head_loop) and swin_lis_attention_folded
-// (_swin_folded_kernel). Head_dim D = 32, N ≤ 64 tokens per window (49 for
-// 7×7 windows). Per (window, head) item:
+// (_swin_folded_kernel). Head_dim D = 32, N ≤ 160 tokens per window (49 for
+// 7×7 windows, 144 for 12×12). Per (window, head) item:
 //   scores acc = q·kᵀ → attn1 = clip(round(acc·rq)) → qact2 codes
 //   clip(round((attn1·s1 + bias[h,i,j])·inv_s2)) → + mask[w mod nW, i, j]
 //   (already divided by s2, added unrounded) → LIS (p2v::lis_row: the
@@ -38,6 +38,13 @@
 //   token index that also addresses the output) and its mask[w mod nW]
 //   (N² float32) go into the other of two stage buffers by cp.async while
 //   the current item computes.
+// * Two instances by the window's size NM: N ≤ 64 (every zoo Swin) as
+//   above; 64 < N ≤ 160 (JAX's 12×12 windows, N = 144, which its wrapper
+//   zero-pads to 160) reads bias[h] and the mask from global memory (L2)
+//   where the score epilogue and the LIS rows use them, since two staged
+//   masks and bias[h] would take 3·N²·4 = 249 KB there, and keeps the lo
+//   plane in a region of its own (the spent q/k rows are too few). Keys
+//   are zero-padded to a multiple of 32 in both, as JAX pads them.
 // * Scores on int8 tensor cores: four 16-row query groups × eight 8-key
 //   tiles of mma.sync m16n8k32 s8·s8 (|q·k| ≤ 32·128² < 2^20: exact int32,
 //   equal to the dp4a sum); the epilogue runs the attn1 and qact2 requant
@@ -67,12 +74,19 @@ namespace ma = p2v::mma_attn;
 using p2v::kThreads;
 
 constexpr int D = 32;
-constexpr int NMAX = 64;
-constexpr int JT = NMAX / 32;                     // key slots per lane
-constexpr int QLD = D + 16;                       // bytes per staged q / k row (conflict-free fragments)
-constexpr int STAGE = 2 * NMAX * QLD + NMAX * D;  // q, k (QLD rows) and v (dense rows) of one item
-constexpr int WLD = NMAX + 16;                    // bytes per row of V transposed and of the weight planes
-constexpr int kOffRows = 2;                       // LIS off: rows a warp sums side by side
+constexpr int NSTAGED = 64;  // windows up to this many tokens stage bias[h] and the masks in shared memory
+constexpr int NMAX = 160;    // the largest window: 12×12 = 144 tokens, keys padded to 160
+constexpr int QLD = D + 16;  // bytes per staged q / k row (conflict-free fragments)
+constexpr int kOffRows = 2;  // LIS off: rows a warp sums side by side
+
+// The sizes of the instance for windows of up to NM tokens.
+template <int NM>
+struct Sz {
+  static constexpr int JT = NM / 32;                  // key slots per lane
+  static constexpr int STAGE = 2 * NM * QLD + NM * D;  // q, k (QLD rows) and v (dense rows) of one item
+  static constexpr int WLD = NM + 16;                 // bytes per row of V transposed and of the weight planes
+  static constexpr bool STAGED = NM <= NSTAGED;       // bias[h] and the masks in shared memory
+};
 constexpr int kWarps = kThreads / 32;
 constexpr int kSlots = 16;  // launches that may be in flight at once, each with its own counters
 
@@ -82,25 +96,28 @@ __device__ unsigned int g_work[kSlots][2];
 
 // Shared memory at N tokens (byte offsets): two rows of token indices, two
 // stage buffers of q, k, v rows, two of masks, the score / hi plane and
-// bias[h]; LIS: V transposed; LIS off: v as doubles and the warps' p rows.
+// bias[h] (the masks and bias[h] only where STAGED; else the lo plane);
+// LIS: V transposed; LIS off: v as doubles and the warps' p rows.
 struct Layout {
-  int nn, tok, stg, mask, hi, bias, vt, vd, pb, total;
+  int nn, tok, stg, mask, hi, lo, bias, vt, vd, pb, total;
 };
 __host__ __device__ constexpr int nn_bytes(int n) { return (n * n * 4 + 15) / 16 * 16; }
-template <bool LIS>
+template <bool LIS, int NM>
 __host__ __device__ constexpr Layout layout(int n) {
+  using S = Sz<NM>;
   Layout l{};
-  l.nn = nn_bytes(n);
+  l.nn = S::STAGED ? nn_bytes(n) : 0;
   l.tok = 0;
-  l.stg = 2 * NMAX * 4;
-  l.mask = l.stg + 2 * STAGE;
+  l.stg = 2 * NM * 4;
+  l.mask = l.stg + 2 * S::STAGE;
   l.hi = l.mask + 2 * l.nn;
-  l.bias = l.hi + NMAX * WLD;
+  l.lo = S::STAGED ? -1 : l.hi + NM * S::WLD;  // STAGED: over the item's spent q/k rows
+  l.bias = S::STAGED ? l.hi + NM * S::WLD : l.lo + NM * S::WLD;
   const int end = l.bias + l.nn;
   l.vt = end;                                              // LIS: D × WLD
   l.vd = end;                                              // LIS off: N × D doubles
-  l.pb = end + (n * D * 8 + 15) / 16 * 16;                 // LIS off: kWarps × kOffRows × NMAX doubles
-  l.total = LIS ? l.vt + D * WLD : l.pb + kWarps * kOffRows * NMAX * 8;
+  l.pb = end + (n * D * 8 + 15) / 16 * 16;                 // LIS off: kWarps × kOffRows × NM doubles
+  l.total = LIS ? l.vt + D * S::WLD : l.pb + kWarps * kOffRows * NM * 8;
   return l;
 }
 
@@ -144,11 +161,12 @@ __device__ __forceinline__ int8_t av_code(double av, float ro) {
 // Σ_j p_j·v_j in float64 over keys j < N in order (vd: v as doubles, row j
 // at vd + j·D; lane l owns dim l) → out_row(r)[l]. p_j goes to double once
 // and into the warp's row buffer pb, read back by a broadcast load per key.
-template <class Load, class OutRow>
+template <int NM, class Load, class OutRow>
 __device__ __forceinline__ void softmax_av_swin(Load&& load, const double* vd, double* pb, int N, float s2, float ro,
                                                 OutRow&& out_row) {
+  constexpr int JT = Sz<NM>::JT;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  double* rows = pb + warp * kOffRows * NMAX;
+  double* rows = pb + warp * kOffRows * NM;
   for (int r = warp; r < N; r += kOffRows * kWarps) {
     bool has[kOffRows];
     double a[kOffRows];
@@ -159,7 +177,7 @@ __device__ __forceinline__ void softmax_av_swin(Load&& load, const double* vd, d
       load(has[q] ? r + q * kWarps : r, ac);
       p2v::softmax_row<JT>(ac, N, s2, p);
 #pragma unroll
-      for (int t = 0; t < JT; ++t) rows[q * NMAX + lane + 32 * t] = static_cast<double>(p[t]);
+      for (int t = 0; t < JT; ++t) rows[q * NM + lane + 32 * t] = static_cast<double>(p[t]);
       a[q] = 0.0;
     }
     __syncwarp();
@@ -167,7 +185,7 @@ __device__ __forceinline__ void softmax_av_swin(Load&& load, const double* vd, d
     for (int j = 0; j < N; ++j) {
       const double v = vd[j * D + lane];
 #pragma unroll
-      for (int q = 0; q < kOffRows; ++q) a[q] = __fma_rn(rows[q * NMAX + j], v, a[q]);
+      for (int q = 0; q < kOffRows; ++q) a[q] = __fma_rn(rows[q * NM + j], v, a[q]);
     }
     __syncwarp();  // the row buffer is read before the next rows overwrite it
 #pragma unroll
@@ -177,20 +195,22 @@ __device__ __forceinline__ void softmax_av_swin(Load&& load, const double* vd, d
 }
 
 // scal: rq, s1, inv_s2, ro, x0_int, b_int, c_int, s2
-template <bool LIS, bool FOLD>
-__global__ void __launch_bounds__(kThreads, LIS ? 4 : 3)
+template <bool LIS, bool FOLD, int NM>
+__global__ void __launch_bounds__(kThreads, Sz<NM>::STAGED ? (LIS ? 4 : 3) : (LIS ? 2 : 1))
     swin_attention_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ bias,
                           const float* __restrict__ mask, const float* __restrict__ scal,
                           int8_t* __restrict__ out, Geom a, int items, unsigned long long* __restrict__ stamps,
                           unsigned long long* __restrict__ cta_ns, int slot) {
+  using S = Sz<NM>;
+  constexpr int JT = S::JT, STAGE = S::STAGE, WLD = S::WLD;
   extern __shared__ __align__(16) int8_t sm[];
   const int N = a.N;
-  const Layout L = layout<LIS>(N);
-  int* tok = reinterpret_cast<int*>(sm + L.tok);             // [2][NMAX] token index of each staged row
+  const Layout L = layout<LIS, NM>(N);
+  int* tok = reinterpret_cast<int*>(sm + L.tok);             // [2][NM] token index of each staged row
   int8_t* stg = sm + L.stg;                                  // [2][STAGE] q, k, v rows
-  float* mask_s = reinterpret_cast<float*>(sm + L.mask);     // [2][N][N] (16-byte rounded)
-  int8_t* hi = sm + L.hi;                                    // [NMAX][WLD] qact2 codes, then the hi plane
-  float* bias_s = reinterpret_cast<float*>(sm + L.bias);     // [N][N]
+  float* mask_s = reinterpret_cast<float*>(sm + L.mask);     // STAGED: [2][N][N] (16-byte rounded)
+  int8_t* hi = sm + L.hi;                                    // [NM][WLD] qact2 codes, then the hi plane
+  float* bias_s = reinterpret_cast<float*>(sm + L.bias);     // STAGED: [N][N]
 
   const int kpad = (N + 31) / 32 * 32, ng = (N + ma::QGROUP - 1) / ma::QGROUP, nrows = ng * ma::QGROUP;
   const float rq = scal[0], s1 = scal[1], inv_s2 = scal[2], ro = scal[3];
@@ -227,13 +247,13 @@ __global__ void __launch_bounds__(kThreads, LIS ? 4 : 3)
     for (int t = threadIdx.x; t < 2 * N; t += kThreads) {
       const int i = t >> 1, half = t & 1;
       const int tk = token_of<FOLD>(win, i, a);
-      if (half == 0) tok[buf * NMAX + i] = tk;
+      if (half == 0) tok[buf * NM + i] = tk;
       const int8_t* src = qkv + (size_t)tk * 3 * a.C + h * D + 16 * half;
       p2v::cp_async16(st + i * QLD + 16 * half, src);
-      p2v::cp_async16(st + NMAX * QLD + i * QLD + 16 * half, src + a.C);
-      p2v::cp_async16(st + 2 * NMAX * QLD + i * D + 16 * half, src + 2 * a.C);
+      p2v::cp_async16(st + NM * QLD + i * QLD + 16 * half, src + a.C);
+      p2v::cp_async16(st + 2 * NM * QLD + i * D + 16 * half, src + 2 * a.C);
     }
-    if (mask != nullptr) {
+    if (S::STAGED && mask != nullptr) {
       const float* src = mask + (size_t)(win % a.nW) * N * N;
       float* dst = mask_s + buf * (L.nn / 4);
       for (int i = threadIdx.x; i < N * N; i += kThreads) cp_async4(dst + i, src + i);
@@ -264,23 +284,28 @@ __global__ void __launch_bounds__(kThreads, LIS ? 4 : 3)
     }
     ++n_items;
     stamp(0);
-    const int h = it / a.W;
-    if (h != cur_h) {
+    const int h = it / a.W, win = it - h * a.W;
+    const float* bias_h = bias + (size_t)h * N * N;                                   // !STAGED: read in place
+    const float* mask_w = mask == nullptr ? nullptr : mask + (size_t)(win % a.nW) * N * N;  // likewise
+    if (S::STAGED && h != cur_h) {
       const float* src = bias + (size_t)h * N * N;
       for (int i = threadIdx.x; i < N * N; i += kThreads) bias_s[i] = src[i];
       cur_h = h;
       if (stamper) ++stamps[8];
     }
     int8_t* qs = stg + buf * STAGE;
-    const int8_t* ks = qs + NMAX * QLD;
-    const int8_t* vs = qs + 2 * NMAX * QLD;
+    const int8_t* ks = qs + NM * QLD;
+    const int8_t* vs = qs + 2 * NM * QLD;
     if constexpr (LIS) {
-      // V transposed (dim d, keys contiguous): warp w moves keys 8w … 8w + 7 of dim `lane`
-      uint32_t w2[2] = {0, 0};
+      // V transposed (dim d, keys contiguous): warp w moves keys 8w … 8w + 7
+      // (then 8w + 64 … while keys remain) of dim `lane`; rows past N are zeros
+      for (int k0 = 8 * warp; k0 < NM; k0 += 8 * kWarps) {
+        uint32_t w2[2] = {0, 0};
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        w2[e >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(vs[(8 * warp + e) * D + lane])) << (8 * (e & 3));
-      *reinterpret_cast<uint2*>(sm + L.vt + lane * WLD + 8 * warp) = make_uint2(w2[0], w2[1]);
+        for (int e = 0; e < 8; ++e)
+          w2[e >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(vs[(k0 + e) * D + lane])) << (8 * (e & 3));
+        *reinterpret_cast<uint2*>(sm + L.vt + lane * WLD + k0) = make_uint2(w2[0], w2[1]);
+      }
     } else {
       double* vd = reinterpret_cast<double*>(sm + L.vd);
       for (int i = threadIdx.x; i < N * D; i += kThreads) vd[i] = static_cast<double>(vs[i]);
@@ -298,8 +323,8 @@ __global__ void __launch_bounds__(kThreads, LIS ? 4 : 3)
         float a2 = 0.f;
         if (r < N && j + e < N) {
           const float a1c = ma::score_code(accs[e], rq);
-          a2 = p2v::requant(__fmul_rn(__fadd_rn(__fmul_rn(a1c, s1), bias_s[r * N + j + e]), inv_s2), -128.f,
-                            127.f);
+          const float b = S::STAGED ? bias_s[r * N + j + e] : __ldg(bias_h + r * N + j + e);
+          a2 = p2v::requant(__fmul_rn(__fadd_rn(__fmul_rn(a1c, s1), b), inv_s2), -128.f, 127.f);
         }
         c[e] = p2v::to_i8(a2);
       }
@@ -311,7 +336,7 @@ __global__ void __launch_bounds__(kThreads, LIS ? 4 : 3)
     __syncthreads();
     stamp(2);
 
-    const int* tk = tok + buf * NMAX;
+    const int* tk = tok + buf * NM;
     const float* mrow = mask_s + buf * (L.nn / 4);
     auto out_row = [&](int row) { return out + (size_t)tk[row] * a.C + h * D; };
     // row r's scores in lis_row's lane layout: the qact2 code + the mask, unrounded
@@ -322,13 +347,13 @@ __global__ void __launch_bounds__(kThreads, LIS ? 4 : 3)
         float x = 0.f;
         if (j < N) {
           x = static_cast<float>(hi[r * WLD + j]);
-          if (mask != nullptr) x = __fadd_rn(x, mrow[r * N + j]);
+          if (mask != nullptr) x = __fadd_rn(x, S::STAGED ? mrow[r * N + j] : __ldg(mask_w + r * N + j));
         }
         ac[t] = x;
       }
     };
     if constexpr (LIS) {
-      int8_t* lo = qs;  // the lo plane over this item's spent q/k rows
+      int8_t* lo = S::STAGED ? qs : sm + L.lo;  // STAGED: over this item's spent q/k rows
       ma::lis_weight_rows<JT>(load, hi, lo, WLD, nrows, 0, N, kpad, scal[4], scal[5], scal[6]);
       __syncthreads();
       stamp(3);
@@ -336,8 +361,8 @@ __global__ void __launch_bounds__(kThreads, LIS ? 4 : 3)
       if (stamps != nullptr) __syncthreads();
       stamp(4);
     } else {
-      softmax_av_swin(load, reinterpret_cast<const double*>(sm + L.vd), reinterpret_cast<double*>(sm + L.pb), N,
-                      scal[7], ro, out_row);
+      softmax_av_swin<NM>(load, reinterpret_cast<const double*>(sm + L.vd), reinterpret_cast<double*>(sm + L.pb), N,
+                          scal[7], ro, out_row);
       if (stamps != nullptr) __syncthreads();
       stamp(3);
     }
@@ -362,19 +387,19 @@ __global__ void __launch_bounds__(kThreads, LIS ? 4 : 3)
 
 // The card's SMs and the kernel's resident CTAs per SM at N tokens (cached
 // per instance: the occupancy call costs microseconds).
-template <bool LIS, bool FOLD>
+template <bool LIS, bool FOLD, int NM>
 cudaError_t residency(int N, int* sms, int* per_sm) {
   static int cache_dev = -1, cache_n = -1, cache_sms = 0, cache_per_sm = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev != cache_dev || N != cache_n) {
-    const int smem = layout<LIS>(N).total;
-    err = p2v::set_smem(swin_attention_kernel<LIS, FOLD>, smem);
+    const int smem = layout<LIS, NM>(N).total;
+    err = p2v::set_smem(swin_attention_kernel<LIS, FOLD, NM>, smem);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&cache_sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&cache_per_sm, swin_attention_kernel<LIS, FOLD>, kThreads,
-                                                          smem);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&cache_per_sm, swin_attention_kernel<LIS, FOLD, NM>,
+                                                          kThreads, smem);
     if (err != cudaSuccess) return err;
     if (cache_per_sm < 1) return cudaErrorInvalidConfiguration;
     cache_dev = dev, cache_n = N;
@@ -383,33 +408,41 @@ cudaError_t residency(int N, int* sms, int* per_sm) {
   return cudaSuccess;
 }
 
-template <bool LIS, bool FOLD>
+template <bool LIS, bool FOLD, int NM>
 int launch_swin(const void* qkv, const void* bias, const void* mask, const void* scal, void* out, Geom g,
                 int grid, void* stamps, void* cta_ns, void* stream) {
-  if (g.N < 1 || g.N > NMAX) return static_cast<int>(cudaErrorInvalidValue);
   const int items = g.W * g.H;
   if (items == 0) return 0;
   int sms = 0, per_sm = 0;
-  cudaError_t err = residency<LIS, FOLD>(g.N, &sms, &per_sm);
+  cudaError_t err = residency<LIS, FOLD, NM>(g.N, &sms, &per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (grid <= 0) grid = sms * per_sm;
   if (grid > items) grid = items;
   static int launches = 0;  // launch slots in turn
   const int slot = launches++ % kSlots;
-  swin_attention_kernel<LIS, FOLD><<<grid, kThreads, layout<LIS>(g.N).total, static_cast<cudaStream_t>(stream)>>>(
+  swin_attention_kernel<LIS, FOLD, NM>
+      <<<grid, kThreads, layout<LIS, NM>(g.N).total, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(qkv), static_cast<const float*>(bias), static_cast<const float*>(mask),
       static_cast<const float*>(scal), static_cast<int8_t*>(out), g, items,
       static_cast<unsigned long long*>(stamps), static_cast<unsigned long long*>(cta_ns), slot);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int NM>
+int launch_nm(const void* qkv, const void* bias, const void* mask, const void* scal, void* out, Geom g, int lis,
+              int fold, int grid, void* stamps, void* cta_ns, void* stream) {
+  if (fold)
+    return lis ? launch_swin<true, true, NM>(qkv, bias, mask, scal, out, g, grid, stamps, cta_ns, stream)
+               : launch_swin<false, true, NM>(qkv, bias, mask, scal, out, g, grid, stamps, cta_ns, stream);
+  return lis ? launch_swin<true, false, NM>(qkv, bias, mask, scal, out, g, grid, stamps, cta_ns, stream)
+             : launch_swin<false, false, NM>(qkv, bias, mask, scal, out, g, grid, stamps, cta_ns, stream);
+}
+
 int launch_any(const void* qkv, const void* bias, const void* mask, const void* scal, void* out, Geom g, int lis,
                int fold, int grid, void* stamps, void* cta_ns, void* stream) {
-  if (fold)
-    return lis ? launch_swin<true, true>(qkv, bias, mask, scal, out, g, grid, stamps, cta_ns, stream)
-               : launch_swin<false, true>(qkv, bias, mask, scal, out, g, grid, stamps, cta_ns, stream);
-  return lis ? launch_swin<true, false>(qkv, bias, mask, scal, out, g, grid, stamps, cta_ns, stream)
-             : launch_swin<false, false>(qkv, bias, mask, scal, out, g, grid, stamps, cta_ns, stream);
+  if (g.N < 1 || g.N > NMAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (g.N <= NSTAGED) return launch_nm<NSTAGED>(qkv, bias, mask, scal, out, g, lis, fold, grid, stamps, cta_ns, stream);
+  return launch_nm<NMAX>(qkv, bias, mask, scal, out, g, lis, fold, grid, stamps, cta_ns, stream);
 }
 
 // Panel entry: W windows, nW per image (1 without a mask). Folded entry: B
@@ -418,6 +451,24 @@ Geom panel_geom(int W, int N, int C, int H, int nW) { return Geom{W, nW, N, C, H
 Geom folded_geom(int B, int res, int ws, int C, int H, int shift) {
   const int g = res / ws;
   return Geom{B * g * g, g * g, ws * ws, C, H, res, ws, shift};
+}
+
+template <bool LIS, bool FOLD, int NM>
+cudaError_t info_of(int N, int* vals) {
+  int sms = 0, per_sm = 0;
+  cudaFuncAttributes fa{};
+  cudaError_t err = residency<LIS, FOLD, NM>(N, &sms, &per_sm);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, swin_attention_kernel<LIS, FOLD, NM>);
+  if (err != cudaSuccess) return err;
+  const int v[5] = {layout<LIS, NM>(N).total, fa.numRegs, static_cast<int>(fa.localSizeBytes), per_sm, sms};
+  for (int i = 0; i < 5; ++i) vals[i] = v[i];
+  return cudaSuccess;
+}
+
+template <int NM>
+cudaError_t info_nm(int N, int lis, int fold, int* vals) {
+  if (fold) return lis ? info_of<true, true, NM>(N, vals) : info_of<false, true, NM>(N, vals);
+  return lis ? info_of<true, false, NM>(N, vals) : info_of<false, false, NM>(N, vals);
 }
 
 }  // namespace
@@ -464,21 +515,6 @@ extern "C" int p2v_swin_attention_hook(const void* qkv, const void* bias, const 
 // thread, spill (local) bytes per thread, CTAs per SM, SMs}.
 extern "C" int p2v_swin_attention_info(int N, int lis, int fold, void* out) {
   if (N < 1 || N > NMAX) return static_cast<int>(cudaErrorInvalidValue);
-  int sms = 0, per_sm = 0;
-  cudaFuncAttributes fa{};
-  cudaError_t err;
-  if (fold) {
-    err = lis ? residency<true, true>(N, &sms, &per_sm) : residency<false, true>(N, &sms, &per_sm);
-    if (err == cudaSuccess)
-      err = cudaFuncGetAttributes(&fa, lis ? swin_attention_kernel<true, true> : swin_attention_kernel<false, true>);
-  } else {
-    err = lis ? residency<true, false>(N, &sms, &per_sm) : residency<false, false>(N, &sms, &per_sm);
-    if (err == cudaSuccess)
-      err = cudaFuncGetAttributes(&fa, lis ? swin_attention_kernel<true, false> : swin_attention_kernel<false, false>);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int vals[5] = {lis ? layout<true>(N).total : layout<false>(N).total, fa.numRegs,
-                       static_cast<int>(fa.localSizeBytes), per_sm, sms};
-  for (int i = 0; i < 5; ++i) static_cast<int*>(out)[i] = vals[i];
-  return 0;
+  int* vals = static_cast<int*>(out);
+  return static_cast<int>(N <= NSTAGED ? info_nm<NSTAGED>(N, lis, fold, vals) : info_nm<NMAX>(N, lis, fold, vals));
 }

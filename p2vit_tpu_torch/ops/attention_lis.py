@@ -549,27 +549,38 @@ lis_attention_qkv_fused.launches = 0
 # ---------------------------------------------------------------------------
 
 SWIN_HEAD_DIM = 32  # the kernel's head_dim (every Swin in the zoo); smaller ones are zero-padded to it
-SWIN_MAX_N = 64  # tokens per window the kernel takes (49 for 7×7 windows)
+SWIN_MAX_N = 160  # tokens per window the kernel takes (49 for 7×7 windows, 144 for JAX's 12×12)
+SWIN_STAGED_N = 64  # up to here the kernel's instance stages bias[h] and the masks in shared memory
 _SWIN_QLD = SWIN_HEAD_DIM + 16  # bytes per staged q / k row
-_SWIN_STAGE = 2 * SWIN_MAX_N * _SWIN_QLD + SWIN_MAX_N * SWIN_HEAD_DIM  # one item's q, k, v rows
-_SWIN_WLD = SWIN_MAX_N + 16  # bytes per row of V transposed and of the score / hi plane
 _SWIN_OFF_ROWS = 2  # LIS off: rows a warp sums side by side
 SWIN_PHASES = ("q/k/v and mask wait", "bias, V transpose", "scores", "LIS weights", "attn@v")
 SWIN_PHASES_LISOFF = ("q/k/v and mask wait", "bias, v to float64", "scores", "softmax and attn@v")
 
 
+def swin_instance_n(n: int) -> int:
+    """The window size NM of the kernel instance that takes N tokens."""
+    return SWIN_STAGED_N if n <= SWIN_STAGED_N else SWIN_MAX_N
+
+
 def swin_attention_smem(n: int, lis: bool = True) -> int:
     """Shared memory of one CTA of the Swin kernel at N tokens
-    (``csrc/swin_attention.cu`` ``layout``): two rows of token indices, two
-    stage buffers of q, k, v rows and two of masks, the score/hi plane and
-    bias[h] (N² float32 each, 16-byte rounded); LIS: V transposed (the lo
-    plane lies over the item's spent q/k rows); LIS off: v as float64 and
-    each warp's rows of p as float64."""
-    nn = -(-n * n * 4 // 16) * 16
-    end = 2 * SWIN_MAX_N * 4 + 2 * _SWIN_STAGE + 3 * nn + SWIN_MAX_N * _SWIN_WLD
+    (``csrc/swin_attention.cu`` ``layout``, instance NM =
+    ``swin_instance_n(n)``): two rows of NM token indices, two stage buffers
+    of NM q, k, v rows, the score/hi plane (NM rows of NM + 16 bytes); up
+    to ``SWIN_STAGED_N`` two masks and bias[h] (N² float32 each, 16-byte
+    rounded; the lo plane lies over the item's spent q/k rows), past it a lo
+    plane of its own (masks and bias read from global memory); LIS: V
+    transposed; LIS off: v as float64 and each warp's rows of p as
+    float64."""
+    nm = swin_instance_n(n)
+    wld = nm + 16
+    stage = 2 * nm * _SWIN_QLD + nm * SWIN_HEAD_DIM
+    staged = nm == SWIN_STAGED_N
+    nn = -(-n * n * 4 // 16) * 16 if staged else 0
+    end = 2 * nm * 4 + 2 * stage + 3 * nn + nm * wld * (1 if staged else 2)
     if lis:
-        return end + SWIN_HEAD_DIM * _SWIN_WLD
-    return end + -(-n * SWIN_HEAD_DIM * 8 // 16) * 16 + 8 * _SWIN_OFF_ROWS * SWIN_MAX_N * 8
+        return end + SWIN_HEAD_DIM * wld
+    return end + -(-n * SWIN_HEAD_DIM * 8 // 16) * 16 + 8 * _SWIN_OFF_ROWS * nm * 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -625,7 +636,7 @@ def swin_attention_plan(windows: int, n_windows: int, heads: int, n: int, sms: i
     ``ctas_per_sm`` CTAs each (``swin_attention_info`` reads both on the
     card; the H100 holds 4 at N = 49 with LIS, 3 without). ``grid`` > 0
     forces the grid (a measurement hook). Raises where the kernel does not
-    run (N > 64, shared memory)."""
+    run (N > ``SWIN_MAX_N``, shared memory)."""
     if not 1 <= n <= SWIN_MAX_N:
         raise ValueError(f"Swin attention kernel needs 1 <= N <= {SWIN_MAX_N}; got N={n}")
     smem = swin_attention_smem(n, lis)
@@ -759,7 +770,8 @@ def swin_lis_attention(qkv_q, bias, mask, num_heads, n_windows, score_requant, a
       score_requant: s_qkv²·d^-0.5/s_attn1; attn_scale: s_attn1;
       s2: the qact2 scale (LIS input); out_requant: s_qkv/s_qact3.
     Returns (W, N, C) int8 codes of the qact3 node. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (N ≤ 64;
+    plain version; CUDA tensors launch the kernel (N ≤ 160, keys
+    zero-padded to a multiple of 32 inside it as JAX pads them;
     ``swin_attention_plan``; a head_dim d < 32 runs with each head's q, k,
     v zero-padded to 32 by ``swin_pad_heads``) or raise. Measurement
     hooks: ``grid`` > 0 launches that many CTAs instead of the plan's; ``phase_ns``, a (9,)
@@ -844,7 +856,7 @@ def swin_lis_attention_folded(qkv_r, bias, mask, num_heads, window, score_requan
     roll(+shift) of window_reverse of ``swin_lis_attention`` on the
     partitioned panels of roll(−shift) of ``qkv_r``. CPU tensors take the
     plain version; CUDA tensors launch the kernel (head_dim ≤ 32, padded as
-    ``swin_lis_attention`` pads it; N ≤ 64) or raise. ``grid``,
+    ``swin_lis_attention`` pads it; N ≤ 160) or raise. ``grid``,
     ``phase_ns`` and ``cta_ns``: the measurement hooks of
     ``swin_lis_attention``.
     """

@@ -2,9 +2,12 @@
 (the repo-root ``test_quant.py``) and the JAX package's functions.
 
 * ``build_parser``: the same destinations, defaults and choices but
-  ``--device``; ``accuracy`` and ``AverageMeter`` equal JAX's; each flag
-  whose module is not ported (the parallel flags) exits 2 with one line
-  naming ROADMAP.md.
+  ``--device``; ``accuracy`` and ``AverageMeter`` equal JAX's.
+* The parallel flags through ``main`` on the CPU at deit_tiny size:
+  ``--dp 2``, ``--tp 3 --sp`` and ``--pp 2 --pp-micro 4`` start their
+  ranks and give the single-process Prec@1 and Prec@5; an unusable
+  ``--tp`` prints JAX's line and runs alone (``tests/test_torch_parallel.py``
+  holds the parallel logits bit for bit).
 * The flags of the rest of calibration and the search, against the JAX
   CLI's flow (``test_quant.py:304-350, 549-608``) through JAX's functions:
   ``--calib-iter 2`` with each ``--quant-method`` (statistics over the
@@ -110,7 +113,7 @@ state_dicts = _load(Path(__file__).with_name("test_torch_checkpoints.py"), "torc
 
 
 # ---------------------------------------------------------------------------
-# Parser, accuracy, unported flags
+# Parser, accuracy
 # ---------------------------------------------------------------------------
 
 
@@ -142,20 +145,6 @@ def test_accuracy_and_average_meter_match_jax():
         t.update(v, n)
         j.update(v, n)
         assert (t.val, t.sum, t.count, t.avg) == (j.val, j.sum, j.count, j.avg)
-
-
-@pytest.mark.parametrize("extra,item", [
-    (["--dp", "2"], "item 6"), (["--tp", "2"], "item 6"), (["--sp"], "item 6"), (["--pp", "2"], "item 6"),
-    (["--pp-micro", "4"], "item 6"),
-])
-def test_unported_flags_exit_2(capsys, extra, item):
-    with pytest.raises(SystemExit) as e:
-        tcli.main(["deit_tiny", "/nonexistent", "--quant", "--device", "cpu", *extra])
-    assert e.value.code == 2
-    out = capsys.readouterr()
-    lines = out.err.strip().splitlines()
-    assert len(lines) == 1 and "ROADMAP.md" in lines[0] and f"queue 1 {item}" in lines[0]
-    assert extra[0] in lines[0] and out.out == ""
 
 
 def test_device_defaults_to_the_card(tmp_path):
@@ -483,16 +472,21 @@ def test_plot_writes_the_vit_svgs(folder, models, tmp_path, monkeypatch, capsys,
 
 
 def test_plot_skips_swin_and_runs_through_main(folder, models, tmp_path, monkeypatch, capsys):
-    """Swin prints JAX's skip line; ``main`` takes ``--plot`` and ``--mode 2``
-    (neither is refused any more): ``unported_flag`` names only the
-    parallel flags."""
+    """Swin prints JAX's skip line; ``main`` takes ``--plot``, ``--mode 2``
+    and the parallel flags (none is refused any more): with no ``--serve``
+    the parallel flags resolve to no mesh, printing JAX's "ignoring" lines,
+    and start no ranks."""
     f, m = FAMILIES["swin"], models["swin"]
     args = _args("swin", folder, ["--quant", "--plot", "--random-init"])
     assert tcli.plot_activations(args, f["tcfg"], True, m["tparams"], None, False, "cpu") is None
     assert capsys.readouterr().out == "--plot is ViT/DeiT-only (reference plots vit_base); skipping\n"
-    assert tcli.unported_flag(_args("vit", folder, ["--quant", "--plot", "--mode", "2"])) is None
-    every = ["--plot", "--mode", "2", "--dp", "2", "--tp", "2", "--sp", "--pp", "2", "--pp-micro", "4"]
-    assert "--dp is not ported" in tcli.unported_flag(_args("vit", folder, every))
+    every = ["--quant", "--plot", "--mode", "2", "--dp", "2", "--tp", "2", "--sp", "--pp", "2", "--pp-micro", "4"]
+    args, vcfg = _args("vit", folder, every), FAMILIES["vit"]["tcfg"]
+    assert tcli.parallel_world(args, vcfg, False) == 1
+    assert tcli.build_parallel_meshes(args, vcfg, False) == (None, None, None)
+    assert capsys.readouterr().out.splitlines() == [
+        "--pp needs --quant --serve; ignoring", "--tp needs --quant --serve; ignoring",
+        "--sp needs an active --tp; ignoring", "--dp needs --quant --serve; ignoring"]
 
 
 @pytest.mark.parametrize("flags,batch,line", [
@@ -709,6 +703,48 @@ def test_module_entry_point_smoke(folder):
                        timeout=900)
     assert r.returncode == 0, r.stderr[-2000:]
     assert len(PREC.findall(r.stdout)) == 1 and "Test: [0]" in r.stdout
+
+
+# deit_tiny at full size on one thread, one val pass of two batches of 3
+RANK_DEADLINE_S = 120  # the rank group's deadline: a hung rendezvous or collective fails the case
+PARALLEL_ARGV = ["deit_tiny", "--quant", "--serve", "--device", "cpu", "--random-init", *BATCH]
+
+
+@pytest.fixture(scope="module")
+def serial_main(folder):
+    with _torch_threads(1):
+        return tcli.main([PARALLEL_ARGV[0], folder, *PARALLEL_ARGV[1:]])
+
+
+@pytest.mark.parametrize("extra,line", [
+    (["--dp", "2"], "serving data-parallel over 2 devices"),
+    # deit_tiny has 3 heads: tp = 3 (tp = 2 is ignored, as in the JAX CLI)
+    (["--tp", "3", "--sp"], "serving tensor-parallel over 3 model shards with sequence-parallel epilogues"),
+    (["--pp", "2", "--pp-micro", "4"], "serving pipeline-parallel over 2 stages, 4 microbatches"),
+])
+def test_parallel_flags_run_through_main(folder, serial_main, capfd, extra, line):
+    """``main`` starts the mesh's ranks on the CPU (a short last batch: 6
+    val images, batches of 3, so ``--sp``'s quantum 3 and 4 microbatches
+    pad); Prec@1 and Prec@5 equal the single-process run, and rank 0 alone
+    prints: the mesh line and the Prec line once each."""
+    capfd.readouterr()
+    with _torch_threads(1):
+        got = tcli.main([PARALLEL_ARGV[0], folder, *PARALLEL_ARGV[1:], *extra], timeout_s=RANK_DEADLINE_S)
+    out = capfd.readouterr().out
+    assert got == serial_main
+    assert out.count(line) == 1 and len(PREC.findall(out)) == 1, out
+
+
+def test_tp_that_does_not_divide_the_heads_runs_alone(folder, capsys):
+    """``--tp 2`` on deit_tiny's 3 heads prints JAX's line and starts no
+    ranks."""
+    from p2vit_tpu_torch.models import MODEL_ZOO
+
+    args = tcli.build_parser().parse_args([PARALLEL_ARGV[0], folder, *PARALLEL_ARGV[1:], "--tp", "2"])
+    cfg = MODEL_ZOO["deit_tiny_patch16_224"]
+    assert tcli.parallel_world(args, cfg, False) == 1
+    assert tcli.build_parallel_meshes(args, cfg, False) == (None, None, None)
+    assert capsys.readouterr().out == "--tp 2 does not divide deit_tiny's 3 heads (try [3]); ignoring\n"
 
 
 GUARD = r"""

@@ -425,10 +425,10 @@ def test_fused_patch_embed_divide_exhaustive(dev):
 
 # (B, N, C_in, C_out, heads): the cluster's edges (N = 5: one CTA and one
 # query group; 64: exactly one tile; 65: one row over; 197: DeiT's 4/3/3/3
-# groups; 256: the maximum), a tensor-parallel shard (C_out ≠ C_in) and the
-# DeiT-B width
+# groups; 256: the maximum), DeiT-S's tensor-parallel shards at tp = 2 and 3
+# (C_out ≠ C_in) and the DeiT-B width
 QKV_SHAPES = [(3, 5, 384, 384, 6), (3, 64, 384, 384, 6), (3, 65, 384, 384, 6), (3, 197, 384, 384, 6),
-              (3, 256, 384, 384, 6), (2, 197, 384, 192, 3), (2, 197, 768, 768, 12)]
+              (3, 256, 384, 384, 6), (2, 197, 384, 192, 3), (2, 197, 384, 128, 2), (2, 197, 768, 768, 12)]
 
 
 @pytest.mark.parametrize("lis", [True, False])
@@ -1511,3 +1511,29 @@ def test_weight_store_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         matmul_wstream.wstream_matmul(xb[:, :384].contiguous(), torch.zeros(128, 128, dtype=torch.int8,
                                                                             device=dev), v, v, w_format="w8p")
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("lis", [True, False])
+def test_swin_attention_window12(dev, masked, lis):
+    """12×12 windows (N = 144, the unstaged instance): both entries against
+    their plain versions, and the folded entry against window_reverse of the
+    panel entry, with and without the shift mask."""
+    rng = np.random.RandomState(12)
+    res, ws, heads = 24, 12, 3
+    c, n = 32 * heads, ws * ws
+    qkv = _i8(rng, (2, res, res, 3 * c)).to(dev)
+    bias = torch.from_numpy((rng.randn(heads, n, n) * 0.3).astype(np.float32)).to(dev)
+    mask = (torch.from_numpy(swin.shift_attn_mask(res, res, ws, ws // 2) / 2.0**-4).to(dev)
+            if masked else None)
+    a = (qkv, bias, mask, heads, ws, 2.0**-9, 2.0**-4, 2.0**-4, 2.0**-2)
+    shift = ws // 2 if masked else 0
+    got = attention_lis.swin_lis_attention_folded(*a, lis=lis, shift=shift)
+    _same(got, attention_lis.swin_lis_attention_folded_plain(*a, lis=lis, shift=shift))
+    panels = swin.window_partition(torch.roll(qkv, (-shift, -shift), (1, 2)), ws).contiguous()
+    two_step = attention_lis.swin_lis_attention(panels, bias, mask, heads, (res // ws) ** 2, *a[5:], lis=lis)
+    _same(two_step, attention_lis.swin_lis_attention_plain(panels, bias, mask, heads, (res // ws) ** 2, *a[5:],
+                                                          lis=lis))
+    _same(got, torch.roll(swin.window_reverse(two_step, ws, res, res), (shift, shift), (1, 2)).contiguous())
+    info = attention_lis.swin_attention_info(n, lis)
+    assert info["smem_bytes"] == attention_lis.swin_attention_smem(n, lis) and info["spill_bytes"] == 0
