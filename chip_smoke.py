@@ -98,6 +98,25 @@ weight-only serving of both models and the two weight-store GEMM tools:
   rank 0 (CUDA events) and the share in host-staged collectives, labelled
   as ranks time-sliced on one card. The ``cli`` path also runs ``main``
   with ``--tp 2`` on its saved state: Prec@1/5 equal to one process's.
+  Then the three mesh surfaces of the fake-quant and float programs
+  (``parallel.dryrun.MESH_SURFACES``, no kernel runs) on the same
+  ``PAR_WORLD`` ranks at the dry run's tiny ViT and a batch of 6:
+  ``vit.calibrate`` on the batch sharded 3 × 1 (decisions bit for bit), DP×TP
+  of ``quant_forward`` over 1 × 2 (within one LSB of act_out's grid, argmax
+  equal) and the DP data-free generation gradient over 3 × 1 (rtol 2e-4,
+  atol 2e-6); one parity line each.
+* Before the paths (``--faults``, default all six): each shape JAX serves
+  that the kernels once refused (``tools/shape_faults.py``: the fused layer
+  at C = 32 and 96; N = 257, 300 and 577 in the three ViT attention
+  kernels and N = 257 and 300 in the fused layer; the qkv-fused kernel at
+  head_dims 32 and 128 and C_in = 200; head_dim 128 in the per-item kernels
+  and the fused layer; both Swin attention entries at head_dim 64 with
+  N = 49 and at N = 256, with the shift mask; the stem at C = 1536 and
+  4096), LIS on and off: the kernel against its plain version (0
+  mismatches), one line per shape with its µs per call (CUDA events,
+  the padding included), its device µs and the kernel's share of them
+  (``torch.profiler``) and its bound, beside the card's name and power
+  limit.
 * With ``swin``, before the paths: both Swin attention entries at 12×12
   windows (N = 144, the kernel's unstaged instance), LIS on and off, the
   panel one with and without the shift mask and the folded one at shift 0
@@ -121,7 +140,8 @@ weight-only serving of both models and the two weight-store GEMM tools:
   M = 197; ``int4_matmul_requant``'s launch line per GEMM (the packed plan:
   tile width, consumers, ring stages, grid; shared memory, registers,
   spills, CTAs per SM) and, per M, both stores' chains in device ms beside
-  their bounds. After the build, the DMMA instructions in the built
+  their bounds. After the paths (``cuobjdump`` runs beside them from the
+  build on), the DMMA instructions in the built
   ``wstream_matmul`` kernels, the IMMA instructions in the cluster
   attention kernel and in the Swin attention kernel, and the warpgroup-MMA
   (IGMMA) and TMA-load (UTMALDG)
@@ -2228,16 +2248,40 @@ def window12_checks(dev, ops) -> None:
 _SASS: dict = {}
 
 
-def _sass(lib_path: str) -> str:
-    """``cuobjdump -sass`` of the built library, run once and kept."""
+def start_sass(lib_path: str) -> None:
+    """Start ``cuobjdump -sass`` of the built library in the background,
+    its output to a temporary file (it takes ~40 s; ``_sass`` waits for it;
+    the process is killed at exit if it still runs)."""
+    import atexit
     import os
     import shutil
+    import tempfile
 
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                                                     "cuobjdump")
+    out = tempfile.TemporaryFile(mode="w+")
+    try:
+        proc = subprocess.Popen([tool, "-sass", lib_path], stdout=out, stderr=subprocess.DEVNULL, text=True)
+    except OSError as e:  # no cuobjdump: the counts read "not measured"
+        _SASS[lib_path] = e
+        return
+    atexit.register(proc.kill)
+    _SASS[lib_path] = (proc, out)
+
+
+def _sass(lib_path: str) -> str:
+    """``cuobjdump -sass`` of the built library, run once (``start_sass``)
+    and kept."""
     if lib_path not in _SASS:
-        tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
-                                                         "cuobjdump")
-        _SASS[lib_path] = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
-                                         timeout=120).stdout
+        start_sass(lib_path)
+    if isinstance(_SASS[lib_path], OSError):
+        raise _SASS[lib_path]
+    if isinstance(_SASS[lib_path], tuple):
+        proc, out = _SASS[lib_path]
+        proc.wait(timeout=300)
+        out.seek(0)
+        _SASS[lib_path] = out.read()
+        out.close()
     return _SASS[lib_path]
 
 
@@ -2316,6 +2360,7 @@ PAR_SCENARIOS = {
     "swin_tp3": ("swin", "tp", 3, {}),
 }
 PAR_BATCHES = (64, 61)  # a full batch, then a short one (pad and trim)
+FAULT_REPS = 3  # timed calls a held shape of the shape-fault phase (small shapes: launch-bound)
 
 
 def _par_predicted(kind, cfg, opts, rank, n):
@@ -2496,8 +2541,49 @@ def run_parallel_path(dev, smi, states):
     for _, wname, *_ in PAR_HELD:
         if wname not in held:
             bad.append(f"{wname} was held at no shard shape")
+    bad += run_mesh_surfaces(dev, smi)
     if bad:
         _fail("parallel: " + "; ".join(bad))
+
+
+def run_mesh_surfaces(dev, smi) -> list:
+    """The three mesh surfaces (``dryrun.MESH_SURFACES``) on ``PAR_WORLD``
+    ranks of this card at the dry run's tiny ViT, a batch of 6 (the 3 × 1
+    data mesh takes 2 images a rank, the 1 × 2 TP mesh all 6), against one
+    process's; returns the failures."""
+    from p2vit_tpu_torch.parallel import dist as pdist
+    from p2vit_tpu_torch.parallel import dryrun
+
+    t0 = time.time()
+    st = dryrun.tiny_states(dev, batch=2 * PAR_WORLD)
+    names = dryrun.MESH_SURFACES
+    outs = pdist.run_ranks(dryrun.run_scenarios, PAR_WORLD, pdist.map_tensors(st, lambda t: t.cpu()), names,
+                           device=dev, timeout_s=300)
+    lines, n_bad = dryrun.report(outs, dryrun.references(st, names), st, names)
+    for line in lines:
+        print(f"parallel mesh surface {line} ({PAR_WORLD} ranks on {dev}, {PAR_LABEL}; {smi})", flush=True)
+    print(f"parallel: the mesh surfaces in {time.time() - t0:.1f} s", flush=True)
+    return [f"mesh surfaces: {n_bad} elements differ or lie outside their envelopes"] if n_bad else []
+
+
+def run_shape_faults(dev, smi, faults) -> None:
+    """The shape-fault phase: every held shape of ``faults``
+    (``tools/shape_faults.held_cases``), the kernel against its plain
+    version (any mismatch fails), and one line per shape with the µs per
+    call, the device µs, the kernel's and the bound."""
+    from p2vit_tpu_torch.tools import shape_faults as sf
+
+    bad = []
+    for c in sf.held_cases(dev, faults):
+        mis = sf.mismatches(c.call(), c.plain())
+        dev_us, kern_us = sf.device_us(c.call, FAULT_REPS, sf.SYMBOLS[c.kernel])
+        print(f"shape fault {c.fault}: {c.name}: {mis} mismatches against the plain version; "
+              f"{sf.time_us(c.call, FAULT_REPS):.1f} µs a call (events), device {dev_us:.1f} µs, "
+              f"{c.kernel} {kern_us:.1f} µs, bound {c.bound_ms * 1e3:.2f} µs ({smi})", flush=True)
+        if mis:
+            bad.append(f"{c.name}: {mis} mismatches")
+    if bad:
+        _fail("shape faults: " + "; ".join(bad))
 
 
 def main() -> None:
@@ -2509,6 +2595,8 @@ def main() -> None:
     ap.add_argument("--calib", type=int, default=32, help="calibration images")
     ap.add_argument("--reps", type=int, default=20, help="timed repetitions")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--faults", default="1,2,3,4,5,6",
+                    help="the shape-fault phase's faults (tools/shape_faults.py; empty: skip the phase)")
     args = ap.parse_args()
     batches = [int(b) for b in args.batches.split(",")]
     models = args.models.split(",")
@@ -2535,26 +2623,17 @@ def main() -> None:
     for ln in regs:
         print(f"  ptxas {ln}")
     so = _lib.library()[0]._name
-    t0 = time.time()
-    print(f"sass: DMMA instructions {sass_count(so, 'wstream_matmul_kernel', 'DMMA')}", flush=True)
-    print(f"sass: IMMA instructions {sass_count(so, 'lis_attention_qkv_kernel', 'IMMA')}", flush=True)
-    print(f"sass: IMMA instructions {sass_count(so, 'swin_attention_kernel', 'IMMA')}", flush=True)
-    print(f"sass: the stem's inner loop (LDS per FMUL+FADD pair) {sass_loop_counts(so, 'swin_stem_kernel')}",
-          flush=True)
-    print(f"sass: IMMA instructions {sass_count(so, 'attention_rows_kernel', 'IMMA')}", flush=True)
-    print(f"sass: IMMA instructions {sass_count(so, 'fused_vit_layer_kernel', 'IMMA')}", flush=True)
-    for kern in ("wg14requant_kernel", "wg13res_ln_kernel", "wg12embed_kernel", "fused_vit_layer_kernel"):
-        for op in ("IGMMA", "UTMALDG"):
-            print(f"sass: {op} instructions {sass_count(so, kern, op)}", flush=True)
-    for op in ("IGMMA", "UTMALDG"):  # the int4-store instances: PACKED, the last template argument, true
-        print(f"sass: {op} instructions {sass_count(so, 'wg14requant_kernel', op, also='Lb1EEEv')} "
-              f"(int4_matmul_requant)", flush=True)
-    print(f"sass counts in {time.time() - t0:.1f} s (one cuobjdump)", flush=True)
+    start_sass(so)  # read after the paths: cuobjdump runs beside them
     bad = ops.intln.ln_chain_check(dev)
     print(f"int-LN chain rewrites (2^N bits, unit-ratio fold) against ln_elem over all 2^32 floats: "
           f"mismatches {bad}", flush=True)
     if any(bad):
         _fail(f"the int-LN kernels' chain rewrites disagree with ln_elem: {bad}")
+
+    if args.faults:
+        t0 = time.time()
+        run_shape_faults(dev, smi, tuple(int(f) for f in args.faults.split(",")))
+        print(f"shape faults: the phase in {time.time() - t0:.1f} s", flush=True)
 
     gen = torch.Generator().manual_seed(args.seed + 1)
 
@@ -2715,6 +2794,21 @@ def main() -> None:
         run_parallel_path(dev, smi, states)
         print(f"parallel: the path in {time.time() - t0:.1f} s", flush=True)
 
+    t0 = time.time()
+    print(f"sass: DMMA instructions {sass_count(so, 'wstream_matmul_kernel', 'DMMA')}", flush=True)
+    print(f"sass: IMMA instructions {sass_count(so, 'lis_attention_qkv_kernel', 'IMMA')}", flush=True)
+    print(f"sass: IMMA instructions {sass_count(so, 'swin_attention_kernel', 'IMMA')}", flush=True)
+    print(f"sass: the stem's inner loop (LDS per FMUL+FADD pair) {sass_loop_counts(so, 'swin_stem_kernel')}",
+          flush=True)
+    print(f"sass: IMMA instructions {sass_count(so, 'attention_rows_kernel', 'IMMA')}", flush=True)
+    print(f"sass: IMMA instructions {sass_count(so, 'fused_vit_layer_kernel', 'IMMA')}", flush=True)
+    for kern in ("wg14requant_kernel", "wg13res_ln_kernel", "wg12embed_kernel", "fused_vit_layer_kernel"):
+        for op in ("IGMMA", "UTMALDG"):
+            print(f"sass: {op} instructions {sass_count(so, kern, op)}", flush=True)
+    for op in ("IGMMA", "UTMALDG"):  # the int4-store instances: PACKED, the last template argument, true
+        print(f"sass: {op} instructions {sass_count(so, 'wg14requant_kernel', op, also='Lb1EEEv')} "
+              f"(int4_matmul_requant)", flush=True)
+    print(f"sass counts in {time.time() - t0:.1f} s (one cuobjdump, started after the build)", flush=True)
     print_comparisons(summary, max(batches))
     print_flag_comparisons(paths, summary, max(batches))
     t0 = time.time()

@@ -15,6 +15,11 @@ writes a ``CalibResult`` or ``SwinCalibResult`` to one flat-key ``.npz``
 ``family`` beside them), which ``load_quant_state`` reads back onto the
 device it is asked for. The JAX package's file holds a pickled jax treedef
 instead, which cannot be read without jax.
+
+``import_reference_state`` and ``import_reference_state_swin`` read the
+decisions of a calibrated reference torch model (its quantizer scales, the
+per-bit weight scales and the SmoothQuant caches) into the port's
+``CalibResult`` / ``SwinCalibResult``, by plain attribute access.
 """
 
 from __future__ import annotations
@@ -311,6 +316,135 @@ def load_pretrained(model_name: str, cfg, path: str | None = None) -> dict:
         f"no local checkpoint for {model_name}; expected {fname!r} under "
         "$TORCH_HOME/hub/checkpoints or pass an explicit path"
     )
+
+
+# ---------------------------------------------------------------------------
+# Decision import: a calibrated reference torch model -> the port's QuantState
+# ---------------------------------------------------------------------------
+
+# dic_scale key order: the rows of every wscale entry (quant/bit_type.py
+# WEIGHT_CALIB_BIT_TYPES)
+_WEIGHT_DIC_KEYS = ("uint3", "uint4", "int4", "int8")
+
+
+class _RefReader:
+    """Plain attribute reads of a calibrated reference model's quantizer
+    state, as float32 tensors copied to ``device``: an activation node
+    (``m.quantizer.scale`` / ``.zero_point``; a per-channel scale also gets
+    its PTF mask, re-derived as round(scale / scale.min()), which is what
+    the integer LN derives from the scale at run time), a weight node's
+    per-bit ``dic_scale`` rows in ``_WEIGHT_DIC_KEYS`` order broadcast to
+    its out-features, and a SmoothQuant module's ``best_*`` caches, one row
+    per eval bit."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def arr(self, t) -> torch.Tensor:
+        return torch.as_tensor(t).detach().to(self.device, torch.float32, copy=True)
+
+    def act(self, m) -> dict:
+        q = m.quantizer
+        scale, zp = self.arr(q.scale), self.arr(q.zero_point)
+        if scale.numel() == 1:
+            return {"scale": scale.reshape(()), "zp": zp.reshape(())}
+        scale = scale.reshape(-1)
+        return {"scale": scale, "zp": zp.reshape(()), "mask": torch.round(scale / scale.min())}
+
+    def rows(self, dic, o: int) -> torch.Tensor:
+        return torch.stack([torch.broadcast_to(self.arr(dic[k]).reshape(-1), (o,)) for k in _WEIGHT_DIC_KEYS])
+
+    def wdic(self, m, o: int) -> torch.Tensor:
+        return self.rows(m.quantizer.dic_scale, o)
+
+    def smooth(self, mod, o: int) -> dict:
+        return {
+            "channel_scale": torch.stack([self.arr(s) for s in mod.best_scale]),
+            "qact0_scale": torch.stack([self.arr(s).reshape(()) for s in mod.best_act_scale]),
+            "qact0_zp": torch.stack([self.arr(z).reshape(()) for z in mod.best_act_zp]),
+            "wscale": torch.stack([self.rows(dic, o) for dic in mod.best_weight_scale]),
+        }
+
+
+def import_reference_state(ref_model, cfg: ViTConfig, device="cuda"):
+    """A CALIBRATED reference ViT (the reference's VisionTransformer after
+    its open-calibrate → last-calibrate forward → quant protocol) → the
+    port's ``CalibResult``, by plain attribute access (``ref_model.blocks``,
+    each node's quantizer, the SmoothQuant caches of ``blk.attn`` and
+    ``blk.mlp``), node for node as the JAX package's
+    ``checkpoints.import_reference_state``. Its ``global_distance`` is
+    zeros: the per-bit weight distances are a by-product of a calibration
+    forward that the reference never stores on its modules, so an imported
+    state serves fixed-bit evaluation; ``vit.calibrate`` gives the
+    mixed-precision search's artifacts. Tensors land on ``device`` (the card
+    unless the caller asks for the CPU)."""
+    from .models.common import vit_flops
+    from .models.vit import CalibResult
+
+    rd = _RefReader(target_device(device))
+    c, hid = cfg.embed_dim, cfg.hidden_dim
+    qs: dict = {
+        "qact_input": rd.act(ref_model.qact_input),
+        "patch": {"wscale": rd.wdic(ref_model.patch_embed.proj, c), "qact": rd.act(ref_model.patch_embed.qact)},
+        "qact_embed": rd.act(ref_model.qact_embed),
+        "qact_pos": rd.act(ref_model.qact_pos),
+        "qact1": rd.act(ref_model.qact1),
+        "blocks": [],
+        "qact2": rd.act(ref_model.qact2),
+        "head_wscale": rd.wdic(ref_model.head, cfg.num_classes),
+        "act_out": rd.act(ref_model.act_out),
+    }
+    for blk in ref_model.blocks:
+        a = rd.smooth(blk.attn, 3 * c)
+        a.update(qact1=rd.act(blk.attn.qact1), qact_attn1=rd.act(blk.attn.qact_attn1),
+                 qact2=rd.act(blk.attn.qact2), proj_wscale=rd.wdic(blk.attn.proj, c), qact3=rd.act(blk.attn.qact3))
+        m = rd.smooth(blk.mlp, hid)
+        m.update(qact1=rd.act(blk.mlp.qact1), fc2_wscale=rd.wdic(blk.mlp.fc2, c), qact2=rd.act(blk.mlp.qact2))
+        qs["blocks"].append({"attn": a, "qact2": rd.act(blk.qact2), "mlp": m, "qact4": rd.act(blk.qact4)})
+    flops = vit_flops(cfg)
+    return CalibResult(qstate=qs, flops=flops,
+                       global_distance=torch.zeros((len(flops) - 1, len(_WEIGHT_DIC_KEYS)), device=rd.device))
+
+
+def import_reference_state_swin(ref_model, cfg, device="cuda"):
+    """The Swin twin of ``import_reference_state``: a CALIBRATED reference
+    SwinTransformer → the port's ``SwinCalibResult``, node for node as the
+    JAX package's ``import_reference_state_swin`` (the same state sources;
+    Swin has no SmoothQuant caches). ``global_distance`` is zeros."""
+    from .models.swin import SwinCalibResult, swin_flops
+
+    rd = _RefReader(target_device(device))
+    qs: dict = {
+        "qact_input": rd.act(ref_model.qact_input),
+        "patch_wscale": rd.wdic(ref_model.patch_embed.proj, cfg.embed_dim),
+        "patch_qact_bn": rd.act(ref_model.patch_embed.qact_before_norm),
+        "patch_qact": rd.act(ref_model.patch_embed.qact),
+        "stages": [],
+        "qact2": rd.act(ref_model.qact2),
+        "qact3": rd.act(ref_model.qact3),
+        "head_wscale": rd.wdic(ref_model.head, cfg.num_classes),
+        "act_out": rd.act(ref_model.act_out),
+    }
+    for i, layer in enumerate(ref_model.layers):
+        c = cfg.stage_dim(i)
+        st: dict = {"blocks": []}
+        for blk in layer.blocks:
+            aq = {"qkv_wscale": rd.wdic(blk.attn.qkv, 3 * c), "qact1": rd.act(blk.attn.qact1),
+                  "qact_attn1": rd.act(blk.attn.qact_attn1), "qact_table": rd.act(blk.attn.qact_table),
+                  "qact2": rd.act(blk.attn.qact2), "qact3": rd.act(blk.attn.qact3),
+                  "proj_wscale": rd.wdic(blk.attn.proj, c), "qact4": rd.act(blk.attn.qact4)}
+            st["blocks"].append({
+                "qact1": rd.act(blk.qact1), "attn": aq, "qact2": rd.act(blk.qact2), "qact3": rd.act(blk.qact3),
+                "fc1_wscale": rd.wdic(blk.mlp.fc1, int(c * cfg.mlp_ratio)), "mlp_qact1": rd.act(blk.mlp.qact1),
+                "fc2_wscale": rd.wdic(blk.mlp.fc2, c), "mlp_qact2": rd.act(blk.mlp.qact2), "qact4": rd.act(blk.qact4),
+            })
+        if layer.downsample is not None:
+            st["downsample"] = {"qact1": rd.act(layer.downsample.qact1),
+                                "red_wscale": rd.wdic(layer.downsample.reduction, 2 * c),
+                                "qact2": rd.act(layer.downsample.qact2)}
+        qs["stages"].append(st)
+    return SwinCalibResult(qstate=qs, flops=swin_flops(cfg),
+                           global_distance=torch.zeros((cfg.num_matmuls, len(_WEIGHT_DIC_KEYS)), device=rd.device))
 
 
 # ---------------------------------------------------------------------------

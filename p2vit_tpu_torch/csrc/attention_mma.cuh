@@ -1,11 +1,11 @@
 // Per-tile bodies of the int8 attention kernels on mma.sync: the ViT
 // cluster kernel (csrc/attention_lis.cu, p2v_lis_attention_qkv_fused: one
-// (image, head) of head_dim 64 and N ≤ 256 tokens, its query rows split
-// across a cluster of ceil(N/64) CTAs), the ViT per-item body of the other
-// two ViT kernels and the fused encoder layer (attention_rows.cuh: one
-// (image, head) item of head_dim ≤ 64 per CTA) and the Swin windowed
-// kernel (csrc/swin_attention.cu: (window, head) items of head_dim 32,
-// N ≤ 64). NW, where a body takes it, is the block's warps (8 but in the
+// (image, head) of head_dim 64 or 128, its query rows split across a
+// cluster of ceil(N/64) CTAs), the ViT per-item body of the other two ViT
+// kernels and the fused encoder layer (attention_rows.cuh: one (image,
+// head) item of head_dim ≤ 128 per CTA) and the Swin windowed kernel
+// (csrc/swin_attention.cu: (window, head) items of head_dim 32 or 64,
+// N ≤ 256). NW, where a body takes it, is the block's warps (8 but in the
 // fused layer's 12-warp block).
 //
 // * QkvPlan (vit_attn): the cluster size, each CTA's 16-row query groups and
@@ -23,10 +23,19 @@
 //   over an int8 score tile (each lane writes only the bytes it read).
 // * av_mma_to<HD> (av_mma: its two-byte-store form): attn@v as
 //   256·(hi·V) + lo·V on mma.sync m16n8k32 u8·s8
-//   against V transposed (d × keys, keys contiguous: the col B operand). Each
-//   partial sum is ≤ 256·128·128 = 2^22 in magnitude, so av_int is the exact
-//   integer Σ_j w_j·v_j, the scalar shift-accumulate's bit for bit; out =
+//   against V transposed (d × keys, keys contiguous: the col B operand).
+//   lis_weight gives w_j ≤ 1.5·2^15/round(Σe/e_j): at most 2^16·e_j/Σe
+//   where e_j ≤ Σe/2, and 1.5·2^15 for the one key a row may have above
+//   it, so Σ_j w_j ≤ 3.5·2^15 at ANY N. Hence |av_int| = |Σ_j w_j·v_j| ≤
+//   3.5·2^22 < 2^24, and each plane's sum (hi_j, lo_j ≤ w_j) stays below
+//   2^24 too: av_int is the exact integer Σ_j w_j·v_j, exact in float32,
+//   the scalar shift-accumulate's bit for bit; out =
 //   clip(round(av_int·2^-15·ro)).
+// * lis_weight_rows_wide, softmax_av_wide: the same rows past NMAX keys
+//   (or at head_dim 128), where a row's scores no longer fit a lane's JT
+//   registers: each pass re-reads the row from the caller's key(r, j)
+//   (the score plane) and recomputes each key's int-exp or exp, op for op
+//   as the register forms do, so the two give the same bits.
 // * softmax_av_to (softmax_av_rows: its head_dim-64, two-byte-store form;
 //   LIS off, head_dim 32 or 64, R rows a warp side by side):
 //   p2v::softmax_row and the float64 Σ_j p_j·v_j in key order, on the
@@ -47,9 +56,9 @@
 namespace p2v {
 namespace vit_attn {
 
-constexpr int D = 64;          // the cluster kernel's head_dim; the per-item body's widest (padded) one
-constexpr int NMAX = 256;      // tokens the ViT attention kernels take
-constexpr int JT = NMAX / 32;  // key slots per lane of a score row
+constexpr int NMAX = 256;       // tokens a row of JT register slots holds; past it the *_wide forms
+constexpr int JT = NMAX / 32;   // key slots per lane of a score row
+constexpr int MAX_CLUSTER = 16; // CTAs a cluster may hold on the H100 (past 8: the non-portable size)
 
 }  // namespace vit_attn
 
@@ -121,6 +130,34 @@ __device__ __forceinline__ void lis_weight_rows(Load&& load, int8_t* hi, int8_t*
         reinterpret_cast<uint8_t*>(hi)[r * ld + j] = static_cast<uint8_t>(wt[t] >> 8);
         reinterpret_cast<uint8_t*>(lo)[r * ld + j] = static_cast<uint8_t>(wt[t] & 0xFF);
       }
+    }
+  }
+}
+
+// lis_weight_rows past NMAX keys: key(r, j) gives row r's score at key j
+// (j < n), read again by each pass (the row maximum, the exp_sum limbs,
+// the weights); the int-exp is recomputed in the last pass, so no row
+// lives in registers. A lane reads and then overwrites only its own keys'
+// bytes, so the hi plane may lie over the score tile as above.
+template <int NW = kThreads / 32, class Key>
+__device__ __forceinline__ void lis_weight_rows_wide(Key&& key, int8_t* hi, int8_t* lo, int ld, int nrows, int row0,
+                                                     int n, int kpad, float x0, float b_int, float c_int) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float xmin = __fmul_rn(32.f, x0);
+  for (int r = warp; r < nrows; r += NW) {
+    const bool live = row0 + r < n;  // the same for the whole warp
+    float mx = __int_as_float(0xff800000), esum = 0.f;
+    if (live) {
+      for (int j = lane; j < n; j += 32) mx = fmaxf(mx, key(r, j));
+      mx = warp_max(mx);
+      long long shi = 0, slo = 0;
+      for (int j = lane; j < n; j += 32) add_limbs(lis_exp(key(r, j), mx, xmin, x0, b_int, c_int), shi, slo);
+      esum = limbs_f32(warp_sum(shi), warp_sum(slo));
+    }
+    for (int j = lane; j < kpad; j += 32) {
+      const int w = live && j < n ? lis_weight(esum, lis_exp(key(r, j), mx, xmin, x0, b_int, c_int)) : 0;
+      reinterpret_cast<uint8_t*>(hi)[r * ld + j] = static_cast<uint8_t>(w >> 8);
+      reinterpret_cast<uint8_t*>(lo)[r * ld + j] = static_cast<uint8_t>(w & 0xFF);
     }
   }
 }
@@ -260,20 +297,82 @@ __device__ __forceinline__ void softmax_av_rows(Load&& load, const int8_t* v, in
   });
 }
 
+// The LIS-off e_j of softmax_row: exp(code·s − mx) through float64,
+// rounded once.
+__device__ __forceinline__ float softmax_e(float code, float s, float mx) {
+  return static_cast<float>(exp(static_cast<double>(__fsub_rn(__fmul_rn(code, s), mx))));
+}
+
+// softmax_av_to past NMAX keys or at head_dim HD = 128, one row a warp at a
+// time: key(r, j) gives row r's score code at key j (j < n), read again by
+// each pass (the row maximum, the float64 row sum in softmax_row's lane
+// order, then attn@v), and p_j = e_j / S recomputed for each 32-key chunk,
+// so the sums and their order are softmax_av_to's; lane l owns dims
+// (HD/32)·l … (HD/32)·l + HD/32 − 1.
+template <int HD, int NW = kThreads / 32, class Key, class Store>
+__device__ __forceinline__ void softmax_av_wide(Key&& key, const int8_t* v, int vld, int nrows, int row0, int n,
+                                                float s_attn, float ro, Store&& store) {
+  static_assert(HD == 32 || HD == 64 || HD == 128, "a lane owns one, two or four dims");
+  constexpr int DL = HD / 32;  // dims a lane owns
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < nrows && row0 + r < n; r += NW) {
+    float mx = __int_as_float(0xff800000);
+    for (int j = lane; j < n; j += 32) mx = fmaxf(mx, __fmul_rn(key(r, j), s_attn));
+    mx = warp_max(mx);
+    double sum = 0.0;
+    for (int j = lane; j < n; j += 32) sum = __dadd_rn(sum, static_cast<double>(softmax_e(key(r, j), s_attn, mx)));
+    const float S = __double2float_rn(warp_sum(sum));
+    double a[DL];
+#pragma unroll
+    for (int d = 0; d < DL; ++d) a[d] = 0.0;
+    for (int t = 0; 32 * t < n; ++t) {
+      const int j = 32 * t + lane;
+      const double pt = j < n ? static_cast<double>(__fdiv_rn(softmax_e(key(r, j), s_attn, mx), S)) : 0.0;
+      const int8_t* vt = v + 32 * t * vld + DL * lane;
+#pragma unroll 4
+      for (int src = 0; src < 32; ++src) {
+        const double pj = __shfl_sync(0xffffffffu, pt, src);
+        uint32_t vb;
+        if constexpr (DL == 4)
+          vb = *reinterpret_cast<const uint32_t*>(vt + src * vld);
+        else if constexpr (DL == 2)
+          vb = *reinterpret_cast<const uint16_t*>(vt + src * vld);
+        else
+          vb = *reinterpret_cast<const uint8_t*>(vt + src * vld);
+#pragma unroll
+        for (int d = 0; d < DL; ++d) a[d] = __fma_rn(pj, i8_to_f64(vb >> (8 * d)), a[d]);
+      }
+    }
+    int8_t c[DL];
+#pragma unroll
+    for (int d = 0; d < DL; ++d) c[d] = to_i8(requant(__fmul_rn(__double2float_rn(a[d]), ro), -128.f, 127.f));
+    if constexpr (DL == 1) {  // lane l's code and lane l + 1's, stored by the even lane
+      const int8_t c1 = static_cast<int8_t>(__shfl_down_sync(0xffffffffu, static_cast<int>(c[0]), 1));
+      if ((lane & 1) == 0) store(row0 + r, lane, c[0], c1);
+    } else {
+#pragma unroll
+      for (int d = 0; d < DL; d += 2) store(row0 + r, DL * lane + d, c[d], c[d + 1]);
+    }
+  }
+}
+
 }  // namespace mma_attn
 
 namespace vit_attn {
 
 using mma_attn::QGROUP;
 constexpr int ROWS_PER_CTA = 64;  // token rows whose q/k/v codes a CTA computes
-constexpr int KLD = D + 16;       // bytes per K / q row in the gathered tiles (conflict-free fragments)
-constexpr int OWN_BYTES = 3 * ROWS_PER_CTA * D;  // a CTA's own q, k, v tiles (64 B rows)
+// bytes per K / q row in the gathered tiles at head_dim HD (conflict-free fragments)
+template <int HD>
+constexpr int kld = HD + 16;
+template <int HD>
+constexpr int own_bytes = 3 * ROWS_PER_CTA * HD;  // a CTA's own q, k, v tiles (HD-byte rows)
 
 // The launch plan for N tokens. Byte offsets into dynamic shared memory;
 // the same in every CTA of a cluster, so a peer's tile lies at the same
 // offset of its shared memory.
 struct QkvPlan {
-  int cs;       // CTAs per cluster, ceil(N/64) ≤ 4
+  int cs;       // CTAs per cluster, ceil(N/64) ≤ MAX_CLUSTER
   int groups;   // 16-row query groups, ceil(N/16)
   int kpad;     // keys padded to a multiple of 32 (the MMA depth)
   int vld;      // kpad + 16: bytes per row of V transposed, the scores and the weight planes
@@ -288,7 +387,7 @@ struct QkvPlan {
   __host__ __device__ int n_groups(int r) const { return groups / cs + (r < groups % cs ? 1 : 0); }
 };
 
-template <int GEMM_BYTES>
+template <int HD, int GEMM_BYTES>
 __host__ __device__ inline QkvPlan qkv_plan(int n) {
   QkvPlan p;
   p.cs = (n + ROWS_PER_CTA - 1) / ROWS_PER_CTA;
@@ -296,10 +395,10 @@ __host__ __device__ inline QkvPlan qkv_plan(int n) {
   p.kpad = (n + 31) / 32 * 32;
   p.vld = p.kpad + 16;
   p.rows = QGROUP * ((p.groups + p.cs - 1) / p.cs);
-  p.k_all = OWN_BYTES;  // the own tiles [0, OWN_BYTES) overlay the GEMM's stages
-  p.v_all = p.k_all + p.kpad * KLD;
-  p.q_mine = p.v_all + D * p.vld;
-  p.w_hi = p.q_mine + p.rows * KLD;  // the score tile, then the hi plane
+  p.k_all = own_bytes<HD>;  // the own tiles [0, own_bytes) overlay the GEMM's stages
+  p.v_all = p.k_all + p.kpad * kld<HD>;
+  p.q_mine = p.v_all + HD * p.vld;
+  p.w_hi = p.q_mine + p.rows * kld<HD>;  // the score tile, then the hi plane
   p.w_lo = p.w_hi + p.rows * p.vld;
   const int end = p.w_lo + p.rows * p.vld;
   p.smem = end > GEMM_BYTES ? end : GEMM_BYTES;

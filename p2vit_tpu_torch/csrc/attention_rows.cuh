@@ -2,14 +2,14 @@
 // memory (csrc/attention_lis.cu: p2v_lis_attention_fused over (B, N, 3C)
 // qkv codes, p2v_lis_attention over split (BH, N, d) q/k/v), shared with the
 // fused encoder layer's attention phase (csrc/layer_fused.cu): one (outer,
-// head) item of head_dim hd ≤ 64 and N ≤ 256 tokens on attention_mma.cuh's
-// int8 mma.sync bodies.
+// head) item of head_dim hd ≤ 128 on attention_mma.cuh's int8 mma.sync
+// bodies; N is bounded by shared memory alone (layout).
 //
 // * Staging (stage_item): the item's q rows (16·⌈N/16⌉ of them), k rows and
 //   v rows (⌈N/32⌉·32 of them) into one stage buffer, q and k rows QLD =
 //   HDP + 16 bytes apart (conflict-free fragments), v rows dense; every byte
 //   past N or past hd written as a zero code, so a stage needs no clearing
-//   and the zero-padded head_dim (HDP = 32 for hd ≤ 32, else 64) and keys add
+//   and the zero-padded head_dim (HDP = 32, 64 or 128) and keys add
 //   nothing to any integer sum. 16-byte cp.async where hd, the row stride
 //   and the item's offset are multiples of 16 (every ViT width), else byte
 //   loads. The caller waits for the copies (cp_async_wait) and syncs.
@@ -20,7 +20,11 @@
 //   over it and the lo plane; av_mma_to<HDP> sums 256·(hi·V) + lo·V, the
 //   exact integer Σ_j w_j·v_j, and stores clip(round(av·2^-15·ro)). LIS off:
 //   softmax_av_to, p2v::softmax_row and the float64 Σ_j p_j·v_j in key
-//   order over the stage's row-major v, two rows a warp side by side. Output columns past hd are never
+//   order over the stage's row-major v, two rows a warp side by side. WIDE
+//   (N > NMAX, or HDP = 128): the rows run in attention_mma.cuh's *_wide
+//   forms, which re-read each row from the score plane instead of holding
+//   it in JT registers a lane, with the same arithmetic and so the same
+//   bits. Output columns past hd are never
 //   written: codes go out two bytes at a time where aligned, else one.
 //
 // Layout (ops/attention_lis.vit_attention_layout mirrors it): `stages`
@@ -38,7 +42,7 @@ using vit_attn::JT;
 using vit_attn::NMAX;
 
 struct Layout {
-  int hdp;     // head_dim padded to 32 or 64
+  int hdp;     // head_dim padded to 32, 64 or 128
   int qld;     // bytes per staged q / k row
   int kpad;    // keys padded to a multiple of 32 (the MMA depth)
   int ng;      // 16-row query groups, ⌈N/16⌉
@@ -53,7 +57,11 @@ struct Layout {
   int total;   // bytes
 };
 
-__host__ __device__ inline int pad_hd(int hd) { return hd <= 32 ? 32 : 64; }
+__host__ __device__ inline int pad_hd(int hd) { return hd <= 32 ? 32 : hd <= 64 ? 64 : 128; }
+
+// The rows' form at N keys and padded head_dim hdp: the JT-register rows up
+// to NMAX keys at HDP 32 and 64, the *_wide rows past them.
+__host__ __device__ inline bool wide(int n, int hdp) { return n > NMAX || hdp > 64; }
 
 __host__ __device__ inline Layout layout(int n, int hd, bool lis, int stages, int gc) {
   Layout l{};
@@ -145,8 +153,9 @@ __device__ __forceinline__ void stage_item(const Layout& L, const Items& a, int 
 
 // Attention of the item staged in `st` (landed and synced); `sm`: the
 // layout's base (vt and the planes). NT threads, NW = NT/32 warps. scal:
-// rq, s_attn, ro, x0_int, b_int, c_int. Ends with __syncthreads.
-template <bool LIS, int HDP, int NT>
+// rq, s_attn, ro, x0_int, b_int, c_int. WIDE = wide(N, HDP). Ends with
+// __syncthreads.
+template <bool LIS, int HDP, int NT, bool WIDE>
 __device__ __forceinline__ void attend_item(const Layout& L, const Items& a, int item, const int8_t* st, int8_t* sm,
                                             const float* __restrict__ scal) {
   namespace ma = mma_attn;
@@ -195,10 +204,17 @@ __device__ __forceinline__ void attend_item(const Layout& L, const Items& a, int
     });
     __syncthreads();
     auto load = [&](int r, float(&ac)[JT]) { ma::load_scores<JT>(s + r * L.vld, N, ac); };
+    auto key = [&](int r, int j) { return static_cast<float>(s[r * L.vld + j]); };
     if constexpr (LIS) {
-      ma::lis_weight_rows<JT, NW>(load, s, sm + L.lo, L.vld, 16 * ngc, row0, N, L.kpad, scal[3], scal[4], scal[5]);
+      if constexpr (WIDE)
+        ma::lis_weight_rows_wide<NW>(key, s, sm + L.lo, L.vld, 16 * ngc, row0, N, L.kpad, scal[3], scal[4], scal[5]);
+      else
+        ma::lis_weight_rows<JT, NW>(load, s, sm + L.lo, L.vld, 16 * ngc, row0, N, L.kpad, scal[3], scal[4],
+                                    scal[5]);
       __syncthreads();
       ma::av_mma_to<HDP, NW>(s, sm + L.lo, vt, L.vld, ngc, L.kpad, row0, N, scal[2], store);
+    } else if constexpr (WIDE) {
+      ma::softmax_av_wide<HDP, NW>(key, vs, HDP, 16 * ngc, row0, N, scal[1], scal[2], store);
     } else {
       ma::softmax_av_to<JT, HDP, NW, 2>(load, vs, HDP, 16 * ngc, row0, N, scal[1], scal[2], store);
     }

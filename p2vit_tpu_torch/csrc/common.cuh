@@ -255,13 +255,47 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Log-Int-Softmax of one attention row held by a warp (ops/attention_lis.py
-// lis_codes, op for op). Lane l holds the scores ac[t] of keys l + 32·t of a
-// row of n keys (slots past n are ignored). Per key: the I-BERT int-exp on
-// x = max(ac − rowmax, 32·x0) with the constants x0_int, b_int, c_int;
-// exp_sum as an exact two-limb int64 sum (hi = ⌊e·2^-32⌋, lo = e − hi·2^32)
-// rounded once to float32; the LIS code q = ⌊log2 round(Σ/e)⌋ + tie. Writes
-// each key's weight as the integer 2^(15−q), 0 when q ≥ 16.
+// The Log-Int-Softmax steps of one key (ops/attention_lis.py lis_codes, op
+// for op): lis_exp, the I-BERT int-exp of score x in a row of maximum mx,
+// on max(x − mx, xmin = 32·x0) with the constants x0_int, b_int, c_int;
+// add_limbs, e's two limbs (hi = ⌊e·2^-32⌋, lo = e − hi·2^32) into the
+// row's exact int64 sums; limbs_f32, the row's exp_sum rounded once to
+// float32 from the summed limbs; lis_weight, the LIS code q = ⌊log2
+// round(Σ/e)⌋ + tie as the integer weight 2^(15−q), 0 when q ≥ 16. Each
+// e < 2^74 (s_attn ≥ 2^-20), so a limb is < 2^42 and N keys sum below 2^63
+// for every N < 2^21.
+__device__ __forceinline__ float lis_exp(float x, float mx, float xmin, float x0, float b_int, float c_int) {
+  const float xi = fmaxf(__fsub_rn(x, mx), xmin);
+  const float q = floorf(__fdiv_rn(xi, x0));
+  const float rr = __fsub_rn(xi, __fmul_rn(x0, q));
+  const float poly = __fadd_rn(__fmul_rn(rr, __fadd_rn(rr, b_int)), c_int);
+  return fmaxf(floorf(__fmul_rn(poly, exp2i(32 - static_cast<int>(q)))), 0.f);
+}
+
+__device__ __forceinline__ void add_limbs(float e, long long& shi, long long& slo) {
+  const float hf = floorf(__fmul_rn(e, 0x1p-32f));
+  shi += static_cast<long long>(hf);
+  slo += static_cast<long long>(__fsub_rn(e, __fmul_rn(hf, 0x1p32f)));
+}
+
+__device__ __forceinline__ float limbs_f32(long long shi, long long slo) {
+  shi += slo >> 32;
+  slo &= 0xFFFFFFFFLL;
+  return shi < (1LL << 31) ? __ll2float_rn((shi << 32) + slo)
+                           : __fmul_rn(__ll2float_rn((shi << 1) | (slo != 0 ? 1LL : 0LL)), 0x1p31f);
+}
+
+__device__ __forceinline__ int lis_weight(float esum, float e) {
+  const float so = rintf(__fdiv_rn(esum, e));
+  int big = floor_log2i(so);
+  big += so >= __fmul_rn(1.5f, exp2i(big)) ? 1 : 0;
+  return big < 16 ? (1 << (15 - big)) : 0;
+}
+
+// Log-Int-Softmax of one attention row held by a warp. Lane l holds the
+// scores ac[t] of keys l + 32·t of a row of n keys (slots past n are
+// ignored): the row maximum, each key's lis_exp, exp_sum from the limbs
+// (warp sums of exact integers), each key's lis_weight into wt.
 template <int JT>
 __device__ __forceinline__ void lis_row(const float (&ac)[JT], int n, float x0, float b_int,
                                         float c_int, int (&wt)[JT]) {
@@ -279,34 +313,13 @@ __device__ __forceinline__ void lis_row(const float (&ac)[JT], int n, float x0, 
   for (int t = 0; t < JT; ++t) {
     ex[t] = 0.f;
     if (lane + 32 * t < n) {
-      const float xi = fmaxf(__fsub_rn(ac[t], mx), xmin);
-      const float q = floorf(__fdiv_rn(xi, x0));
-      const float rr = __fsub_rn(xi, __fmul_rn(x0, q));
-      const float poly = __fadd_rn(__fmul_rn(rr, __fadd_rn(rr, b_int)), c_int);
-      const float e = fmaxf(floorf(__fmul_rn(poly, exp2i(32 - static_cast<int>(q)))), 0.f);
-      ex[t] = e;
-      const float hf = floorf(__fmul_rn(e, 0x1p-32f));
-      shi += static_cast<long long>(hf);
-      slo += static_cast<long long>(__fsub_rn(e, __fmul_rn(hf, 0x1p32f)));
+      ex[t] = lis_exp(ac[t], mx, xmin, x0, b_int, c_int);
+      add_limbs(ex[t], shi, slo);
     }
   }
-  shi = warp_sum(shi);
-  slo = warp_sum(slo);
-  shi += slo >> 32;
-  slo &= 0xFFFFFFFFLL;
-  const float esum = shi < (1LL << 31)
-                         ? __ll2float_rn((shi << 32) + slo)
-                         : __fmul_rn(__ll2float_rn((shi << 1) | (slo != 0 ? 1LL : 0LL)), 0x1p31f);
+  const float esum = limbs_f32(warp_sum(shi), warp_sum(slo));
 #pragma unroll
-  for (int t = 0; t < JT; ++t) {
-    wt[t] = 0;
-    if (lane + 32 * t < n) {
-      const float so = rintf(__fdiv_rn(esum, ex[t]));
-      int big = floor_log2i(so);
-      big += so >= __fmul_rn(1.5f, exp2i(big)) ? 1 : 0;
-      wt[t] = big < 16 ? (1 << (15 - big)) : 0;
-    }
-  }
+  for (int t = 0; t < JT; ++t) wt[t] = lane + 32 * t < n ? lis_weight(esum, ex[t]) : 0;
 }
 
 // The LIS-off fp32 softmax of one attention row held by a warp

@@ -5,6 +5,14 @@
 // fp32 softmax) → proj + residual + LN2 → fc1 + GELU → fc2 + residual + the
 // next LN, from (B, N, C) h/xc codes to h'/xc' codes.
 //
+// Widths: the kernel runs at C and hid multiples of 64; the wrapper
+// zero-pads a true width Ct (and hid) up to them, weights, vectors and
+// codes alike (ops/layer_fused.layer_pad). Zero weight rows and vectors
+// give the padded columns zero codes at every junction, which add nothing
+// to Σx or Σx²; the LN chains divide by Ct (c_true), the heads are Ct/H
+// wide, and the outputs are written Ct columns wide, so columns past Ct
+// are written nowhere.
+//
 // The TPU kernel keeps the ~1.8 MB of DeiT-S weight panels resident in VMEM;
 // an H100 block has 227 KB of shared memory, so this kernel streams the
 // weights from L2 and runs the layer as three phases of one cooperative
@@ -98,9 +106,8 @@ __host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; 
 
 // force_gc > 0: that many attention query groups a chunk (a measurement
 // hook); else the most that fit.
-__host__ __device__ inline Layout layout(int N, int C, int H, int hid, bool lis, int force_gc) {
+__host__ __device__ inline Layout layout(int N, int C, int hd, int hid, bool lis, int force_gc) {
   Layout l{};
-  const int hd = C / H;
   l.hdp = vit_item::pad_hd(hd);
   l.ot = kNC * kRing * kStageA;
   l.end_a = l.ot + kNC * kBM * (kBN + 16);
@@ -266,7 +273,9 @@ __device__ __forceinline__ void gelu_chunk(const int (&acc)[kBN / 2], int* gs, u
 // take the rest (their products run on 64 rows, their epilogues on 32). ws: (M, 3C) qkv codes then (M, C) attention codes,
 // written and read inside the launch (tm_attn maps the second). stamps, if
 // not null: block 0's %globaltimer (ns) at the start and after each phase.
-template <bool LIS, int HDP>
+// C, hid: the padded widths (multiples of 64); Ct: the true width, H heads
+// of Ct/H; ho and xo are (M, Ct). WIDE = vit_item::wide(N, HDP).
+template <bool LIS, int HDP, bool WIDE>
 __global__ void __launch_bounds__(kThreadsL, 1)
     fused_vit_layer_kernel(const __grid_constant__ CUtensorMap tm_h, const __grid_constant__ CUtensorMap tm_qkv,
                            const __grid_constant__ CUtensorMap tm_attn, const __grid_constant__ CUtensorMap tm_proj,
@@ -274,8 +283,8 @@ __global__ void __launch_bounds__(kThreadsL, 1)
                            const int8_t* __restrict__ xc, const float* __restrict__ qv, const float* __restrict__ pv,
                            const float* __restrict__ f1v, const float* __restrict__ f2v,
                            const float* __restrict__ scal, int8_t* ws, int8_t* __restrict__ ho,
-                           int8_t* __restrict__ xo, unsigned long long* stamps, int B, int N, int C, int H, int hid,
-                           int force_gc, int n64) {
+                           int8_t* __restrict__ xo, unsigned long long* stamps, int B, int N, int C, int Ct, int H,
+                           int hid, int force_gc, int n64) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   cg::grid_group grid = cg::this_grid();
@@ -284,7 +293,7 @@ __global__ void __launch_bounds__(kThreadsL, 1)
       asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(stamps[i])::"memory");
   };
   stamp(0);
-  const Layout L = layout(N, C, H, hid, LIS, force_gc);
+  const Layout L = layout(N, C, Ct / H, hid, LIS, force_gc);
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L.bar);  // [2][kNC][kRing] ring barriers, then the A tile's
   uint64_t* a_full = bars + 2 * kNC * kRing;
   if (threadIdx.x == 0) {
@@ -293,7 +302,7 @@ __global__ void __launch_bounds__(kThreadsL, 1)
   }
   __syncthreads();
 
-  const int M = B * N, C3 = 3 * C, hd = C / H;
+  const int M = B * N, C3 = 3 * C, hd = Ct / H;
   const int nkc = ceil_div(C, kBK), nkh = ceil_div(hid, kBK);
   // phase C's blocks: n64 of 64 rows, then 32-row blocks over the rest
   const int ncc = C / kBN, nch = hid / kBN, nb = n64 + ceil_div(max(0, M - 64 * n64), 32);
@@ -340,10 +349,11 @@ __global__ void __launch_bounds__(kThreadsL, 1)
   {
     const vit_item::Layout AL = vit_item::layout(N, hd, LIS, 2, L.gc);
     // 16-byte copies where head_dim is a multiple of 16 (C % 64 == 0 makes
-    // the rows and the item offsets so; HDP 64 is head_dim 64); byte loads
-    // below, which a 16-byte copy would read into the next head's codes
+    // the rows so); byte loads below, which a 16-byte copy would read into
+    // the next head's codes. q, k and v of the heads lie in the first Ct
+    // columns of their C-wide parts.
     const vit_item::Items it{qkv, qkv + C, qkv + 2 * C, attn, C3, C, (size_t)N * C3, (size_t)N * C, N, H, hd,
-                             HDP == 64 || hd % 16 == 0};
+                             hd % 16 == 0};
     int8_t* base = reinterpret_cast<int8_t*>(sm);
     const int items = B * H;
     if (blockIdx.x < items) vit_item::stage_item<kThreadsL>(AL, it, blockIdx.x, base);
@@ -353,7 +363,7 @@ __global__ void __launch_bounds__(kThreadsL, 1)
       __syncthreads();  // this item's rows landed; the last item is done with every buffer
       if (item + gridDim.x < items)
         vit_item::stage_item<kThreadsL>(AL, it, item + gridDim.x, base + ((k + 1) & 1) * AL.stage);
-      vit_item::attend_item<LIS, HDP, kThreadsL>(AL, it, item, base + (k & 1) * AL.stage, base, scal);
+      vit_item::attend_item<LIS, HDP, kThreadsL, WIDE>(AL, it, item, base + (k & 1) * AL.stage, base, scal);
     }
   }
   fence_proxy_async();  // the codes and this CTA's shared memory, before TMA reads or writes them
@@ -390,7 +400,8 @@ __global__ void __launch_bounds__(kThreadsL, 1)
     RowSums* part = reinterpret_cast<RowSums*>(sm + L.part);
     float2* lnr = reinterpret_cast<float2*>(sm + L.lnr);
     const uint32_t mlp_a = smem_u32(mlp), gelu_a = smem_u32(gelu);
-    const float fc1_inv = scal[6], s1_ln2 = scal[7], s1_lnn = scal[8], cf = static_cast<float>(C);
+    const float fc1_inv = scal[6], s1_ln2 = scal[7], s1_lnn = scal[8], cf = static_cast<float>(Ct);
+    const bool vec4 = Ct % 4 == 0;  // 4-byte output stores
     const int wv = 4 * c + w;
     // the block's attention rows into the GELU tile's place (proj's A operand)
     auto load_a = [&](int blk) {
@@ -455,9 +466,17 @@ __global__ void __launch_bounds__(kThreadsL, 1)
       // fc2's products are done: the next block's attention rows may take the GELU tile's place
       if (threadIdx.x == 0 && blk + gridDim.x < nb) load_a(blk + gridDim.x);
       ln_pass(res1, ldc, lnr, f2v, C, rows, wv, lane, [&](int rr, int col, uint32_t res4, uint32_t ln4) {
-        const size_t o = (size_t)(m0 + rr) * C + col;
-        *reinterpret_cast<uint32_t*>(xo + o) = res4;
-        *reinterpret_cast<uint32_t*>(ho + o) = ln4;
+        if (col >= Ct) return;
+        const size_t o = (size_t)(m0 + rr) * Ct + col;
+        if (vec4) {
+          *reinterpret_cast<uint32_t*>(xo + o) = res4;
+          *reinterpret_cast<uint32_t*>(ho + o) = ln4;
+        } else {
+          for (int e = 0; e < 4 && col + e < Ct; ++e) {
+            xo[o + e] = static_cast<int8_t>(res4 >> (8 * e));
+            ho[o + e] = static_cast<int8_t>(ln4 >> (8 * e));
+          }
+        }
       });
       __syncthreads();  // the tiles are read before the next block writes them
     }
@@ -477,18 +496,27 @@ using namespace p2v::layer;
 
 using LayerKernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap,
                              const int8_t*, const float*, const float*, const float*, const float*, const float*,
-                             int8_t*, int8_t*, int8_t*, unsigned long long*, int, int, int, int, int, int, int);
+                             int8_t*, int8_t*, int8_t*, unsigned long long*, int, int, int, int, int, int, int, int);
 
-LayerKernel kernel_of(bool lis, int hdp) {
-  if (hdp == 32) return lis ? fused_vit_layer_kernel<true, 32> : fused_vit_layer_kernel<false, 32>;
-  return lis ? fused_vit_layer_kernel<true, 64> : fused_vit_layer_kernel<false, 64>;
+template <bool LIS>
+LayerKernel kernel_lis(int n, int hdp) {
+  if (p2v::vit_item::wide(n, hdp)) {
+    if (hdp == 32) return fused_vit_layer_kernel<LIS, 32, true>;
+    if (hdp == 64) return fused_vit_layer_kernel<LIS, 64, true>;
+    return fused_vit_layer_kernel<LIS, 128, true>;
+  }
+  return hdp == 32 ? fused_vit_layer_kernel<LIS, 32, false> : fused_vit_layer_kernel<LIS, 64, false>;
 }
 
-// The shapes the kernel takes (the wrapper's check_fits mirrors them).
-bool takes(int B, int N, int C, int H, int hid) {
-  if (B < 1 || N < 1 || N > p2v::vit_attn::NMAX || H < 1 || C % H || C % kBN || hid % kBN || C > 1024) return false;
-  const int hd = C / H;  // every divisor of 128 up to 64, as JAX's assert admits
-  return hd <= 64 && 128 % hd == 0;
+LayerKernel kernel_of(bool lis, int n, int hdp) { return lis ? kernel_lis<true>(n, hdp) : kernel_lis<false>(n, hdp); }
+
+// The shapes the kernel takes (the wrapper's check_fits mirrors them): C and
+// hid multiples of 64 holding Ct = H·hd, hd a divisor of 128 (or 128), as
+// JAX's assert admits; shared memory bounds N and the widths (plan).
+bool takes(int B, int N, int C, int Ct, int H, int hid) {
+  if (B < 1 || N < 1 || H < 1 || Ct < 1 || Ct > C || Ct % H || C % kBN || hid < 1 || hid % kBN) return false;
+  const int hd = Ct / H;
+  return hd <= 128 && 128 % hd == 0;
 }
 
 struct Launch {
@@ -521,13 +549,14 @@ int block_split(int M, int grid, int force_br) {
 // phase's work items: at least the qkv tiles, never fewer than phase C's
 // blocks), phase C's block_split; force_grid (≤ the CTAs the card holds at
 // once), force_gc, force_br > 0 take their place.
-cudaError_t plan(int B, int N, int C, int H, int hid, int lis, int force_grid, int force_gc, int force_br,
+cudaError_t plan(int B, int N, int C, int Ct, int H, int hid, int lis, int force_grid, int force_gc, int force_br,
                  Launch* out) {
-  if (!takes(B, N, C, H, hid) || (force_br != 0 && force_br != 32 && force_br != 64)) return cudaErrorInvalidValue;
+  if (!takes(B, N, C, Ct, H, hid) || (force_br != 0 && force_br != 32 && force_br != 64))
+    return cudaErrorInvalidValue;
   Launch l{};
-  l.L = layout(N, C, H, hid, lis != 0, force_gc);
+  l.L = layout(N, C, Ct / H, hid, lis != 0, force_gc);
   if (l.L.gc < 1 || l.L.smem > p2v::wg::kMaxSmem) return cudaErrorInvalidValue;
-  l.kern = kernel_of(lis != 0, l.L.hdp);
+  l.kern = kernel_of(lis != 0, N, l.L.hdp);
   cudaError_t err = p2v::set_smem(l.kern, l.L.smem);
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&l.fa, l.kern);
   if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&l.per_sm, l.kern, kThreadsL, l.L.smem);
@@ -546,18 +575,20 @@ cudaError_t plan(int B, int N, int C, int H, int hid, int lis, int force_grid, i
 
 }  // namespace
 
-// (B, N, C) h / xc codes -> (B, N, C) ho / xo codes; ws holds B·N·4C bytes;
+// (B, N, C) h / xc codes -> (B, N, Ct) ho / xo codes (C, hid padded to
+// multiples of 64 around the true width Ct, as the wrapper pads them); ws
+// holds B·N·4C bytes;
 // stamps: null, or 4 uint64 for the phase timestamps. force_grid,
 // force_gc, force_br > 0: the grid, the attention's query groups a chunk and
 // phase C's rows a block, 32 or 64 for every block (a measurement hook).
 extern "C" int p2v_fused_vit_layer_forced(const void* h, const void* xc, const void* wqkv, const void* qv,
                                           const void* wproj, const void* pv, const void* wfc1, const void* f1v,
                                           const void* wfc2, const void* f2v, const void* scal, void* ws, void* ho,
-                                          void* xo, void* stamps, int B, int N, int C, int H, int hid, int lis,
-                                          int force_grid, int force_gc, int force_br, void* stream) {
+                                          void* xo, void* stamps, int B, int N, int C, int Ct, int H, int hid,
+                                          int lis, int force_grid, int force_gc, int force_br, void* stream) {
   if (B == 0) return 0;
   Launch l;
-  cudaError_t err = plan(B, N, C, H, hid, lis, force_grid, force_gc, force_br, &l);
+  cudaError_t err = plan(B, N, C, Ct, H, hid, lis, force_grid, force_gc, force_br, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int M = B * N;
   auto* wsp = static_cast<int8_t*>(ws);
@@ -582,7 +613,7 @@ extern "C" int p2v_fused_vit_layer_forced(const void* h, const void* xc, const v
                            static_cast<const float*>(pv), static_cast<const float*>(f1v),
                            static_cast<const float*>(f2v), static_cast<const float*>(scal), wsp,
                            static_cast<int8_t*>(ho), static_cast<int8_t*>(xo),
-                           static_cast<unsigned long long*>(stamps), B, N, C, H, hid, force_gc, l.n64);
+                           static_cast<unsigned long long*>(stamps), B, N, C, Ct, H, hid, force_gc, l.n64);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -590,9 +621,9 @@ extern "C" int p2v_fused_vit_layer_forced(const void* h, const void* xc, const v
 extern "C" int p2v_fused_vit_layer(const void* h, const void* xc, const void* wqkv, const void* qv, const void* wproj,
                                    const void* pv, const void* wfc1, const void* f1v, const void* wfc2,
                                    const void* f2v, const void* scal, void* ws, void* ho, void* xo, void* stamps,
-                                   int B, int N, int C, int H, int hid, int lis, void* stream) {
+                                   int B, int N, int C, int Ct, int H, int hid, int lis, void* stream) {
   return p2v_fused_vit_layer_forced(h, xc, wqkv, qv, wproj, pv, wfc1, f1v, wfc2, f2v, scal, ws, ho, xo, stamps, B,
-                                    N, C, H, hid, lis, 0, 0, 0, stream);
+                                    N, C, Ct, H, hid, lis, 0, 0, 0, stream);
 }
 
 // The launch facts at these shapes (force_grid, force_gc, force_br as
@@ -600,10 +631,10 @@ extern "C" int p2v_fused_vit_layer(const void* h, const void* xc, const void* wq
 // and C's bytes, attention query groups a chunk, padded head_dim, registers
 // per thread, spill bytes per thread, CTAs per SM, SMs, stages of a
 // warpgroup's ring, chunk width, phase C's 64-row blocks and all its blocks.
-extern "C" int p2v_fused_vit_layer_info(int B, int N, int C, int H, int hid, int lis, int force_grid, int force_gc,
-                                        int force_br, void* out) {
+extern "C" int p2v_fused_vit_layer_info(int B, int N, int C, int Ct, int H, int hid, int lis, int force_grid,
+                                        int force_gc, int force_br, void* out) {
   Launch l;
-  const cudaError_t err = plan(B, N, C, H, hid, lis, force_grid, force_gc, force_br, &l);
+  const cudaError_t err = plan(B, N, C, Ct, H, hid, lis, force_grid, force_gc, force_br, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int vals[16] = {kThreadsL, l.grid, l.L.smem, 1024 + l.L.end_a, 1024 + l.L.end_b, 1024 + l.L.end_c, l.L.gc,
                         l.L.hdp, l.fa.numRegs, static_cast<int>(l.fa.localSizeBytes), l.per_sm, l.sms, kRing, kBN,

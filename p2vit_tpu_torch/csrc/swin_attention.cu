@@ -4,8 +4,10 @@
 //
 // Replaces the Pallas kernels p2vit_tpu/ops/attention_lis.py:swin_lis_attention
 // (_swin_kernel -> _swin_head_loop) and swin_lis_attention_folded
-// (_swin_folded_kernel). Head_dim D = 32, N ≤ 160 tokens per window (49 for
-// 7×7 windows, 144 for 12×12). Per (window, head) item:
+// (_swin_folded_kernel). Head_dim HD = 32 or 64 (the wrapper zero-pads
+// smaller heads to one of them), N ≤ 256 tokens per window (49 for 7×7
+// windows, 144 for 12×12, 256 for 16×16; at HD = 64, N ≤ 160, where two
+// stage buffers still fit shared memory). Per (window, head) item:
 //   scores acc = q·kᵀ → attn1 = clip(round(acc·rq)) → qact2 codes
 //   clip(round((attn1·s1 + bias[h,i,j])·inv_s2)) → + mask[w mod nW, i, j]
 //   (already divided by s2, added unrounded) → LIS (p2v::lis_row: the
@@ -34,19 +36,22 @@
 //   stages bias[h] (N² float32) in shared memory when its item's head
 //   changes: a few times per CTA where a head has more windows than the
 //   grid has CTAs (Swin-T stages 0 and 1 at batch 64), every item else.
-// * The next item's q, k and v rows (3 × N × 32 bytes, through a per-row
+// * The next item's q, k and v rows (3 × N × HD bytes, through a per-row
 //   token index that also addresses the output) and its mask[w mod nW]
 //   (N² float32) go into the other of two stage buffers by cp.async while
 //   the current item computes.
-// * Two instances by the window's size NM: N ≤ 64 (every zoo Swin) as
-//   above; 64 < N ≤ 160 (JAX's 12×12 windows, N = 144, which its wrapper
-//   zero-pads to 160) reads bias[h] and the mask from global memory (L2)
-//   where the score epilogue and the LIS rows use them, since two staged
-//   masks and bias[h] would take 3·N²·4 = 249 KB there, and keeps the lo
-//   plane in a region of its own (the spent q/k rows are too few). Keys
-//   are zero-padded to a multiple of 32 in both, as JAX pads them.
-// * Scores on int8 tensor cores: four 16-row query groups × eight 8-key
-//   tiles of mma.sync m16n8k32 s8·s8 (|q·k| ≤ 32·128² < 2^20: exact int32,
+// * Instances by the window's size NM: N ≤ 64 (every zoo Swin) as above;
+//   64 < N ≤ 160 (JAX's 12×12 windows, N = 144, which its wrapper
+//   zero-pads to 160) and 160 < N ≤ 256 (16×16 windows) read bias[h] and
+//   the mask from global memory (L2) where the score epilogue and the LIS
+//   rows use them, since two staged masks and bias[h] would take
+//   3·N²·4 = 249 KB at N = 144, and keep the lo plane in a region of their
+//   own (the spent q/k rows are too few); at NM = 256 the LIS-off rows go
+//   one a warp (kOffRows 1) to fit. Keys are zero-padded to a multiple of
+//   32 in all, as JAX pads them. Each NM has an HD = 32 instance; NM 64 and
+//   160 also an HD = 64 one.
+// * Scores on int8 tensor cores: 16-row query groups × 8-key
+//   tiles of mma.sync m16n8k32 s8·s8 (|q·k| ≤ 64·128² < 2^21: exact int32,
 //   equal to the dp4a sum); the epilogue runs the attn1 and qact2 requant
 //   with the staged bias on the fragment and stores int8 codes.
 // * LIS: p2v::lis_row per query row (one warp a row; the mask is added as
@@ -73,19 +78,20 @@ namespace {
 namespace ma = p2v::mma_attn;
 using p2v::kThreads;
 
-constexpr int D = 32;
 constexpr int NSTAGED = 64;  // windows up to this many tokens stage bias[h] and the masks in shared memory
-constexpr int NMAX = 160;    // the largest window: 12×12 = 144 tokens, keys padded to 160
-constexpr int QLD = D + 16;  // bytes per staged q / k row (conflict-free fragments)
-constexpr int kOffRows = 2;  // LIS off: rows a warp sums side by side
+constexpr int NMID = 160;    // 12×12 = 144 tokens, keys padded to 160
+constexpr int NMAX = 256;    // the largest window: 16×16 tokens
+constexpr int NMAX_HD64 = NMID;  // the largest window at head_dim 64
 
-// The sizes of the instance for windows of up to NM tokens.
-template <int NM>
+// The sizes of the instance for windows of up to NM tokens at head_dim HD.
+template <int NM, int HD>
 struct Sz {
-  static constexpr int JT = NM / 32;                  // key slots per lane
-  static constexpr int STAGE = 2 * NM * QLD + NM * D;  // q, k (QLD rows) and v (dense rows) of one item
-  static constexpr int WLD = NM + 16;                 // bytes per row of V transposed and of the weight planes
-  static constexpr bool STAGED = NM <= NSTAGED;       // bias[h] and the masks in shared memory
+  static constexpr int QLD = HD + 16;                  // bytes per staged q / k row (conflict-free fragments)
+  static constexpr int JT = NM / 32;                   // key slots per lane
+  static constexpr int STAGE = 2 * NM * QLD + NM * HD;  // q, k (QLD rows) and v (dense rows) of one item
+  static constexpr int WLD = NM + 16;                  // bytes per row of V transposed and of the weight planes
+  static constexpr bool STAGED = NM <= NSTAGED;        // bias[h] and the masks in shared memory
+  static constexpr int OFF_ROWS = NM > NMID ? 1 : 2;   // LIS off: rows a warp sums side by side
 };
 constexpr int kWarps = kThreads / 32;
 constexpr int kSlots = 16;  // launches that may be in flight at once, each with its own counters
@@ -96,28 +102,30 @@ __device__ unsigned int g_work[kSlots][2];
 
 // Shared memory at N tokens (byte offsets): two rows of token indices, two
 // stage buffers of q, k, v rows, two of masks, the score / hi plane and
-// bias[h] (the masks and bias[h] only where STAGED; else the lo plane);
-// LIS: V transposed; LIS off: v as doubles and the warps' p rows.
+// bias[h] (the masks and bias[h] only where STAGED; else the lo plane, but
+// LIS off at NM = 256); LIS: V transposed; LIS off: v as doubles and the
+// warps' p rows.
 struct Layout {
   int nn, tok, stg, mask, hi, lo, bias, vt, vd, pb, total;
 };
 __host__ __device__ constexpr int nn_bytes(int n) { return (n * n * 4 + 15) / 16 * 16; }
-template <bool LIS, int NM>
+template <bool LIS, int NM, int HD>
 __host__ __device__ constexpr Layout layout(int n) {
-  using S = Sz<NM>;
+  using S = Sz<NM, HD>;
   Layout l{};
   l.nn = S::STAGED ? nn_bytes(n) : 0;
   l.tok = 0;
   l.stg = 2 * NM * 4;
   l.mask = l.stg + 2 * S::STAGE;
   l.hi = l.mask + 2 * l.nn;
-  l.lo = S::STAGED ? -1 : l.hi + NM * S::WLD;  // STAGED: over the item's spent q/k rows
-  l.bias = S::STAGED ? l.hi + NM * S::WLD : l.lo + NM * S::WLD;
+  // STAGED: over the item's spent q/k rows; none LIS off at NM = 256 (kept at 160, where it fits)
+  l.lo = S::STAGED || (!LIS && NM > NMID) ? -1 : l.hi + NM * S::WLD;
+  l.bias = l.lo < 0 ? l.hi + NM * S::WLD : l.lo + NM * S::WLD;
   const int end = l.bias + l.nn;
-  l.vt = end;                                              // LIS: D × WLD
-  l.vd = end;                                              // LIS off: N × D doubles
-  l.pb = end + (n * D * 8 + 15) / 16 * 16;                 // LIS off: kWarps × kOffRows × NM doubles
-  l.total = LIS ? l.vt + D * S::WLD : l.pb + kWarps * kOffRows * NM * 8;
+  l.vt = end;                                              // LIS: HD × WLD
+  l.vd = end;                                              // LIS off: N × HD doubles
+  l.pb = end + (n * HD * 8 + 15) / 16 * 16;                // LIS off: kWarps × OFF_ROWS × NM doubles
+  l.total = LIS ? l.vt + HD * S::WLD : l.pb + kWarps * S::OFF_ROWS * NM * 8;
   return l;
 }
 
@@ -159,53 +167,61 @@ __device__ __forceinline__ int8_t av_code(double av, float ro) {
 
 // LIS off, the rows of one item: load(r, ac) → p2v::softmax_row at s2 →
 // Σ_j p_j·v_j in float64 over keys j < N in order (vd: v as doubles, row j
-// at vd + j·D; lane l owns dim l) → out_row(r)[l]. p_j goes to double once
-// and into the warp's row buffer pb, read back by a broadcast load per key.
-template <int NM, class Load, class OutRow>
+// at vd + j·HD; lane l owns dims l, l + 32, …) → out_row(r)[l + 32u]. p_j
+// goes to double once and into the warp's row buffer pb, read back by a
+// broadcast load per key.
+template <int NM, int HD, class Load, class OutRow>
 __device__ __forceinline__ void softmax_av_swin(Load&& load, const double* vd, double* pb, int N, float s2, float ro,
                                                 OutRow&& out_row) {
-  constexpr int JT = Sz<NM>::JT;
+  using S = Sz<NM, HD>;
+  constexpr int JT = S::JT, R = S::OFF_ROWS, DL = HD / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  double* rows = pb + warp * kOffRows * NM;
-  for (int r = warp; r < N; r += kOffRows * kWarps) {
-    bool has[kOffRows];
-    double a[kOffRows];
+  double* rows = pb + warp * R * NM;
+  for (int r = warp; r < N; r += R * kWarps) {
+    bool has[R];
+    double a[R][DL];
 #pragma unroll
-    for (int q = 0; q < kOffRows; ++q) {
+    for (int q = 0; q < R; ++q) {
       has[q] = q == 0 || r + q * kWarps < N;  // a missing row reruns row r, dropped
       float ac[JT], p[JT];
       load(has[q] ? r + q * kWarps : r, ac);
       p2v::softmax_row<JT>(ac, N, s2, p);
 #pragma unroll
       for (int t = 0; t < JT; ++t) rows[q * NM + lane + 32 * t] = static_cast<double>(p[t]);
-      a[q] = 0.0;
+#pragma unroll
+      for (int u = 0; u < DL; ++u) a[q][u] = 0.0;
     }
     __syncwarp();
 #pragma unroll 4
     for (int j = 0; j < N; ++j) {
-      const double v = vd[j * D + lane];
 #pragma unroll
-      for (int q = 0; q < kOffRows; ++q) a[q] = __fma_rn(rows[q * NM + j], v, a[q]);
+      for (int u = 0; u < DL; ++u) {
+        const double v = vd[j * HD + lane + 32 * u];
+#pragma unroll
+        for (int q = 0; q < R; ++q) a[q][u] = __fma_rn(rows[q * NM + j], v, a[q][u]);
+      }
     }
     __syncwarp();  // the row buffer is read before the next rows overwrite it
 #pragma unroll
-    for (int q = 0; q < kOffRows; ++q)
-      if (has[q]) out_row(r + q * kWarps)[lane] = av_code(a[q], ro);
+    for (int q = 0; q < R; ++q)
+      if (has[q])
+#pragma unroll
+        for (int u = 0; u < DL; ++u) out_row(r + q * kWarps)[lane + 32 * u] = av_code(a[q][u], ro);
   }
 }
 
 // scal: rq, s1, inv_s2, ro, x0_int, b_int, c_int, s2
-template <bool LIS, bool FOLD, int NM>
-__global__ void __launch_bounds__(kThreads, Sz<NM>::STAGED ? (LIS ? 4 : 3) : (LIS ? 2 : 1))
+template <bool LIS, bool FOLD, int NM, int HD>
+__global__ void __launch_bounds__(kThreads, Sz<NM, HD>::STAGED ? (LIS ? 4 : 3) : (LIS ? 2 : 1))
     swin_attention_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ bias,
                           const float* __restrict__ mask, const float* __restrict__ scal,
                           int8_t* __restrict__ out, Geom a, int items, unsigned long long* __restrict__ stamps,
                           unsigned long long* __restrict__ cta_ns, int slot) {
-  using S = Sz<NM>;
-  constexpr int JT = S::JT, STAGE = S::STAGE, WLD = S::WLD;
+  using S = Sz<NM, HD>;
+  constexpr int JT = S::JT, STAGE = S::STAGE, WLD = S::WLD, QLD = S::QLD, CH = HD / 16;
   extern __shared__ __align__(16) int8_t sm[];
   const int N = a.N;
-  const Layout L = layout<LIS, NM>(N);
+  const Layout L = layout<LIS, NM, HD>(N);
   int* tok = reinterpret_cast<int*>(sm + L.tok);             // [2][NM] token index of each staged row
   int8_t* stg = sm + L.stg;                                  // [2][STAGE] q, k, v rows
   float* mask_s = reinterpret_cast<float*>(sm + L.mask);     // STAGED: [2][N][N] (16-byte rounded)
@@ -239,19 +255,19 @@ __global__ void __launch_bounds__(kThreads, Sz<NM>::STAGED ? (LIS ? 4 : 3) : (LI
     reinterpret_cast<int4*>(stg)[i] = make_int4(0, 0, 0, 0);
   __syncthreads();  // the zeros land before any copy into the same rows
 
-  // q, k, v rows (a thread per row and 16-byte half) and the mask of
+  // q, k, v rows (a thread per row and 16-byte chunk) and the mask of
   // `item` into stage buffer `buf`
   auto issue = [&](int item, int buf) {
     const int h = item / a.W, win = item - h * a.W;
     int8_t* st = stg + buf * STAGE;
-    for (int t = threadIdx.x; t < 2 * N; t += kThreads) {
-      const int i = t >> 1, half = t & 1;
+    for (int t = threadIdx.x; t < CH * N; t += kThreads) {
+      const int i = t / CH, part = t % CH;
       const int tk = token_of<FOLD>(win, i, a);
-      if (half == 0) tok[buf * NM + i] = tk;
-      const int8_t* src = qkv + (size_t)tk * 3 * a.C + h * D + 16 * half;
-      p2v::cp_async16(st + i * QLD + 16 * half, src);
-      p2v::cp_async16(st + NM * QLD + i * QLD + 16 * half, src + a.C);
-      p2v::cp_async16(st + 2 * NM * QLD + i * D + 16 * half, src + 2 * a.C);
+      if (part == 0) tok[buf * NM + i] = tk;
+      const int8_t* src = qkv + (size_t)tk * 3 * a.C + h * HD + 16 * part;
+      p2v::cp_async16(st + i * QLD + 16 * part, src);
+      p2v::cp_async16(st + NM * QLD + i * QLD + 16 * part, src + a.C);
+      p2v::cp_async16(st + 2 * NM * QLD + i * HD + 16 * part, src + 2 * a.C);
     }
     if (S::STAGED && mask != nullptr) {
       const float* src = mask + (size_t)(win % a.nW) * N * N;
@@ -298,24 +314,28 @@ __global__ void __launch_bounds__(kThreads, Sz<NM>::STAGED ? (LIS ? 4 : 3) : (LI
     const int8_t* vs = qs + 2 * NM * QLD;
     if constexpr (LIS) {
       // V transposed (dim d, keys contiguous): warp w moves keys 8w … 8w + 7
-      // (then 8w + 64 … while keys remain) of dim `lane`; rows past N are zeros
-      for (int k0 = 8 * warp; k0 < NM; k0 += 8 * kWarps) {
-        uint32_t w2[2] = {0, 0};
+      // (then 8w + 64 … while keys remain) of dims `lane`, lane + 32, …;
+      // rows past N are zeros
+      for (int k0 = 8 * warp; k0 < NM; k0 += 8 * kWarps)
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-          w2[e >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(vs[(k0 + e) * D + lane])) << (8 * (e & 3));
-        *reinterpret_cast<uint2*>(sm + L.vt + lane * WLD + k0) = make_uint2(w2[0], w2[1]);
-      }
+        for (int u = 0; u < HD / 32; ++u) {
+          const int d = lane + 32 * u;
+          uint32_t w2[2] = {0, 0};
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            w2[e >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(vs[(k0 + e) * HD + d])) << (8 * (e & 3));
+          *reinterpret_cast<uint2*>(sm + L.vt + d * WLD + k0) = make_uint2(w2[0], w2[1]);
+        }
     } else {
       double* vd = reinterpret_cast<double*>(sm + L.vd);
-      for (int i = threadIdx.x; i < N * D; i += kThreads) vd[i] = static_cast<double>(vs[i]);
+      for (int i = threadIdx.x; i < N * HD; i += kThreads) vd[i] = static_cast<double>(vs[i]);
     }
     __syncthreads();
     stamp(1);
 
     // scores → qact2 codes in the score plane (0 outside the N × N window;
     // key tiles wholly past N are not computed: no row reads them)
-    ma::scores_mma<D>(qs, ks, QLD, ng, (N + 7) / 8 * 8, [&](int r, int j, int a0, int a1) {
+    ma::scores_mma<HD>(qs, ks, QLD, ng, (N + 7) / 8 * 8, [&](int r, int j, int a0, int a1) {
       const int accs[2] = {a0, a1};
       int8_t c[2];
 #pragma unroll
@@ -338,7 +358,7 @@ __global__ void __launch_bounds__(kThreads, Sz<NM>::STAGED ? (LIS ? 4 : 3) : (LI
 
     const int* tk = tok + buf * NM;
     const float* mrow = mask_s + buf * (L.nn / 4);
-    auto out_row = [&](int row) { return out + (size_t)tk[row] * a.C + h * D; };
+    auto out_row = [&](int row) { return out + (size_t)tk[row] * a.C + h * HD; };
     // row r's scores in lis_row's lane layout: the qact2 code + the mask, unrounded
     auto load = [&](int r, float(&ac)[JT]) {
 #pragma unroll
@@ -357,11 +377,11 @@ __global__ void __launch_bounds__(kThreads, Sz<NM>::STAGED ? (LIS ? 4 : 3) : (LI
       ma::lis_weight_rows<JT>(load, hi, lo, WLD, nrows, 0, N, kpad, scal[4], scal[5], scal[6]);
       __syncthreads();
       stamp(3);
-      ma::av_mma<D>(hi, lo, sm + L.vt, WLD, ng, kpad, 0, N, ro, out_row);
+      ma::av_mma<HD>(hi, lo, sm + L.vt, WLD, ng, kpad, 0, N, ro, out_row);
       if (stamps != nullptr) __syncthreads();
       stamp(4);
     } else {
-      softmax_av_swin<NM>(load, reinterpret_cast<const double*>(sm + L.vd), reinterpret_cast<double*>(sm + L.pb), N,
+      softmax_av_swin<NM, HD>(load, reinterpret_cast<const double*>(sm + L.vd), reinterpret_cast<double*>(sm + L.pb), N,
                           scal[7], ro, out_row);
       if (stamps != nullptr) __syncthreads();
       stamp(3);
@@ -387,18 +407,18 @@ __global__ void __launch_bounds__(kThreads, Sz<NM>::STAGED ? (LIS ? 4 : 3) : (LI
 
 // The card's SMs and the kernel's resident CTAs per SM at N tokens (cached
 // per instance: the occupancy call costs microseconds).
-template <bool LIS, bool FOLD, int NM>
+template <bool LIS, bool FOLD, int NM, int HD>
 cudaError_t residency(int N, int* sms, int* per_sm) {
   static int cache_dev = -1, cache_n = -1, cache_sms = 0, cache_per_sm = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev != cache_dev || N != cache_n) {
-    const int smem = layout<LIS, NM>(N).total;
-    err = p2v::set_smem(swin_attention_kernel<LIS, FOLD, NM>, smem);
+    const int smem = layout<LIS, NM, HD>(N).total;
+    err = p2v::set_smem(swin_attention_kernel<LIS, FOLD, NM, HD>, smem);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&cache_sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&cache_per_sm, swin_attention_kernel<LIS, FOLD, NM>,
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&cache_per_sm, swin_attention_kernel<LIS, FOLD, NM, HD>,
                                                           kThreads, smem);
     if (err != cudaSuccess) return err;
     if (cache_per_sm < 1) return cudaErrorInvalidConfiguration;
@@ -408,41 +428,54 @@ cudaError_t residency(int N, int* sms, int* per_sm) {
   return cudaSuccess;
 }
 
-template <bool LIS, bool FOLD, int NM>
+template <bool LIS, bool FOLD, int NM, int HD>
 int launch_swin(const void* qkv, const void* bias, const void* mask, const void* scal, void* out, Geom g,
                 int grid, void* stamps, void* cta_ns, void* stream) {
   const int items = g.W * g.H;
   if (items == 0) return 0;
   int sms = 0, per_sm = 0;
-  cudaError_t err = residency<LIS, FOLD, NM>(g.N, &sms, &per_sm);
+  cudaError_t err = residency<LIS, FOLD, NM, HD>(g.N, &sms, &per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (grid <= 0) grid = sms * per_sm;
   if (grid > items) grid = items;
   static int launches = 0;  // launch slots in turn
   const int slot = launches++ % kSlots;
-  swin_attention_kernel<LIS, FOLD, NM>
-      <<<grid, kThreads, layout<LIS, NM>(g.N).total, static_cast<cudaStream_t>(stream)>>>(
+  swin_attention_kernel<LIS, FOLD, NM, HD>
+      <<<grid, kThreads, layout<LIS, NM, HD>(g.N).total, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(qkv), static_cast<const float*>(bias), static_cast<const float*>(mask),
       static_cast<const float*>(scal), static_cast<int8_t*>(out), g, items,
       static_cast<unsigned long long*>(stamps), static_cast<unsigned long long*>(cta_ns), slot);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NM>
+template <int NM, int HD>
 int launch_nm(const void* qkv, const void* bias, const void* mask, const void* scal, void* out, Geom g, int lis,
               int fold, int grid, void* stamps, void* cta_ns, void* stream) {
   if (fold)
-    return lis ? launch_swin<true, true, NM>(qkv, bias, mask, scal, out, g, grid, stamps, cta_ns, stream)
-               : launch_swin<false, true, NM>(qkv, bias, mask, scal, out, g, grid, stamps, cta_ns, stream);
-  return lis ? launch_swin<true, false, NM>(qkv, bias, mask, scal, out, g, grid, stamps, cta_ns, stream)
-             : launch_swin<false, false, NM>(qkv, bias, mask, scal, out, g, grid, stamps, cta_ns, stream);
+    return lis ? launch_swin<true, true, NM, HD>(qkv, bias, mask, scal, out, g, grid, stamps, cta_ns, stream)
+               : launch_swin<false, true, NM, HD>(qkv, bias, mask, scal, out, g, grid, stamps, cta_ns, stream);
+  return lis ? launch_swin<true, false, NM, HD>(qkv, bias, mask, scal, out, g, grid, stamps, cta_ns, stream)
+             : launch_swin<false, false, NM, HD>(qkv, bias, mask, scal, out, g, grid, stamps, cta_ns, stream);
+}
+
+// The head_dim each row of the (·, 3C) codes gives a head: C/H, 32 or 64
+// (the wrapper pads smaller heads); 0 where no instance takes it.
+int head_dim(const Geom& g) {
+  if (g.H < 1 || g.C % g.H) return 0;
+  const int hd = g.C / g.H;
+  return hd == 32 || (hd == 64 && g.N <= NMAX_HD64) ? hd : 0;
 }
 
 int launch_any(const void* qkv, const void* bias, const void* mask, const void* scal, void* out, Geom g, int lis,
                int fold, int grid, void* stamps, void* cta_ns, void* stream) {
-  if (g.N < 1 || g.N > NMAX) return static_cast<int>(cudaErrorInvalidValue);
-  if (g.N <= NSTAGED) return launch_nm<NSTAGED>(qkv, bias, mask, scal, out, g, lis, fold, grid, stamps, cta_ns, stream);
-  return launch_nm<NMAX>(qkv, bias, mask, scal, out, g, lis, fold, grid, stamps, cta_ns, stream);
+  const int hd = head_dim(g);
+  if (g.N < 1 || g.N > NMAX || hd == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd == 64)
+    return g.N <= NSTAGED ? launch_nm<NSTAGED, 64>(qkv, bias, mask, scal, out, g, lis, fold, grid, stamps, cta_ns, stream)
+                          : launch_nm<NMID, 64>(qkv, bias, mask, scal, out, g, lis, fold, grid, stamps, cta_ns, stream);
+  if (g.N <= NSTAGED) return launch_nm<NSTAGED, 32>(qkv, bias, mask, scal, out, g, lis, fold, grid, stamps, cta_ns, stream);
+  if (g.N <= NMID) return launch_nm<NMID, 32>(qkv, bias, mask, scal, out, g, lis, fold, grid, stamps, cta_ns, stream);
+  return launch_nm<NMAX, 32>(qkv, bias, mask, scal, out, g, lis, fold, grid, stamps, cta_ns, stream);
 }
 
 // Panel entry: W windows, nW per image (1 without a mask). Folded entry: B
@@ -453,22 +486,22 @@ Geom folded_geom(int B, int res, int ws, int C, int H, int shift) {
   return Geom{B * g * g, g * g, ws * ws, C, H, res, ws, shift};
 }
 
-template <bool LIS, bool FOLD, int NM>
+template <bool LIS, bool FOLD, int NM, int HD>
 cudaError_t info_of(int N, int* vals) {
   int sms = 0, per_sm = 0;
   cudaFuncAttributes fa{};
-  cudaError_t err = residency<LIS, FOLD, NM>(N, &sms, &per_sm);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, swin_attention_kernel<LIS, FOLD, NM>);
+  cudaError_t err = residency<LIS, FOLD, NM, HD>(N, &sms, &per_sm);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, swin_attention_kernel<LIS, FOLD, NM, HD>);
   if (err != cudaSuccess) return err;
-  const int v[5] = {layout<LIS, NM>(N).total, fa.numRegs, static_cast<int>(fa.localSizeBytes), per_sm, sms};
+  const int v[5] = {layout<LIS, NM, HD>(N).total, fa.numRegs, static_cast<int>(fa.localSizeBytes), per_sm, sms};
   for (int i = 0; i < 5; ++i) vals[i] = v[i];
   return cudaSuccess;
 }
 
-template <int NM>
+template <int NM, int HD>
 cudaError_t info_nm(int N, int lis, int fold, int* vals) {
-  if (fold) return lis ? info_of<true, true, NM>(N, vals) : info_of<false, true, NM>(N, vals);
-  return lis ? info_of<true, false, NM>(N, vals) : info_of<false, false, NM>(N, vals);
+  if (fold) return lis ? info_of<true, true, NM, HD>(N, vals) : info_of<false, true, NM, HD>(N, vals);
+  return lis ? info_of<true, false, NM, HD>(N, vals) : info_of<false, false, NM, HD>(N, vals);
 }
 
 }  // namespace
@@ -511,10 +544,19 @@ extern "C" int p2v_swin_attention_hook(const void* qkv, const void* bias, const 
   return launch_any(qkv, bias, mask, scal, out, panel_geom(a0, a1, C, H, a2), lis, 0, grid, stamps, cta_ns, stream);
 }
 
-// The launch facts at N tokens: out = {shared memory per CTA, registers per
-// thread, spill (local) bytes per thread, CTAs per SM, SMs}.
-extern "C" int p2v_swin_attention_info(int N, int lis, int fold, void* out) {
-  if (N < 1 || N > NMAX) return static_cast<int>(cudaErrorInvalidValue);
+// The launch facts at N tokens and head_dim hd (32 or 64): out = {shared
+// memory per CTA, registers per thread, spill (local) bytes per thread,
+// CTAs per SM, SMs}.
+extern "C" int p2v_swin_attention_info(int N, int hd, int lis, int fold, void* out) {
+  if (N < 1 || N > NMAX || (hd != 32 && hd != 64) || (hd == 64 && N > NMAX_HD64))
+    return static_cast<int>(cudaErrorInvalidValue);
   int* vals = static_cast<int*>(out);
-  return static_cast<int>(N <= NSTAGED ? info_nm<NSTAGED>(N, lis, fold, vals) : info_nm<NMAX>(N, lis, fold, vals));
+  cudaError_t err;
+  if (hd == 64)
+    err = N <= NSTAGED ? info_nm<NSTAGED, 64>(N, lis, fold, vals) : info_nm<NMID, 64>(N, lis, fold, vals);
+  else
+    err = N <= NSTAGED ? info_nm<NSTAGED, 32>(N, lis, fold, vals)
+          : N <= NMID  ? info_nm<NMID, 32>(N, lis, fold, vals)
+                       : info_nm<NMAX, 32>(N, lis, fold, vals);
+  return static_cast<int>(err);
 }

@@ -38,7 +38,8 @@
 //   round, clip and byte in one saturating conversion, and a row with
 //   non-finite constants (0/0) ln_code_exact; the codes go through a
 //   shared-memory tile out as 16-byte stores.
-// Past C = 256 a cluster of CS = ⌈C/256⌉ CTAs (at most 4: C ≤ 1024) splits
+// Past C = 256 a cluster of CS = ⌈C/256⌉ CTAs (at most 16, the H100's
+// largest cluster, past 8 with the non-portable size: C ≤ 4096) splits
 // the channels: CTA r of a cluster holds columns [r·CP, (r + 1)·CP) of the
 // weight and the vectors (CP = C_pad/CS = 16·CC, CC 12 or 16), every CTA of
 // the cluster takes the same 64 patch rows, and after its shuffles each row
@@ -60,7 +61,7 @@ constexpr int kThreads = p2v::kThreads;  // 256: 16 row groups × 16 channel gro
 constexpr int kRows = 4;                 // rows a thread holds
 constexpr int kBlock = 16 * kRows;       // patch rows a CTA block
 
-constexpr int kMaxCluster = 4;          // CTAs a cluster splitting C: C ≤ 4·256
+constexpr int kMaxCluster = 16;         // CTAs a cluster splitting C: C ≤ 16·256
 
 struct StemPlan {
   int cc, c_pad, blocks, grid, smem, cs, clusters;  // grid in CTAs: clusters taken × cs
@@ -328,6 +329,7 @@ cudaError_t plan_of(int M, int kp, int cp, StemPlan* plan, StemKernel* kern, int
     e = *hit;
   } else {
     err = p2v::set_smem(*kern, smem);
+    if (err == cudaSuccess && cs > 8) err = cudaFuncSetAttribute(*kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&e.sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&e.per_sm, *kern, kThreads, smem);
     e.clusters = e.sms * e.per_sm;
@@ -350,7 +352,7 @@ cudaError_t plan_of(int M, int kp, int cp, StemPlan* plan, StemKernel* kern, int
 }  // namespace
 
 // px (M, kp) float32, kp % 4 == 0; w (cp, kp) float32, cp = CS·16·cc_of(cp/CS)
-// with CS = ⌈cp/256⌉ ≤ 4; vecs (5, cp); s1 (1,); out (M, cp) int8; the LN
+// with CS = ⌈cp/256⌉ ≤ 16; vecs (5, cp); s1 (1,); out (M, cp) int8; the LN
 // counts c_true channels. grid > 0: that many clusters of CS CTAs (CTAs at
 // CS = 1) in place of the plan's (a measurement hook).
 extern "C" int p2v_fused_swin_stem_forced(const void* px, const void* w, const void* vecs, const void* s1, void* out,

@@ -119,6 +119,40 @@ def trunc_normal(gen: torch.Generator, shape, std=0.02, device=None):
     return t * std
 
 
+def to_2tuple(v):
+    """Scalar → (v, v); tuples and lists pass through as tuples (the
+    reference's timm-lineage helper)."""
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+
+def drop_path(x: torch.Tensor, rate: float, training: bool = False,
+              generator: torch.Generator | None = None) -> torch.Tensor:
+    """Stochastic depth (the reference's DropPath): identity when not
+    training or at rate 0, the only case PTQ and serving run; else each
+    sample is kept with probability 1 − rate, drawn from ``generator``
+    (on the CPU, so the draw is the same on any device), and scaled by
+    1/(1 − rate), or zeroed."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand((x.shape[0],), generator=generator) < keep
+    mask = mask.to(x.device).reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def hybrid_embed(backbone_fn, x: torch.Tensor, proj_w: torch.Tensor, proj_b=None) -> torch.Tensor:
+    """A CNN backbone's patch embedding (the reference's HybridEmbed):
+    ``backbone_fn(x)``'s feature map (B, C_feat, H', W') flattened to
+    (B, H'·W', C_feat) tokens, or its (B, N, C_feat) tokens as they are,
+    then the 1×1-conv projection, a per-token linear. No zoo model uses it;
+    ``backbone_fn`` is any callable, as in the JAX package."""
+    feat = backbone_fn(x)
+    if feat.ndim == 4:
+        b, c, h, w = feat.shape
+        feat = feat.reshape(b, c, h * w).transpose(1, 2)
+    return linear(feat, proj_w, proj_b)
+
+
 def vit_flops(cfg: ViTConfig) -> list:
     """Multiply count per bit_config slot: patch-embed, per block
     [qkv, proj, fc1, fc2], then head."""

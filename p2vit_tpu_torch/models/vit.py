@@ -257,34 +257,60 @@ def _sget(stats, *path):
 
 
 @torch.no_grad()
-def calibrate(params, cfg: ViTConfig, policy: QuantPolicy, x, stats=None) -> CalibResult:
+def calibrate(params, cfg: ViTConfig, policy: QuantPolicy, x, stats=None, mesh=None) -> CalibResult:
     """Calibration pass (stats and parameter solve, quant off), node for node
     as the JAX twin. ``stats``: the running activation statistics of earlier
-    batches from ``collect_stats``; None calibrates on this batch alone."""
+    batches from ``collect_stats``; None calibrates on this batch alone.
+
+    ``mesh``: calibrate with the batch ``x`` (the whole batch, on every
+    rank) sharded over the mesh's "data" axis: each rank runs the forward on
+    its shard and gathers each node's tensor over "data"
+    (``parallel.mesh.gather_batch``) before that node's solve, so every
+    statistic and every candidate loss reduces the whole batch's tensor in
+    one process's order. The decisions equal one process's bit for bit
+    where a shard's forward rounds as the whole batch's (the CPU); on the
+    card a GEMM's kernel, and so its last bits, can depend on its rows,
+    and the float PTF scales can move by a few ulps with them."""
     a, a_ln = policy.observer_a, policy.observer_a_ln
     eps = cfg.ln_eps
     dists: list = []
     qs: dict = {}
+    if mesh is None:
+        whole = mine = lambda t: t  # noqa: E731
+    else:
+        from ..parallel import mesh as mesh_mod
+
+        def whole(t):
+            return mesh_mod.gather_batch(mesh, t)
+
+        def mine(t):
+            return mesh_mod.shard_batch(mesh, t)
+
+        x = mine(x)
 
     def smooth_or_plain(h, lin, alpha_pool, prev_q0):
+        """The layer's state from the whole batch; its output, this rank's rows."""
         if policy.smoothquant:
-            return _smooth_calibrate(h, lin["w"], lin["b"], alpha_pool, policy, dists, prev_q0=prev_q0)
-        return _plain_calibrate(h, lin["w"], lin["b"], a, dists, prev_q0=prev_q0)
+            st, out = _smooth_calibrate(whole(h), lin["w"], lin["b"], alpha_pool, policy, dists, prev_q0=prev_q0)
+        else:
+            st, out = _plain_calibrate(whole(h), lin["w"], lin["b"], a, dists, prev_q0=prev_q0)
+        return st, mine(out)
 
-    qs["qact_input"] = _qact(a, x, prev=_sget(stats, "qact_input"))
+    qs["qact_input"] = _qact(a, whole(x), prev=_sget(stats, "qact_input"))
     patches = extract_patches(x, cfg.patch_size)
     pw, pb = params["patch_embed"]["w"], params["patch_embed"]["b"]
-    patch_wscale, _ = solve_weight_all_bits(pw, patches.reshape(-1, patches.shape[-1]))
+    pall = whole(patches)
+    patch_wscale, _ = solve_weight_all_bits(pw, pall.reshape(-1, pall.shape[-1]))
     x = linear(patches, pw, pb)
-    qs["patch"] = {"wscale": patch_wscale, "qact": _qact(a, x, prev=_sget(stats, "patch", "qact"))}
+    qs["patch"] = {"wscale": patch_wscale, "qact": _qact(a, whole(x), prev=_sget(stats, "patch", "qact"))}
 
     b = x.shape[0]
     cls = params["cls_token"].expand(b, 1, cfg.embed_dim)
     x = torch.cat([cls, x], dim=1)
-    qs["qact_embed"] = _qact(a, x, prev=_sget(stats, "qact_embed"))
+    qs["qact_embed"] = _qact(a, whole(x), prev=_sget(stats, "qact_embed"))
     qs["qact_pos"] = _qact(a, params["pos_embed"], prev=_sget(stats, "qact_pos"))
     x = x + params["pos_embed"]
-    qs["qact1"] = _qact(a_ln, x, prev=_sget(stats, "qact1"))
+    qs["qact1"] = _qact(a_ln, whole(x), prev=_sget(stats, "qact1"))
 
     qs["blocks"] = []
     for i, blk in enumerate(params["blocks"]):
@@ -292,40 +318,42 @@ def calibrate(params, cfg: ViTConfig, policy: QuantPolicy, x, stats=None) -> Cal
         bq: dict = {}
         h = layer_norm(x, blk["norm1"]["w"], blk["norm1"]["b"], eps)
         attn_state, h = smooth_or_plain(h, blk["qkv"], ATTN_ALPHA_POOL, _sget(sb, "attn", "qact0"))
-        attn_state["qact1"] = _qact(a, h, prev=_sget(sb, "attn", "qact1"))
+        attn_state["qact1"] = _qact(a, whole(h), prev=_sget(sb, "attn", "qact1"))
         q, k, v = split_qkv(h, cfg.num_heads)
         attn = (q @ k.transpose(-1, -2)) * cfg.attn_scale
-        attn_state["qact_attn1"] = _qact(a, attn, prev=_sget(sb, "attn", "qact_attn1"))
+        attn_state["qact_attn1"] = _qact(a, whole(attn), prev=_sget(sb, "attn", "qact_attn1"))
         if policy.int_softmax:
             attn = log_int_softmax(attn, attn_state["qact_attn1"]["scale"], policy.bit_type_s)
         else:
             attn = torch.softmax(attn, dim=-1)
         h = merge_heads(attn @ v)
-        attn_state["qact2"] = _qact(a, h, prev=_sget(sb, "attn", "qact2"))
-        proj_wscale, dist = solve_weight_all_bits(blk["proj"]["w"], h.reshape(-1, cfg.embed_dim))
+        hw = whole(h)
+        attn_state["qact2"] = _qact(a, hw, prev=_sget(sb, "attn", "qact2"))
+        proj_wscale, dist = solve_weight_all_bits(blk["proj"]["w"], hw.reshape(-1, cfg.embed_dim))
         dists.append(dist)
         attn_state["proj_wscale"] = proj_wscale
         h = linear(h, blk["proj"]["w"], blk["proj"]["b"])
-        attn_state["qact3"] = _qact(a_ln, h, prev=_sget(sb, "attn", "qact3"))
+        attn_state["qact3"] = _qact(a_ln, whole(h), prev=_sget(sb, "attn", "qact3"))
         bq["attn"] = attn_state
         x = x + h
-        bq["qact2"] = _qact(a_ln, x, prev=_sget(sb, "qact2"))
+        bq["qact2"] = _qact(a_ln, whole(x), prev=_sget(sb, "qact2"))
 
         h = layer_norm(x, blk["norm2"]["w"], blk["norm2"]["b"], eps)
         mlp_state, h = smooth_or_plain(h, blk["fc1"], MLP_ALPHA_POOL, _sget(sb, "mlp", "qact0"))
         h = gelu(h)
-        mlp_state["qact1"] = _qact(a, h, prev=_sget(sb, "mlp", "qact1"))
-        fc2_wscale, dist = solve_weight_all_bits(blk["fc2"]["w"], h.reshape(-1, cfg.hidden_dim))
+        hw = whole(h)
+        mlp_state["qact1"] = _qact(a, hw, prev=_sget(sb, "mlp", "qact1"))
+        fc2_wscale, dist = solve_weight_all_bits(blk["fc2"]["w"], hw.reshape(-1, cfg.hidden_dim))
         dists.append(dist)
         mlp_state["fc2_wscale"] = fc2_wscale
         h = linear(h, blk["fc2"]["w"], blk["fc2"]["b"])
-        mlp_state["qact2"] = _qact(a_ln, h, prev=_sget(sb, "mlp", "qact2"))
+        mlp_state["qact2"] = _qact(a_ln, whole(h), prev=_sget(sb, "mlp", "qact2"))
         bq["mlp"] = mlp_state
         x = x + h
-        bq["qact4"] = _qact(a_ln, x, prev=_sget(sb, "qact4"))
+        bq["qact4"] = _qact(a_ln, whole(x), prev=_sget(sb, "qact4"))
         qs["blocks"].append(bq)
 
-    x = layer_norm(x, params["norm"]["w"], params["norm"]["b"], eps)[:, 0]
+    x = whole(layer_norm(x, params["norm"]["w"], params["norm"]["b"], eps)[:, 0])
     qs["qact2"] = _qact(a, x, prev=_sget(stats, "qact2"))
     head_wscale, dist = solve_weight_all_bits(params["head"]["w"], x)
     dists.append(dist)
@@ -481,11 +509,39 @@ def _intln_or_ln(x, ln_params, policy, in_q, out_scale, eps):
 
 
 @torch.no_grad()
-def quant_forward(params, qstate, cfg: ViTConfig, policy: QuantPolicy, x, bit_idx, block_tap=None):
+def quant_forward(params, qstate, cfg: ViTConfig, policy: QuantPolicy, x, bit_idx, block_tap=None, mesh=None):
     """Fully-quantized simulation forward; ``bit_idx`` from ``bits_to_idx``.
     Each block's output (the qact4 node) is appended to ``block_tap`` when
-    given."""
+    given.
+
+    ``mesh`` with a "model" axis above 1: megatron TP over it, on this
+    rank's shard of ``params`` (``parallel.mesh.shard_params``; the whole
+    params are given): qkv (head-aligned) and fc1 column-parallel with their
+    per-channel weight scales sliced alike, attention on the rank's heads,
+    proj and fc2 row-parallel, their float partial products summed over
+    "model" (``all_reduce``) before the bias. The activation nodes on the
+    split outputs (qact1 of attn and mlp, the attention nodes) take one
+    scale per tensor, as the default observers give them; the sum
+    reassociates, so the result stays within one LSB of the output grid of
+    one process's, not bit for bit."""
     eps = cfg.ln_eps
+    tp = mesh is not None and mesh.shape["model"] > 1
+    heads = cfg.num_heads
+    if tp:
+        from ..parallel import dist as pdist
+        from ..parallel import mesh as mesh_mod
+
+        params = mesh_mod.shard_params(params, mesh, cfg.num_heads)
+        heads //= mesh.shape["model"]
+        group = mesh.group("model")
+
+    def col(wscale, qkv: bool):
+        """A column-parallel layer's (…, O) weight scales → this rank's out-features."""
+        return mesh_mod.model_slice(wscale, mesh, -1, cfg.num_heads if qkv else None) if tp else wscale
+
+    def row_parallel(h, w, b):
+        return pdist.all_reduce(linear(h, w), "sum", group) + b if tp else linear(h, w, b)
+
     b = x.shape[0]
     bit_idx = bit_idx.to(x.device)
     x = _fq(x, qstate["qact_input"])
@@ -515,9 +571,9 @@ def quant_forward(params, qstate, cfg: ViTConfig, policy: QuantPolicy, x, bit_id
             h = h / cs
         h = fake_quant(h, q0_scale, aq["qact0_zp"][bit_qkv], INT8)
         w_sm = blk["qkv"]["w"] * cs[None, :] if policy.smoothquant else blk["qkv"]["w"]
-        h = linear(h, _fq_weight(w_sm, aq["wscale"][bit_qkv], bit_qkv), blk["qkv"]["b"])
+        h = linear(h, _fq_weight(w_sm, col(aq["wscale"][bit_qkv], True), bit_qkv), blk["qkv"]["b"])
         h = _fq(h, aq["qact1"])
-        q, k, v = split_qkv(h, cfg.num_heads)
+        q, k, v = split_qkv(h, heads)
         attn = (q @ k.transpose(-1, -2)) * cfg.attn_scale
         attn = _fq(attn, aq["qact_attn1"])
         if policy.int_softmax:
@@ -526,7 +582,7 @@ def quant_forward(params, qstate, cfg: ViTConfig, policy: QuantPolicy, x, bit_id
             attn = torch.softmax(attn, dim=-1)
         h = merge_heads(attn @ v)
         h = _fq(h, aq["qact2"])
-        h = linear(h, _fq_weight(blk["proj"]["w"], aq["proj_wscale"], bit_proj), blk["proj"]["b"])
+        h = row_parallel(h, _fq_weight(blk["proj"]["w"], aq["proj_wscale"], bit_proj), blk["proj"]["b"])
         h = _fq(h, aq["qact3"])
         x = x + h
         x = _fq(x, bq["qact2"])
@@ -539,10 +595,10 @@ def quant_forward(params, qstate, cfg: ViTConfig, policy: QuantPolicy, x, bit_id
             h = h / cs_m
         h = fake_quant(h, q0m_scale, mq["qact0_zp"][bit_fc1], INT8)
         w_sm = blk["fc1"]["w"] * cs_m[None, :] if policy.smoothquant else blk["fc1"]["w"]
-        h = linear(h, _fq_weight(w_sm, mq["wscale"][bit_fc1], bit_fc1), blk["fc1"]["b"])
+        h = linear(h, _fq_weight(w_sm, col(mq["wscale"][bit_fc1], False), bit_fc1), blk["fc1"]["b"])
         h = gelu(h)
         h = _fq(h, mq["qact1"])
-        h = linear(h, _fq_weight(blk["fc2"]["w"], mq["fc2_wscale"], bit_fc2), blk["fc2"]["b"])
+        h = row_parallel(h, _fq_weight(blk["fc2"]["w"], mq["fc2_wscale"], bit_fc2), blk["fc2"]["b"])
         h = _fq(h, mq["qact2"])
         x = x + h
         x = _fq(x, bq["qact4"])

@@ -46,7 +46,7 @@ SIGNATURES = {
     "p2v_int8_matmul_res_ln_info": [_I, _I, _I, _I, _P],
     "p2v_lis_attention_qkv_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "p2v_lis_attention_qkv_fused_timed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
-    "p2v_lis_attention_qkv_info": [_I, _I, _P],
+    "p2v_lis_attention_qkv_info": [_I, _I, _I, _P],
     "p2v_lis_attention_fused": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "p2v_lis_attention_fused_forced": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "p2v_lis_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -63,13 +63,13 @@ SIGNATURES = {
     "p2v_swin_lis_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "p2v_swin_lis_attention_folded": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "p2v_swin_attention_hook": [_P] * 5 + [_I] * 9 + [_P, _P, _P],
-    "p2v_swin_attention_info": [_I, _I, _I, _P],
+    "p2v_swin_attention_info": [_I, _I, _I, _I, _P],
     "p2v_fused_swin_stem": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "p2v_fused_swin_stem_forced": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "p2v_fused_swin_stem_info": [_I, _I, _I, _P],
-    "p2v_fused_vit_layer": [_P] * 15 + [_I] * 6 + [_P],
-    "p2v_fused_vit_layer_forced": [_P] * 15 + [_I] * 9 + [_P],
-    "p2v_fused_vit_layer_info": [_I] * 9 + [_P],
+    "p2v_fused_vit_layer": [_P] * 15 + [_I] * 7 + [_P],
+    "p2v_fused_vit_layer_forced": [_P] * 15 + [_I] * 10 + [_P],
+    "p2v_fused_vit_layer_info": [_I] * 10 + [_P],
     "p2v_int4_matmul_requant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "p2v_int4_matmul_requant_grid": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "p2v_int4_matmul_requant_info": [_I, _I, _I, _I, _P],

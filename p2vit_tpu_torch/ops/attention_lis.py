@@ -21,9 +21,11 @@ Two sums are made exact and order-free, in the kernels AND the plain versions:
   a .5 or 1.5·2^k edge.
 * attn@v is the paper's shift-accumulate: Σ_j v_j·2^(15−q_j) in int32, then
   ×2^-15. Exact while |av| < 2^9 (|av_int| < 2^24): with |v| ≤ 128 that
-  holds while the LIS weights of a row sum below 4; they sum to about 1.
-  The JAX twin's float32 product is exact in the same range, so the two
-  agree bit for bit there.
+  holds while the LIS weights of a row sum below 4. They sum below 3.5 at
+  any N (each weight is at most 2^16·e_j/Σe, or 1.5·2^15 for the one key
+  a row may have above Σe/2; ``csrc/attention_mma.cuh``). The JAX twin's
+  float32 product is exact in the same range, so the two agree bit for bit
+  there.
 
 LIS off (the reference's ``Config(lis=False)``): logits = code·s, e =
 exp(logit − rowmax) through float64 rounded once (``fastmath.exp_rn``), the
@@ -31,17 +33,23 @@ row sum S and attn@v Σ_j p_j·v_j in float64, each rounded once to float32,
 p = e / S. Each product p_j·v_j of a float32 and an int8 is exact in
 float64, and both float64 sums are exact while every term of a row lies
 within ~2^20 of the row's largest (24-bit mantissas, at most 256 terms of
-magnitude ≤ 2^7). Beyond that the order can change only the last float64
+magnitude ≤ 2^7, N of them). Beyond that the order can change only the last float64
 bit, which reaches the float32 result only on an exact rounding tie. So the
 kernels sum in any order and the plain version is a plain ``torch``
 expression, and the two agree bit for bit. JAX sums in float32 in its own
 order and its float32 ``exp`` is not correctly rounded, so against JAX the
 LIS-off arm is held to |Δcode| ≤ 1 on a stated share of codes.
 
-CUDA kernels (``csrc/attention_lis.cu``, N ≤ 256) replace the Pallas
-kernels ``lis_attention_qkv_fused`` (``_qkv_fused_kernel``, head_dim 64),
-``lis_attention_fused`` (``_fused_kernel``, head_dim 1, 2, 4, 8, 16, 32 or 64) and
-``lis_attention`` (``_kernel``, any head_dim ≤ 64).
+CUDA kernels (``csrc/attention_lis.cu``) replace the Pallas kernels
+``lis_attention_qkv_fused`` (``_qkv_fused_kernel``: head_dim 64 or 128 in
+the kernel, smaller heads and any C_in zero-padded by ``qkv_pad``, N ≤
+1024, a cluster of at most 16 CTAs), ``lis_attention_fused``
+(``_fused_kernel``, head_dim 1, 2, 4, 8, 16, 32, 64 or 128) and
+``lis_attention`` (``_kernel``, any head_dim ≤ 128). Past N = 256 keys (and
+at head_dim 128) the rows no longer fit a lane's registers and run in the
+``*_wide`` forms, which re-read each row from shared memory with the same
+arithmetic; the per-item kernels' N is bounded by shared memory alone
+(``vit_attention_plan``).
 
 The qkv-fused kernel runs one thread-block cluster per (image, head) of
 ceil(N/64) CTAs (``qkv_cluster_plan``). CTA r computes the head's q/k/v
@@ -64,12 +72,14 @@ zero codes, q·kᵀ, ``p2v::lis_row`` into the hi/lo planes and attn@v on
 ``mma.sync``; LIS off ``p2v::softmax_row`` and the float64 attn@v in key
 order. The query groups go in chunks of ``gc`` so that as many CTAs as
 shared memory allows share an SM (``vit_attention_plan``); output columns
-past the true head_dim are never written.
+past the true head_dim are never written (head_dim padded to 32, 64 or
+128).
 
 CUDA kernels (``csrc/swin_attention.cu``) replace the Pallas kernels
 ``p2vit_tpu/ops/attention_lis.py:swin_lis_attention`` (``_swin_kernel`` →
 ``_swin_head_loop``), on (B·nW, 49, 3C) window panels with d = 32, and
-``swin_lis_attention_folded`` (``_swin_folded_kernel``), on the (B, res,
+``swin_lis_attention_folded`` (``_swin_folded_kernel``; head_dim 32 or 64
+in the kernel, smaller heads zero-padded, N ≤ 256 and N ≤ 160 at 64), on the (B, res,
 res, 3C) raster qkv grid: per head, q·kᵀ → attn1 codes → + rel-pos bias →
 ·1/s2 round/clip (qact2 codes) → + the shift mask/s2, unrounded → LIS or
 the fp softmax at s2 → @v → qact3 codes. The two entries share one body
@@ -189,14 +199,27 @@ def _attend(scores, v_q, s_attn, out_requant, lis_bits, lis):
     return torch.clamp(torch.round(av * ro), -128, 127).to(torch.int8)
 
 
-HEAD_DIM = 64  # the qkv-fused kernel's head_dim (every ViT/DeiT in the zoo)
-MAX_N = 256  # tokens the ViT attention kernels take (197 at 224²/16²)
-MAX_HEAD_DIM = 64  # the widest head_dim of the per-item kernels (lis_attention takes any d up to it)
-# lis_attention_fused's head_dims: those JAX's assert (d % 128 == 0 or 128 % d == 0) admits up to 64,
-# the divisors of 128
-FUSED_HEAD_DIMS = (1, 2, 4, 8, 16, 32, 64)
+HEAD_DIM = 64  # the qkv-fused kernel's zoo head_dim (every ViT/DeiT in the zoo)
+QKV_HEAD_DIMS = (64, 128)  # the qkv-fused kernel's instances; smaller heads are zero-padded to 64
+JT_N = 256  # keys a row holds in a lane's registers (8 slots); past it the rows run in the wide forms
+MAX_HEAD_DIM = 128  # the widest head_dim of the per-item kernels (lis_attention takes any d up to it)
+# lis_attention_fused's head_dims: those JAX's assert (d % 128 == 0 or 128 % d == 0) admits up to 128
+FUSED_HEAD_DIMS = (1, 2, 4, 8, 16, 32, 64, 128)
+MAX_CLUSTER = 16  # CTAs a thread-block cluster may hold on the H100 (past 8, the non-portable size)
 MAX_SMEM = 232_448  # dynamic shared memory one CTA may use on the H100
 SM_SMEM = 233_472  # an SM's shared memory, 1 KB of it reserved per CTA
+
+
+def pad_hd(hd: int) -> int:
+    """The per-item body's head_dim: hd padded to 32, 64 or 128."""
+    return 32 if hd <= 32 else 64 if hd <= 64 else 128
+
+
+def vit_attention_wide(n: int, hdp: int) -> bool:
+    """Whether the rows of N keys at padded head_dim ``hdp`` run in the
+    wide forms (``attention_rows.cuh`` ``wide``, the kernel instance the
+    launch takes): past ``JT_N`` keys, or at head_dim 128."""
+    return n > JT_N or hdp > 64
 
 
 def vit_attention_layout(n: int, hd: int, lis: bool = True, stages: int = 1, gc: int = 1) -> dict:
@@ -205,8 +228,8 @@ def vit_attention_layout(n: int, hd: int, lis: bool = True, stages: int = 1, gc:
     the item's q rows (16·⌈N/16⌉), k and v rows (⌈N/32⌉·32), q/k rows
     HDP + 16 bytes apart, v rows dense; then, with LIS, V transposed; the
     score / hi plane and, with LIS, the lo plane, 16·gc rows of kpad + 16
-    bytes each. HDP: the head_dim padded to 32 or 64."""
-    hdp = 32 if hd <= 32 else 64
+    bytes each. HDP: the head_dim padded to 32, 64 or 128."""
+    hdp = pad_hd(hd)
     qld, kpad, ng = hdp + 16, -(-n // 32) * 32, -(-n // 16)
     vld = kpad + 16
     k_off = 16 * ng * qld
@@ -240,7 +263,7 @@ class VitAttentionPlan:
     and head_dim hd (``csrc/attention_lis.cu`` ``launch_rows``): one item
     per CTA of 256 threads, one stage buffer."""
 
-    hdp: int  # head_dim padded to 32 or 64
+    hdp: int  # head_dim padded to 32, 64 or 128
     kpad: int  # keys padded to a multiple of 32
     groups: int  # 16-row query groups
     gc: int  # groups a chunk
@@ -256,18 +279,20 @@ def vit_attention_plan(n: int, hd: int, lis: bool = True, gc: int = 0) -> VitAtt
     the most CTAs an SM, 4, 3 or 2, whose shared memory (``SM_SMEM``/k −
     1 KB each) holds one query group a chunk, then the fewest balanced
     chunks within it; or ``gc`` > 0 groups a chunk (a measurement hook, up
-    to a whole CTA's shared memory). Raises where the kernels do not run
-    (N > 256, head_dim > 64)."""
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"attention kernel needs 1 <= N <= {MAX_N}; got N={n}")
+    to a whole CTA's shared memory). Raises where the kernels do not run:
+    head_dim > 128, or an item whose one query group does not fit a
+    block's shared memory (N ≈ 720 at head_dim 64 with LIS)."""
+    if n < 1:
+        raise ValueError(f"attention kernel needs N >= 1; got N={n}")
     if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"attention kernel needs head_dim <= {MAX_HEAD_DIM}; got head_dim {hd}")
     budgets = [SM_SMEM // k - 1024 for k in (4, 3, 2)] + [MAX_SMEM]
     g = vit_attention_gc(n, hd, lis, 1, MAX_SMEM, gc) if gc > 0 else next(
         (g for g in (vit_attention_gc(n, hd, lis, 1, b) for b in budgets) if g > 0), 0)
-    lay = vit_attention_layout(n, hd, lis, 1, g)
+    lay = vit_attention_layout(n, hd, lis, 1, max(g, 1))
     if g == 0 or lay["total"] > MAX_SMEM:
-        raise ValueError(f"attention kernel needs {lay['total']} B of shared memory at N={n}, gc={gc}")
+        raise ValueError(f"attention kernel needs {lay['total']} B of shared memory at N={n}, head_dim {hd}, "
+                         f"gc={max(g, 1)}: above the {MAX_SMEM} B a block may use")
     return VitAttentionPlan(lay["hdp"], lay["kpad"], lay["groups"], g, lay["total"])
 
 
@@ -321,7 +346,8 @@ def lis_attention(q_q, k_q, v_q, score_requant, attn_scale, out_requant, lis_bit
       score_requant: s_qkv²·head_scale/s_attn; attn_scale: s_attn (the
         softmax input scale); out_requant: s_qkv/s_out.
     Returns (BH, N, d) int8 codes of the qact2 node. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (d ≤ 64, N ≤ 256) or raise.
+    plain version; CUDA tensors launch the kernel (d ≤ 128, N as shared
+    memory allows: ``vit_attention_plan``) or raise.
     """
     dev = device_of(q_q, k_q, v_q)
     if dev.type == "cpu":
@@ -374,8 +400,8 @@ def _fused_operands(qkv_q, num_heads, lis, lis_bits, gc=0):
     c = c3 // 3
     check_cuda_operand(qkv_q, "qkv_q", torch.int8)
     _check_lis_bits(lis, lis_bits)
-    if c3 != 3 * c or c % num_heads or c // num_heads not in FUSED_HEAD_DIMS or n > MAX_N:
-        raise ValueError(f"attention kernel needs head_dim in {FUSED_HEAD_DIMS} and N <= {MAX_N}; "
+    if c3 != 3 * c or c % num_heads or c // num_heads not in FUSED_HEAD_DIMS:
+        raise ValueError(f"attention kernel needs head_dim in {FUSED_HEAD_DIMS}; "
                          f"got C={c}, heads={num_heads}, N={n}")
     vit_attention_plan(n, c // num_heads, lis, gc)
     return b, n, c
@@ -388,7 +414,8 @@ def lis_attention_fused(qkv_q, num_heads, score_requant, attn_scale, out_requant
 
     Args as ``lis_attention``. Returns (B, N, C) int8 codes of the qact2
     node. CPU tensors take the plain version; CUDA tensors launch the kernel
-    (head_dim 1, 2, 4, 8, 16, 32 or 64, N ≤ 256) or raise.
+    (head_dim 1, 2, 4, 8, 16, 32, 64 or 128, N as shared memory allows) or
+    raise.
     """
     dev = qkv_q.device
     if dev.type == "cpu":
@@ -430,7 +457,15 @@ def lis_attention_qkv_fused_plain(h_q, w_q, requant_vec, bias_vec, num_heads,
 
 ROWS_PER_CTA = 64  # token rows whose q/k/v codes one CTA of the cluster computes
 QGROUP = 16  # query rows per MMA row tile
-GEMM_STAGE_BYTES = 2 * (64 + 3 * HEAD_DIM) * 80  # Gemm<64, 192>'s two cp.async stages
+QKV_CIN_ALIGN = 16  # the cluster GEMM's K step: C_in is zero-padded to it
+
+
+def gemm_stage_bytes(hd: int = HEAD_DIM) -> int:
+    """Gemm<64, 3·hd>'s two cp.async stages (80-byte rows)."""
+    return 2 * (64 + 3 * hd) * 80
+
+
+GEMM_STAGE_BYTES = gemm_stage_bytes()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -442,50 +477,111 @@ class QkvClusterPlan:
     groups: tuple  # (first 16-row query group, number of groups) of each CTA
     kpad: int  # keys padded to a multiple of 32 (the MMA depth), zeros past N
     smem_bytes: int  # dynamic shared memory per CTA
+    hd: int = HEAD_DIM  # the kernel instance's head_dim, 64 or 128
 
 
-def qkv_cluster_plan(n: int, c_in: int) -> QkvClusterPlan:
+def qkv_cluster_plan(n: int, c_in: int, hd: int = HEAD_DIM) -> QkvClusterPlan:
     """Cluster size, query groups per CTA and shared memory of the
-    qkv-fused kernel at N tokens and C_in input channels; raises where the
-    kernel does not take them (N > 256, C_in % 16, shared memory).
+    qkv-fused kernel at N tokens, C_in input channels and head_dim ``hd``
+    (64 or 128); raises where the kernel does not take them: a cluster of
+    more than 16 CTAs (N > 1024), C_in % 16 (``qkv_pad`` pads it), shared
+    memory.
 
     The ceil(N/16) query groups are balanced across the cluster (4/3/3/3 at
-    N = 197). Shared memory: the CTA's own q/k/v tiles (3·64·64 B), then K
-    (kpad rows of 80 B), V transposed (64 rows of kpad + 16 B), the CTA's
-    q rows (80 B each) and two planes of scores and weights (kpad + 16 B a
-    row); the own tiles and what follows overlay the GEMM's stages."""
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"qkv-fused attention kernel needs 1 <= N <= {MAX_N}; got N={n}")
-    if c_in % 16:
+    N = 197). Shared memory: the CTA's own q/k/v tiles (3·64·hd B), then K
+    (kpad rows of hd + 16 B), V transposed (hd rows of kpad + 16 B), the
+    CTA's q rows (hd + 16 B each) and two planes of scores and weights
+    (kpad + 16 B a row); the own tiles and what follows overlay the GEMM's
+    stages."""
+    if hd not in QKV_HEAD_DIMS:
+        raise ValueError(f"qkv-fused attention kernel takes head_dim {QKV_HEAD_DIMS}; got {hd}")
+    if not 1 <= n <= MAX_CLUSTER * ROWS_PER_CTA:
+        raise ValueError(f"qkv-fused attention kernel needs 1 <= N <= {MAX_CLUSTER * ROWS_PER_CTA}: one cluster "
+                         f"of ceil(N/64) CTAs a head, at most {MAX_CLUSTER} (the H100's cluster size); got N={n}")
+    if c_in % QKV_CIN_ALIGN:
         raise ValueError(f"qkv-fused attention kernel needs C_in % 16 == 0; got C_in={c_in}")
     cluster = -(-n // ROWS_PER_CTA)
     groups = -(-n // QGROUP)
     kpad = -(-n // 32) * 32
     vld = kpad + 16
     rows = QGROUP * -(-groups // cluster)
-    own = 3 * ROWS_PER_CTA * HEAD_DIM
-    smem = max(GEMM_STAGE_BYTES,
-               own + kpad * (HEAD_DIM + 16) + HEAD_DIM * vld + rows * (HEAD_DIM + 16) + 2 * rows * vld)
+    own = 3 * ROWS_PER_CTA * hd
+    smem = max(gemm_stage_bytes(hd),
+               own + kpad * (hd + 16) + hd * vld + rows * (hd + 16) + 2 * rows * vld)
     if smem > MAX_SMEM:
         raise ValueError(f"qkv-fused attention kernel needs {smem} B of shared memory per CTA "
-                         f"at N={n}, above the card's {MAX_SMEM}")
+                         f"at N={n}, head_dim {hd}, above the card's {MAX_SMEM}")
     q, rem = divmod(groups, cluster)
     spans = tuple((r * q + min(r, rem), q + (1 if r < rem else 0)) for r in range(cluster))
-    return QkvClusterPlan(cluster, spans, kpad, smem)
+    return QkvClusterPlan(cluster, spans, kpad, smem, hd)
 
 
-def qkv_kernel_info(n: int, lis: bool = True) -> dict:
-    """The built qkv-fused kernel's launch facts at N tokens, from the CUDA
-    runtime: CTAs per cluster, shared memory per CTA, registers and spill
-    bytes per thread, the clusters the card can hold at once and CTAs per SM.
-    Needs the card."""
+def qkv_kernel_info(n: int, lis: bool = True, hd: int = HEAD_DIM) -> dict:
+    """The built qkv-fused kernel's launch facts at N tokens and head_dim
+    ``hd``, from the CUDA runtime: CTAs per cluster, shared memory per CTA,
+    registers and spill bytes per thread, the clusters the card can hold at
+    once and CTAs per SM. Needs the card."""
     lib, _ = library()
     info = (ctypes.c_int * 6)()
-    rc = lib.p2v_lis_attention_qkv_info(int(n), int(bool(lis)), ctypes.cast(info, ctypes.c_void_p))
+    rc = lib.p2v_lis_attention_qkv_info(int(n), int(hd), int(bool(lis)), ctypes.cast(info, ctypes.c_void_p))
     if rc != 0:
         raise RuntimeError(f"p2v_lis_attention_qkv_info: CUDA error {rc}: {lib.p2v_error_string(rc).decode()}")
     keys = ("cluster", "smem_bytes", "registers", "spill_bytes", "max_active_clusters", "ctas_per_sm")
     return dict(zip(keys, list(info)))
+
+
+def qkv_kernel_hd(d: int) -> int:
+    """The qkv-fused kernel instance that serves head_dim d: 64 for d ≤ 64
+    (smaller heads zero-padded), 128 for 64 < d ≤ 128."""
+    if not 1 <= d <= max(QKV_HEAD_DIMS):
+        raise ValueError(f"qkv-fused attention kernel takes head_dim <= {max(QKV_HEAD_DIMS)}; got {d}")
+    return 64 if d <= 64 else 128
+
+
+def qkv_pad(h_q, w_q, requant_vec, bias_vec, num_heads: int):
+    """The qkv-fused kernel's operands at a head_dim it has and C_in % 16:
+    each head's q, k and v weight rows, requant and bias entries moved to
+    rows of head_dim dk = ``qkv_kernel_hd(d)``, zeros in between; C_in
+    zero-padded to a multiple of 16 in h and w. Exact: a zero row with zero
+    requant and bias gives code 0, zero codes add nothing to q·kᵀ (the true
+    d^-0.5 rides in ``score_requant``) and give zero output columns, which
+    ``qkv_unpad`` drops; 0·w adds 0 to the GEMM. Returns (h, w, r, b, dk),
+    the inputs themselves where nothing needs padding."""
+    c3, c_in = w_q.shape
+    d = c3 // 3 // num_heads
+    dk = qkv_kernel_hd(d)
+    r, b = requant_vec, bias_vec
+    if dk != d:
+        def heads(t):
+            out = t.new_zeros((3 * num_heads, dk, *t.shape[1:]))
+            out[:, :d] = t.reshape(3 * num_heads, d, *t.shape[1:])
+            return out.reshape(3 * num_heads * dk, *t.shape[1:])
+        w_q = heads(w_q)
+        r, b = (heads(f32_vec(v, c3, w_q.device)) for v in (requant_vec, bias_vec))
+    if c_in % QKV_CIN_ALIGN:
+        h_q = torch.nn.functional.pad(h_q, (0, (-c_in) % QKV_CIN_ALIGN))
+        w_q = torch.nn.functional.pad(w_q, (0, (-c_in) % QKV_CIN_ALIGN))
+    return h_q, w_q, r, b, dk
+
+
+def qkv_unpad(out, num_heads: int, d: int, dk: int):
+    """(B, N, H·dk) output codes → (B, N, H·d), each head's first d columns."""
+    if d == dk:
+        return out
+    b, n, _ = out.shape
+    return out.reshape(b, n, num_heads, dk)[..., :d].reshape(b, n, num_heads * d).contiguous()
+
+
+def lis_attention_qkv_fused_padded_plain(h_q, w_q, requant_vec, bias_vec, num_heads, score_requant, attn_scale,
+                                         out_requant, lis_bits=4, lis=True):
+    """The wrapper's padding route on the CPU: ``qkv_pad``, the plain
+    version at the kernel's head_dim and C_in, ``qkv_unpad``; equals
+    ``lis_attention_qkv_fused_plain`` on the unpadded operands."""
+    d = w_q.shape[0] // 3 // num_heads
+    h_p, w_p, r_p, b_p, dk = qkv_pad(h_q, w_q, requant_vec, bias_vec, num_heads)
+    out = lis_attention_qkv_fused_plain(h_p, w_p, r_p, b_p, num_heads, score_requant, attn_scale, out_requant,
+                                        lis_bits, lis)
+    return qkv_unpad(out, num_heads, d, dk)
 
 
 QKV_PHASES = ("qkv GEMM", "K/V/q copy", "scores", "LIS weights", "attn@v")
@@ -503,9 +599,10 @@ def lis_attention_qkv_fused(h_q, w_q, requant_vec, bias_vec, num_heads,
         softmax input scale); out_requant: s_qact1/s_out.
     Returns (B, N, C) int8 codes of the qact2 node, bit for bit those of
     ``int8_matmul_requant`` followed by ``lis_attention_fused``. CPU tensors
-    take the plain version; CUDA tensors launch the kernel (head_dim 64,
-    C_in % 16 == 0, N ≤ 256; ``qkv_cluster_plan``) or raise. w_q may be a
-    tensor-parallel shard's, with C_out = 64·num_heads ≠ C_in.
+    take the plain version; CUDA tensors launch the kernel or raise: head_dim
+    64 or 128 as they are, every other head_dim ≤ 128 and C_in % 16 ≠ 0
+    through ``qkv_pad``/``qkv_unpad``; N ≤ 1024 (``qkv_cluster_plan``). w_q
+    may be a tensor-parallel shard's, with C_out = d·num_heads ≠ C_in.
     ``phase_ns``: a (6,) int64 CUDA tensor that receives the %globaltimer
     (ns) of one CTA (rank 0 of the middle cluster) at its start and after
     each of
@@ -523,22 +620,23 @@ def lis_attention_qkv_fused(h_q, w_q, requant_vec, bias_vec, num_heads,
     check_cuda_operand(h_q, "h_q", torch.int8)
     check_cuda_operand(w_q, "w_q", torch.int8, (c3, c_in))
     _check_lis_bits(lis, lis_bits)
-    if c3 != 3 * c or c != HEAD_DIM * num_heads:
-        raise ValueError(f"attention kernel needs head_dim {HEAD_DIM}; got C={c}, heads={num_heads}")
-    qkv_cluster_plan(n, c_in)
+    if c3 != 3 * c or c % num_heads:
+        raise ValueError(f"attention kernel needs 3C rows of whole heads; got C={c}, heads={num_heads}")
+    d = c // num_heads
+    h_q, w_q, r, bias, dk = qkv_pad(h_q, w_q, requant_vec, bias_vec, num_heads)
+    qkv_cluster_plan(n, h_q.shape[-1], dk)
     scal = _vit_scalars(score_requant, attn_scale, out_requant, dev)
-    r = f32_vec(requant_vec, c3, dev)
-    bias = f32_vec(bias_vec, c3, dev)
-    out = torch.empty((b, n, c), dtype=torch.int8, device=dev)
+    r = f32_vec(r, 3 * dk * num_heads, dev)
+    bias = f32_vec(bias, 3 * dk * num_heads, dev)
+    out = torch.empty((b, n, dk * num_heads), dtype=torch.int8, device=dev)
+    args = (h_q, w_q, r, bias, scal, out, b, n, h_q.shape[-1], dk * num_heads, num_heads, int(bool(lis)))
     if phase_ns is None:
-        launch("p2v_lis_attention_qkv_fused", h_q, w_q, r, bias, scal, out,
-               b, n, c_in, c, num_heads, int(bool(lis)))
+        launch("p2v_lis_attention_qkv_fused", *args)
     else:
         check_cuda_operand(phase_ns, "phase_ns", torch.int64, (6,))
-        launch("p2v_lis_attention_qkv_fused_timed", h_q, w_q, r, bias, scal, out,
-               b, n, c_in, c, num_heads, int(bool(lis)), phase_ns)
+        launch("p2v_lis_attention_qkv_fused_timed", *args, phase_ns)
     lis_attention_qkv_fused.launches += 1
-    return out
+    return qkv_unpad(out, num_heads, d, dk)
 
 
 lis_attention_qkv_fused.launches = 0
@@ -548,39 +646,47 @@ lis_attention_qkv_fused.launches = 0
 # Swin windowed attention
 # ---------------------------------------------------------------------------
 
-SWIN_HEAD_DIM = 32  # the kernel's head_dim (every Swin in the zoo); smaller ones are zero-padded to it
-SWIN_MAX_N = 160  # tokens per window the kernel takes (49 for 7×7 windows, 144 for JAX's 12×12)
+SWIN_HEAD_DIM = 32  # the kernel's zoo head_dim (every Swin in the zoo); smaller ones are zero-padded to it
+SWIN_HEAD_DIMS = (32, 64)  # the kernel's instances; a head_dim d pads to the least that holds it
 SWIN_STAGED_N = 64  # up to here the kernel's instance stages bias[h] and the masks in shared memory
-_SWIN_QLD = SWIN_HEAD_DIM + 16  # bytes per staged q / k row
-_SWIN_OFF_ROWS = 2  # LIS off: rows a warp sums side by side
+SWIN_MID_N = 160  # JAX's 12×12 windows (144 tokens); the largest window at head_dim 64
+SWIN_MAX_N = 256  # tokens per window the kernel takes (16×16 windows)
+_SWIN_OFF_ROWS = 2  # LIS off: rows a warp sums side by side (1 in the N ≤ 256 instance)
 SWIN_PHASES = ("q/k/v and mask wait", "bias, V transpose", "scores", "LIS weights", "attn@v")
 SWIN_PHASES_LISOFF = ("q/k/v and mask wait", "bias, v to float64", "scores", "softmax and attn@v")
 
 
 def swin_instance_n(n: int) -> int:
     """The window size NM of the kernel instance that takes N tokens."""
-    return SWIN_STAGED_N if n <= SWIN_STAGED_N else SWIN_MAX_N
+    return SWIN_STAGED_N if n <= SWIN_STAGED_N else SWIN_MID_N if n <= SWIN_MID_N else SWIN_MAX_N
 
 
-def swin_attention_smem(n: int, lis: bool = True) -> int:
-    """Shared memory of one CTA of the Swin kernel at N tokens
-    (``csrc/swin_attention.cu`` ``layout``, instance NM =
+def swin_kernel_hd(d: int) -> int:
+    """The kernel instance's head_dim for heads of d ≤ 64: 32 or 64."""
+    return SWIN_HEAD_DIMS[0] if d <= SWIN_HEAD_DIMS[0] else SWIN_HEAD_DIMS[1]
+
+
+def swin_attention_smem(n: int, lis: bool = True, hd: int = SWIN_HEAD_DIM) -> int:
+    """Shared memory of one CTA of the Swin kernel at N tokens and head_dim
+    ``hd`` (``csrc/swin_attention.cu`` ``layout``, instance NM =
     ``swin_instance_n(n)``): two rows of NM token indices, two stage buffers
     of NM q, k, v rows, the score/hi plane (NM rows of NM + 16 bytes); up
     to ``SWIN_STAGED_N`` two masks and bias[h] (N² float32 each, 16-byte
-    rounded; the lo plane lies over the item's spent q/k rows), past it a lo
-    plane of its own (masks and bias read from global memory); LIS: V
-    transposed; LIS off: v as float64 and each warp's rows of p as
-    float64."""
+    rounded; the lo plane lies over the item's spent q/k rows), past it a
+    lo plane of its own (masks and bias read from global memory; LIS off
+    the N ≤ 256 instance leaves it out); LIS: V transposed; LIS off: v as float64 and each warp's rows
+    of p as float64."""
     nm = swin_instance_n(n)
-    wld = nm + 16
-    stage = 2 * nm * _SWIN_QLD + nm * SWIN_HEAD_DIM
+    wld, qld = nm + 16, hd + 16
+    stage = 2 * nm * qld + nm * hd
     staged = nm == SWIN_STAGED_N
     nn = -(-n * n * 4 // 16) * 16 if staged else 0
-    end = 2 * nm * 4 + 2 * stage + 3 * nn + nm * wld * (1 if staged else 2)
+    lo = not staged and (lis or nm <= SWIN_MID_N)  # a lo plane of its own (none LIS off at N > 160)
+    end = 2 * nm * 4 + 2 * stage + 3 * nn + nm * wld * (2 if lo else 1)
     if lis:
-        return end + SWIN_HEAD_DIM * wld
-    return end + -(-n * SWIN_HEAD_DIM * 8 // 16) * 16 + 8 * _SWIN_OFF_ROWS * nm * 8
+        return end + hd * wld
+    off_rows = 1 if nm > SWIN_MID_N else _SWIN_OFF_ROWS
+    return end + -(-n * hd * 8 // 16) * 16 + 8 * off_rows * nm * 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -596,6 +702,7 @@ class SwinAttentionPlan:
     n: int  # tokens per window
     grid: int  # CTAs: min(items, SMs × CTAs per SM), or the forced grid
     smem_bytes: int  # dynamic shared memory per CTA
+    hd: int = SWIN_HEAD_DIM  # the instance's head_dim, 32 or 64
 
     @property
     def items(self) -> int:
@@ -626,34 +733,44 @@ class SwinAttentionPlan:
         """(scores, attn@v) MMA tiles each of the 8 warps takes per item at
         most: (16-row group, 8-key tile) and (group, 8-dim tile) pairs."""
         groups, kpad = -(-self.n // 16), -(-self.n // 32) * 32
-        return -(-groups * kpad // 8 // 8), -(-groups * SWIN_HEAD_DIM // 8 // 8)
+        return -(-groups * kpad // 8 // 8), -(-groups * self.hd // 8 // 8)
 
 
 def swin_attention_plan(windows: int, n_windows: int, heads: int, n: int, sms: int = 132,
-                        ctas_per_sm: int = 4, grid: int = 0, lis: bool = True) -> SwinAttentionPlan:
+                        ctas_per_sm: int = 4, grid: int = 0, lis: bool = True,
+                        hd: int = SWIN_HEAD_DIM) -> SwinAttentionPlan:
     """The Swin kernel's plan: ``windows`` windows of N tokens, ``n_windows``
-    per image (the mask's period), ``heads`` heads, on ``sms`` SMs holding
-    ``ctas_per_sm`` CTAs each (``swin_attention_info`` reads both on the
-    card; the H100 holds 4 at N = 49 with LIS, 3 without). ``grid`` > 0
-    forces the grid (a measurement hook). Raises where the kernel does not
-    run (N > ``SWIN_MAX_N``, shared memory)."""
+    per image (the mask's period), ``heads`` heads of head_dim ``hd`` (the
+    instance's, 32 or 64), on ``sms`` SMs holding ``ctas_per_sm`` CTAs each
+    (``swin_attention_info`` reads both on the card; the H100 holds 4 at N
+    = 49 with LIS, 3 without). ``grid`` > 0 forces the grid (a measurement
+    hook). Raises where the kernel does not run: N > ``SWIN_MAX_N``, and
+    head_dim 64 past N = 160, where two stage buffers no longer fit a
+    block's shared memory."""
+    if hd not in SWIN_HEAD_DIMS:
+        raise ValueError(f"Swin attention kernel takes head_dim {SWIN_HEAD_DIMS}; got {hd}")
     if not 1 <= n <= SWIN_MAX_N:
         raise ValueError(f"Swin attention kernel needs 1 <= N <= {SWIN_MAX_N}; got N={n}")
-    smem = swin_attention_smem(n, lis)
+    if hd > SWIN_HEAD_DIM and n > SWIN_MID_N:
+        nm_smem = swin_attention_smem(SWIN_MAX_N, lis, hd)
+        raise ValueError(f"Swin attention kernel at head_dim {hd} needs N <= {SWIN_MID_N}: an N <= "
+                         f"{SWIN_MAX_N} instance would need {nm_smem} B of shared memory, above {MAX_SMEM}")
+    smem = swin_attention_smem(n, lis, hd)
     if smem > MAX_SMEM:
         raise ValueError(f"Swin attention kernel needs {smem} B of shared memory, above {MAX_SMEM}")
     items = windows * heads
     return SwinAttentionPlan(windows, n_windows, heads, n, min(items, grid if grid > 0 else sms * ctas_per_sm),
-                             smem)
+                             smem, hd)
 
 
-def swin_attention_info(n: int, lis: bool = True, fold: bool = False) -> dict:
-    """The built Swin kernel's launch facts at N tokens, from the CUDA
-    runtime: shared memory per CTA, registers and spill bytes per thread,
-    CTAs per SM and SMs. Needs the card."""
+def swin_attention_info(n: int, lis: bool = True, fold: bool = False, hd: int = SWIN_HEAD_DIM) -> dict:
+    """The built Swin kernel's launch facts at N tokens and head_dim ``hd``
+    (32 or 64), from the CUDA runtime: shared memory per CTA, registers and
+    spill bytes per thread, CTAs per SM and SMs. Needs the card."""
     lib, _ = library()
     info = (ctypes.c_int * 5)()
-    rc = lib.p2v_swin_attention_info(int(n), int(bool(lis)), int(bool(fold)), ctypes.cast(info, ctypes.c_void_p))
+    rc = lib.p2v_swin_attention_info(int(n), int(hd), int(bool(lis)), int(bool(fold)),
+                                     ctypes.cast(info, ctypes.c_void_p))
     if rc != 0:
         raise RuntimeError(f"p2v_swin_attention_info: CUDA error {rc}: {lib.p2v_error_string(rc).decode()}")
     return dict(zip(("smem_bytes", "registers", "spill_bytes", "ctas_per_sm", "sms"), list(info)))
@@ -711,9 +828,10 @@ def _check_swin_operands(qkv, bias, mask, c3, n, num_heads, n_windows, lis, lis_
     check_cuda_operand(qkv, "qkv", torch.int8)
     _check_lis_bits(lis, lis_bits)
     d = c // num_heads
-    if c3 != 3 * c or c != d * num_heads or not 1 <= d <= SWIN_HEAD_DIM or n > SWIN_MAX_N:
-        raise ValueError(f"Swin attention kernel needs head_dim <= {SWIN_HEAD_DIM} and "
+    if c3 != 3 * c or c != d * num_heads or not 1 <= d <= SWIN_HEAD_DIMS[-1] or n > SWIN_MAX_N:
+        raise ValueError(f"Swin attention kernel needs head_dim <= {SWIN_HEAD_DIMS[-1]} and "
                          f"N <= {SWIN_MAX_N}; got C={c}, heads={num_heads}, N={n}")
+    swin_attention_plan(1, 1, 1, n, lis=lis, hd=swin_kernel_hd(d))
     bias = bias.to(torch.float32).contiguous()
     check_cuda_operand(bias, "bias", torch.float32, (num_heads, n, n))
     if mask is not None:
@@ -723,27 +841,41 @@ def _check_swin_operands(qkv, bias, mask, c3, n, num_heads, n_windows, lis, lis_
 
 
 def swin_pad_heads(qkv, num_heads: int, d: int):
-    """(..., 3·H·d) qkv codes → (..., 3·H·32): each head's q, k and v
-    columns zero-padded to the kernel's head_dim. Zero columns add nothing
-    to the integer scores (``score_requant`` carries the true d^-0.5) and
-    give zero output columns, which ``swin_unpad_heads`` drops."""
-    if d == SWIN_HEAD_DIM:
+    """(..., 3·H·d) qkv codes → (..., 3·H·dk), dk = ``swin_kernel_hd(d)``:
+    each head's q, k and v columns zero-padded to the kernel's head_dim.
+    Zero columns add nothing to the integer scores (``score_requant``
+    carries the true d^-0.5) and give zero output columns, which
+    ``swin_unpad_heads`` drops."""
+    dk = swin_kernel_hd(d)
+    if d == dk:
         return qkv
     lead = qkv.shape[:-1]
-    out = qkv.new_zeros((*lead, 3 * num_heads, SWIN_HEAD_DIM))
+    out = qkv.new_zeros((*lead, 3 * num_heads, dk))
     out[..., :d] = qkv.reshape(*lead, 3 * num_heads, d)
-    return out.reshape(*lead, 3 * num_heads * SWIN_HEAD_DIM)
+    return out.reshape(*lead, 3 * num_heads * dk)
 
 
 def swin_unpad_heads(out, num_heads: int, d: int):
-    """(..., H·32) output codes → (..., H·d), each head's first d columns."""
-    if d == SWIN_HEAD_DIM:
+    """(..., H·dk) output codes → (..., H·d), each head's first d columns."""
+    dk = swin_kernel_hd(d)
+    if d == dk:
         return out
     lead = out.shape[:-1]
-    return out.reshape(*lead, num_heads, SWIN_HEAD_DIM)[..., :d].reshape(*lead, num_heads * d).contiguous()
+    return out.reshape(*lead, num_heads, dk)[..., :d].reshape(*lead, num_heads * d).contiguous()
 
 
-def _swin_hooks(grid, phase_ns, cta_ns, items, n, lis, fold):
+def swin_lis_attention_padded_plain(qkv_q, bias, mask, num_heads, n_windows, score_requant, attn_scale, s2,
+                                    out_requant, lis_bits=4, lis=True):
+    """The wrapper's padding route on the CPU: ``swin_pad_heads``, the plain
+    version at the kernel's head_dim, ``swin_unpad_heads``; equals
+    ``swin_lis_attention_plain`` on the unpadded codes."""
+    d = qkv_q.shape[-1] // 3 // num_heads
+    out = _swin_windows_plain(swin_pad_heads(qkv_q, num_heads, d), bias, mask, num_heads, n_windows,
+                              score_requant, attn_scale, s2, out_requant, lis_bits, lis)
+    return swin_unpad_heads(out, num_heads, d)
+
+
+def _swin_hooks(grid, phase_ns, cta_ns, items, n, lis, fold, hd):
     """The measurement hooks' C arguments (grid, stamps, CTA spans);
     phase_ns is zeroed (the kernel adds its phase sums into it), and cta_ns
     must hold two stamps for each CTA of the launch."""
@@ -752,7 +884,7 @@ def _swin_hooks(grid, phase_ns, cta_ns, items, n, lis, fold):
         phase_ns.zero_()
     if cta_ns is not None:
         check_cuda_operand(cta_ns, "cta_ns", torch.int64)
-        info = swin_attention_info(n, lis, fold)
+        info = swin_attention_info(n, lis, fold, hd)
         ctas = min(items, grid if grid > 0 else info["sms"] * info["ctas_per_sm"])
         if cta_ns.numel() < 2 * ctas:
             raise ValueError(f"cta_ns holds {cta_ns.numel()} stamps; the launch has {ctas} CTAs")
@@ -770,10 +902,11 @@ def swin_lis_attention(qkv_q, bias, mask, num_heads, n_windows, score_requant, a
       score_requant: s_qkv²·d^-0.5/s_attn1; attn_scale: s_attn1;
       s2: the qact2 scale (LIS input); out_requant: s_qkv/s_qact3.
     Returns (W, N, C) int8 codes of the qact3 node. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (N ≤ 160, keys
+    plain version; CUDA tensors launch the kernel (N ≤ 256, keys
     zero-padded to a multiple of 32 inside it as JAX pads them;
-    ``swin_attention_plan``; a head_dim d < 32 runs with each head's q, k,
-    v zero-padded to 32 by ``swin_pad_heads``) or raise. Measurement
+    ``swin_attention_plan``; a head_dim d other than 32 or 64 runs with
+    each head's q, k, v zero-padded to 32 or 64 by ``swin_pad_heads``;
+    head_dim 64 up to N = 160) or raise. Measurement
     hooks: ``grid`` > 0 launches that many CTAs instead of the plan's; ``phase_ns``, a (9,)
     int64 CUDA tensor, receives the middle CTA's time per phase summed over
     its items (``SWIN_PHASES``; LIS off ``SWIN_PHASES_LISOFF`` and a zero),
@@ -792,12 +925,13 @@ def swin_lis_attention(qkv_q, bias, mask, num_heads, n_windows, score_requant, a
         raise ValueError(f"{w} windows are not whole images of {n_windows} windows")
     scal = swin_attention_scalars(score_requant, attn_scale, s2, out_requant, dev, lis)
     qkv_q = swin_pad_heads(qkv_q, num_heads, d)
-    c = SWIN_HEAD_DIM * num_heads
+    c = swin_kernel_hd(d) * num_heads
     out = torch.empty((w, n, c), dtype=torch.int8, device=dev)
     nw = n_windows if mask is not None else 1
     if grid or phase_ns is not None or cta_ns is not None:
         launch("p2v_swin_attention_hook", qkv_q, bias, mask, scal, out, w, n, nw, c, num_heads, 0,
-               int(bool(lis)), 0, *_swin_hooks(grid, phase_ns, cta_ns, w * num_heads, n, lis, False))
+               int(bool(lis)), 0, *_swin_hooks(grid, phase_ns, cta_ns, w * num_heads, n, lis, False,
+                                               swin_kernel_hd(d)))
     else:
         launch("p2v_swin_lis_attention", qkv_q, bias, mask, scal, out, w, n, c, num_heads, nw,
                int(bool(lis)))
@@ -855,8 +989,8 @@ def swin_lis_attention_folded(qkv_r, bias, mask, num_heads, window, score_requan
     Returns (B, res, res, C) int8 qact3 codes in raster layout, bit for bit
     roll(+shift) of window_reverse of ``swin_lis_attention`` on the
     partitioned panels of roll(−shift) of ``qkv_r``. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (head_dim ≤ 32, padded as
-    ``swin_lis_attention`` pads it; N ≤ 160) or raise. ``grid``,
+    plain version; CUDA tensors launch the kernel (head_dim ≤ 64, padded as
+    ``swin_lis_attention`` pads it; N as it takes them) or raise. ``grid``,
     ``phase_ns`` and ``cta_ns``: the measurement hooks of
     ``swin_lis_attention``.
     """
@@ -870,12 +1004,13 @@ def swin_lis_attention_folded(qkv_r, bias, mask, num_heads, window, score_requan
                                          lis, lis_bits)
     scal = swin_attention_scalars(score_requant, attn_scale, s2, out_requant, dev, lis)
     qkv_r = swin_pad_heads(qkv_r, num_heads, d)
-    c = SWIN_HEAD_DIM * num_heads
+    c = swin_kernel_hd(d) * num_heads
     out = torch.empty((b, res, res, c), dtype=torch.int8, device=dev)
     shift = int(shift) % res
     if grid or phase_ns is not None or cta_ns is not None:
         launch("p2v_swin_attention_hook", qkv_r, bias, mask, scal, out, b, res, window, c, num_heads,
-               shift, int(bool(lis)), 1, *_swin_hooks(grid, phase_ns, cta_ns, b * g * g * num_heads, n, lis, True))
+               shift, int(bool(lis)), 1, *_swin_hooks(grid, phase_ns, cta_ns, b * g * g * num_heads, n, lis, True,
+                                                      swin_kernel_hd(d)))
     else:
         launch("p2v_swin_lis_attention_folded", qkv_r, bias, mask, scal, out, b, res, window, c,
                num_heads, shift, int(bool(lis)))

@@ -30,7 +30,8 @@ each thread holds 4 rows × CC channels of h in registers (CC = C_pad/16)
 and reads, per k, 4 x values and CC weights from shared memory, so the
 FP32 pipe and not the shared-memory pipe sets the pace; the epilogue and
 the LN run in registers with exact row sums (``stem_plan``). Past C = 256
-a cluster of CS = ⌈C/256⌉ CTAs (at most 4, so C ≤ 1024) splits the
+a cluster of CS = ⌈C/256⌉ CTAs (at most 16, the H100's largest cluster,
+past 8 with the non-portable cluster size, so C ≤ 4096) splits the
 channels, each CTA 16·CC of them, and the CTAs add their exact partial row
 sums through distributed shared memory before the LN.
 """
@@ -46,7 +47,7 @@ from ._lib import check_cuda_operand, device_of, f32_vec, launch, library, pad_c
 from .intln import ln_codes
 
 _I8 = (-128, 127)
-MAX_STEM_CLUSTER = 4  # CTAs a cluster splitting C
+MAX_STEM_CLUSTER = 16  # CTAs a cluster splitting C (the H100's largest cluster)
 MAX_STEM_C = 256 * MAX_STEM_CLUSTER  # 16 channels a thread, 256 a CTA, at most
 MAX_STEM_SMEM = 232_448  # dynamic shared memory one block may use
 ROWS = 64  # patch rows a CTA block: 16 row groups of 4
@@ -119,8 +120,8 @@ def stem_plan(m: int, k: int, c: int, sms: int = 132, ctas_per_sm: int = 3, clus
     ``sms`` SMs holding ``ctas_per_sm`` CTAs each, or ``clusters``
     resident clusters (``stem_kernel_info`` reads all three on the card):
     cs = ⌈C/256⌉ CTAs a cluster, cc the least of ``CC_SET`` with
-    cs·16·cc ≥ C; raises past C = 1024 or where a CTA's shared memory does
-    not fit."""
+    cs·16·cc ≥ C; raises past C = 4096 (a cluster of 16 CTAs) or where a
+    CTA's shared memory does not fit."""
     k_pad = -(-k // 4) * 4
     cs = -(-c // 256)
     cc = next((v for v in CC_SET if cs * 16 * v >= c), None) if 1 <= cs <= MAX_STEM_CLUSTER else None
@@ -161,7 +162,7 @@ def fused_swin_stem(patches, w, bias, s_bn, ln_w, ln_b, out_scale):
         (C,)). ln_w/ln_b: (C,) patch-norm affine. out_scale: the patch_qact
         scale (scalar or (C,)).
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (C ≤ 1024, K and C zero-padded to the plan's widths, ``stem_plan``) or
+    (C ≤ 4096, K and C zero-padded to the plan's widths, ``stem_plan``) or
     raise.
     """
     if device_of(patches, w).type == "cpu":

@@ -13,9 +13,29 @@ which is what the CLI resolves its flags into before it starts the ranks.
 Each rank serves its batch shard with the whole (single-device) program and
 the logits come back by a host-staged ``all_gather`` over "data":
 integer code arithmetic is per example, so the result equals one process's
-bit for bit. The JAX package's GSPMD-annotated DP×TP of the fake-quant
-forward (``param_shardings``; ``data_parallel_eval`` with a model axis above
-1) and the sharded calibration have no counterpart yet (ROADMAP.md queue 1).
+bit for bit.
+
+The JAX package's GSPMD surfaces, written out with explicit collectives:
+
+* ``param_shardings``/``shard_params``: the megatron placement of a ViT
+  params dict over "model" (JAX's ``_leaf_spec``) and one rank's shard of
+  it; ``data_parallel_eval`` with a model axis above 1 runs
+  ``vit.quant_forward(mesh=)`` on it: qkv and fc1 column-parallel (qkv
+  head-aligned), proj and fc2 row-parallel with a SUM ``all_reduce`` of the
+  float partial products over "model", the batch over "data". The
+  reduction reassociates float sums, so the logits stay within one LSB of
+  the output quantizer's grid, as JAX states for its own.
+* ``vit.calibrate(mesh=)``: each rank runs the calibration forward on its
+  data shard and ``gather_batch``es every node's tensor before its solve,
+  so each loss reduces the whole tensor in one process's order and the
+  decisions equal one process's: bit for bit where a shard's forward
+  rounds as the whole batch's does (the CPU); on the card, where cuBLAS
+  picks a GEMM's kernel by its rows, the float PTF scales can move by a few
+  ulps, within JAX's rtol 1e-6, and every power-of-two decision is equal.
+* ``dp_generation_loss``: the data-free objective on a data shard of the
+  images, gathered inside the graph by ``gather_rows`` (an autograd
+  function whose backward reduce-scatters), so each rank's gradient is its
+  shard of one process's.
 """
 
 from __future__ import annotations
@@ -149,10 +169,116 @@ def dp_serving_fn(inner, mesh: Mesh):
 def data_parallel_eval(forward, mesh: Mesh, params, *args):
     """``run(x, *rest) = forward(params, *args, x_shard, *rest)`` over the
     data axis, logits gathered on every rank: DP of the fake-quant forward
-    (``vit.quant_forward``), whose math is per example. A model axis above 1
-    (the JAX package's GSPMD-annotated DP×TP) is not ported."""
-    if mesh.shape["model"] != 1:
-        raise NotImplementedError("data_parallel_eval with a model axis above 1 (GSPMD DP×TP of the "
-                                  "fake-quant forward) is not ported: ROADMAP.md queue 1")
-    run = dp_serving_fn(lambda x, *rest: forward(params, *args, x, *rest), mesh)
+    (``vit.quant_forward``), whose math is per example. With a model axis
+    above 1, ``forward`` also gets ``mesh=mesh`` and runs megatron TP over
+    "model" (``vit.quant_forward(mesh=)``; the params stay whole on every
+    rank, which slices its shard with ``shard_params``)."""
+    if mesh.shape["model"] == 1:
+        run = dp_serving_fn(lambda x, *rest: forward(params, *args, x, *rest), mesh)
+    else:
+        run = dp_serving_fn(lambda x, *rest: forward(params, *args, x, *rest, mesh=mesh), mesh)
     return torch.no_grad()(run)
+
+
+# ---------------------------------------------------------------------------
+# Megatron placement of the ViT params over "model"
+# ---------------------------------------------------------------------------
+
+
+def _leaf_spec(path: str) -> tuple:
+    """The megatron placement of a ViT param leaf (JAX's ``_leaf_spec``):
+    qkv/fc1 (out, in) split by out-features over "model" (column parallel),
+    proj/fc2 by in-features (row parallel), the qkv/fc1 biases with their
+    out-features; everything else (LN, the proj/fc2 biases, embeddings,
+    head) replicated, ``()``."""
+    if path.endswith("qkv.w") or path.endswith("fc1.w"):
+        return ("model", None)
+    if path.endswith("proj.w") or path.endswith("fc2.w"):
+        return (None, "model")
+    if path.endswith("qkv.b") or path.endswith("fc1.b"):
+        return ("model",)
+    return ()
+
+
+def _map_paths(tree, fn, path=""):
+    if isinstance(tree, dict):
+        return {k: _map_paths(v, fn, f"{path}.{k}" if path else str(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_paths(v, fn, f"{path}.{i}") for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def param_shardings(params) -> dict:
+    """The placement of each leaf of a ViT params dict: a tuple naming, per
+    dimension, the mesh axis it is split over (``"model"``) or ``None``;
+    ``()`` for a replicated leaf. The tree has the params' structure."""
+    return _map_paths(params, lambda path, _: _leaf_spec(path))
+
+
+def model_slice(t: torch.Tensor, mesh: Mesh, dim: int, num_heads: int | None = None) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim`` split over "model", as a new
+    tensor (a view would keep the whole's alignment, not the shard's). With
+    ``num_heads``, ``dim`` holds a fused qkv's [q; k; v] rows, taken
+    head-aligned: the rank's heads' q, k and v (``tensor._qkv_tp_perm``)."""
+    mp, i = mesh.shape["model"], mesh.index("model")
+    dim = dim % t.ndim
+    if num_heads is not None:
+        from .tensor import _qkv_tp_perm
+
+        perm = torch.as_tensor(_qkv_tp_perm(t.shape[dim] // 3, num_heads, mp), device=t.device)
+        t = t.index_select(dim, perm)
+    per = t.shape[dim] // mp
+    return t.narrow(dim, i * per, per).contiguous()
+
+
+def shard_params(params: dict, mesh: Mesh, num_heads: int) -> dict:
+    """This rank's shard of a ViT params dict along "model" per
+    ``param_shardings``: each split leaf cut to the rank's block of the
+    named dimension (the qkv weight and bias head-aligned, ``num_heads``
+    heads in all); replicated leaves as they are."""
+    def one(path, leaf):
+        spec = _leaf_spec(path)
+        if "model" not in spec:
+            return leaf
+        return model_slice(leaf, mesh, spec.index("model"), num_heads if ".qkv." in f".{path}" else None)
+
+    return _map_paths(params, one)
+
+
+# ---------------------------------------------------------------------------
+# The data-free generation objective, data-parallel
+# ---------------------------------------------------------------------------
+
+
+class _GatherRows(torch.autograd.Function):
+    """``all_gather_rows`` over a group inside the graph; its backward
+    reduce-scatters the gradient rows, each rank keeping the sum of every
+    rank's gradient for its own block."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return pdist.all_gather_rows(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return pdist.reduce_scatter_rows(grad.contiguous(), ctx.group), None
+
+
+def gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The data shards of ``x`` concatenated in data order, differentiably."""
+    return _GatherRows.apply(x, mesh.group("data"))
+
+
+def dp_generation_loss(im_shard, params, cfg, labels, var_pred, off, flip, mesh: Mesh):
+    """The data-free objective (``datafree.generation_loss``) of the whole
+    batch from this rank's data shard of the images: the KDE entropy and the
+    TV prior couple the images across the batch, so the shards are gathered
+    inside the graph (``gather_rows``) and every rank evaluates the whole
+    objective, divided by the data axis; the backward's reduce-scatter then
+    sums the ranks' equal shares, and each rank's gradient is its block of
+    one process's (within the float reassociation of that sum)."""
+    from .. import datafree
+
+    nd = mesh.shape["data"]
+    return datafree.generation_loss(gather_rows(im_shard, mesh), params, cfg, labels, var_pred, off, flip) / nd

@@ -454,8 +454,8 @@ def test_lis_attention_qkv_fused_plan_matches_kernel(dev, n, lis):
     info = attention_lis.qkv_kernel_info(n, lis)
     assert info["cluster"] == plan.cluster and info["smem_bytes"] == plan.smem_bytes
     assert info["max_active_clusters"] >= 1 and info["ctas_per_sm"] >= 1
-    with pytest.raises(ValueError, match="N <= 256"):
-        attention_lis.qkv_cluster_plan(257, 384)
+    with pytest.raises(ValueError, match="N <= 1024"):
+        attention_lis.qkv_cluster_plan(1025, 384)
 
 
 @pytest.mark.parametrize("lis", [True, False])
@@ -487,7 +487,7 @@ def test_lis_attention_fused_kernel(dev, n, lis):
 
 @pytest.mark.parametrize("lis", [True, False])
 def test_lis_attention_kernel(dev, lis):
-    """Split (B·H, N, 64) q/k/v; head_dim 32 is served too, 65 raises."""
+    """Split (B·H, N, 64) q/k/v; head_dim 32 is served too, 129 raises."""
     rng = np.random.RandomState(5)
     q, k, v = (_i8(rng, (18, 197, 64)).to(dev) for _ in range(3))
     a = (q, k, v, 2.0**-11, 2.0**-4, 2.0)
@@ -495,7 +495,7 @@ def test_lis_attention_kernel(dev, lis):
     half = [t[..., :32].contiguous() for t in (q, k, v)]
     _same(attention_lis.lis_attention(*half, *a[3:], lis=lis),
           attention_lis.lis_attention_plain(*half, *a[3:], lis=lis))
-    wide = [_i8(rng, (2, 17, 65)).to(dev) for _ in range(3)]
+    wide = [_i8(rng, (2, 17, 129)).to(dev) for _ in range(3)]
     with pytest.raises(ValueError, match="head_dim"):
         attention_lis.lis_attention(*wide, *a[3:], lis=lis)
 
@@ -891,7 +891,8 @@ def test_swin_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="2\\^-20"):
         attention_lis.swin_lis_attention(*low)
     with pytest.raises(ValueError, match="head_dim"):
-        attention_lis.swin_lis_attention(a[0], a[1][:1], None, 1, *a[4:])
+        attention_lis.swin_lis_attention(torch.zeros(4, 49, 384, dtype=torch.int8, device=dev), a[1][:1], None, 1,
+                                         *a[4:])
     x = torch.zeros(8, intln.MAX_C + 1, dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match=f"C <= {intln.MAX_C}"):
         intln.int_ln_requant(x, 1.0, 1.0, 1.0, 0.0, 1.0, 1.0)
@@ -990,8 +991,8 @@ def test_fused_swin_stem_kernel(dev, case):
     before = swin_stem.fused_swin_stem.launches
     _same(swin_stem.fused_swin_stem(*args), swin_stem.fused_swin_stem_plain(*args))
     assert swin_stem.fused_swin_stem.launches == before + 1
-    with pytest.raises(ValueError, match="C <= 1024"):
-        swin_stem.fused_swin_stem(args[0], torch.zeros(1100, k, device=dev), *args[2:])
+    with pytest.raises(ValueError, match="C <= 4096"):
+        swin_stem.fused_swin_stem(args[0], torch.zeros(4100, k, device=dev), *args[2:])
 
 
 @pytest.mark.parametrize("case", ["randn", "zero_row_mask16"])
@@ -1118,7 +1119,8 @@ def test_swin_folded_wrapper_raises_on_what_the_kernel_does_not_take(dev):
         attention_lis.swin_lis_attention_folded(qkv, bias, torch.zeros(3, 49, 49, device=dev), 2, 7,
                                                 *sc)
     with pytest.raises(ValueError, match="head_dim"):
-        attention_lis.swin_lis_attention_folded(qkv, bias[:1], None, 1, 7, *sc)
+        attention_lis.swin_lis_attention_folded(torch.zeros(1, 14, 14, 384, dtype=torch.int8, device=dev),
+                                                bias[:1], None, 1, 7, *sc)
     with pytest.raises(ValueError, match="2\\^-20"):
         attention_lis.swin_lis_attention_folded(qkv, bias, None, 2, 7, 1.0, 2.0**-4, 2.0**-21, 1.0)
 
@@ -1190,16 +1192,16 @@ def test_fused_vit_layer_kernel(dev, b, dead, lis):
 
 
 def test_fused_vit_layer_raises_where_it_does_not_fit(dev):
-    """C = 32 (a TINY layer, head_dim 16) on the card: ValueError naming
-    fuse_layer=False."""
+    """C = 48 with 4 heads (head_dim 12, which JAX's assert refuses too) on
+    the card: ValueError naming fuse_layer=False."""
     rng = np.random.RandomState(12)
-    c, hid = 32, 128
+    c, hid = 48, 128
     v = lambda n: torch.ones(n, device=dev)  # noqa: E731
     args = [_i8(rng, (1, 17, c)).to(dev), _i8(rng, (1, 17, c)).to(dev), _i8(rng, (3 * c, c)).to(dev),
-            v(3 * c), v(3 * c), 2, 1.0, 0.0625, 1.0, _i8(rng, (c, c)).to(dev), v(c), v(c), 1.0, v(c),
+            v(3 * c), v(3 * c), 4, 1.0, 0.0625, 1.0, _i8(rng, (c, c)).to(dev), v(c), v(c), 1.0, v(c),
             v(c), v(c), v(c), v(c), 1.0, _i8(rng, (hid, c)).to(dev), v(hid), v(hid), 1.0,
             _i8(rng, (c, hid)).to(dev), v(c), v(c), 1.0, v(c), v(c), v(c), v(c), 1.0]
-    with pytest.raises(ValueError, match="multiples of 64.*fuse_layer=False"):
+    with pytest.raises(ValueError, match="head_dim 12.*fuse_layer=False"):
         layer_fused.fused_vit_layer(*args)
 
 

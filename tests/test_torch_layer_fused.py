@@ -345,11 +345,14 @@ def test_check_fits_zoo(name, fits):
 
 
 @pytest.mark.parametrize("dims,why", [
-    ((17, 32, 2, 128), "multiples of 64"), ((300, 384, 6, 1536), "N = 300"),
-    ((197, 96, 1, 384), "head_dim 96"), ((197, 128, 2, 520), "multiples of 64"),
+    ((17, 992, 31, 4000), "multiples of 64"), ((300, 768, 12, 3072), "N = 300"),
+    ((197, 96, 1, 384), "head_dim 96"), ((197, 992, 31, 520), "multiples of 64"),
 ])
 def test_check_fits_rejects(dims, why):
-    """TINY (C = 32), too many tokens, another head_dim, a ragged hidden
-    width: ValueError naming the reason and fuse_layer=False."""
+    """A width whose padded tiles overflow shared memory (C = 992 runs at
+    1024), too many tokens at DeiT-B width, a head_dim JAX's assert refuses,
+    C = 992 with a ragged hidden width: ValueError naming the reason and
+    fuse_layer=False. (TINY, N = 300 at DeiT-S width and ragged widths that
+    fit are served since the kernel pads: tests/test_torch_shape_faults.py.)"""
     with pytest.raises(ValueError, match=f"{why}.*fuse_layer=False"):
         layer_fused.check_fits(*dims)

@@ -81,12 +81,13 @@ def test_layer_plan_zoo(name, b):
 
 @pytest.mark.parametrize("dims,why", [
     ((197, 768, 12, 3072), "shared memory"), ((197, 1024, 16, 4096), "shared memory"),
-    ((300, 384, 6, 1536), "N = 300"), ((197, 256, 2, 1024), "head_dim 128"),
-    ((17, 32, 2, 128), "multiples of 64"), ((197, 96, 1, 384), "head_dim 96"),
+    ((300, 768, 12, 3072), "N = 300"), ((577, 256, 2, 1024), "head_dim 128"),
+    ((17, 992, 31, 4000), "multiples of 64"), ((197, 96, 1, 384), "head_dim 96"),
 ])
 def test_layer_plan_refusals(dims, why):
-    """DeiT-B and ViT-L (shared memory), N > 256, head_dim 128 and 96, C =
-    32: refused with the reason and fuse_layer=False."""
+    """DeiT-B and ViT-L, N = 300 at DeiT-B width, head_dim 128 at N = 577
+    and C = 992 (padded to 1024) past shared memory, and head_dim 96, which
+    JAX's assert refuses: refused with the reason and fuse_layer=False."""
     with pytest.raises(ValueError, match=f"{why}.*fuse_layer=False"):
         layer_fused.layer_plan(2, *dims)
 
@@ -134,10 +135,10 @@ def test_vit_attention_plan(n):
     # DeiT-S: LIS on, 3 CTAs an SM and one group a chunk; LIS off, 4 and 2
     assert attention_lis.vit_attention_plan(197, 64, True).gc == 1
     assert attention_lis.vit_attention_plan(197, 64, False).gc == 2
-    with pytest.raises(ValueError, match="N <= 256"):
-        attention_lis.vit_attention_plan(257, 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        attention_lis.vit_attention_plan(800, 64)
     with pytest.raises(ValueError, match="head_dim"):
-        attention_lis.vit_attention_plan(n, 65)
+        attention_lis.vit_attention_plan(n, 129)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,12 @@ One module-scoped fixture starts ONE gloo group of 4 CPU ranks
 seeded states: DP over a 4×1 mesh, TP over 2×2 (qkv-fused and staged,
 sequence-parallel, W4, uint8), Swin TP over 2×2 (LIS on and off), a
 2-stage pipeline at 1, 2 and 4 microbatches, full batches of 8 and short
-ones of 5 (pad and trim). The states are the port's seeded init and
+ones of 5 (pad and trim); and the three mesh surfaces of JAX's GSPMD tests
+(``tests/test_parallel.py``): ``calibrate`` on the batch sharded over a 4×1
+mesh (the quant state bit for bit here, and within JAX's rtol 1e-6, the
+envelope the card is held to), DP×TP of ``quant_forward`` over 2×2 (within
+one LSB of act_out's grid, argmax equal) and the DP data-free generation
+gradient over 4×1 (within rtol 2e-4, atol 2e-6 of one process's). The states are the port's seeded init and
 calibration on a numpy-seeded batch, handed to JAX as arrays (the port's
 calibration takes a few seconds where JAX's jit takes ~25). The JAX
 results come from the 8-virtual-device CPU mesh: ``dp_serving_fn``,
@@ -18,8 +23,9 @@ interpret mode with ``fuse_qkv`` both ways), ``seq_parallel=True``,
 ``tensor_swin.tp_serving_fn`` (LIS on and off) and
 ``pipeline_serving_forward`` (interpret mode); each JAX function compiles
 per batch shape, so the short batches and 1 and 4 microbatches are held
-against the port's one-process forward only. Tolerance 0 throughout: every
-comparison is bit for bit.
+against the port's one-process forward only. Tolerance 0 throughout but for
+those two envelopes, which are JAX's: every other comparison is bit for
+bit.
 
 Also: ``_qkv_tp_perm``, ``check_tp`` and the TP divisibility errors against
 JAX's, ``make_pipeline_mesh`` raising inside a group and ``make_mesh``
@@ -94,7 +100,8 @@ def states():
     st = dict(vit_cfg=vcfg, swin_cfg=scfg, policy=tpol, params=tp, qstate=tq, s8=s8,
               s4=tserving.convert(tp, tq, vcfg, tpol, [4] * TINY.num_matmuls),
               sstate=tserving_swin.convert(sp, sq, scfg, tpol, 8), sqstate=sq,
-              x=torch.from_numpy(x), xu8=torch.from_numpy(xu8))
+              x=torch.from_numpy(x), xu8=torch.from_numpy(xu8),
+              img=torch.from_numpy(rng.randn(8, 3, 32, 32).astype(np.float32)))
     return dict(st=st, x=x, xu8=xu8, policy=make_policy(), params=_j(tp), qstate=_j(tq), sparams=_j(sp),
                 sqstate=_j(sq))
 
@@ -188,6 +195,70 @@ def test_parallel_matches_one_process(one_process, ranks, name):
     for r in ranks[1:]:
         if name in r:
             _assert_equal(_np(r[name]), _np(ranks[0][name]))
+
+
+@pytest.mark.parametrize("name", dryrun.ENVELOPES)
+def test_mesh_surfaces_within_jax_envelopes(one_process, ranks, states, name):
+    """The sharded calibration, DP×TP of ``quant_forward`` and the DP
+    generation gradient against one process's, within JAX's envelopes
+    (``dryrun.outside_envelope``); every rank returns the same."""
+    assert dryrun.outside_envelope(name, ranks[0][name], one_process[name], states["st"]) == 0
+    assert all(bool(torch.isfinite(t).all()) for t in dryrun.leaves(ranks[0][name]))
+    for r in ranks[1:]:
+        if name in r:
+            assert dryrun.mismatches(r[name], ranks[0][name]) == 0
+
+
+def test_sharded_calibrate_equals_one_process_bitwise(one_process, ranks):
+    """On the CPU a shard's forward rounds as the whole batch's, so the
+    sharded calibration's quant state equals one process's bit for bit,
+    leaf for leaf, on every rank."""
+    for r in ranks:
+        got = r["calib_sharded"]
+        assert len(got) == len(one_process["calib_sharded"])
+        for g, w in zip(got, one_process["calib_sharded"]):
+            assert torch.equal(g, w)
+
+
+def test_param_shardings_match_jax(states):
+    """The port's placement of every ViT param leaf equals JAX's
+    ``param_shardings`` spec, path for path."""
+    specs = pmesh.param_shardings(states["st"]["params"])
+    jspecs = jmesh.param_shardings(states["params"], jmesh.make_mesh(WORLD, model_parallel=2))
+    got = dict(_paths(specs))
+    want = {p: tuple(s.spec) for p, s in _paths(jspecs)}
+    assert got == want and ("model", None) in got.values() and (None, "model") in got.values()
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _paths(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def test_shard_params_cuts_megatron_blocks(states):
+    """Each model rank's shard: qkv rows head-aligned (rank m holds the q, k
+    and v rows of its heads), fc1 rows and proj/fc2 columns in contiguous
+    blocks; the shards of every rank rebuild the whole."""
+    from types import SimpleNamespace
+
+    params, heads = states["st"]["params"], TINY.num_heads
+    shards = [pmesh.shard_params(params, SimpleNamespace(shape={"data": 1, "model": 2}, index=lambda a, m=m: m),
+                                 heads) for m in range(2)]
+    blk = [s["blocks"][0] for s in shards]
+    whole = params["blocks"][0]
+    perm = torch.as_tensor(tensor._qkv_tp_perm(TINY.embed_dim, heads, 2))
+    assert torch.equal(torch.cat([b["qkv"]["w"] for b in blk]), whole["qkv"]["w"][perm])
+    assert torch.equal(torch.cat([b["qkv"]["b"] for b in blk]), whole["qkv"]["b"][perm])
+    assert torch.equal(torch.cat([b["fc1"]["w"] for b in blk]), whole["fc1"]["w"])
+    assert torch.equal(torch.cat([b["proj"]["w"] for b in blk], 1), whole["proj"]["w"])
+    assert torch.equal(torch.cat([b["fc2"]["w"] for b in blk], 1), whole["fc2"]["w"])
+    assert blk[0]["proj"]["b"] is whole["proj"]["b"] and shards[1]["head"]["w"] is params["head"]["w"]
 
 
 def test_sharded_stats_equal_collect_minmax(states, ranks):

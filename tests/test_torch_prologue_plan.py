@@ -192,13 +192,13 @@ def test_stem_plan(c, cc):
 
 def test_stem_plan_pads_and_refuses():
     """C and K off the kernel's grid are padded (C = 100 → 128, K = 50 →
-    52); past C = 1024 (four CTAs of 256 channels) or where the weight and
-    the two row buffers do not fit shared memory the plan raises, naming
-    C <= 1024."""
+    52); past C = 4096 (sixteen CTAs of 256 channels) or where the weight
+    and the two row buffers do not fit shared memory the plan raises, naming
+    C <= 4096."""
     plan = swin_stem.stem_plan(777, 50, 100)
     assert (plan.cc, plan.c_pad, plan.k_pad, plan.blocks) == (8, 128, 52, 13)
-    for c, k in ((1025, 48), (256, 200)):
-        with pytest.raises(ValueError, match="C <= 1024"):
+    for c, k in ((4097, 48), (256, 200)):
+        with pytest.raises(ValueError, match="C <= 4096"):
             swin_stem.stem_plan(100, k, c)
 
 

@@ -58,7 +58,7 @@ def test_plan_fits_shared_memory(n):
     assert plan == al.qkv_cluster_plan(n, 768)  # C_in streams through the GEMM's stages
 
 
-@pytest.mark.parametrize("n,c_in,match", [(257, 384, "N <= 256"), (0, 384, "N <= 256"),
+@pytest.mark.parametrize("n,c_in,match", [(1025, 384, "N <= 1024"), (0, 384, "N <= 1024"),
                                           (197, 392, "C_in % 16")])
 def test_plan_raises_where_the_kernel_does_not_run(n, c_in, match):
     with pytest.raises(ValueError, match=match):

@@ -54,14 +54,15 @@ def test_lis_attention_fused_plain_vs_jax_small_head_dims(heads):
 def test_check_fits_takes_small_head_dims(dims):
     """C = 64 at head_dims 8, 4, 2 and 1; DeiT-S width at 8 and 4."""
     layer_fused.check_fits(*dims)
-    assert attention_lis.FUSED_HEAD_DIMS == (1, 2, 4, 8, 16, 32, 64)
+    assert attention_lis.FUSED_HEAD_DIMS == (1, 2, 4, 8, 16, 32, 64, 128)
 
 
 @pytest.mark.parametrize("dims,why", [((197, 192, 64, 768), "head_dim 3"), ((65, 64, 5, 256), "head_dim 12.8"),
-                                      ((17, 32, 4, 128), "multiples of 64")])
+                                      ((17, 992, 31, 4000), "multiples of 64")])
 def test_check_fits_still_refuses(dims, why):
-    """A head_dim that is no divisor of 128, a fractional one, and C = 32
-    (the whole-row tiles' C % 64 rule stays)."""
+    """A head_dim that is no divisor of 128, a fractional one, and C = 992,
+    whose tiles padded to 1024 overflow shared memory (C = 32 is served,
+    padded to 64: tests/test_torch_shape_faults.py)."""
     with pytest.raises(ValueError, match=f"{why}.*fuse_layer=False"):
         layer_fused.check_fits(*dims)
 

@@ -1,5 +1,5 @@
 """``fused_swin_stem`` past C = 256: the plan of the clusters that split C
-(``stem_plan``: CS = ⌈C/256⌉ CTAs of 16·CC channels each, C ≤ 1024) and
+(``stem_plan``: CS = ⌈C/256⌉ CTAs of 16·CC channels each, C ≤ 4096) and
 the plain version against the JAX kernel in interpret mode at C = 384 and
 512, K = 48.
 
@@ -65,9 +65,10 @@ def test_stem_plan_clusters(c, cs, cc, c_pad):
     assert swin_stem.stem_plan(m, 48, c, clusters=7).grid == 7 * cs
 
 
-@pytest.mark.parametrize("c,k", [(1025, 48), (2048, 48), (512, 137)])
+@pytest.mark.parametrize("c,k", [(4097, 48), (8192, 48), (512, 137)])
 def test_stem_plan_refuses_past_its_clusters(c, k):
-    """Past four CTAs of 256 channels, or where a CTA's weight slice and
-    row buffers overflow shared memory, the plan raises, naming C <= 1024."""
-    with pytest.raises(ValueError, match="C <= 1024"):
+    """Past sixteen CTAs of 256 channels (the H100's largest cluster), or
+    where a CTA's weight slice and row buffers overflow shared memory, the
+    plan raises, naming C <= 4096."""
+    with pytest.raises(ValueError, match="C <= 4096"):
         swin_stem.stem_plan(100, k, c)

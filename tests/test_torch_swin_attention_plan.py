@@ -195,10 +195,10 @@ def test_fold_path_rolls_nothing_and_equals_the_default_path(lis, monkeypatch):
 
 
 def test_plan_and_wrapper_refuse_what_the_kernel_does_not_take():
-    """N > 160 and a forced grid past the items: the plan raises on the first
+    """N > 256 and a forced grid past the items: the plan raises on the first
     and clips the second."""
-    with pytest.raises(ValueError, match="N <= 160"):
-        al.swin_attention_plan(1, 1, 1, 161)
+    with pytest.raises(ValueError, match="N <= 256"):
+        al.swin_attention_plan(1, 1, 1, 257)
     assert al.swin_attention_plan(4, 4, 3, 49, grid=100).grid == 12
     one = dataclasses.replace(al.swin_attention_plan(2, 1, 3, 16), grid=1)
     assert list(one.walk()) == [(0, h, w) for h in range(3) for w in range(2)] and one.bias_stagings() == 3
