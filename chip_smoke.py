@@ -99,24 +99,24 @@ weight-only serving of both models and the two weight-store GEMM tools:
   as ranks time-sliced on one card. The ``cli`` path also runs ``main``
   with ``--tp 2`` on its saved state: Prec@1/5 equal to one process's.
   Then the three mesh surfaces of the fake-quant and float programs
-  (``parallel.dryrun.MESH_SURFACES``, no kernel runs) on the same
+  (``parallel.dryrun.ENVELOPES``, no kernel runs) on the same
   ``PAR_WORLD`` ranks at the dry run's tiny ViT and a batch of 6:
   ``vit.calibrate`` on the batch sharded 3 × 1 (decisions bit for bit), DP×TP
   of ``quant_forward`` over 1 × 2 (within one LSB of act_out's grid, argmax
   equal) and the DP data-free generation gradient over 3 × 1 (rtol 2e-4,
   atol 2e-6); one parity line each.
-* Before the paths (``--faults``, default all six): each shape JAX serves
-  that the kernels once refused (``tools/shape_faults.py``: the fused layer
-  at C = 32 and 96; N = 257, 300 and 577 in the three ViT attention
+* Before the paths: each shape JAX serves that the kernels once refused
+  (``tools/shape_faults.py``: the fused layer at C = 32 and 96; N = 257, 300 and 577 in the three ViT attention
   kernels and N = 257 and 300 in the fused layer; the qkv-fused kernel at
   head_dims 32 and 128 and C_in = 200; head_dim 128 in the per-item kernels
   and the fused layer; both Swin attention entries at head_dim 64 with
   N = 49 and at N = 256, with the shift mask; the stem at C = 1536 and
-  4096), LIS on and off: the kernel against its plain version (0
-  mismatches), one line per shape with its µs per call (CUDA events,
-  the padding included), its device µs and the kernel's share of them
-  (``torch.profiler``) and its bound, beside the card's name and power
-  limit.
+  4096), LIS on and off, through ``tools/shape_faults.check``: the kernel
+  against its plain version (0 mismatches), one counted launch a call and
+  device time in the kernel's symbol; one line per shape with its µs per
+  call (CUDA events, the padding included), its device µs and the kernel's
+  share of them (``torch.profiler``) and its bound, beside the card's name
+  and power limit.
 * With ``swin``, before the paths: both Swin attention entries at 12×12
   windows (N = 144, the kernel's unstaged instance), LIS on and off, the
   panel one with and without the shift mask and the folded one at shift 0
@@ -2547,7 +2547,7 @@ def run_parallel_path(dev, smi, states):
 
 
 def run_mesh_surfaces(dev, smi) -> list:
-    """The three mesh surfaces (``dryrun.MESH_SURFACES``) on ``PAR_WORLD``
+    """The three mesh surfaces (``dryrun.ENVELOPES``) on ``PAR_WORLD``
     ranks of this card at the dry run's tiny ViT, a batch of 6 (the 3 × 1
     data mesh takes 2 images a rank, the 1 × 2 TP mesh all 6), against one
     process's; returns the failures."""
@@ -2556,7 +2556,7 @@ def run_mesh_surfaces(dev, smi) -> list:
 
     t0 = time.time()
     st = dryrun.tiny_states(dev, batch=2 * PAR_WORLD)
-    names = dryrun.MESH_SURFACES
+    names = dryrun.ENVELOPES
     outs = pdist.run_ranks(dryrun.run_scenarios, PAR_WORLD, pdist.map_tensors(st, lambda t: t.cpu()), names,
                            device=dev, timeout_s=300)
     lines, n_bad = dryrun.report(outs, dryrun.references(st, names), st, names)
@@ -2566,22 +2566,20 @@ def run_mesh_surfaces(dev, smi) -> list:
     return [f"mesh surfaces: {n_bad} elements differ or lie outside their envelopes"] if n_bad else []
 
 
-def run_shape_faults(dev, smi, faults) -> None:
-    """The shape-fault phase: every held shape of ``faults``
-    (``tools/shape_faults.held_cases``), the kernel against its plain
-    version (any mismatch fails), and one line per shape with the µs per
-    call, the device µs, the kernel's and the bound."""
+def run_shape_faults(dev, smi) -> None:
+    """The shape-fault phase: ``tools/shape_faults.check`` at every held
+    shape (the kernel against its plain version, one counted launch a call,
+    device time in the kernel's symbol; any fault fails), one line per shape
+    with the µs per call, the device µs, the kernel's and the bound."""
     from p2vit_tpu_torch.tools import shape_faults as sf
 
     bad = []
-    for c in sf.held_cases(dev, faults):
-        mis = sf.mismatches(c.call(), c.plain())
-        dev_us, kern_us = sf.device_us(c.call, FAULT_REPS, sf.SYMBOLS[c.kernel])
-        print(f"shape fault {c.fault}: {c.name}: {mis} mismatches against the plain version; "
-              f"{sf.time_us(c.call, FAULT_REPS):.1f} µs a call (events), device {dev_us:.1f} µs, "
-              f"{c.kernel} {kern_us:.1f} µs, bound {c.bound_ms * 1e3:.2f} µs ({smi})", flush=True)
-        if mis:
-            bad.append(f"{c.name}: {mis} mismatches")
+    for r in sf.check(dev, FAULT_REPS):
+        print(f"shape fault {r['fault']}: {r['case']}: {r['mismatches']} mismatches against the plain version, "
+              f"{r['launches']} launch; {r['us']:.1f} µs a call (events), device {r['device_us']:.1f} µs, "
+              f"{r['kernel']} {r['kernel_us']:.1f} µs, bound {r['bound_us']:.2f} µs ({smi})", flush=True)
+        if r["faults"]:
+            bad.append(f"{r['case']}: {', '.join(r['faults'])}")
     if bad:
         _fail("shape faults: " + "; ".join(bad))
 
@@ -2595,8 +2593,6 @@ def main() -> None:
     ap.add_argument("--calib", type=int, default=32, help="calibration images")
     ap.add_argument("--reps", type=int, default=20, help="timed repetitions")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--faults", default="1,2,3,4,5,6",
-                    help="the shape-fault phase's faults (tools/shape_faults.py; empty: skip the phase)")
     args = ap.parse_args()
     batches = [int(b) for b in args.batches.split(",")]
     models = args.models.split(",")
@@ -2630,10 +2626,9 @@ def main() -> None:
     if any(bad):
         _fail(f"the int-LN kernels' chain rewrites disagree with ln_elem: {bad}")
 
-    if args.faults:
-        t0 = time.time()
-        run_shape_faults(dev, smi, tuple(int(f) for f in args.faults.split(",")))
-        print(f"shape faults: the phase in {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    run_shape_faults(dev, smi)
+    print(f"shape faults: the phase in {time.time() - t0:.1f} s", flush=True)
 
     gen = torch.Generator().manual_seed(args.seed + 1)
 

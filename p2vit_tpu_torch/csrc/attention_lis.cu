@@ -7,7 +7,8 @@
 //   p2vit_tpu/ops/attention_lis.py:lis_attention_qkv_fused (_qkv_fused_kernel
 //   -> heads_attention): qkv projection and attention, the qkv codes kept on
 //   chip. One thread-block cluster per (image, head), ceil(N/64) CTAs (at
-//   most 16, so N ≤ 1024; past 8 with the non-portable cluster size), via
+//   most 16, N ≤ 1024; past 8 with the non-portable cluster size; shared
+//   memory binds first: N ≤ 768 at HD 64, N ≤ 480 at HD 128), via
 //   cudaLaunchKernelEx with a cluster dimension, the per-tile bodies in
 //   attention_mma.cuh:
 //   1. CTA r computes the head's q, k and v codes of token rows

@@ -42,8 +42,9 @@ LIS-off arm is held to |Δcode| ≤ 1 on a stated share of codes.
 
 CUDA kernels (``csrc/attention_lis.cu``) replace the Pallas kernels
 ``lis_attention_qkv_fused`` (``_qkv_fused_kernel``: head_dim 64 or 128 in
-the kernel, smaller heads and any C_in zero-padded by ``qkv_pad``, N ≤
-1024, a cluster of at most 16 CTAs), ``lis_attention_fused``
+the kernel, smaller heads and any C_in zero-padded by ``qkv_pad``; N ≤ 768
+at head_dim 64 and N ≤ 480 at 128, where a CTA's shared memory ends, below
+the 16-CTA cluster's N ≤ 1024), ``lis_attention_fused``
 (``_fused_kernel``, head_dim 1, 2, 4, 8, 16, 32, 64 or 128) and
 ``lis_attention`` (``_kernel``, any head_dim ≤ 128). Past N = 256 keys (and
 at head_dim 128) the rows no longer fit a lane's registers and run in the
@@ -485,7 +486,8 @@ def qkv_cluster_plan(n: int, c_in: int, hd: int = HEAD_DIM) -> QkvClusterPlan:
     qkv-fused kernel at N tokens, C_in input channels and head_dim ``hd``
     (64 or 128); raises where the kernel does not take them: a cluster of
     more than 16 CTAs (N > 1024), C_in % 16 (``qkv_pad`` pads it), shared
-    memory.
+    memory (the binding limit: N > 768 at head_dim 64, N > 480 at 128, at
+    any C_in).
 
     The ceil(N/16) query groups are balanced across the cluster (4/3/3/3 at
     N = 197). Shared memory: the CTA's own q/k/v tiles (3·64·hd B), then K
@@ -601,7 +603,8 @@ def lis_attention_qkv_fused(h_q, w_q, requant_vec, bias_vec, num_heads,
     ``int8_matmul_requant`` followed by ``lis_attention_fused``. CPU tensors
     take the plain version; CUDA tensors launch the kernel or raise: head_dim
     64 or 128 as they are, every other head_dim ≤ 128 and C_in % 16 ≠ 0
-    through ``qkv_pad``/``qkv_unpad``; N ≤ 1024 (``qkv_cluster_plan``). w_q
+    through ``qkv_pad``/``qkv_unpad``; N ≤ 768 at head_dim 64, N ≤ 480 at
+    128 (shared memory, ``qkv_cluster_plan``). w_q
     may be a tensor-parallel shard's, with C_out = d·num_heads ≠ C_in.
     ``phase_ns``: a (6,) int64 CUDA tensor that receives the %globaltimer
     (ns) of one CTA (rank 0 of the middle cluster) at its start and after

@@ -273,10 +273,6 @@ def report(outs: list, ref: dict, st: dict, names=None) -> tuple:
     return lines, bad
 
 
-# the three mesh surfaces of the fake-quant and float programs (no kernel runs)
-MESH_SURFACES = ("calib_sharded", "dp_tp_quant", "dp_grad")
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--world", type=int, default=4, help="ranks (even, at least 2)")

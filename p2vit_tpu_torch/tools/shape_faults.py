@@ -1,7 +1,7 @@
 """The shapes JAX serves that the kernels once refused, each kernel against
 its plain version.
 
-    python -m p2vit_tpu_torch.tools.shape_faults [--reps 20] [--faults 1,2,...]
+    python -m p2vit_tpu_torch.tools.shape_faults [--reps 20]
 
 Six faults (``ROADMAP.md`` queue 3, closed): ``fused_vit_layer`` at C and
 hidden widths that are no multiples of 64 (1); N > 256 in
@@ -13,8 +13,10 @@ and folded, at head_dim 64 and at N = 256 with the shift mask (5);
 ``fused_swin_stem`` past C = 1024 (6). ``held_cases`` builds every shape
 at which each is held, LIS on and off, on seeded codes; the tests
 (``tests/test_torch_cuda_shape_faults.py``) and ``chip_smoke.py`` hold each
-kernel bit for bit against its plain version there. This tool prints, per
-case, the mismatches (0), the wrapper's µs per call (CUDA events around
+kernel bit for bit against its plain version there. ``check`` runs the
+held shapes for every caller (``chip_smoke.py``'s shape-fault phase and
+this tool): per case, the mismatches (0), the wrapper's launches
+in one call (1) and the wrapper's µs per call (CUDA events around
 calls that the host issues back to back, so mostly host time at these
 small shapes), its device µs per call and the kernel's share of them
 (``torch.profiler``; the rest is the padding copies), the bound (the larger of the bytes over 3.35 TB/s and
@@ -194,8 +196,8 @@ def _stem_case(device, fault, m, k, c):
                 lambda: swin_stem.fused_swin_stem_plain(*a), _nbytes(*a) + m * c, 2 * m * c * k, f32=True)
 
 
-def held_specs(faults=(1, 2, 3, 4, 5, 6)) -> list:
-    """(id, build) of every held shape of ``faults``, LIS on and off where
+def held_specs() -> list:
+    """(id, build) of every held shape of the six faults, LIS on and off where
     the kernel has both arms; ``build(device)`` makes its ``Case`` (or,
     for the Swin shapes, the panel and the folded case). Cheap: nothing is
     built until ``build`` runs."""
@@ -206,37 +208,36 @@ def held_specs(faults=(1, 2, 3, 4, 5, 6)) -> list:
 
     for lis in (True, False):
         arm = f"lis{int(lis)}"
-        if 1 in faults:  # C and hid not multiples of 64: TINY's layer, and C = 96 with hid = 384
-            add(1, f"layer-C32-{arm}", _layer_case, 2, 17, 32, 2, 128, lis)
-            add(1, f"layer-C96-{arm}", _layer_case, 2, 65, 96, 3, 384, lis)
-        if 2 in faults:  # N > 256
-            for n in (257, 300, 577):
-                add(2, f"qkv-N{n}-{arm}", _qkv_case, 1, n, 384, 6, 384, lis)
-                add(2, f"fused-N{n}-{arm}", _fused_case, 2, n, 384, 6, lis)
-                add(2, f"split-N{n}-{arm}", _split_case, 4, n, 64, lis)
-            for n in (257, 300):
-                add(2, f"layer-N{n}-{arm}", _layer_case, 1, n, 384, 6, 1536, lis)
-        if 3 in faults:  # the qkv-fused kernel's head_dims and C_in
-            add(3, f"qkv-d32-{arm}", _qkv_case, 2, 197, 384, 12, 384, lis)
-            add(3, f"qkv-d128-{arm}", _qkv_case, 2, 197, 384, 3, 384, lis)
-            add(3, f"qkv-Cin200-{arm}", _qkv_case, 2, 197, 384, 6, 200, lis)
-        if 4 in faults:  # head_dim 128
-            add(4, f"fused-d128-{arm}", _fused_case, 2, 197, 384, 3, lis)
-            add(4, f"split-d128-{arm}", _split_case, 3, 197, 128, lis)
-            add(4, f"layer-d128-{arm}", _layer_case, 2, 197, 384, 3, 1536, lis)
-        if 5 in faults:  # Swin: head_dim 64 at 7×7 windows, N = 256 (16×16) at head_dim 32
-            add(5, f"swin-d64-N49-{arm}", _swin_cases, 2, 14, 7, 2, 64, lis)
-            add(5, f"swin-d32-N256-{arm}", _swin_cases, 2, 32, 16, 2, 32, lis)
-    if 6 in faults:  # the stem past C = 1024
-        for c in (1536, 4096):
-            add(6, f"stem-C{c}", _stem_case, 3136 + 77, 48, c)
+        # C and hid not multiples of 64: TINY's layer, and C = 96 with hid = 384
+        add(1, f"layer-C32-{arm}", _layer_case, 2, 17, 32, 2, 128, lis)
+        add(1, f"layer-C96-{arm}", _layer_case, 2, 65, 96, 3, 384, lis)
+        # N > 256
+        for n in (257, 300, 577):
+            add(2, f"qkv-N{n}-{arm}", _qkv_case, 1, n, 384, 6, 384, lis)
+            add(2, f"fused-N{n}-{arm}", _fused_case, 2, n, 384, 6, lis)
+            add(2, f"split-N{n}-{arm}", _split_case, 4, n, 64, lis)
+        for n in (257, 300):
+            add(2, f"layer-N{n}-{arm}", _layer_case, 1, n, 384, 6, 1536, lis)
+        # the qkv-fused kernel's head_dims and C_in
+        add(3, f"qkv-d32-{arm}", _qkv_case, 2, 197, 384, 12, 384, lis)
+        add(3, f"qkv-d128-{arm}", _qkv_case, 2, 197, 384, 3, 384, lis)
+        add(3, f"qkv-Cin200-{arm}", _qkv_case, 2, 197, 384, 6, 200, lis)
+        # head_dim 128
+        add(4, f"fused-d128-{arm}", _fused_case, 2, 197, 384, 3, lis)
+        add(4, f"split-d128-{arm}", _split_case, 3, 197, 128, lis)
+        add(4, f"layer-d128-{arm}", _layer_case, 2, 197, 384, 3, 1536, lis)
+        # Swin: head_dim 64 at 7×7 windows, N = 256 (16×16) at head_dim 32
+        add(5, f"swin-d64-N49-{arm}", _swin_cases, 2, 14, 7, 2, 64, lis)
+        add(5, f"swin-d32-N256-{arm}", _swin_cases, 2, 32, 16, 2, 32, lis)
+    for c in (1536, 4096):  # the stem past C = 1024
+        add(6, f"stem-C{c}", _stem_case, 3136 + 77, 48, c)
     return specs
 
 
-def held_cases(device, faults=(1, 2, 3, 4, 5, 6)) -> list:
-    """Every held shape of ``faults`` as ``Case``s on ``device``."""
+def held_cases(device) -> list:
+    """Every held shape as ``Case``s on ``device``."""
     out = []
-    for _, build in held_specs(faults):
+    for _, build in held_specs():
         made = build(device)
         out += made if isinstance(made, list) else [made]
     return out
@@ -292,25 +293,46 @@ def card() -> str:
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
+def check(device, reps: int):
+    """Runs every held shape: for each ``Case`` on ``device``, a record of
+    its mismatches against the plain version, the wrapper's launches in that
+    one call (1), the µs per call by CUDA events and the device µs and the
+    kernel's share by ``torch.profiler`` over ``reps`` calls, and the bound;
+    ``record["faults"]`` names what failed (a mismatch, a launch count other
+    than 1, no device time in the kernel's symbol), empty if nothing did."""
+    from ..ops import KERNELS
+
+    counters = {k.__name__: k for k in KERNELS}
+    for c in held_cases(device):
+        kern = counters[c.kernel]
+        before = kern.launches
+        got = c.call()
+        launched = kern.launches - before
+        mis = mismatches(got, c.plain())
+        torch.cuda.synchronize()
+        dev_us, kern_us = device_us(c.call, reps, SYMBOLS[c.kernel])
+        faults = [f"{mis} mismatches"] if mis else []
+        if launched != 1:
+            faults.append(f"{launched} launches of {c.kernel} in one call")
+        if kern_us <= 0:
+            faults.append(f"no device time in {SYMBOLS[c.kernel]}")
+        yield dict(fault=c.fault, case=c.name, kernel=c.kernel, mismatches=mis, launches=launched,
+                   us=time_us(c.call, reps), device_us=dev_us, kernel_us=kern_us, bound_us=c.bound_ms * 1e3,
+                   faults=faults)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--faults", default="1,2,3,4,5,6")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("shape_faults: needs the card", file=sys.stderr)
         return 1
-    dev = torch.device("cuda", 0)
-    bad = 0
     gpu = card()
-    for c in held_cases(dev, tuple(int(f) for f in args.faults.split(","))):
-        mis = mismatches(c.call(), c.plain())
-        torch.cuda.synchronize()
-        bad += mis
-        dev_us, kern_us = device_us(c.call, args.reps, SYMBOLS[c.kernel])
-        print(json.dumps(dict(fault=c.fault, case=c.name, kernel=c.kernel, mismatches=mis,
-                              us=round(time_us(c.call, args.reps), 2), device_us=round(dev_us, 2),
-                              kernel_us=round(kern_us, 2), bound_us=round(c.bound_ms * 1e3, 3), gpu=gpu)))
+    bad = 0
+    for rec in check(torch.device("cuda", 0), args.reps):
+        bad += bool(rec["faults"])
+        print(json.dumps(dict(rec, gpu=gpu)), flush=True)
     return 1 if bad else 0
 
 
