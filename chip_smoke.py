@@ -1,12 +1,13 @@
 """Drive the PyTorch/CUDA port's serving paths, weight-store tools, CLI,
 data-free calibration, serving planner and parallel serving once on one GPU.
 
-    python3 chip_smoke.py            # twenty paths, batches 1, 8, 64
+    python3 chip_smoke.py            # twenty paths and six zoo members, batches 1, 8, 64
 
 Builds the fourteen CUDA kernels from ``p2vit_tpu_torch/csrc`` (one nvcc per
 source, in parallel, sm_90a), then drives twelve int8 serving paths of two
 models at full width and depth, with seeded random weights and images, then
-weight-only serving of both models and the two weight-store GEMM tools:
+the rest of the zoo, then weight-only serving of both models and the two
+weight-store GEMM tools:
 
 * DeiT-S (``deit_small_patch16_224``: C=384, 6 heads, 197 tokens): seeded
   init → calibrate (one batch) → convert(W4A8, [4]*50) → serving_forward,
@@ -25,6 +26,25 @@ weight-only serving of both models and the two weight-store GEMM tools:
   ``swin_fold_lisoff`` (``fold_windows=True``), ``swin_stem``
   (``fuse_stem=True``) and ``swin_int_stem_unfused`` (``int_stem=True,
   fuse_res=False``).
+* The zoo (``ZOO``: ``deit_tiny``, ``deit_base``, ``vit_base``,
+  ``vit_large``, ``swin_small``, ``swin_base``), each member at full width
+  and depth: seeded init → calibrate (``ZOO_CALIB`` = 8 seeded images; LIS
+  off: uint8 images normalized on the host by the family's mean and std)
+  → convert (W4A8 ``[4]*num_matmuls``, Swin ``convert(4)``) →
+  serving_forward on each of its paths: DeiT-T default, staged, fused layer
+  (bitwise against default) and LIS off on uint8; DeiT-B default and staged;
+  ViT-B default, LIS off default and staged on uint8 at the vit family's
+  mean = std = 0.5; ViT-L (depth 24) default, staged and LIS off on uint8;
+  Swin-S default and ``fold_windows`` (bitwise against default); Swin-B
+  default, ``fold_windows``, ``fuse_stem`` and LIS off on uint8. Each path:
+  phases 1-4 below at batches 1 and 8 (phase 1 at both), then one profiler
+  window at batch 64 (device ms per forward, beside the member's bf16
+  ``fp_forward``) and each kernel against its plain version at batch 8
+  (the ``per_model`` entries, with ``"batch": 8``). DeiT-B, ViT-B and ViT-L
+  are held to ``fuse_layer=True`` raising ValueError naming
+  ``fuse_layer=False`` with nothing launched (the fused layer's shared
+  memory; JAX's VMEM guard refuses them too). The zoo's seconds on a line
+  of their own.
 * ``deit_wonly`` / ``swin_wonly``: ``weight_only_params`` of the DeiT-S and
   Swin-T states, requantized on the card to ``convert``'s codes (must be
   bit for bit), cast to bf16 and served by ``fp_forward``: launches of the
@@ -43,6 +63,8 @@ weight-only serving of both models and the two weight-store GEMM tools:
   params> --calib-batchsize 32 --val-batchsize 64 --limit-val 3`` saving
   its quant state, then ``--u8-ingest`` on the loaded state, then the
   state reloaded, then ``swin_tiny --quant --serve --random-init``, then
+  ``vit_base --quant --serve --random-init`` (the vit family's crop 0.9 and
+  mean = std = 0.5, which nothing else runs on the card), then
   ``deit_small ... --calib-iter 2 --quant-method omse`` (a state whose
   activation scales are not powers of two), ``deit_small ... --calib-iter 2
   --mixed --live-hessian --hessian-batches 1 --limit-val 1`` (the
@@ -325,9 +347,21 @@ SOURCES = {
     "wstream_matmul": ("matmul_wstream", "wstream_matmul_plain", "matmul_wstream.cu",
                        "p2vit_tpu/ops/matmul_wstream.py:174"),
 }
+# The rest of the zoo, each member's paths at batches 1 and 8 and one profiler window at 64:
+# --models key → (zoo config, name, preprocessing family, LIS-on paths, LIS-off paths on uint8 images).
+# ViT paths are DEIT_FLAGS keys, Swin paths SWIN_FLAGS keys; a ViT member without "_layer" is held
+# to fuse_layer=True raising (the fused layer's shared memory, as JAX's VMEM guard refuses it).
+ZOO = {"deit_tiny": ("deit_tiny_patch16_224", "DeiT-T", "deit", ("", "_staged", "_layer"), ("",)),
+       "deit_base": ("deit_base_patch16_224", "DeiT-B", "deit", ("", "_staged"), ()),
+       "vit_base": ("vit_base_patch16_224", "ViT-B", "vit", ("",), ("", "_staged")),
+       "vit_large": ("vit_large_patch16_224", "ViT-L", "vit", ("", "_staged"), ("",)),
+       "swin_small": ("swin_small_patch4_window7_224", "Swin-S", "swin", ("swin", "swin_fold"), ()),
+       "swin_base": ("swin_base_patch4_window7_224", "Swin-B", "swin", ("swin", "swin_fold", "swin_stem"),
+                     ("swin_lisoff",))}
+ZOO_CALIB, ZOO_BATCHES, ZOO_WINDOW = 8, (1, 8), 64  # calibration images; phase 1-2 batches; profiler batch
 PATHS = ("deit", "deit_staged", "deit_layer", "deit_lisoff", "deit_staged_lisoff", "deit_layer_lisoff",
          "swin", "swin_lisoff", "swin_fold", "swin_fold_lisoff", "swin_stem", "swin_int_stem_unfused",
-         "deit_wonly", "swin_wonly", "w4pack", "wstream", "cli", "datafree", "plan", "parallel")
+         "deit_wonly", "swin_wonly", "w4pack", "wstream", "cli", "datafree", "plan", "parallel") + tuple(ZOO)
 PLAN_BATCHES = (1, 8, 32, 64, 128, 256)  # the plan path's sweep
 PLAN_ITERS = 10  # forwards a timing window there (latency_ab's default windows, up to 200, take ~10 min)
 # DeiT-S paths by key suffix: (display name suffix, serving flags)
@@ -342,6 +376,8 @@ SWIN_FLAGS = {"swin": (True, {}, None), "swin_lisoff": (False, {}, None),
               "swin_fold_lisoff": (False, dict(fold_windows=True), "bitwise"),
               "swin_stem": (True, dict(fuse_stem=True), "stem"),
               "swin_int_stem_unfused": (True, dict(int_stem=True, fuse_res=False), "report")}
+SWIN_NAMES = {"swin": "", "swin_lisoff": " LIS-off", "swin_fold": " fold", "swin_fold_lisoff": " fold LIS-off",
+              "swin_stem": " fused stem", "swin_int_stem_unfused": " int stem unfused"}  # after the model's name
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense)
 HBM_BYTES_S, INT8_OPS_S, F32_FLOPS_S, BF16_FLOPS_S = 3.35e12, 1979e12, 67e12, 989e12
 F64_TC_FLOPS_S = 67e12  # float64 tensor cores (DMMA), the ceiling of wstream_matmul's exact sums
@@ -490,11 +526,11 @@ def _shape_key(a, k):
     return tuple(t.shape if isinstance(t, torch.Tensor) else t is None for t in a) + (bool(k.get("gelu")),)
 
 
-def host_normalize(u8: torch.Tensor) -> torch.Tensor:
+def host_normalize(u8: torch.Tensor, mean=MEAN, std=STD) -> torch.Tensor:
     """uint8 images → (u/255 − mean)/std in float32 on the host (numpy), the
     op sequence of the data pipeline, then back to the images' device."""
-    mean = np.asarray(MEAN, np.float32).reshape(3, 1, 1)
-    std = np.asarray(STD, np.float32).reshape(3, 1, 1)
+    mean = np.asarray(mean, np.float32).reshape(3, 1, 1)
+    std = np.asarray(std, np.float32).reshape(3, 1, 1)
     x = (u8.cpu().numpy().astype(np.float32) / np.float32(255.0) - mean) / std
     return torch.from_numpy(x).to(u8.device)
 
@@ -519,6 +555,8 @@ class Path:
     base_key: str | None = None  # and its key
     vs_base: str | None = None  # "bitwise", "stem" or "report" (SWIN_FLAGS; fuse_layer bitwise)
     s_bn: object = None  # the state's patch_qact_bn scale ("stem")
+    mean: tuple = MEAN  # the host pipeline's normalization of a uint8 path
+    std: tuple = STD
 
 
 def _split_calls(calls):
@@ -534,14 +572,21 @@ def _split_calls(calls):
     return out
 
 
-def run_path(path: Path, batches, reps, img, ops, counts_api):
+def run_path(path: Path, batches, reps, img, ops, counts_api, window=None):
     """Phases 1–5 of one path; returns ({kernel: launches, max error, ms and
     plain ms}, {"ms": ms/forward at the largest batch, "f32_ms": the same on
-    float32 input})."""
+    float32 input}).
+
+    ``window``, a batch, makes it the zoo form: phase 1 at every batch of
+    ``batches``, and in place of phase 5's timings and launch lines one
+    profiler window at batch ``window`` (device ms per forward, beside the
+    bf16 forward's) and each kernel against its plain version at the
+    largest of ``batches`` (the results' ``batch``)."""
     reset_launch_counts, launch_counts = counts_api
     u8 = path.u8_state is not None
     requests = {b: img(b, path.img_size, u8) for b in batches}
     bt = max(batches)
+    norm = lambda x: host_normalize(x, path.mean, path.std)  # noqa: E731
     plain = {n: (getattr(ops, SOURCES[n][0]), SOURCES[n][1], getattr(ops, n)) for n in path.kernels}
     mods = [v[0] for v in plain.values()]
     pnames = [v[1] for v in plain.values()]
@@ -554,7 +599,7 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
     swin_entries = {}  # the Swin kernel's forced grids and shifted folded entry, kernel vs plain
     prologue = {}  # the prologue kernels' forced plans (and the embed's divide), kernel vs plain
     timing_calls = {}
-    for b in sorted({8, bt}):
+    for b in sorted(batches) if window else sorted({8, bt}):
         x = requests[b] if b in requests else img(b, path.img_size, u8)
         calls = _capture(mods, pnames, lambda: path.forward(x, False))
         if path.split_check:
@@ -583,7 +628,8 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
                     count = sum(1 for a2, k2 in calls[pname] if _shape_key(a2, k2) == key)
                     timing_calls.setdefault(name, []).append((a, k, count, _bound(name, a, want)))
     torch.cuda.synchronize()
-    print(f"{path.name} phase 1 kernels vs plain (batch 8 and {bt}, path arguments): "
+    print(f"{path.name} phase 1 kernels vs plain (batches {sorted(batches) if window else sorted({8, bt})}, path "
+          f"arguments): "
           f"mismatches {json.dumps(mismatches)}", flush=True)
     if any(mismatches.values()):
         _fail(f"{path.name}: kernel disagrees with its plain version: {mismatches}")
@@ -632,7 +678,7 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
         exact = serving.u8_ingest_exact(path.u8_state)
         affine = (serving.u8_ingest_exact(path.u8_state, affine=True) if "lut" in path.u8_state["u8"]
                   else "n/a (no input codes)")
-        neq = {b: int((logits[b] != path.forward(host_normalize(x), True)).sum())
+        neq = {b: int((logits[b] != path.forward(norm(x), True)).sum())
                for b, x in requests.items()}
         print(f"{path.name} phase 2 u8_ingest_exact: exact {exact}, affine {affine}; uint8 logits "
               f"!= host-normalized float32 logits: {json.dumps(neq)}", flush=True)
@@ -652,7 +698,7 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
     for b, lg in logits.items():
         if tuple(lg.shape) != (b, path.num_classes) or not bool(torch.isfinite(lg).all()):
             _fail(f"{path.name} batch {b}: logits shape {tuple(lg.shape)} or non-finite values")
-        sim = path.simulate(host_normalize(requests[b]) if u8 else requests[b])
+        sim = path.simulate(norm(requests[b]) if u8 else requests[b])
         rel = float((lg - sim).norm() / sim.norm().clamp_min(1e-9))
         same = float((lg == sim).float().mean())
         agree = float((lg.argmax(1) == sim.argmax(1)).float().mean())
@@ -661,59 +707,68 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
               f"vs quant_forward rel {rel:.6g}, equal {same:.4f}, argmax agreement {agree:.4f}")
 
     # ---- phase 5: timing ----------------------------------------------------
-    x = requests[bt]
-    xf = host_normalize(x) if u8 else x
-    runs = [("int8 kernels", lambda: path.forward(x, True)),
-            ("int8 plain", lambda: path.forward(x, False))]
-    if path.bf16 is not None:
-        runs.append(("bf16 fp_forward", lambda: path.bf16(xf)))
-    if u8:
-        runs.append(("int8 kernels, float32 input", lambda: path.forward(xf, True)))
-    runs.append(("int8 kernels again", lambda: path.forward(x, True)))
-    times = {}
-    for label, fn in runs:
-        with torch.no_grad():
-            ms = _time_ms(fn, max(2, reps // 4))
-        times[label] = ms
-        print(f"{path.name} phase 5 batch {bt} {label}: {ms:.4f} ms/forward, {bt / ms * 1e3:.1f} img/s",
-              flush=True)
-    ms = min(times["int8 kernels"], times["int8 kernels again"])
-    with torch.no_grad():
-        dev_ms, port_ms, by_name = _device_ms(lambda: path.forward(x, True), 5)
-    if dev_ms is None:
-        print(f"{path.name} phase 5 batch {bt} device ms: not measured (the profiler saw no device time)")
+    if window:
+        summary = _zoo_window(path, window, img, norm)
     else:
-        print(f"{path.name} phase 5 batch {bt} device ms/forward (profiler): {dev_ms:.4f}, of which "
-              f"the port's kernels {port_ms:.4f} and other PyTorch kernels {dev_ms - port_ms:.4f}",
-              flush=True)
-        for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-            print(f"{path.name} phase 5 batch {bt} device ms/forward {t:.4f} {name[:110]}")
-        for kern, inst in (("int8_matmul_requant", "requant_kernel<"), ("int8_matmul_res_ln", "res_ln_kernel<"),
-                           ("swin_lis_attention*", "swin_attention_kernel<"),
-                           ("int_ln_requant", r"int_ln_kernel<\d+, false"),
-                           ("int_res_ln_requant", r"int_ln_kernel<\d+, true"),
-                           ("fused_patch_embed", "embed_kernel<"), ("fused_swin_stem", "swin_stem_kernel<")):
-            if kern.rstrip("*") in path.kernels:
-                t = sum(v for name, v in by_name.items() if re.search(inst, name))
-                print(f"{path.name} phase 5 batch {bt} device ms/forward {kern}, all its instances: {t:.4f}",
-                      flush=True)
-        if path.key.startswith("swin"):
-            rolls = {name: v for name, v in by_name.items() if re.search(r"\broll", name)}  # not "unrolled_…"
-            print(f"{path.name} phase 5 batch {bt} device ms/forward in roll kernels: {sum(rolls.values()):.4f} "
-                  f"({len(rolls)} kernel names)", flush=True)
-    summary = {"ms": ms, "f32_ms": times.get("int8 kernels, float32 input", ms), "device_ms": dev_ms,
-               "other_ms": None if dev_ms is None else dev_ms - port_ms}
+        x = requests[bt]
+        xf = norm(x) if u8 else x
+        runs = [("int8 kernels", lambda: path.forward(x, True)),
+                ("int8 plain", lambda: path.forward(x, False))]
+        if path.bf16 is not None:
+            runs.append(("bf16 fp_forward", lambda: path.bf16(xf)))
+        if u8:
+            runs.append(("int8 kernels, float32 input", lambda: path.forward(xf, True)))
+        runs.append(("int8 kernels again", lambda: path.forward(x, True)))
+        times = {}
+        for label, fn in runs:
+            with torch.no_grad():
+                ms = _time_ms(fn, max(2, reps // 4))
+            times[label] = ms
+            print(f"{path.name} phase 5 batch {bt} {label}: {ms:.4f} ms/forward, {bt / ms * 1e3:.1f} img/s",
+                  flush=True)
+        ms = min(times["int8 kernels"], times["int8 kernels again"])
+        with torch.no_grad():
+            dev_ms, port_ms, by_name = _device_ms(lambda: path.forward(x, True), 5)
+        if dev_ms is None:
+            print(f"{path.name} phase 5 batch {bt} device ms: not measured (the profiler saw no device time)")
+        else:
+            print(f"{path.name} phase 5 batch {bt} device ms/forward (profiler): {dev_ms:.4f}, of which "
+                  f"the port's kernels {port_ms:.4f} and other PyTorch kernels {dev_ms - port_ms:.4f}",
+                  flush=True)
+            for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+                print(f"{path.name} phase 5 batch {bt} device ms/forward {t:.4f} {name[:110]}")
+            for kern, inst in (("int8_matmul_requant", "requant_kernel<"), ("int8_matmul_res_ln", "res_ln_kernel<"),
+                               ("swin_lis_attention*", "swin_attention_kernel<"),
+                               ("int_ln_requant", r"int_ln_kernel<\d+, false"),
+                               ("int_res_ln_requant", r"int_ln_kernel<\d+, true"),
+                               ("fused_patch_embed", "embed_kernel<"), ("fused_swin_stem", "swin_stem_kernel<")):
+                if kern.rstrip("*") in path.kernels:
+                    t = sum(v for name, v in by_name.items() if re.search(inst, name))
+                    print(f"{path.name} phase 5 batch {bt} device ms/forward {kern}, all its instances: {t:.4f}",
+                          flush=True)
+            if path.key.startswith("swin"):
+                rolls = {name: v for name, v in by_name.items() if re.search(r"\broll", name)}  # not "unrolled_…"
+                print(f"{path.name} phase 5 batch {bt} device ms/forward in roll kernels: {sum(rolls.values()):.4f} "
+                      f"({len(rolls)} kernel names)", flush=True)
+        summary = {"ms": ms, "f32_ms": times.get("int8 kernels, float32 input", ms), "device_ms": dev_ms,
+                   "other_ms": None if dev_ms is None else dev_ms - port_ms}
     results = {}
+    kreps = max(2, reps // 4) if window else reps
     for name, (mod, pname, kern) in plain.items():
         k_ms = p_ms = 0.0
         by = {"bytes": 0.0, "operations": 0.0}
         for a, k, count, (b_ms, b_by) in timing_calls[name]:
-            t_k = _time_ms(lambda: kern(*a, **k), reps)
-            t_p = _time_ms(lambda: getattr(mod, pname)(*a, **k), reps)
+            t_k = _time_ms(lambda: kern(*a, **k), kreps)
+            t_p = _time_ms(lambda: getattr(mod, pname)(*a, **k), kreps)
             shapes = [tuple(t.shape) for t in a if isinstance(t, torch.Tensor) and t.dim() >= 2]
             print(f"{path.name} phase 5 kernel {name} {shapes}{' gelu' if k.get('gelu') else ''}: "
                   f"{t_k:.4f} ms vs plain {t_p:.4f} ms per call, bound {b_ms:.6f} ms ({b_by}), "
                   f"x{count} per forward")
+            k_ms += t_k * count
+            p_ms += t_p * count
+            by[b_by] += b_ms * count
+            if window:  # the zoo form: no launch lines
+                continue
             if name == "fused_vit_layer":
                 print(f"{path.name} phase 5 kernel fused_vit_layer phases: {_layer_phases(kern, a, k)}")
                 print(f"{path.name} phase 5 kernel fused_vit_layer launch: {_layer_launch_report(ops, a, k)}",
@@ -745,13 +800,31 @@ def run_path(path: Path, batches, reps, img, ops, counts_api):
                     f"{port_ms:.4f} per call, {port_ms * count:.4f} for the {count} calls of a forward")
                 print(f"{path.name} phase 5 kernel lis_attention device ms (profiler, the kernel alone): {dev}",
                       flush=True)
-            k_ms += t_k * count
-            p_ms += t_p * count
-            by[b_by] += b_ms * count
         results[name] = {"launches": counts[name], "max_abs_err": worst[name], "ms": k_ms,
                          "plain_ms": p_ms, "bound_ms": by["bytes"] + by["operations"],
-                         "bound_by": max(by, key=by.get)}
+                         "bound_by": max(by, key=by.get), **({"batch": bt} if window else {})}
     return results, summary
+
+
+def _zoo_window(path, window, img, norm) -> dict:
+    """The zoo form of phase 5's forward timings: one profiler window of 5
+    forwards at batch ``window`` (device ms per forward, the port's kernels,
+    the other PyTorch kernels and the largest kernels), the bf16
+    ``fp_forward``'s beside it."""
+    u8 = path.u8_state is not None
+    x = img(window, path.img_size, u8)
+    with torch.no_grad():
+        dev_ms, port_ms, by_name = _device_ms(lambda: path.forward(x, True), 5)
+        bf16_ms = None if path.bf16 is None else _device_ms(lambda: path.bf16(norm(x) if u8 else x), 5)[0]
+    if dev_ms is None:
+        print(f"{path.name} batch {window} device ms/forward: not measured (the profiler saw no device time)")
+    else:
+        top = ", ".join(f"{t:.4f} {name[:60]}" for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:4])
+        print(f"{path.name} batch {window} device ms/forward (profiler, 5 forwards): {dev_ms:.4f}, of which the "
+              f"port's kernels {port_ms:.4f} and other PyTorch kernels {dev_ms - port_ms:.4f}; bf16 fp_forward "
+              f"{'not run on this path' if path.bf16 is None else f'{bf16_ms:.4f}' if bf16_ms else 'not measured'}; "
+              f"largest: {top}", flush=True)
+    return {"device_ms": dev_ms, "bf16_device_ms": bf16_ms}
 
 
 def _vit_head_dim(a, name, hd):
@@ -1837,8 +1910,9 @@ def run_cli_path(dev, smi, seed, counts_api):
     """The ``cli`` path: a folder of seeded PNGs and a ``.pth`` of the seeded
     DeiT-S params; the CLI at full width with ``--quant --serve`` on DeiT-S
     (saving the quant state), then ``--u8-ingest`` on the saved state, then
-    the state reloaded (logits against the first run's), then Swin-T; then
-    DeiT-S calibrated over two batches by omse (activation scales that are
+    the state reloaded (logits against the first run's), then Swin-T, then
+    ViT-B (the vit family's crop 0.9 and mean = std = 0.5); then DeiT-S
+    calibrated over two batches by omse (activation scales that are
     not powers of two), the mixed-precision search on DeiT-S with live
     Hessian traces, and Swin-T calibrated over two batches by percentile."""
     import os
@@ -1883,6 +1957,8 @@ def run_cli_path(dev, smi, seed, counts_api):
             if tp2 != single:
                 _fail(f"cli: --tp 2 gives Prec@1/5 {tp2}, one process {single}")
         _cli_run("swin_tiny", ["swin_tiny", data, "--random-init"] + common, route, dev, smi, counts_api)
+        # the vit family's preprocessing (crop 0.9, mean = std = 0.5): nowhere else on the card
+        _cli_run("vit_base", ["vit_base", data, "--random-init"] + common, route, dev, smi, counts_api)
         two = ["--calib-iter", "2"]
         _cli_run("deit_small --calib-iter 2 --quant-method omse", deit + two + ["--quant-method", "omse"], route,
                  dev, smi, counts_api)
@@ -2584,6 +2660,121 @@ def run_shape_faults(dev, smi) -> None:
         _fail("shape faults: " + "; ".join(bad))
 
 
+def vit_paths(name, key, cfg, bits, params, qstate, policy, s, lis, variants, mean=MEAN, std=STD) -> list:
+    """The ``Path`` of each ``DEIT_FLAGS`` key in ``variants`` on one ViT
+    serving state (uint8 ingest attached when LIS is off): key ``key`` +
+    variant (+ "_lisoff"); the bf16 forward on the default LIS-on path; the
+    fused layer held bitwise against the default."""
+    from p2vit_tpu_torch import serving
+    from p2vit_tpu_torch.models import vit
+
+    suffix, ksuffix = ("", "") if lis else (" LIS-off", "_lisoff")
+    idx = vit.bits_to_idx(bits)
+    base = lambda x, k: serving.serving_forward(s, cfg, x, use_kernels=k, lis=lis)  # noqa: E731
+    out = []
+    for var in variants:
+        label, flags = DEIT_FLAGS[var]
+        per_forward = serving.launches_per_forward(cfg, **flags)
+        layer = var == "_layer"
+        out.append(Path(
+            name + label + suffix, key + var + ksuffix, tuple(per_forward), per_forward,
+            lambda x, k, flags=flags: serving.serving_forward(s, cfg, x, use_kernels=k, lis=lis, **flags),
+            lambda x: vit.quant_forward(params, qstate, cfg, policy, x, idx),
+            None if (var or not lis) else lambda x, p=_cast_tree(params, torch.bfloat16): vit.fp_forward(
+                p, cfg, x.to(torch.bfloat16)),
+            cfg.num_classes, cfg.img_size, u8_state=None if lis else s, split_check=var == "_staged",
+            base=base if layer else None, base_name=name + suffix if layer else None,
+            base_key=key + ksuffix if layer else None, vs_base="bitwise" if layer else None,
+            mean=mean, std=std))
+    return out
+
+
+def swin_paths(name, key, cfg, params, qstate, policy, s, keys, mean=MEAN, std=STD) -> list:
+    """The ``Path`` of each ``SWIN_FLAGS`` key in ``keys`` (one LIS setting)
+    on one Swin serving state: key ``key`` + the flag key past "swin"; the
+    bf16 forward on the default path; flag paths against the default of the
+    same state (``SWIN_FLAGS``' check)."""
+    from p2vit_tpu_torch import serving_swin
+    from p2vit_tpu_torch.models import swin
+
+    def fwd(x, k, **flags):
+        return serving_swin.serving_forward(s, qstate, cfg, policy, x, use_kernels=k, **flags)
+
+    out = []
+    for flag_key in keys:
+        lis, flags, vs_base = SWIN_FLAGS[flag_key]
+        off = "" if lis else " LIS-off"
+        per_forward = serving_swin.launches_per_forward(cfg, **flags)
+        out.append(Path(
+            name + SWIN_NAMES[flag_key], key + flag_key[4:], tuple(per_forward), per_forward,
+            lambda x, k, flags=flags: fwd(x, k, **flags),
+            lambda x: swin.quant_forward(params, qstate, cfg, policy, x, 4),
+            None if flag_key != "swin" else lambda x, p=_cast_tree(params, torch.bfloat16): swin.fp_forward(
+                p, cfg, x.to(torch.bfloat16)),
+            cfg.num_classes, cfg.img_size, u8_state=None if lis else s,
+            base=None if vs_base is None else fwd, base_name=None if vs_base is None else name + off,
+            base_key=None if vs_base is None else key + ("" if lis else "_lisoff"), vs_base=vs_base,
+            s_bn=qstate["patch_qact_bn"]["scale"], mean=mean, std=std))
+    return out
+
+
+def run_zoo(members, setup, img, ops, counts_api, reps) -> dict:
+    """The zoo members' paths (``ZOO``), each member at full width and
+    depth: seeded init, calibrated on ``ZOO_CALIB`` seeded images, W4A8
+    ``[4]*num_matmuls`` (ViT) or ``convert(4)`` (Swin); each path through
+    ``run_path``'s zoo form (phases 1-4 at ``ZOO_BATCHES``, the profiler
+    window at ``ZOO_WINDOW``); a ViT member without a fused-layer path held
+    to ``fuse_layer=True`` raising ValueError naming ``fuse_layer=False``,
+    with nothing launched. Returns {path name: per-kernel results}."""
+    from p2vit_tpu_torch import serving, serving_swin
+    from p2vit_tpu_torch.models import PREPROCESS, SWIN_ZOO, VIT_ZOO, swin, vit
+
+    reset_launch_counts, launch_counts = counts_api
+    per_model = {}
+    for member in members:
+        zoo_name, disp, family, on_paths, off_paths = ZOO[member]
+        mean, std = PREPROCESS[family]["mean"], PREPROCESS[family]["std"]
+        for lis, keys in ((True, on_paths), (False, off_paths)):
+            if not keys:
+                continue
+            label = disp + ("" if lis else " LIS-off")
+            if family != "swin":
+                cfg = VIT_ZOO[zoo_name]
+                bits = [4] * cfg.num_matmuls
+                params, qstate, policy, s = setup(
+                    label, vit, cfg, lis, lambda p, q, c, pol, bits=bits: serving.convert(p, q, c, pol, bits),
+                    ZOO_CALIB, mean, std)
+                if not lis:
+                    serving.attach_u8_ingest(s, mean, std)
+                paths = vit_paths(disp, member, cfg, bits, params, qstate, policy, s, lis, keys, mean, std)
+                if lis and "_layer" not in on_paths:
+                    reset_launch_counts()
+                    try:
+                        serving.serving_forward(s, cfg, img(1, cfg.img_size), fuse_layer=True)
+                        _fail(f"{disp}: serving_forward(fuse_layer=True) ran; the fused layer does not fit it")
+                    except ValueError as e:
+                        launched = {k: v for k, v in launch_counts().items() if v}
+                        print(f"{disp} fuse_layer=True raises ValueError: {e}; launches {json.dumps(launched)}",
+                              flush=True)
+                        if "fuse_layer=False" not in str(e) or launched:
+                            _fail(f"{disp}: fuse_layer=True raised without naming fuse_layer=False, or "
+                                  f"launched {launched}")
+            else:
+                cfg = SWIN_ZOO[zoo_name]
+                params, qstate, policy, s = setup(
+                    label, swin, cfg, lis, lambda p, q, c, pol: serving_swin.convert(p, q, c, pol, 4),
+                    ZOO_CALIB, mean, std)
+                if not lis:
+                    serving_swin.attach_u8_ingest(s, mean, std)
+                paths = swin_paths(disp, member, cfg, params, qstate, policy, s, keys, mean, std)
+            for path in paths:
+                t0 = time.time()
+                per_model[path.name], _ = run_path(path, ZOO_BATCHES, reps, img, ops, counts_api, window=ZOO_WINDOW)
+                print(f"{path.name}: the zoo path in {time.time() - t0:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+    return per_model
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--models", default=",".join(PATHS),
@@ -2638,18 +2829,19 @@ def main() -> None:
             return torch.randint(0, 256, (b, 3, size, size), generator=gen, dtype=torch.uint8).to(dev)
         return torch.randn((b, 3, size, size), generator=gen).to(dev)
 
-    def setup(name, model, cfg, lis, convert):
-        """Seeded init → calibrate on one batch (uint8 images normalized on
-        the host when LIS is off, float32 otherwise) → convert; returns
-        (params, qstate, policy, serving state)."""
+    def setup(name, model, cfg, lis, convert, n_calib=args.calib, mean=MEAN, std=STD):
+        """Seeded init → calibrate on one batch of ``n_calib`` images (uint8
+        images normalized on the host by ``mean``/``std`` when LIS is off,
+        float32 otherwise) → convert; returns (params, qstate, policy,
+        serving state)."""
         t0 = time.time()
         policy = make_policy(lis=lis)
         params = model.init_params(args.seed, cfg, device=dev)
-        x = img(args.calib, cfg.img_size, not lis)
-        calib = model.calibrate(params, cfg, policy, host_normalize(x) if not lis else x)
+        x = img(n_calib, cfg.img_size, not lis)
+        calib = model.calibrate(params, cfg, policy, host_normalize(x, mean, std) if not lis else x)
         s = convert(params, calib.qstate, cfg, policy)
         torch.cuda.synchronize()
-        print(f"{name} setup: calibrate({args.calib} images) + convert {time.time() - t0:.1f} s")
+        print(f"{name} setup: calibrate({n_calib} images) + convert {time.time() - t0:.1f} s")
         return params, calib.qstate, policy, s
 
     if "swin" in models:
@@ -2666,7 +2858,7 @@ def main() -> None:
 
     paths = []
     states = {}  # the LIS-on DeiT-S and Swin-T states, for the weight-only and w4pack paths
-    deit = [m for m in models if m.startswith("deit") or m in ("w4pack", "parallel")]
+    deit = [m for m in models if (m.startswith("deit") and m not in ZOO) or m in ("w4pack", "parallel")]
     if deit:
         cfg = dataclasses.replace(VIT_ZOO["deit_small_patch16_224"], depth=args.depth)
         bits = [4] * cfg.num_matmuls
@@ -2682,62 +2874,20 @@ def main() -> None:
             else:
                 states["deit"] = dict(params=params, qstate=qstate, policy=policy, s=s, cfg=cfg, bits=bits,
                                       idx=idx, img=lambda b, cfg=cfg: img(b, cfg.img_size))
-            base_fwd = lambda x, k, s=s, cfg=cfg, lis=lis: serving.serving_forward(  # noqa: E731
-                s, cfg, x, use_kernels=k, lis=lis)
-            for var, (label, flags) in DEIT_FLAGS.items():
-                key = "deit" + var + ("" if lis else "_lisoff")
-                if key not in models:
-                    continue
-                per_forward = serving.launches_per_forward(cfg, **flags)
-                pbf = _cast_tree(params, torch.bfloat16) if key == "deit" else None
-                layer = var == "_layer"
-                paths.append(Path(
-                    "DeiT-S" + label + suffix, key, tuple(per_forward), per_forward,
-                    lambda x, k, s=s, cfg=cfg, lis=lis, flags=flags: serving.serving_forward(
-                        s, cfg, x, use_kernels=k, lis=lis, **flags),
-                    lambda x, p=params, q=qstate, cfg=cfg, pol=policy: vit.quant_forward(
-                        p, q, cfg, pol, x, idx),
-                    None if pbf is None else lambda x, p=pbf, cfg=cfg: vit.fp_forward(
-                        p, cfg, x.to(torch.bfloat16)),
-                    cfg.num_classes, cfg.img_size, u8_state=None if lis else s,
-                    split_check=var == "_staged", base=base_fwd if layer else None,
-                    base_name="DeiT-S" + suffix if layer else None,
-                    base_key="deit" + ("" if lis else "_lisoff") if layer else None,
-                    vs_base="bitwise" if layer else None))
-    swin_names = {"swin": "Swin-T", "swin_lisoff": "Swin-T LIS-off", "swin_fold": "Swin-T fold",
-                  "swin_fold_lisoff": "Swin-T fold LIS-off", "swin_stem": "Swin-T fused stem",
-                  "swin_int_stem_unfused": "Swin-T int stem unfused"}
+            variants = [v for v in DEIT_FLAGS if "deit" + v + ("" if lis else "_lisoff") in models]
+            paths += vit_paths("DeiT-S", "deit", cfg, bits, params, qstate, policy, s, lis, variants)
     for lis in (True, False):
         keys = [m for m in SWIN_FLAGS if m in models and SWIN_FLAGS[m][0] == lis]
         if not keys and not (lis and ("swin_wonly" in models or "parallel" in models)):
             continue
         cfg = SWIN_ZOO["swin_tiny_patch4_window7_224"]
-        base_key = "swin" if lis else "swin_lisoff"
-        params, qstate, policy, s = setup(swin_names[base_key], swin, cfg, lis,
+        params, qstate, policy, s = setup("Swin-T" + ("" if lis else " LIS-off"), swin, cfg, lis,
                                           lambda p, q, c, pol: serving_swin.convert(p, q, c, pol, 4))
         if not lis:
             serving_swin.attach_u8_ingest(s, MEAN, STD)
         else:
             states["swin"] = dict(params=params, qstate=qstate, policy=policy, s=s, cfg=cfg)
-
-        def fwd(x, k, s=s, q=qstate, cfg=cfg, pol=policy, **flags):
-            return serving_swin.serving_forward(s, q, cfg, pol, x, use_kernels=k, **flags)
-
-        for key in keys:
-            _, flags, vs_base = SWIN_FLAGS[key]
-            pbf = _cast_tree(params, torch.bfloat16) if key == "swin" else None
-            per_forward = serving_swin.launches_per_forward(cfg, **flags)
-            paths.append(Path(
-                swin_names[key], key, tuple(per_forward), per_forward,
-                lambda x, k, flags=flags, fwd=fwd: fwd(x, k, **flags),
-                lambda x, p=params, q=qstate, cfg=cfg, pol=policy: swin.quant_forward(p, q, cfg, pol, x, 4),
-                None if pbf is None else lambda x, p=pbf, cfg=cfg: swin.fp_forward(
-                    p, cfg, x.to(torch.bfloat16)),
-                cfg.num_classes, cfg.img_size, u8_state=None if lis else s,
-                base=None if vs_base is None else fwd,
-                base_name=None if vs_base is None else swin_names[base_key],
-                base_key=None if vs_base is None else base_key, vs_base=vs_base,
-                s_bn=qstate["patch_qact_bn"]["scale"]))
+        paths += swin_paths("Swin-T", "swin", cfg, params, qstate, policy, s, keys)
 
     per_model, summary = {}, {}
     for path in paths:
@@ -2746,6 +2896,11 @@ def main() -> None:
             path, batches, args.reps, img, ops, (reset_launch_counts, launch_counts))
         print(f"{path.name}: phases 1-5 in {time.time() - t0:.1f} s", flush=True)
     counts_api = (reset_launch_counts, launch_counts)
+    members = [m for m in ZOO if m in models]
+    if members:
+        t0 = time.time()
+        per_model.update(run_zoo(members, setup, img, ops, counts_api, args.reps))
+        print(f"zoo: {len(members)} members in {time.time() - t0:.1f} s", flush=True)
     if "deit_wonly" in models:
         t0, st = time.time(), states["deit"]
         pw = serving.weight_only_params(st["params"], st["qstate"], st["cfg"], st["policy"], st["bits"])
@@ -2819,23 +2974,26 @@ def main() -> None:
         if not runs:
             continue
         _, _, src, rep = SOURCES[name]
+        timed = {m: r for m, r in runs.items() if "batch" not in r} or runs  # the zoo's (batch 8) where alone
         results.append({
             "name": name, "route": "cuda", "source": f"p2vit_tpu_torch/csrc/{src}", "replaces": rep,
             "redesigned": REDESIGNED.get(name),
             "launches": sum(r["launches"] for r in runs.values()),
             "max_abs_err": max(r["max_abs_err"] for r in runs.values()),
-            "ms": round(sum(r["ms"] for r in runs.values()), 6),
-            "plain_ms": round(sum(r["plain_ms"] for r in runs.values()), 6),
-            "bound_ms": round(sum(r["bound_ms"] for r in runs.values()), 6),
+            "ms": round(sum(r["ms"] for r in timed.values()), 6),
+            "plain_ms": round(sum(r["plain_ms"] for r in timed.values()), 6),
+            "bound_ms": round(sum(r["bound_ms"] for r in timed.values()), 6),
             "bound_by": max(("bytes", "operations"),
-                            key=lambda b: sum(r["bound_ms"] for r in runs.values() if r["bound_by"] == b)),
-            "library_ms": (None if all(r.get("library_ms") is None for r in runs.values())
-                           else round(sum(r.get("library_ms") or 0.0 for r in runs.values()), 6)),
+                            key=lambda b: sum(r["bound_ms"] for r in timed.values() if r["bound_by"] == b)),
+            "library_ms": (None if all(r.get("library_ms") is None for r in timed.values())
+                           else round(sum(r.get("library_ms") or 0.0 for r in timed.values()), 6)),
             "per_model": {m: {kk: (round(v, 6) if isinstance(v, float) else v) for kk, v in r.items()}
                           for m, r in runs.items()},
         })
     print(f"(kernel ms / plain_ms / bound_ms: per forward at batch {max(batches)}, summed over the "
-          f"paths that run the kernel; lis_attention timed at lis_attention_fused's calls; the weight-store "
+          f"DeiT-S and Swin-T paths that run the kernel, the zoo paths' per_model entries (and the sums where "
+          f"only they ran) at batch {max(ZOO_BATCHES)}; launches summed over every path; lis_attention timed "
+          f"at lis_attention_fused's calls; the weight-store "
           f"kernels per depth-{args.depth} chain at M = 197·{max(batches)}, wstream_matmul summed over its "
           f"four stores, its library_ms the bf16 torch.matmul over the same codes; library_ms null: no "
           f"single PyTorch call computes these quantized functions; card {smi})")

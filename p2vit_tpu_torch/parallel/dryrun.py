@@ -1,8 +1,8 @@
 """Dry run of every parallel path on tiny shapes over one rank group (the
 port's counterpart of ``__graft_entry__.dryrun_multichip``).
 
+    python -m p2vit_tpu_torch.parallel.dryrun --world 4                # ranks share the card
     python -m p2vit_tpu_torch.parallel.dryrun --world 4 --device cpu
-    python -m p2vit_tpu_torch.parallel.dryrun --world 4 --device cuda   # ranks share the card
 
 Builds seeded tiny ViT and Swin serving states in this process, starts
 ``--world`` ranks (``dist.run_ranks``) that run ``run_scenarios``: the
@@ -276,7 +276,8 @@ def report(outs: list, ref: dict, st: dict, names=None) -> tuple:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--world", type=int, default=4, help="ranks (even, at least 2)")
-    ap.add_argument("--device", default="cpu", help="cpu, or cuda: every rank on cuda:0")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default: every rank on cuda:0; raises without a card) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--timeout", type=float, default=600.0, help="seconds before the ranks are killed")
     args = ap.parse_args(argv)

@@ -255,20 +255,26 @@ SYMBOLS = {"fused_vit_layer": "fused_vit_layer_kernel", "lis_attention_fused": "
            "fused_swin_stem": "swin_stem_kernel"}
 
 
-def device_us(fn, reps: int, symbol: str) -> tuple:
+def device_us(fn, reps: int, symbol: str, windows: int = 3) -> tuple:
     """(µs of device time per call, of it the kernel ``symbol``'s) over
     ``reps`` calls, from ``torch.profiler``; the rest is the wrapper's
-    padding copies."""
+    padding copies. A window in which the profiler saw no device time at all
+    (on the H100 machine it loses a whole window's events at times) is taken
+    again, up to ``windows`` windows; one with device time but none in
+    ``symbol`` stands."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in ev)
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in ev)
+        if total > 0:
+            break
     kern = sum(e.self_device_time_total for e in ev if symbol in e.key)
     return total / reps, kern / reps
 

@@ -100,6 +100,22 @@ def test_int8_matmul_requant_ragged(dev, m, n, k):
     _same(matmul_int8.int8_matmul_requant(*a, **kw), matmul_int8.int8_matmul_requant_plain(*a, **kw))
 
 
+# (M, N, K, gelu) of the zoo's GEMMs at batch 8 that no other case holds:
+# fc1 (GELU), the staged qkv GEMM and the head of DeiT-T, DeiT-B/ViT-B and
+# ViT-L; Swin-B's qkv and fc1 at stages 1 and 4 and its three merges
+ZOO_GEMMS = [(1576, 768, 192, True), (1576, 3072, 768, True), (1576, 4096, 1024, True),
+             (1576, 576, 192, False), (1576, 2304, 768, False), (1576, 3072, 1024, False),
+             (8, 1000, 192, False), (8, 1000, 1024, False),
+             (25088, 384, 128, False), (25088, 512, 128, True), (392, 3072, 1024, False), (392, 4096, 1024, True),
+             (6272, 256, 512, False), (1568, 512, 1024, False), (392, 1024, 2048, False)]
+
+
+@pytest.mark.parametrize("m,n,k,gelu", ZOO_GEMMS)
+def test_int8_matmul_requant_zoo_shapes(dev, m, n, k, gelu):
+    a, kw = _requant_case(dev, m + n + k, m, k, n, gelu)
+    _same(matmul_int8.int8_matmul_requant(*a, **kw), matmul_int8.int8_matmul_requant_plain(*a, **kw))
+
+
 @pytest.mark.parametrize("qmin,qmax", [(-8, 7), (0, 15), (-128, 127)])
 @pytest.mark.parametrize("gelu", [False, True])
 def test_int8_matmul_requant_clamp_arms(dev, qmin, qmax, gelu):
@@ -426,9 +442,10 @@ def test_fused_patch_embed_divide_exhaustive(dev):
 # (B, N, C_in, C_out, heads): the cluster's edges (N = 5: one CTA and one
 # query group; 64: exactly one tile; 65: one row over; 197: DeiT's 4/3/3/3
 # groups; 256: the maximum), DeiT-S's tensor-parallel shards at tp = 2 and 3
-# (C_out ≠ C_in) and the DeiT-B width
+# (C_out ≠ C_in) and the DeiT-B, ViT-L and DeiT-T widths
 QKV_SHAPES = [(3, 5, 384, 384, 6), (3, 64, 384, 384, 6), (3, 65, 384, 384, 6), (3, 197, 384, 384, 6),
-              (3, 256, 384, 384, 6), (2, 197, 384, 192, 3), (2, 197, 384, 128, 2), (2, 197, 768, 768, 12)]
+              (3, 256, 384, 384, 6), (2, 197, 384, 192, 3), (2, 197, 384, 128, 2), (2, 197, 768, 768, 12),
+              (2, 197, 1024, 1024, 16), (2, 197, 192, 192, 3)]
 
 
 @pytest.mark.parametrize("lis", [True, False])
@@ -503,7 +520,8 @@ def test_lis_attention_kernel(dev, lis):
 # (B, N, C, heads) at head_dims 16, 32 and 64 and the item's edges: N = 5
 # (one query group, one key block), 65 (a group and a key block over), 197,
 # 256 (the maximum)
-FUSED_ATTN_SHAPES = [(3, n, c, h) for n in (5, 65, 197, 256) for c, h in ((96, 6), (192, 6), (384, 6))]
+FUSED_ATTN_SHAPES = [(3, n, c, h) for n in (5, 65, 197, 256) for c, h in ((96, 6), (192, 6), (384, 6))] + [
+    (2, 197, 192, 3), (2, 197, 768, 12), (2, 197, 1024, 16)]  # the staged zoo's DeiT-T, DeiT-B/ViT-B, ViT-L
 
 
 @pytest.mark.parametrize("lis", [True, False])
@@ -667,6 +685,10 @@ def _ptf(rng, n, base):
 SWIN_T_LN = [(2 * 3136, 96), (2 * 784, 192), (2 * 196, 384), (2 * 49, 768), (2 * 784, 384), (2 * 196, 768),
              (2 * 49, 1536)]
 SWIN_T_RES = [(2 * 3136, 96), (2 * 784, 192), (2 * 196, 384), (2 * 49, 768)]
+# Swin-B's, C = 128 (Swin-S's are Swin-T's)
+SWIN_B_LN = [(2 * 3136, 128), (2 * 784, 256), (2 * 196, 512), (2 * 49, 1024), (2 * 784, 512), (2 * 196, 1024),
+             (2 * 49, 2048)]
+SWIN_B_RES = [(2 * 3136, 128), (2 * 784, 256), (2 * 196, 512), (2 * 49, 1024)]
 
 
 def _ln_args(rng, m, c, mask=None, const_rows=0):
@@ -681,10 +703,11 @@ def _ln_args(rng, m, c, mask=None, const_rows=0):
             torch.from_numpy((np.abs(rng.randn(c)) * 0.03 + 0.01).astype(np.float32)), 1.0]
 
 
-@pytest.mark.parametrize("m,c", SWIN_T_LN + [(2 * 3136 + 5, 96), (2 * 196 + 3, 384), (50, 3072), (77, 18),
-                                             (129, 98), (3, 100), (200, 3074), (33, intln.MAX_C)])
+@pytest.mark.parametrize("m,c", SWIN_T_LN + SWIN_B_LN + [(2 * 3136 + 5, 96), (2 * 196 + 3, 384), (50, 3072),
+                                                         (77, 18), (129, 98), (3, 100), (200, 3074),
+                                                         (33, intln.MAX_C)])
 def test_int_ln_requant_kernel(dev, m, c):
-    """Every Swin-T int-LN shape at batch 2, ragged M, padded C (18, 98, 100,
+    """Every Swin-T and Swin-B int-LN shape at batch 2, ragged M, padded C (18, 98, 100,
     3074), swin_base's widest 3072 row and the widest C JAX serves; the
     first 5 rows constant (std = 0: the row constants are inf, or NaN on
     the first row, all zeros)."""
@@ -709,10 +732,10 @@ def _res_args(rng, m, c, const_rows=0):
             torch.from_numpy((rng.randn(c) * 0.1).astype(np.float32)), torch.tensor(2.0**-4), 1.0]
 
 
-@pytest.mark.parametrize("m,c", SWIN_T_RES + [(2 * 3136 + 7, 96), (2 * 49 + 1, 768), (5, 18), (130, 100),
-                                              (64, 1536), (33, intln.MAX_RES_C)])
+@pytest.mark.parametrize("m,c", SWIN_T_RES + SWIN_B_RES + [(2 * 3136 + 7, 96), (2 * 49 + 1, 768), (5, 18),
+                                                           (130, 100), (64, 1536), (33, intln.MAX_RES_C)])
 def test_int_res_ln_requant_kernel(dev, m, c):
-    """Every Swin-T junction shape at batch 2, ragged M, padded C and the
+    """Every Swin-T and Swin-B junction shape at batch 2, ragged M, padded C and the
     widest C JAX serves; the first 4 rows' residual codes constant where
     s_out is a scalar (std = 0), the first row's zero."""
     rng = np.random.RandomState(c + m + 1)
@@ -818,9 +841,20 @@ def test_swin_attention_at_swin_t_stages(dev, batch, lis):
     mask, the folded entry (stages of more than one window) at shift 0
     unmasked and at shift 3 masked, against their plain versions; the
     shifted folded entry also against roll → the panel kernel → roll."""
+    _swin_attention_stages(dev, batch, lis, 3)
+
+
+@pytest.mark.parametrize("lis", [True, False])
+@pytest.mark.parametrize("batch", [1, 8, 64])
+def test_swin_attention_at_swin_b_stages(dev, batch, lis):
+    """The same at every Swin-B stage (heads 4/8/16/32, head_dim 32)."""
+    _swin_attention_stages(dev, batch, lis, 4)
+
+
+def _swin_attention_stages(dev, batch, lis, heads0):
     rng = np.random.RandomState(batch)
     for stage in range(4):
-        res, heads = 56 >> stage, 3 << stage
+        res, heads = 56 >> stage, heads0 << stage
         g2 = (res // 7) ** 2
         c = 32 * heads
         qkv = _i8(rng, (batch, res, res, 3 * c)).to(dev)
@@ -1223,9 +1257,9 @@ def _small_layer_args(dev, b, n, c, heads, hid, seed=21):
 
 
 # (B, N, C, heads, hid): head_dims 16 (C = 64, 4 heads), 32 (2 heads) and 64;
-# N = 5, 65, 197 and 256; DeiT-T's width
+# N = 5, 65, 197 and 256; DeiT-T's width, and DeiT-T itself
 LAYER_SHAPES = [(3, 5, 64, 4, 256), (3, 65, 64, 2, 256), (1, 197, 128, 2, 512), (3, 256, 192, 3, 768),
-                (3, 197, 192, 6, 768), (2, 65, 384, 12, 1536), (1, 256, 384, 6, 1536)]
+                (3, 197, 192, 6, 768), (2, 65, 384, 12, 1536), (1, 256, 384, 6, 1536), (2, 197, 192, 3, 768)]
 
 
 @pytest.mark.parametrize("lis", [True, False])

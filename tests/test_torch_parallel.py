@@ -398,3 +398,32 @@ def test_run_ranks_kills_the_ranks_past_the_deadline(states):
     with pytest.raises(TimeoutError, match="not done within 0.5 s; killed"):
         pdist.run_ranks(dryrun.run_scenarios, 2, states["st"], device="cpu", timeout_s=0.5)
     assert time.monotonic() - t0 < 30
+
+
+def test_dryrun_main_defaults_to_the_card(monkeypatch):
+    """``python -m p2vit_tpu_torch.parallel.dryrun`` without ``--device``
+    asks for the card, and raises on a machine without one before it
+    builds any state."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA device and none is available"):
+        dryrun.main([])
+
+
+def test_dryrun_main_runs_on_the_cpu(states, ranks, monkeypatch, capsys):
+    """``--device cpu`` starts the dry run's ranks on the CPU and holds every
+    scenario against one process. The file's group of CPU ranks stands in
+    for the one ``main`` would start (the same ``run_scenarios``, on the
+    file's states)."""
+    started = []
+
+    def run_ranks(fn, world, st, device, timeout_s):
+        started.append((fn, world, device))
+        return ranks
+
+    monkeypatch.setattr(dryrun, "tiny_states", lambda device, seed: states["st"])
+    monkeypatch.setattr(pdist, "run_ranks", run_ranks)
+    assert dryrun.main(["--device", "cpu", "--world", str(WORLD)]) == 0
+    assert started == [(dryrun.run_scenarios, WORLD, torch.device("cpu"))]
+    out = capsys.readouterr().out
+    assert f"{WORLD} ranks on cpu" in out and out.rstrip().endswith("dryrun: OK")
+    assert all(f"{name}: 0 elements" in out for name in dryrun.SCENARIOS + dryrun.ENVELOPES)
