@@ -1,5 +1,6 @@
 """Serving kernels: each module holds hand-written CUDA kernels' wrappers
-(``launches`` counts each kernel's launches), the kernels' plain PyTorch
+(``launches`` counts each kernel's launches; ``profiling.op_span`` records
+each call as an ``op.<wrapper>`` span while recording), the kernels' plain PyTorch
 versions and the constants both share. CPU tensors run the plain version;
 CUDA tensors launch the kernel or raise."""
 

@@ -105,6 +105,7 @@ import dataclasses
 
 import torch
 
+from ..profiling import op_span
 from ._lib import check_cuda_operand, device_of, f32_scalars, f32_vec, launch, library
 from .fastmath import exp2i, exp_rn, floor_log2i
 from .matmul_int8 import int8_matmul_requant_plain
@@ -339,6 +340,7 @@ def _split_operands(q_q, k_q, v_q, lis, lis_bits, gc=0):
     return bh, n, d
 
 
+@op_span
 def lis_attention(q_q, k_q, v_q, score_requant, attn_scale, out_requant, lis_bits=4, lis=True):
     """Attention per (batch·head) over split codes.
 
@@ -408,6 +410,7 @@ def _fused_operands(qkv_q, num_heads, lis, lis_bits, gc=0):
     return b, n, c
 
 
+@op_span
 def lis_attention_fused(qkv_q, num_heads, score_requant, attn_scale, out_requant,
                         lis_bits=4, lis=True):
     """Attention over the (B, N, 3C) fused-qkv codes: the heads are sliced
@@ -589,6 +592,7 @@ def lis_attention_qkv_fused_padded_plain(h_q, w_q, requant_vec, bias_vec, num_he
 QKV_PHASES = ("qkv GEMM", "K/V/q copy", "scores", "LIS weights", "attn@v")
 
 
+@op_span
 def lis_attention_qkv_fused(h_q, w_q, requant_vec, bias_vec, num_heads,
                             score_requant, attn_scale, out_requant,
                             lis_bits=4, lis=True, phase_ns=None):
@@ -894,6 +898,7 @@ def _swin_hooks(grid, phase_ns, cta_ns, items, n, lis, fold, hd):
     return int(grid), phase_ns, cta_ns
 
 
+@op_span
 def swin_lis_attention(qkv_q, bias, mask, num_heads, n_windows, score_requant, attn_scale,
                        s2, out_requant, lis_bits=4, lis=True, *, grid=0, phase_ns=None, cta_ns=None):
     """Windowed attention over (W, N, 3C) int8 qkv codes of B·nW windows.
@@ -974,6 +979,7 @@ def swin_lis_attention_folded_plain(qkv_r, bias, mask, num_heads, window, score_
     return torch.roll(out, (shift, shift), (1, 2)) if shift else out
 
 
+@op_span
 def swin_lis_attention_folded(qkv_r, bias, mask, num_heads, window, score_requant, attn_scale,
                               s2, out_requant, lis_bits=4, lis=True, shift=0, *, grid=0, phase_ns=None,
                               cta_ns=None):

@@ -48,6 +48,7 @@ import functools
 
 import torch
 
+from ..profiling import op_span
 from ._lib import check_cuda_operand, device_of, f32_scalars, f32_vec, launch, library, pad_cols
 from .intln import ln_codes
 from .matmul_int8 import MAX_SMEM, TILE_K, TILE_M, _sm_count, int_matmul_nt
@@ -290,6 +291,7 @@ def fused_patch_embed_forced(patches, w_q, patch_requant, patch_bias, embed_requ
                          phase_ns)
 
 
+@op_span
 def fused_patch_embed(patches, w_q, patch_requant, patch_bias, embed_requant,
                       s_embed, pos_val, cls_xc, s_qact1, ln_mask, ln_s1, ln_w_os,
                       ln_b_os, *, s_input=None):

@@ -58,6 +58,7 @@ import functools
 
 import torch
 
+from ..profiling import op_span
 from ._lib import check_cuda_operand, device_of, f32_vec, launch, library, pad_cols
 from .fastmath import exp2i, floor_log2i, sqrt_rn
 
@@ -257,6 +258,7 @@ def int_ln_requant_forced(codes, ptf_mask, s1, ln_w, ln_b, out_scale, ratio, g=0
     return _int_ln(codes, ptf_mask, s1, ln_w, ln_b, out_scale, ratio, g)
 
 
+@op_span
 def int_ln_requant(codes, ptf_mask, s1, ln_w, ln_b, out_scale, ratio):
     """Integer LN on (M, C) int8 codes → (M, C) int8 codes of the consumer.
 
@@ -331,6 +333,7 @@ def int_res_ln_requant_forced(a_q, s_a, b_q, s_b, s_out, ln_w, ln_b, ln_out_scal
     return _int_res_ln(a_q, s_a, b_q, s_b, s_out, ln_w, ln_b, ln_out_scale, ratio, g)
 
 
+@op_span
 def int_res_ln_requant(a_q, s_a, b_q, s_b, s_out, ln_w, ln_b, ln_out_scale, ratio):
     """Residual requant-add + integer LN; returns (res_codes, ln_codes), both
     (M, C) int8.

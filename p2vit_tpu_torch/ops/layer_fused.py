@@ -47,6 +47,7 @@ import dataclasses
 
 import torch
 
+from ..profiling import op_span
 from ._lib import check_cuda_operand, device_of, f32_scalars, f32_vec, launch, library
 from .attention_lis import (FUSED_HEAD_DIMS, _check_lis_bits, _vit_scalars, lis_attention_fused_plain, pad_hd,
                             vit_attention_gc, vit_attention_layout)
@@ -314,6 +315,7 @@ def fused_vit_layer_padded_plain(h_q, xc_q, w_qkv, qkv_requant, qkv_bias, num_he
     return hn[:, :c].reshape(b, n, c), res2[:, :c].reshape(b, n, c)
 
 
+@op_span
 def fused_vit_layer(h_q, xc_q, w_qkv, qkv_requant, qkv_bias, num_heads, score_requant, attn_scale,
                     out_requant, w_proj, proj_requant, proj_bias, s_mid, s_res_prev, s_res1, ln2_w,
                     ln2_b, ln2_out, ln2_ratio, w_fc1, fc1_requant, fc1_bias, fc1_out_inv, w_fc2,

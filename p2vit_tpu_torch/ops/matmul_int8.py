@@ -53,6 +53,7 @@ import functools
 
 import torch
 
+from ..profiling import op_span
 from ._lib import check_cuda_operand, device_of, f32_scalars, f32_vec, launch, library, pad_cols
 from .fastmath import exp_rn
 
@@ -291,6 +292,7 @@ def int8_matmul_requant_grid(x_q, w_q, requant_scale, bias_scaled, out_inv=1.0,
     return out
 
 
+@op_span
 def int8_matmul_requant(x_q, w_q, requant_scale, bias_scaled, out_inv=1.0,
                         qmin=-128, qmax=127, gelu=False):
     """out_q = clip(round(epilogue(Σ_k x_q·w_q · requant[n] + bias[n]))).
@@ -405,6 +407,7 @@ def int4_matmul_requant_grid(x_q, w_packed, requant_scale, bias_scaled, out_inv=
     return out
 
 
+@op_span
 def int4_matmul_requant(x_q, w_packed, requant_scale, bias_scaled, out_inv=1.0,
                         qmin=-128, qmax=127, gelu=False):
     """``int8_matmul_requant`` over the int4-packed store ``pack_int4(w_q)``.

@@ -48,6 +48,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ..profiling import op_span
 from ._lib import check_cuda_operand, device_of, f32_vec, launch, library, pad_cols
 from .intln import ln_codes
 from .matmul_int8 import MAX_CODE, MAX_SMEM, MAX_STAGES, TILE_K, TILE_M, WIDTHS, _sm_count, int_matmul_nt
@@ -292,6 +293,7 @@ def int8_matmul_res_ln_forced(x_q, w_q, requant_scale, bias_scaled, res_q, s_mid
                           s_res, s_out, ln_w, ln_b, ln_out_scale, ratio, qmin, qmax, cs, nc)
 
 
+@op_span
 def int8_matmul_res_ln(x_q, w_q, requant_scale, bias_scaled, res_q, s_mid, s_res,
                        s_out, ln_w, ln_b, ln_out_scale, ratio, qmin=-128, qmax=127):
     """Returns (res_codes, ln_codes), both (M, N) int8.

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import torch
 
+from ..profiling import op_span
 from ._lib import check_cuda_operand, device_of, f32_vec, launch, library
 from .matmul_int8 import gelu_as
 
@@ -149,6 +150,7 @@ def wstream_matmul_plain(x, w_store, row_scale, bias, w_format="w8p", gelu=False
     return y.to(torch.bfloat16)
 
 
+@op_span
 def wstream_matmul(x, w_store, row_scale, bias, w_format="w8p", gelu=False):
     """out = [gelu](x @ codesᵀ · row_scale[n] + bias[n]) in bf16.
 

@@ -43,6 +43,7 @@ import dataclasses
 
 import torch
 
+from ..profiling import op_span
 from ._lib import check_cuda_operand, device_of, f32_vec, launch, library, pad_cols
 from .intln import ln_codes
 
@@ -152,6 +153,7 @@ def stem_kernel_info(m: int, k: int, c: int) -> dict:
     return dict(zip(_INFO_KEYS, list(info)))
 
 
+@op_span
 def fused_swin_stem(patches, w, bias, s_bn, ln_w, ln_b, out_scale):
     """(M, K) float32 patch rows → (M, C) int8 patch-qact codes.
 

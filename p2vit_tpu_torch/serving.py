@@ -37,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import profiling
 from .config import QuantPolicy
 from .models.common import ViTConfig, extract_patches
 from .ops import attention_lis, embed_fused, intln, layer_fused, matmul_int8, matmul_ln
@@ -454,16 +455,20 @@ def serving_forward(s, cfg: ViTConfig, x, use_kernels: bool = True, lis: bool = 
     ``u8_affine``: ingest uint8 through the fused affine; prove it first with
     ``u8_ingest_exact(s, affine=True)``.
     """
-    if fuse_layer and use_kernels and x.device.type != "cpu":
-        layer_fused.check_fits(cfg.seq_len, cfg.embed_dim, cfg.num_heads, cfg.hidden_dim)
-    h, xc = embed_codes(s, cfg, x, use_kernels, fuse_embed, u8_affine)
-    for bi in range(len(s["blocks"])):
-        layer = layer_consts(s, cfg, bi)
-        if fuse_layer:
-            h, xc = apply_fused_layer(cfg, layer, h, xc, lis, use_kernels)
-        else:
-            h, xc = apply_unfused_layer(cfg, layer, h, xc, lis, fuse_qkv, use_kernels)
-    return head_logits(s, h, use_kernels)
+    with profiling.span(profiling.FORWARD, batch=x.shape[0]):
+        if fuse_layer and use_kernels and x.device.type != "cpu":
+            layer_fused.check_fits(cfg.seq_len, cfg.embed_dim, cfg.num_heads, cfg.hidden_dim)
+        with profiling.span("vit.embed"):
+            h, xc = embed_codes(s, cfg, x, use_kernels, fuse_embed, u8_affine)
+        for bi in range(len(s["blocks"])):
+            with profiling.span("vit.block", index=bi):
+                layer = layer_consts(s, cfg, bi)
+                if fuse_layer:
+                    h, xc = apply_fused_layer(cfg, layer, h, xc, lis, use_kernels)
+                else:
+                    h, xc = apply_unfused_layer(cfg, layer, h, xc, lis, fuse_qkv, use_kernels)
+        with profiling.span("vit.head"):
+            return head_logits(s, h, use_kernels)
 
 
 def launches_per_forward(cfg: ViTConfig, fuse_embed: bool = True, fuse_qkv: bool = True,

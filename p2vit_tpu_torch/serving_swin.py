@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from . import profiling
 from .config import QuantPolicy
 from .models.swin import (
     SwinConfig,
@@ -308,114 +309,119 @@ def serving_forward(s, qstate, cfg: SwinConfig, policy: QuantPolicy, x, use_kern
     and the sum rounded on its own), then every norm1, norm2 and the final
     norm in ``int_ln_requant``.
     """
-    if use_kernels:
-        attn = attention_lis.swin_lis_attention
-        attn_fold = attention_lis.swin_lis_attention_folded
-        res_ln = intln.int_res_ln_requant
-        mm_res_ln = matmul_ln.int8_matmul_res_ln
-        mm = matmul_int8.int8_matmul_requant
-    else:
-        attn = attention_lis.swin_lis_attention_plain
-        attn_fold = attention_lis.swin_lis_attention_folded_plain
-        res_ln = intln.int_res_ln_requant_plain
-        mm_res_ln = matmul_ln.int8_matmul_res_ln_plain
-        mm = matmul_int8.int8_matmul_requant_plain
-    lis = bool(policy.int_softmax) if lis is None else bool(lis)
-    if lis:
-        attention_lis.check_lis_scale(s["min_s2"])
+    with profiling.span(profiling.FORWARD, batch=x.shape[0]):
+        if use_kernels:
+            attn = attention_lis.swin_lis_attention
+            attn_fold = attention_lis.swin_lis_attention_folded
+            res_ln = intln.int_res_ln_requant
+            mm_res_ln = matmul_ln.int8_matmul_res_ln
+            mm = matmul_int8.int8_matmul_requant
+        else:
+            attn = attention_lis.swin_lis_attention_plain
+            attn_fold = attention_lis.swin_lis_attention_folded_plain
+            res_ln = intln.int_res_ln_requant_plain
+            mm_res_ln = matmul_ln.int8_matmul_res_ln_plain
+            mm = matmul_int8.int8_matmul_requant_plain
+        lis = bool(policy.int_softmax) if lis is None else bool(lis)
+        if lis:
+            attention_lis.check_lis_scale(s["min_s2"])
 
-    b = x.shape[0]
-    xc = stem_codes(s, qstate, cfg, x, use_kernels, fuse_stem=fuse_stem, int_stem=int_stem)
-    s_prev = qstate["patch_qact"]["scale"]
-    final_ln = None
-    for i, st in enumerate(s["stages"]):
-        res, ws = cfg.stage_res(i), cfg.window(i)
-        heads = cfg.num_heads[i]
-        sqs = qstate["stages"][i]
-        nblk = len(st["blocks"])
-        last_stage = i == len(s["stages"]) - 1
-        h_ln = None  # norm1 codes carried out of the fc2 junction
-        for j, sb in enumerate(st["blocks"]):
-            bq = sqs["blocks"][j]
-            aq = bq["attn"]
-            shift = cfg.shift(i, j)
-            bs, l, c = xc.shape
-            hd = c // heads
-            shortcut = xc
-            h = _iln(xc, s_prev, sb["norm1"], bq["qact1"]["scale"], use_kernels=use_kernels) \
-                if h_ln is None else h_ln
-            qkv = (sb["qkv"]["w_q"], bq["qact1"]["scale"] * sb["qkv"]["sw"] / aq["qact1"]["scale"],
-                   sb["qkv_b"] / aq["qact1"]["scale"])
-            scales = (aq["qact1"]["scale"] ** 2 * hd**-0.5 / aq["qact_attn1"]["scale"],
-                      aq["qact_attn1"]["scale"], aq["qact2"]["scale"],
-                      aq["qact1"]["scale"] / aq["qact3"]["scale"])
-            proj = (sb["proj"]["w_q"], aq["qact3"]["scale"] * sb["proj"]["sw"] / aq["qact4"]["scale"],
-                    sb["proj_b"] / aq["qact4"]["scale"])
-            if fold_windows and res > ws:
-                # the cyclic shift rides in the kernel's addresses: no roll copies
-                hq = mm(h.reshape(-1, c), *qkv).reshape(bs, res, res, 3 * c)
-                hw = attn_fold(hq, sb["bias_val"], sb["mask_s2"], heads, ws, *scales, lis=lis, shift=shift)
-                h = mm(hw.reshape(-1, c), *proj)
-            else:
-                hw = window_partition(_roll(h.reshape(bs, res, res, c), -shift), ws)
-                hw = mm(hw.reshape(-1, c), *qkv).reshape(-1, ws * ws, 3 * c)
-                hw = attn(hw, sb["bias_val"], sb["mask_s2"], heads, (res // ws) ** 2, *scales,
-                          lis=lis)
-                hw = mm(hw.reshape(-1, c), *proj)
-                h = _roll(window_reverse(hw.reshape(-1, ws * ws, c), ws, res, res), shift)
-            # residual requant-add → block qact2 codes, and their norm2 codes
-            if fuse_res:
-                xc, h = res_ln(shortcut.reshape(-1, c), s_prev, h.reshape(-1, c).contiguous(),
-                               aq["qact4"]["scale"], bq["qact2"]["scale"], sb["norm2"]["w"],
-                               sb["norm2"]["b"], bq["qact3"]["scale"], 1.0)
-            else:
-                xc = _residual_codes(shortcut, s_prev, h.reshape(bs, l, c), aq["qact4"]["scale"],
-                                     bq["qact2"]["scale"])
-                h = _iln(xc, bq["qact2"]["scale"], sb["norm2"], bq["qact3"]["scale"],
-                         use_kernels=use_kernels).reshape(-1, c)
-            h = mm(h, sb["fc1"]["w_q"], bq["qact3"]["scale"] * sb["fc1"]["sw"], sb["fc1_b"],
-                   out_inv=1.0 / bq["mlp_qact1"]["scale"], gelu=True)
-            fc2 = sb["fc2"]
-            r_fc2 = bq["mlp_qact1"]["scale"] * fc2["sw"] / bq["mlp_qact2"]["scale"]
-            b_fc2 = sb["fc2_b"] / bq["mlp_qact2"]["scale"]
-            if fuse_res and (j + 1 < nblk or last_stage):
-                # fc2 + residual + the LN that follows in the same token
-                # layout: the next block's norm1, or the final norm
-                if j + 1 < nblk:
-                    ln_p = st["blocks"][j + 1]["norm1"]
-                    ln_out = sqs["blocks"][j + 1]["qact1"]["scale"]
-                else:
-                    ln_p, ln_out = s["norm"], qstate["qact2"]["scale"]
-                xc, h_f = mm_res_ln(h, fc2["w_q"], r_fc2, b_fc2, xc.reshape(-1, c),
-                                    bq["mlp_qact2"]["scale"], bq["qact2"]["scale"],
-                                    bq["qact4"]["scale"], ln_p["w"], ln_p["b"], ln_out, 1.0)
-                if j + 1 < nblk:
-                    h_ln = h_f.reshape(bs, l, c)
-                else:
-                    final_ln = h_f.reshape(bs, l, c)
-            else:
-                # plain fc2, then the residual requant-add (fuse_res: the
-                # block before a PatchMerging)
-                h = mm(h, fc2["w_q"], r_fc2, b_fc2)
-                xc = _residual_codes(xc.reshape(-1, c), bq["qact2"]["scale"], h,
-                                     bq["mlp_qact2"]["scale"], bq["qact4"]["scale"])
-                h_ln = None
-            xc = xc.reshape(bs, l, c)
-            s_prev = bq["qact4"]["scale"]
-        if "downsample" in st:
-            dq = sqs["downsample"]
-            red = st["downsample"]["red"]
-            xc = _iln(_merge_patches(xc, res), s_prev, st["downsample"]["norm"], dq["qact1"]["scale"],
-                      expand=4, use_kernels=use_kernels)
-            c2 = xc.shape[-1]
-            xc = mm(xc.reshape(-1, c2), red["w_q"], dq["qact1"]["scale"] * red["sw"] / dq["qact2"]["scale"],
-                    0.0).reshape(b, -1, c2 // 2)
-            s_prev = dq["qact2"]["scale"]
+        b = x.shape[0]
+        with profiling.span("swin.stem"):
+            xc = stem_codes(s, qstate, cfg, x, use_kernels, fuse_stem=fuse_stem, int_stem=int_stem)
+        s_prev = qstate["patch_qact"]["scale"]
+        final_ln = None
+        for i, st in enumerate(s["stages"]):
+            res, ws = cfg.stage_res(i), cfg.window(i)
+            heads = cfg.num_heads[i]
+            sqs = qstate["stages"][i]
+            nblk = len(st["blocks"])
+            last_stage = i == len(s["stages"]) - 1
+            h_ln = None  # norm1 codes carried out of the fc2 junction
+            for j, sb in enumerate(st["blocks"]):
+                with profiling.span("swin.block", stage=i, block=j):
+                    bq = sqs["blocks"][j]
+                    aq = bq["attn"]
+                    shift = cfg.shift(i, j)
+                    bs, l, c = xc.shape
+                    hd = c // heads
+                    shortcut = xc
+                    h = _iln(xc, s_prev, sb["norm1"], bq["qact1"]["scale"], use_kernels=use_kernels) \
+                        if h_ln is None else h_ln
+                    qkv = (sb["qkv"]["w_q"], bq["qact1"]["scale"] * sb["qkv"]["sw"] / aq["qact1"]["scale"],
+                           sb["qkv_b"] / aq["qact1"]["scale"])
+                    scales = (aq["qact1"]["scale"] ** 2 * hd**-0.5 / aq["qact_attn1"]["scale"],
+                              aq["qact_attn1"]["scale"], aq["qact2"]["scale"],
+                              aq["qact1"]["scale"] / aq["qact3"]["scale"])
+                    proj = (sb["proj"]["w_q"], aq["qact3"]["scale"] * sb["proj"]["sw"] / aq["qact4"]["scale"],
+                            sb["proj_b"] / aq["qact4"]["scale"])
+                    if fold_windows and res > ws:
+                        # the cyclic shift rides in the kernel's addresses: no roll copies
+                        hq = mm(h.reshape(-1, c), *qkv).reshape(bs, res, res, 3 * c)
+                        hw = attn_fold(hq, sb["bias_val"], sb["mask_s2"], heads, ws, *scales, lis=lis, shift=shift)
+                        h = mm(hw.reshape(-1, c), *proj)
+                    else:
+                        hw = window_partition(_roll(h.reshape(bs, res, res, c), -shift), ws)
+                        hw = mm(hw.reshape(-1, c), *qkv).reshape(-1, ws * ws, 3 * c)
+                        hw = attn(hw, sb["bias_val"], sb["mask_s2"], heads, (res // ws) ** 2, *scales,
+                                  lis=lis)
+                        hw = mm(hw.reshape(-1, c), *proj)
+                        h = _roll(window_reverse(hw.reshape(-1, ws * ws, c), ws, res, res), shift)
+                    # residual requant-add → block qact2 codes, and their norm2 codes
+                    if fuse_res:
+                        xc, h = res_ln(shortcut.reshape(-1, c), s_prev, h.reshape(-1, c).contiguous(),
+                                       aq["qact4"]["scale"], bq["qact2"]["scale"], sb["norm2"]["w"],
+                                       sb["norm2"]["b"], bq["qact3"]["scale"], 1.0)
+                    else:
+                        xc = _residual_codes(shortcut, s_prev, h.reshape(bs, l, c), aq["qact4"]["scale"],
+                                             bq["qact2"]["scale"])
+                        h = _iln(xc, bq["qact2"]["scale"], sb["norm2"], bq["qact3"]["scale"],
+                                 use_kernels=use_kernels).reshape(-1, c)
+                    h = mm(h, sb["fc1"]["w_q"], bq["qact3"]["scale"] * sb["fc1"]["sw"], sb["fc1_b"],
+                           out_inv=1.0 / bq["mlp_qact1"]["scale"], gelu=True)
+                    fc2 = sb["fc2"]
+                    r_fc2 = bq["mlp_qact1"]["scale"] * fc2["sw"] / bq["mlp_qact2"]["scale"]
+                    b_fc2 = sb["fc2_b"] / bq["mlp_qact2"]["scale"]
+                    if fuse_res and (j + 1 < nblk or last_stage):
+                        # fc2 + residual + the LN that follows in the same token
+                        # layout: the next block's norm1, or the final norm
+                        if j + 1 < nblk:
+                            ln_p = st["blocks"][j + 1]["norm1"]
+                            ln_out = sqs["blocks"][j + 1]["qact1"]["scale"]
+                        else:
+                            ln_p, ln_out = s["norm"], qstate["qact2"]["scale"]
+                        xc, h_f = mm_res_ln(h, fc2["w_q"], r_fc2, b_fc2, xc.reshape(-1, c),
+                                            bq["mlp_qact2"]["scale"], bq["qact2"]["scale"],
+                                            bq["qact4"]["scale"], ln_p["w"], ln_p["b"], ln_out, 1.0)
+                        if j + 1 < nblk:
+                            h_ln = h_f.reshape(bs, l, c)
+                        else:
+                            final_ln = h_f.reshape(bs, l, c)
+                    else:
+                        # plain fc2, then the residual requant-add (fuse_res: the
+                        # block before a PatchMerging)
+                        h = mm(h, fc2["w_q"], r_fc2, b_fc2)
+                        xc = _residual_codes(xc.reshape(-1, c), bq["qact2"]["scale"], h,
+                                             bq["mlp_qact2"]["scale"], bq["qact4"]["scale"])
+                        h_ln = None
+                    xc = xc.reshape(bs, l, c)
+                    s_prev = bq["qact4"]["scale"]
+            if "downsample" in st:
+                with profiling.span("swin.merge"):
+                    dq = sqs["downsample"]
+                    red = st["downsample"]["red"]
+                    xc = _iln(_merge_patches(xc, res), s_prev, st["downsample"]["norm"], dq["qact1"]["scale"],
+                              expand=4, use_kernels=use_kernels)
+                    c2 = xc.shape[-1]
+                    xc = mm(xc.reshape(-1, c2), red["w_q"], dq["qact1"]["scale"] * red["sw"] / dq["qact2"]["scale"],
+                            0.0).reshape(b, -1, c2 // 2)
+                    s_prev = dq["qact2"]["scale"]
 
-    if final_ln is None:
-        final_ln = _iln(xc, s_prev, s["norm"], qstate["qact2"]["scale"], use_kernels=use_kernels)
-    c3 = _mean_codes(final_ln, qstate["qact2"]["scale"], qstate["qact3"]["scale"])
-    logits_c = mm(c3, s["head"]["w_q"],
-                  qstate["qact3"]["scale"] * s["head"]["sw"] / qstate["act_out"]["scale"],
-                  s["head_b"] / qstate["act_out"]["scale"])
-    return logits_c.to(torch.float32) * qstate["act_out"]["scale"]
+        with profiling.span("swin.head"):
+            if final_ln is None:
+                final_ln = _iln(xc, s_prev, s["norm"], qstate["qact2"]["scale"], use_kernels=use_kernels)
+            c3 = _mean_codes(final_ln, qstate["qact2"]["scale"], qstate["qact3"]["scale"])
+            logits_c = mm(c3, s["head"]["w_q"],
+                          qstate["qact3"]["scale"] * s["head"]["sw"] / qstate["act_out"]["scale"],
+                          s["head_b"] / qstate["act_out"]["scale"])
+            return logits_c.to(torch.float32) * qstate["act_out"]["scale"]

@@ -126,9 +126,23 @@ def test_cost_model_refuses_other_configs():
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    a = torch.ones(8, 8, device=dev)
     with profiling.trace(str(tmp_path / "t")):
-        torch.mm(torch.ones(8, 8), torch.ones(8, 8))
+        with profiling.span("test.mm"):
+            torch.mm(a, a)
+        if dev == "cuda":
+            torch.cuda.synchronize()
     path = tmp_path / "t" / "trace.json"
     assert os.path.exists(path)
     events = json.loads(path.read_text())["traceEvents"]
-    assert any("aten::mm" in str(e.get("name", "")) for e in events)
+    spans = [e for e in events if e.get("cat") == "program_span"]
+    assert [e["name"] for e in spans] == ["test.mm"] and not profiling.drain()
+    t0, t1 = spans[0]["ts"], spans[0]["ts"] + spans[0]["dur"]
+    if dev == "cuda":  # the card's activity alone: the kernel starts after its span opened
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        assert kernels and not any(e.get("cat") == "cpu_op" for e in events)
+        assert min(e["ts"] for e in kernels) > t0
+    else:  # the host's op lies inside its span on the trace's clock
+        mm = [e for e in events if e.get("name") == "aten::mm" and e.get("ph") == "X"]
+        assert mm and t0 - 20 <= mm[0]["ts"] and mm[0]["ts"] + mm[0]["dur"] <= t1 + 20
