@@ -508,6 +508,12 @@ def _capture(modules, names, run):
     return calls
 
 
+def _per_call(s: dict) -> dict:
+    """Serving state ``s`` without its prepared constants: its forward calls
+    the wrappers and plain versions with the constants' own arguments."""
+    return {k: v for k, v in s.items() if k != "consts"}
+
+
 def _cast_tree(tree, dtype):
     if tree is None:
         return None
@@ -557,6 +563,7 @@ class Path:
     s_bn: object = None  # the state's patch_qact_bn scale ("stem")
     mean: tuple = MEAN  # the host pipeline's normalization of a uint8 path
     std: tuple = STD
+    state: dict | None = None  # the serving state, whose prepared constants phase 1 sets aside
 
 
 def _split_calls(calls):
@@ -601,7 +608,13 @@ def run_path(path: Path, batches, reps, img, ops, counts_api, window=None):
     timing_calls = {}
     for b in sorted(batches) if window else sorted({8, bt}):
         x = requests[b] if b in requests else img(b, path.img_size, u8)
-        calls = _capture(mods, pnames, lambda: path.forward(x, False))
+        # the per-call path: each plain version called with the constants' arguments
+        consts = path.state.pop("consts", None) if path.state is not None else None
+        try:
+            calls = _capture(mods, pnames, lambda: path.forward(x, False))
+        finally:
+            if consts is not None:
+                path.state["consts"] = consts
         if path.split_check:
             calls["lis_attention_plain"] = _split_calls(calls["lis_attention_fused_plain"])
         for name, (mod, pname, kern) in plain.items():
@@ -1417,7 +1430,7 @@ def run_w4pack(batches, reps, depth, dev, deit, ops, counts_api):
     seen = {}
     for bsz in sorted({8, max(batches)}):
         calls = _capture([mi], ["int8_matmul_requant_plain"], lambda: serving.serving_forward(
-            s, cfg, deit["img"](bsz), use_kernels=False))
+            _per_call(s), cfg, deit["img"](bsz), use_kernels=False))
         for a, k in calls["int8_matmul_requant_plain"]:
             seen.setdefault(_shape_key(a, k), (a, k))
     for a, k in seen.values():
@@ -2253,8 +2266,12 @@ def tiny_swin_checks(dev, ops) -> None:
         x = torch.randn((8, 3, 32, 32), generator=torch.Generator().manual_seed(4)).to(dev)
         calib = swin.calibrate(params, cfg, policy, x)
         s = serving_swin.convert(params, calib.qstate, cfg, policy, 4)
-        fwd = lambda k: serving_swin.serving_forward(s, calib.qstate, cfg, policy, x, use_kernels=k)  # noqa: E731
-        calls = _capture([al], ["swin_lis_attention_plain"], lambda: fwd(False))["swin_lis_attention_plain"]
+
+        def fwd(k, st=s):
+            return serving_swin.serving_forward(st, calib.qstate, cfg, policy, x, use_kernels=k)
+
+        calls = _capture([al], ["swin_lis_attention_plain"],
+                         lambda: fwd(False, _per_call(s)))["swin_lis_attention_plain"]
         bad, dims = 0, set()
         for a, k in calls:
             dims.add(a[0].shape[-1] // 3 // a[3])
@@ -2685,7 +2702,7 @@ def vit_paths(name, key, cfg, bits, params, qstate, policy, s, lis, variants, me
             cfg.num_classes, cfg.img_size, u8_state=None if lis else s, split_check=var == "_staged",
             base=base if layer else None, base_name=name + suffix if layer else None,
             base_key=key + ksuffix if layer else None, vs_base="bitwise" if layer else None,
-            mean=mean, std=std))
+            mean=mean, std=std, state=s))
     return out
 
 
@@ -2714,7 +2731,7 @@ def swin_paths(name, key, cfg, params, qstate, policy, s, keys, mean=MEAN, std=S
             cfg.num_classes, cfg.img_size, u8_state=None if lis else s,
             base=None if vs_base is None else fwd, base_name=None if vs_base is None else name + off,
             base_key=None if vs_base is None else key + ("" if lis else "_lisoff"), vs_base=vs_base,
-            s_bn=qstate["patch_qact_bn"]["scale"], mean=mean, std=std))
+            s_bn=qstate["patch_qact_bn"]["scale"], mean=mean, std=std, state=s))
     return out
 
 

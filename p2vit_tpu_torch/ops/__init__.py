@@ -2,7 +2,10 @@
 (``launches`` counts each kernel's launches; ``profiling.op_span`` records
 each call as an ``op.<wrapper>`` span while recording), the kernels' plain PyTorch
 versions and the constants both share. CPU tensors run the plain version;
-CUDA tensors launch the kernel or raise."""
+CUDA tensors launch the kernel or raise. The kernels the default serving
+paths run also have a ``*_prepared`` entry (and its plain version) that
+takes the constants formed once (``serving{,_swin}.prepare``) in place of
+the scales: one launch body, recorded and counted as the wrapper's."""
 
 from .attention_lis import (
     lis_attention,

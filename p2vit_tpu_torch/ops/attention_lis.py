@@ -102,13 +102,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
-from ..profiling import op_span
-from ._lib import check_cuda_operand, device_of, f32_scalars, f32_vec, launch, library
+from ..profiling import count, op_span
+from ._lib import check_cuda_operand, device_of, f32_scalars, f32_vec, launch, library, pad_cols
 from .fastmath import exp2i, exp_rn, floor_log2i
-from .matmul_int8 import int8_matmul_requant_plain
+from .matmul_int8 import int8_matmul_requant_plain, int_matmul_nt, requant_epilogue_plain
 
 EXP_N = 32  # range-reduction steps of the int-exp
 _COEF = (0.35815147, 0.96963238, 1.0)  # int-exp polynomial
@@ -156,10 +157,11 @@ def int_exp_consts(s_attn: torch.Tensor):
     return x0_int, b_int, c_int
 
 
-def lis_codes(attn_c: torch.Tensor, s_attn: torch.Tensor) -> torch.Tensor:
+def lis_codes(attn_c: torch.Tensor, s_attn: torch.Tensor, exp_consts=None) -> torch.Tensor:
     """LIS exponent per score from attention codes (last axis = keys): int32
-    q with weight 2^-q; q ≥ 2^lis_bits means weight 0."""
-    x0_int, b_int, c_int = int_exp_consts(s_attn)
+    q with weight 2^-q; q ≥ 2^lis_bits means weight 0. ``exp_consts``:
+    ``int_exp_consts(s_attn)`` formed beforehand (the kernels' scalars)."""
+    x0_int, b_int, c_int = int_exp_consts(s_attn) if exp_consts is None else exp_consts
     x_int = attn_c - attn_c.amax(dim=-1, keepdim=True)
     x_int = torch.maximum(x_int, EXP_N * x0_int)
     q = torch.floor(x_int / x0_int)
@@ -179,7 +181,7 @@ def _scores(q_q, k_q, score_requant):
     return torch.clamp(torch.round(acc * score_requant), -128, 127)
 
 
-def _attend(scores, v_q, s_attn, out_requant, lis_bits, lis):
+def _attend(scores, v_q, s_attn, out_requant, lis_bits, lis, exp_consts=None):
     """Softmax of score codes ``scores`` (scale ``s_attn``) @ v codes →
     clip(round(av·ro)) int8. LIS: integer weights 2^(15−q) and the exact
     shift-accumulate; otherwise the fp32 softmax of the dequantized scores
@@ -187,7 +189,7 @@ def _attend(scores, v_q, s_attn, out_requant, lis_bits, lis):
     if lis:
         if lis_bits > 4:
             raise ValueError(f"lis_bits={lis_bits}: the LIS codes are uint4 (lis_bits <= 4)")
-        big = lis_codes(scores, s_attn)
+        big = lis_codes(scores, s_attn, exp_consts)
         keep = big < 2**lis_bits
         w_int = torch.where(keep, exp2i(AV_SHIFT - big), torch.zeros_like(scores))
         av_int = w_int.to(torch.float64) @ v_q.to(torch.float64)  # exact integers
@@ -318,6 +320,7 @@ def _check_lis_bits(lis, lis_bits):
 
 def _vit_scalars(score_requant, attn_scale, out_requant, device):
     """The ViT kernels' scalars: rq, s_attn, ro, x0_int, b_int, c_int."""
+    count("consts_formed")
     sa = torch.as_tensor(attn_scale, dtype=torch.float32, device=device)
     return f32_scalars(score_requant, sa, out_requant, *int_exp_consts(sa), device=device)
 
@@ -543,15 +546,8 @@ def qkv_kernel_hd(d: int) -> int:
     return 64 if d <= 64 else 128
 
 
-def qkv_pad(h_q, w_q, requant_vec, bias_vec, num_heads: int):
-    """The qkv-fused kernel's operands at a head_dim it has and C_in % 16:
-    each head's q, k and v weight rows, requant and bias entries moved to
-    rows of head_dim dk = ``qkv_kernel_hd(d)``, zeros in between; C_in
-    zero-padded to a multiple of 16 in h and w. Exact: a zero row with zero
-    requant and bias gives code 0, zero codes add nothing to q·kᵀ (the true
-    d^-0.5 rides in ``score_requant``) and give zero output columns, which
-    ``qkv_unpad`` drops; 0·w adds 0 to the GEMM. Returns (h, w, r, b, dk),
-    the inputs themselves where nothing needs padding."""
+def _qkv_pad_weights(w_q, requant_vec, bias_vec, num_heads: int):
+    """``qkv_pad``'s weight side: (w, r, b, dk)."""
     c3, c_in = w_q.shape
     d = c3 // 3 // num_heads
     dk = qkv_kernel_hd(d)
@@ -563,10 +559,46 @@ def qkv_pad(h_q, w_q, requant_vec, bias_vec, num_heads: int):
             return out.reshape(3 * num_heads * dk, *t.shape[1:])
         w_q = heads(w_q)
         r, b = (heads(f32_vec(v, c3, w_q.device)) for v in (requant_vec, bias_vec))
-    if c_in % QKV_CIN_ALIGN:
-        h_q = torch.nn.functional.pad(h_q, (0, (-c_in) % QKV_CIN_ALIGN))
-        w_q = torch.nn.functional.pad(w_q, (0, (-c_in) % QKV_CIN_ALIGN))
-    return h_q, w_q, r, b, dk
+    return pad_cols(w_q, QKV_CIN_ALIGN), r, b, dk
+
+
+def qkv_pad(h_q, w_q, requant_vec, bias_vec, num_heads: int):
+    """The qkv-fused kernel's operands at a head_dim it has and C_in % 16:
+    each head's q, k and v weight rows, requant and bias entries moved to
+    rows of head_dim dk = ``qkv_kernel_hd(d)``, zeros in between; C_in
+    zero-padded to a multiple of 16 in h and w. Exact: a zero row with zero
+    requant and bias gives code 0, zero codes add nothing to q·kᵀ (the true
+    d^-0.5 rides in ``score_requant``) and give zero output columns, which
+    ``qkv_unpad`` drops; 0·w adds 0 to the GEMM. Returns (h, w, r, b, dk),
+    the inputs themselves where nothing needs padding."""
+    w_q, r, b, dk = _qkv_pad_weights(w_q, requant_vec, bias_vec, num_heads)
+    return pad_cols(h_q, QKV_CIN_ALIGN), w_q, r, b, dk
+
+
+class QkvConsts(NamedTuple):
+    """The qkv-fused kernel's weights and constants at its head_dim dk
+    (``qkv_prepared``)."""
+
+    w: torch.Tensor  # (3·H·dk, C_in padded to 16) int8 weight codes
+    r: torch.Tensor  # (3·H·dk,) float32 requant
+    b: torch.Tensor  # (3·H·dk,) float32 bias
+    scal: torch.Tensor  # (6,) float32: rq, s_attn, ro, x0_int, b_int, c_int
+    d: int  # the true head_dim
+
+
+def qkv_prepared(w_q, requant_vec, bias_vec, num_heads, score_requant, attn_scale, out_requant) -> QkvConsts:
+    """The weights and constants ``lis_attention_qkv_fused`` forms per call
+    (``qkv_pad``, the scalars, the vectors), formed once per serving state
+    for ``lis_attention_qkv_fused_prepared``."""
+    c3 = w_q.shape[0]
+    c = c3 // 3
+    if c3 != 3 * c or c % num_heads:
+        raise ValueError(f"attention kernel needs 3C rows of whole heads; got C={c}, heads={num_heads}")
+    dev = w_q.device
+    w, r, b, dk = _qkv_pad_weights(w_q, requant_vec, bias_vec, num_heads)
+    scal = _vit_scalars(score_requant, attn_scale, out_requant, dev)
+    n = 3 * dk * num_heads
+    return QkvConsts(w, f32_vec(r, n, dev), f32_vec(b, n, dev), scal, c // num_heads)
 
 
 def qkv_unpad(out, num_heads: int, d: int, dk: int):
@@ -589,7 +621,43 @@ def lis_attention_qkv_fused_padded_plain(h_q, w_q, requant_vec, bias_vec, num_he
     return qkv_unpad(out, num_heads, d, dk)
 
 
+def lis_attention_qkv_fused_prepared_plain(h_q, consts, num_heads, lis_bits=4, lis=True):
+    """Plain version of ``lis_attention_qkv_fused_prepared``: the padding
+    route at the kernel's head_dim on its constants."""
+    w, r, b, scal, d = consts
+    bsz, n, _ = h_q.shape
+    h_q = pad_cols(h_q, QKV_CIN_ALIGN)
+    qkv = requant_epilogue_plain(int_matmul_nt(h_q.reshape(-1, h_q.shape[-1]), w), r, b).reshape(bsz, n, -1)
+    q, k, v = _split_heads(qkv, num_heads)
+    out = _merge_heads(_attend(_scores(q, k, scal[0]), v, scal[1], scal[2], lis_bits, lis, scal[3:6]))
+    return qkv_unpad(out, num_heads, d, w.shape[0] // 3 // num_heads)
+
+
 QKV_PHASES = ("qkv GEMM", "K/V/q copy", "scores", "LIS weights", "attn@v")
+
+
+def _qkv_launch(h_q, consts, num_heads, lis, phase_ns=None):
+    """Check, pad (C_in) and launch the qkv-fused kernel on ``consts``;
+    returns (B, N, C) int8 codes."""
+    dev = h_q.device
+    w, r, bias, scal, d = consts
+    dk = w.shape[0] // 3 // num_heads
+    c3k = 3 * dk * num_heads
+    h_q = pad_cols(h_q, QKV_CIN_ALIGN)
+    b, n, c_in = h_q.shape
+    check_cuda_operand(h_q, "h_q", torch.int8)
+    check_cuda_operand(w, "w_q", torch.int8, (c3k, c_in))
+    for name, t, size in (("requant_vec", r, c3k), ("bias_vec", bias, c3k), ("scalars", scal, 6)):
+        check_cuda_operand(t, name, torch.float32, (size,))
+    qkv_cluster_plan(n, c_in, dk)
+    out = torch.empty((b, n, dk * num_heads), dtype=torch.int8, device=dev)
+    args = (h_q, w, r, bias, scal, out, b, n, c_in, dk * num_heads, num_heads, int(bool(lis)))
+    if phase_ns is None:
+        launch("p2v_lis_attention_qkv_fused", *args)
+    else:
+        check_cuda_operand(phase_ns, "phase_ns", torch.int64, (6,))
+        launch("p2v_lis_attention_qkv_fused_timed", *args, phase_ns)
+    return qkv_unpad(out, num_heads, d, dk)
 
 
 @op_span
@@ -621,32 +689,31 @@ def lis_attention_qkv_fused(h_q, w_q, requant_vec, bias_vec, num_heads,
         return lis_attention_qkv_fused_plain(h_q, w_q, requant_vec, bias_vec, num_heads,
                                              score_requant, attn_scale, out_requant,
                                              lis_bits, lis)
-    b, n, c_in = h_q.shape
-    c3 = w_q.shape[0]
-    c = c3 // 3
     check_cuda_operand(h_q, "h_q", torch.int8)
-    check_cuda_operand(w_q, "w_q", torch.int8, (c3, c_in))
+    check_cuda_operand(w_q, "w_q", torch.int8, (w_q.shape[0], h_q.shape[-1]))
     _check_lis_bits(lis, lis_bits)
-    if c3 != 3 * c or c % num_heads:
-        raise ValueError(f"attention kernel needs 3C rows of whole heads; got C={c}, heads={num_heads}")
-    d = c // num_heads
-    h_q, w_q, r, bias, dk = qkv_pad(h_q, w_q, requant_vec, bias_vec, num_heads)
-    qkv_cluster_plan(n, h_q.shape[-1], dk)
-    scal = _vit_scalars(score_requant, attn_scale, out_requant, dev)
-    r = f32_vec(r, 3 * dk * num_heads, dev)
-    bias = f32_vec(bias, 3 * dk * num_heads, dev)
-    out = torch.empty((b, n, dk * num_heads), dtype=torch.int8, device=dev)
-    args = (h_q, w_q, r, bias, scal, out, b, n, h_q.shape[-1], dk * num_heads, num_heads, int(bool(lis)))
-    if phase_ns is None:
-        launch("p2v_lis_attention_qkv_fused", *args)
-    else:
-        check_cuda_operand(phase_ns, "phase_ns", torch.int64, (6,))
-        launch("p2v_lis_attention_qkv_fused_timed", *args, phase_ns)
+    consts = qkv_prepared(w_q, requant_vec, bias_vec, num_heads, score_requant, attn_scale, out_requant)
+    out = _qkv_launch(h_q, consts, num_heads, lis, phase_ns)
     lis_attention_qkv_fused.launches += 1
-    return qkv_unpad(out, num_heads, d, dk)
+    return out
 
 
 lis_attention_qkv_fused.launches = 0
+
+
+@op_span(of=lis_attention_qkv_fused)
+def lis_attention_qkv_fused_prepared(h_q, consts, num_heads, lis_bits=4, lis=True):
+    """``lis_attention_qkv_fused`` on its weights and constants formed
+    beforehand (``qkv_prepared``): the serving forward's entry, which forms
+    nothing per call. CPU tensors take
+    ``lis_attention_qkv_fused_prepared_plain``; CUDA tensors launch the
+    kernel (counted in ``lis_attention_qkv_fused.launches``) or raise."""
+    if device_of(h_q, consts.w).type == "cpu":
+        return lis_attention_qkv_fused_prepared_plain(h_q, consts, num_heads, lis_bits, lis)
+    _check_lis_bits(lis, lis_bits)
+    out = _qkv_launch(h_q, consts, num_heads, lis)
+    lis_attention_qkv_fused.launches += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -792,6 +859,7 @@ def swin_attention_scalars(score_requant, attn_scale, s2, out_requant, device, l
     ``convert`` recorded, with no read from the card per call."""
     if lis and not (isinstance(s2, torch.Tensor) and s2.device.type != "cpu"):
         check_lis_scale(s2)
+    count("consts_formed")
     s2t = torch.as_tensor(s2, dtype=torch.float32, device=device)
     inv_s2 = torch.ones_like(s2t) / s2t
     return f32_scalars(score_requant, attn_scale, inv_s2, out_requant, *int_exp_consts(s2t), s2t,
@@ -800,14 +868,19 @@ def swin_attention_scalars(score_requant, attn_scale, s2, out_requant, device, l
 
 def _swin_windows_plain(qkv_q, bias, mask, num_heads, n_windows, score_requant, attn_scale, s2,
                         out_requant, lis_bits, lis):
-    """The windowed attention over (W, N, 3C) panels, shared by both plain
+    """The windowed attention over (W, N, 3C) panels, shared by the plain
     versions. The folded one calls this and not ``swin_lis_attention_plain``,
     so that a recorder of the panel version's calls (``chip_smoke.py``, the
     launch-count tests) sees the panel kernel's calls only."""
+    scal = swin_attention_scalars(score_requant, attn_scale, s2, out_requant, qkv_q.device, lis)
+    return _swin_windows(qkv_q, bias, mask, num_heads, n_windows, scal, lis_bits, lis)
+
+
+def _swin_windows(qkv_q, bias, mask, num_heads, n_windows, scal, lis_bits, lis):
+    """``_swin_windows_plain`` on the kernel's scalars ``scal``."""
     w, n, c3 = qkv_q.shape
     c = c3 // 3
     d = c // num_heads
-    scal = swin_attention_scalars(score_requant, attn_scale, s2, out_requant, qkv_q.device, lis)
     rq, s1, inv_s2, ro = scal[0], scal[1], scal[2], scal[3]
     qkv = qkv_q.reshape(w, n, 3, num_heads, d).permute(2, 0, 3, 1, 4)
     attn_c = _scores(qkv[0], qkv[1], rq)
@@ -815,7 +888,7 @@ def _swin_windows_plain(qkv_q, bias, mask, num_heads, n_windows, score_requant, 
     if mask is not None:
         attn2 = (attn2.reshape(w // n_windows, n_windows, num_heads, n, n)
                  + mask.to(torch.float32)[None, :, None]).reshape(w, num_heads, n, n)
-    out = _attend(attn2, qkv[2], scal[7], ro, lis_bits, lis)
+    out = _attend(attn2, qkv[2], scal[7], ro, lis_bits, lis, scal[4:7])
     return out.permute(0, 2, 1, 3).reshape(w, n, c)
 
 
@@ -826,6 +899,11 @@ def swin_lis_attention_plain(qkv_q, bias, mask, num_heads, n_windows, score_requ
     (a minmax PoT node), so the multiply by 1/s2 equals the twin's divide."""
     return _swin_windows_plain(qkv_q, bias, mask, num_heads, n_windows, score_requant,
                                attn_scale, s2, out_requant, lis_bits, lis)
+
+
+def swin_lis_attention_prepared_plain(qkv_q, bias, mask, num_heads, n_windows, scal, lis_bits=4, lis=True):
+    """Plain version of ``swin_lis_attention_prepared``."""
+    return _swin_windows(qkv_q, bias, mask, num_heads, n_windows, scal, lis_bits, lis)
 
 
 def _check_swin_operands(qkv, bias, mask, c3, n, num_heads, n_windows, lis, lis_bits):
@@ -926,15 +1004,28 @@ def swin_lis_attention(qkv_q, bias, mask, num_heads, n_windows, score_requant, a
     if dev.type == "cpu":
         return swin_lis_attention_plain(qkv_q, bias, mask, num_heads, n_windows, score_requant,
                                         attn_scale, s2, out_requant, lis_bits, lis)
+    scal = swin_attention_scalars(score_requant, attn_scale, s2, out_requant, dev, lis)
+    out = _swin_launch(qkv_q, bias, mask, num_heads, n_windows, scal, lis_bits, lis, grid, phase_ns, cta_ns)
+    swin_lis_attention.launches += 1
+    return out
+
+
+swin_lis_attention.launches = 0
+
+
+def _swin_launch(qkv_q, bias, mask, num_heads, n_windows, scal, lis_bits, lis, grid=0, phase_ns=None,
+                 cta_ns=None):
+    """Check, pad (head_dim) and launch the panel kernel on the scalars
+    ``scal``; returns (W, N, C) int8 codes."""
     w, n, c3 = qkv_q.shape
     d, bias, mask = _check_swin_operands(qkv_q, bias, mask, c3, n, num_heads, n_windows, lis,
                                          lis_bits)
     if mask is not None and w % n_windows:
         raise ValueError(f"{w} windows are not whole images of {n_windows} windows")
-    scal = swin_attention_scalars(score_requant, attn_scale, s2, out_requant, dev, lis)
+    check_cuda_operand(scal, "scalars", torch.float32, (8,))
     qkv_q = swin_pad_heads(qkv_q, num_heads, d)
     c = swin_kernel_hd(d) * num_heads
-    out = torch.empty((w, n, c), dtype=torch.int8, device=dev)
+    out = torch.empty((w, n, c), dtype=torch.int8, device=qkv_q.device)
     nw = n_windows if mask is not None else 1
     if grid or phase_ns is not None or cta_ns is not None:
         launch("p2v_swin_attention_hook", qkv_q, bias, mask, scal, out, w, n, nw, c, num_heads, 0,
@@ -943,11 +1034,22 @@ def swin_lis_attention(qkv_q, bias, mask, num_heads, n_windows, score_requant, a
     else:
         launch("p2v_swin_lis_attention", qkv_q, bias, mask, scal, out, w, n, c, num_heads, nw,
                int(bool(lis)))
-    swin_lis_attention.launches += 1
     return swin_unpad_heads(out, num_heads, d)
 
 
-swin_lis_attention.launches = 0
+@op_span(of=swin_lis_attention)
+def swin_lis_attention_prepared(qkv_q, bias, mask, num_heads, n_windows, scal, lis_bits=4, lis=True):
+    """``swin_lis_attention`` on its scalars formed beforehand
+    (``swin_attention_scalars``): the serving forward's entry, which forms
+    nothing per call. The LIS bound on s2 is the caller's to check
+    (``serving_swin.serving_forward`` checks the state's smallest s2). CPU
+    tensors take ``swin_lis_attention_prepared_plain``; CUDA tensors launch
+    the kernel (counted in ``swin_lis_attention.launches``) or raise."""
+    if device_of(qkv_q, bias, *(() if mask is None else (mask,))).type == "cpu":
+        return swin_lis_attention_prepared_plain(qkv_q, bias, mask, num_heads, n_windows, scal, lis_bits, lis)
+    out = _swin_launch(qkv_q, bias, mask, num_heads, n_windows, scal, lis_bits, lis)
+    swin_lis_attention.launches += 1
+    return out
 
 
 def _folded_geometry(qkv_r, mask, window):

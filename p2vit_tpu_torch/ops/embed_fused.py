@@ -45,10 +45,11 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import torch
 
-from ..profiling import op_span
+from ..profiling import count, op_span
 from ._lib import check_cuda_operand, device_of, f32_scalars, f32_vec, launch, library, pad_cols
 from .intln import ln_codes
 from .matmul_int8 import MAX_SMEM, TILE_K, TILE_M, _sm_count, int_matmul_nt
@@ -62,9 +63,20 @@ ALIGN = 16  # the wrapper's zero padding of K (whole 16-byte loads) and C (16-by
 WIDTHS = (192, 144, 128, 96)
 
 
+class EmbedConsts(NamedTuple):
+    """The kernel's constants. Prepared (``embed_prepared``): C padded to a
+    multiple of ``ALIGN``, s_qact1 with ones, the rest with zeros."""
+
+    vecs: torch.Tensor  # (6, C) float32: ``embed_consts``' vectors
+    scal: torch.Tensor  # (3,) float32: ``embed_consts``' scalars
+    pos: torch.Tensor  # (N_patch, C) float32 positional values of the patch rows
+    cls: torch.Tensor  # (C,) int8 [CLS] row
+
+
 def embed_consts(c, device, patch_requant, patch_bias, s_qact1, ln_mask, ln_w_os,
                  ln_b_os, embed_requant, s_embed, ln_s1):
     """Per-column vectors (6, C) and scalars (3,) shared by kernel and plain."""
+    count("consts_formed")
     v = lambda a: f32_vec(a, c, device)  # noqa: E731
     vecs = torch.stack([v(patch_requant), v(patch_bias), v(s_qact1), v(ln_mask),
                         v(ln_w_os), v(ln_b_os)])
@@ -112,20 +124,55 @@ def fused_patch_embed_plain(patches, w_q, patch_requant, patch_bias,
     return embed_codes_plain(patches, w_q, vecs, scal, pos_val, cls_xc, s_input=s_input)
 
 
+def fused_patch_embed_prepared_plain(patches, w_q, consts, *, s_input=None):
+    """Plain version of ``fused_patch_embed_prepared``; returns (xc, h)."""
+    c = w_q.shape[0]
+    vecs, scal, pos, cls = consts
+    return embed_codes_plain(patches, w_q, vecs[:, :c], scal, pos[:, :c], cls[:c], s_input=s_input)
+
+
+def _pad_consts(vecs, pos, cls):
+    """vecs, pos and cls with C padded to a multiple of ``ALIGN`` (s_qact1
+    with ones, the rest with zeros); themselves where C needs none."""
+    if vecs.shape[1] % ALIGN == 0:
+        return vecs, pos, cls
+    sq1 = pad_cols(vecs[2:3], ALIGN, value=1.0)
+    vecs = torch.cat([pad_cols(vecs[:2], ALIGN), sq1, pad_cols(vecs[3:], ALIGN)])
+    return vecs, pad_cols(pos, ALIGN), pad_cols(cls, ALIGN)
+
+
 def embed_pad(patches, w_q, vecs, pos, cls):
     """The kernel's operands, zero-padded: K to a multiple of 16 (patches,
     int8 or float32, and w), C to a multiple of 16 (w rows, the vectors, pos
-    and cls columns). The padded columns' codes are zeros (s_qact1 is padded
-    with ones, so the PTF divide stays finite) and their mask is zero, so
-    they add nothing to the LN row sums; the LN must still count the true C."""
+    and cls columns; already padded ones stay as they are). The padded
+    columns' codes are zeros (s_qact1 is padded with ones, so the PTF divide
+    stays finite) and their mask is zero, so they add nothing to the LN row
+    sums; the LN must still count the true C."""
     k, c = patches.shape[-1], w_q.shape[0]
     if k % ALIGN == 0 and c % ALIGN == 0:
         return patches, w_q, vecs, pos, cls
     patches = pad_cols(patches, ALIGN)
     w_q = torch.nn.functional.pad(w_q, (0, patches.shape[-1] - k, 0, (-c) % ALIGN))
-    sq1 = pad_cols(vecs[2:3], ALIGN, value=1.0)
-    vecs = torch.cat([pad_cols(vecs[:2], ALIGN), sq1, pad_cols(vecs[3:], ALIGN)])
-    return patches, w_q, vecs, pad_cols(pos, ALIGN), pad_cols(cls, ALIGN)
+    return (patches, w_q, *_pad_consts(vecs, pos, cls))
+
+
+def embed_kernel_consts(c, device, patch_requant, patch_bias, embed_requant, s_embed, pos_val, cls_xc, s_qact1,
+                        ln_mask, ln_s1, ln_w_os, ln_b_os) -> EmbedConsts:
+    """Everything the kernel reads but the patches and weights, at C, from
+    ``fused_patch_embed``'s constant arguments."""
+    vecs, scal = embed_consts(c, device, patch_requant, patch_bias, s_qact1, ln_mask, ln_w_os, ln_b_os,
+                              embed_requant, s_embed, ln_s1)
+    return EmbedConsts(vecs, scal, pos_val.to(torch.float32).contiguous(),
+                       cls_xc.to(torch.int8).reshape(c).contiguous())
+
+
+def embed_prepared(c, device, **consts) -> EmbedConsts:
+    """``embed_kernel_consts`` padded (``embed_pad``) and 16-byte aligned:
+    what ``fused_patch_embed_prepared`` reads, formed once per serving
+    state. ``consts``: ``fused_patch_embed``'s constant arguments by name."""
+    vecs, scal, pos, cls = embed_kernel_consts(c, device, **consts)
+    vecs, pos, cls = _pad_consts(vecs, pos, cls)
+    return EmbedConsts(vecs, scal, *(t if t.data_ptr() % 16 == 0 else t.clone() for t in (pos, cls)))
 
 
 def token_row(m, n_patch: int):
@@ -239,9 +286,9 @@ def embed_div_check(divisors: torch.Tensor) -> tuple:
     return tuple(int(v) for v in bad.tolist())
 
 
-def _embed_launch(entry, patches, w_q, patch_requant, patch_bias, embed_requant, s_embed, pos_val, cls_xc,
-                  s_qact1, ln_mask, ln_s1, ln_w_os, ln_b_os, s_input, *extra):
-    """Check, pad and launch the C entry ``entry``; returns (xc, h)."""
+def _embed_launch(entry, patches, w_q, consts, s_input, *extra):
+    """Check, pad and launch the C entry ``entry`` on the constants
+    ``consts`` (at C, or prepared); returns (xc, h)."""
     dev = device_of(patches, w_q)
     b, n_patch, k = patches.shape
     c = w_q.shape[0]
@@ -251,15 +298,14 @@ def _embed_launch(entry, patches, w_q, patch_requant, patch_bias, embed_requant,
     embed_plan(b * n_patch, c, k, _sm_count(dev.index if dev.index is not None else torch.cuda.current_device()))
     if f32 and s_input is None:
         raise ValueError("fused_patch_embed: float32 patches need s_input")
-    pos = pos_val.to(torch.float32).contiguous()
-    cls = cls_xc.to(torch.int8).reshape(c).contiguous()
-    if tuple(pos.shape) != (n_patch, c) or pos.device != dev or cls.device != dev:
-        raise ValueError("pos_val must be (N_patch, C) and cls_xc (1, C), on the patches' device")
-    vecs, scal = embed_consts(c, dev, patch_requant, patch_bias, s_qact1, ln_mask,
-                              ln_w_os, ln_b_os, embed_requant, s_embed, ln_s1)
+    vecs, scal, pos, cls = consts
     patches, w_q, vecs, pos, cls = embed_pad(patches, w_q, vecs, pos, cls)
-    pos, cls = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (pos, cls))  # 16-byte loads
     c_pad = w_q.shape[0]
+    if tuple(pos.shape) != (n_patch, c_pad) or tuple(cls.shape) != (c_pad,) or pos.device != dev or cls.device != dev:
+        raise ValueError("pos_val must be (N_patch, C) and cls_xc (1, C), on the patches' device")
+    pos, cls = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (pos, cls))  # 16-byte loads
+    check_cuda_operand(vecs, "vecs", torch.float32, (6, c_pad))
+    check_cuda_operand(scal, "scal", torch.float32, (3,))
     s_in = f32_scalars(s_input, device=dev) if f32 else None
     xc = torch.empty((b, n_patch + 1, c_pad), dtype=torch.int8, device=dev)
     h = torch.empty((b, n_patch + 1, c_pad), dtype=torch.int8, device=dev)
@@ -286,9 +332,9 @@ def fused_patch_embed_forced(patches, w_q, patch_requant, patch_bias, embed_requ
     ``fused_patch_embed.launches``."""
     if phase_ns is not None:
         check_cuda_operand(phase_ns, "phase_ns", torch.int64, (len(EMBED_PHASES),))
-    return _embed_launch("p2v_fused_patch_embed_forced", patches, w_q, patch_requant, patch_bias, embed_requant,
-                         s_embed, pos_val, cls_xc, s_qact1, ln_mask, ln_s1, ln_w_os, ln_b_os, s_input, cs, nc,
-                         phase_ns)
+    consts = embed_kernel_consts(w_q.shape[0], patches.device, patch_requant, patch_bias, embed_requant, s_embed,
+                                 pos_val, cls_xc, s_qact1, ln_mask, ln_s1, ln_w_os, ln_b_os)
+    return _embed_launch("p2v_fused_patch_embed_forced", patches, w_q, consts, s_input, cs, nc, phase_ns)
 
 
 @op_span
@@ -318,10 +364,25 @@ def fused_patch_embed(patches, w_q, patch_requant, patch_bias, embed_requant,
         return fused_patch_embed_plain(patches, w_q, patch_requant, patch_bias,
                                        embed_requant, s_embed, pos_val, cls_xc, s_qact1,
                                        ln_mask, ln_s1, ln_w_os, ln_b_os, s_input=s_input)
-    out = _embed_launch("p2v_fused_patch_embed", patches, w_q, patch_requant, patch_bias, embed_requant, s_embed,
-                        pos_val, cls_xc, s_qact1, ln_mask, ln_s1, ln_w_os, ln_b_os, s_input)
+    consts = embed_kernel_consts(w_q.shape[0], patches.device, patch_requant, patch_bias, embed_requant, s_embed,
+                                 pos_val, cls_xc, s_qact1, ln_mask, ln_s1, ln_w_os, ln_b_os)
+    out = _embed_launch("p2v_fused_patch_embed", patches, w_q, consts, s_input)
     fused_patch_embed.launches += 1
     return out
 
 
 fused_patch_embed.launches = 0
+
+
+@op_span(of=fused_patch_embed)
+def fused_patch_embed_prepared(patches, w_q, consts, *, s_input=None):
+    """``fused_patch_embed`` on its constants formed beforehand
+    (``embed_prepared``): the serving forward's entry, which forms nothing
+    per call. CPU tensors take ``fused_patch_embed_prepared_plain``; CUDA
+    tensors launch the kernel (counted in ``fused_patch_embed.launches``) or
+    raise."""
+    if device_of(patches, w_q).type == "cpu":
+        return fused_patch_embed_prepared_plain(patches, w_q, consts, s_input=s_input)
+    out = _embed_launch("p2v_fused_patch_embed", patches, w_q, consts, s_input)
+    fused_patch_embed.launches += 1
+    return out

@@ -55,10 +55,11 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import torch
 
-from ..profiling import op_span
+from ..profiling import count, op_span
 from ._lib import check_cuda_operand, device_of, f32_vec, launch, library, pad_cols
 from .fastmath import exp2i, floor_log2i, sqrt_rn
 
@@ -201,13 +202,23 @@ def ln_chain_check(device=None) -> tuple:
     return tuple(int(v) for v in bad.tolist())
 
 
+class LnConsts(NamedTuple):
+    """An int-LN kernel's constants: the per-column vectors and s1."""
+
+    vecs: torch.Tensor  # (4, C) or, residual, (7, C); padded to 16 columns where prepared
+    s1: torch.Tensor  # (1,) float32
+
+
 def _ln_launch(entry, codes, vecs, s1, c, res, g):
     """Check, pad and launch the C entry ``entry`` on ``codes`` (one tensor,
-    or the residual's two operands); returns the output tensor(s), (M, C)."""
+    or the residual's two operands) and the constants (vectors at C or
+    already padded); returns the output tensor(s), (M, C)."""
     m = codes[0].shape[0]
     dev = codes[0].device
     plan = ln_plan(m, c, res, g=g)  # the width and G checks; the C entry plans the grid itself
     vecs, *padded = ln_pad(vecs, *codes)
+    check_cuda_operand(vecs, "vecs", torch.float32, (7 if res else 4, plan.c_pad))
+    check_cuda_operand(s1, "s1", torch.float32, (1,))
     outs = [torch.empty((m, plan.c_pad), dtype=torch.int8, device=dev) for _ in range(2 if res else 1)]
     launch(entry, *padded, vecs, s1, *outs, m, plan.c_pad, c, g)
     if plan.c_pad != c:
@@ -220,13 +231,22 @@ def _ln_launch(entry, codes, vecs, s1, c, res, g):
 # ---------------------------------------------------------------------------
 
 
-def ln_requant_consts(c, device, ptf_mask, s1, ln_w, ln_b, out_scale, ratio):
+def ln_requant_consts(c, device, ptf_mask, s1, ln_w, ln_b, out_scale, ratio) -> LnConsts:
     """Per-column vectors (4, C) — mask, w/osc, b/osc, ratio, with the JAX
     kernel's 1e-30 floor on out_scale — and s1 as (1,)."""
+    count("consts_formed")
     v = lambda a: f32_vec(a, c, device)  # noqa: E731
     osc = torch.clamp(v(out_scale), min=1e-30)
     vecs = torch.stack([v(ptf_mask), v(ln_w) / osc, v(ln_b) / osc, v(ratio)])
-    return vecs, torch.as_tensor(s1, dtype=torch.float32, device=device).reshape(1)
+    return LnConsts(vecs, torch.as_tensor(s1, dtype=torch.float32, device=device).reshape(1))
+
+
+def ln_prepared(c, device, *args) -> LnConsts:
+    """``ln_requant_consts(c, device, *args)`` with the vectors zero-padded
+    to the kernel's width (``ln_pad``): what ``int_ln_requant_prepared``
+    reads, formed once per serving state."""
+    vecs, s1 = ln_requant_consts(c, device, *args)
+    return LnConsts(pad_cols(vecs, CHUNK), s1)
 
 
 def ln_requant_codes(codes, vecs, s1, c_true=None):
@@ -240,6 +260,11 @@ def int_ln_requant_plain(codes, ptf_mask, s1, ln_w, ln_b, out_scale, ratio):
     """Plain PyTorch version of the kernel."""
     return ln_requant_codes(codes, *ln_requant_consts(codes.shape[-1], codes.device, ptf_mask, s1, ln_w, ln_b,
                                                       out_scale, ratio))
+
+
+def int_ln_requant_prepared_plain(codes, consts):
+    """Plain version of ``int_ln_requant_prepared``."""
+    return ln_requant_codes(codes, consts.vecs[:, :codes.shape[-1]], consts.s1)
 
 
 def _int_ln(codes, ptf_mask, s1, ln_w, ln_b, out_scale, ratio, g):
@@ -279,15 +304,32 @@ def int_ln_requant(codes, ptf_mask, s1, ln_w, ln_b, out_scale, ratio):
 int_ln_requant.launches = 0
 
 
+@op_span(of=int_ln_requant)
+def int_ln_requant_prepared(codes, consts):
+    """``int_ln_requant`` on its constants formed beforehand
+    (``ln_prepared``): the serving forwards' entry, which forms nothing per
+    call. CPU tensors take ``int_ln_requant_prepared_plain``; CUDA tensors
+    launch the kernel (counted in ``int_ln_requant.launches``) or raise."""
+    if codes.device.type == "cpu":
+        return int_ln_requant_prepared_plain(codes, consts)
+    if codes.device.type != "cuda":
+        raise ValueError(f"int_ln_requant kernel needs CUDA tensors, got {codes.device}")
+    check_cuda_operand(codes, "codes", torch.int8)
+    out = _ln_launch("p2v_int_ln_requant", (codes,), consts.vecs, consts.s1, codes.shape[1], False, 0)
+    int_ln_requant.launches += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # int_res_ln_requant
 # ---------------------------------------------------------------------------
 
 
-def res_ln_requant_consts(c, device, s_a, s_b, s_out, ln_w, ln_b, ln_out_scale, ratio):
+def res_ln_requant_consts(c, device, s_a, s_b, s_out, ln_w, ln_b, ln_out_scale, ratio) -> LnConsts:
     """Per-column vectors (7, C) — s_a, s_b, 1/max(s_out, 1e-30), PTF mask,
     w/osc, b/osc, ratio — and s1 = min(s_out) as (1,), formed as the JAX
     twin forms them."""
+    count("consts_formed")
     v = lambda a: f32_vec(a, c, device)  # noqa: E731
     s_out_v = v(s_out)
     s1 = s_out_v.min()
@@ -296,7 +338,15 @@ def res_ln_requant_consts(c, device, s_a, s_b, s_out, ln_w, ln_b, ln_out_scale, 
         v(s_a), v(s_b), torch.ones_like(s_out_v) / torch.clamp(s_out_v, min=1e-30),
         torch.round(s_out_v / s1), v(ln_w) / osc, v(ln_b) / osc, v(ratio),
     ])
-    return vecs, s1.reshape(1)
+    return LnConsts(vecs, s1.reshape(1))
+
+
+def res_ln_requant_prepared(c, device, *scales) -> LnConsts:
+    """``res_ln_requant_consts(c, device, *scales)`` with the vectors
+    zero-padded to the kernel's width: what ``int_res_ln_requant_prepared``
+    reads, formed once per serving state."""
+    vecs, s1 = res_ln_requant_consts(c, device, *scales)
+    return LnConsts(pad_cols(vecs, CHUNK), s1)
 
 
 def res_ln_requant_codes(a_q, b_q, vecs, s1, c_true=None):
@@ -316,13 +366,24 @@ def int_res_ln_requant_plain(a_q, s_a, b_q, s_b, s_out, ln_w, ln_b, ln_out_scale
                                                                  s_out, ln_w, ln_b, ln_out_scale, ratio))
 
 
-def _int_res_ln(a_q, s_a, b_q, s_b, s_out, ln_w, ln_b, ln_out_scale, ratio, g):
+def int_res_ln_requant_prepared_plain(a_q, b_q, consts):
+    """Plain version of ``int_res_ln_requant_prepared``."""
+    return res_ln_requant_codes(a_q, b_q, consts.vecs[:, :a_q.shape[-1]], consts.s1)
+
+
+def _res_ln_operands(a_q, b_q):
+    """The residual kernel's operand checks; returns (device, C)."""
     dev = device_of(a_q, b_q)
     if dev.type != "cuda":
         raise ValueError(f"int_res_ln_requant kernel needs CUDA tensors, got {dev}")
     m, c = a_q.shape
     check_cuda_operand(a_q, "a_q", torch.int8)
     check_cuda_operand(b_q, "b_q", torch.int8, (m, c))
+    return dev, c
+
+
+def _int_res_ln(a_q, s_a, b_q, s_b, s_out, ln_w, ln_b, ln_out_scale, ratio, g):
+    dev, c = _res_ln_operands(a_q, b_q)
     vecs, s1 = res_ln_requant_consts(c, dev, s_a, s_b, s_out, ln_w, ln_b, ln_out_scale, ratio)
     return _ln_launch("p2v_int_res_ln_requant", (a_q, b_q), vecs, s1, c, True, g)
 
@@ -355,3 +416,19 @@ def int_res_ln_requant(a_q, s_a, b_q, s_b, s_out, ln_w, ln_b, ln_out_scale, rati
 
 
 int_res_ln_requant.launches = 0
+
+
+@op_span(of=int_res_ln_requant)
+def int_res_ln_requant_prepared(a_q, b_q, consts):
+    """``int_res_ln_requant`` on its constants formed beforehand
+    (``res_ln_requant_prepared``): the serving forwards' entry, which forms
+    nothing per call. CPU tensors take
+    ``int_res_ln_requant_prepared_plain``; CUDA tensors launch the kernel
+    (counted in ``int_res_ln_requant.launches``) or raise. Returns
+    (res_codes, ln_codes)."""
+    if device_of(a_q, b_q).type == "cpu":
+        return int_res_ln_requant_prepared_plain(a_q, b_q, consts)
+    _, c = _res_ln_operands(a_q, b_q)
+    out = _ln_launch("p2v_int_res_ln_requant", (a_q, b_q), consts.vecs, consts.s1, c, True, 0)
+    int_res_ln_requant.launches += 1
+    return out

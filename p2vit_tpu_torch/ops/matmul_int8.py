@@ -50,10 +50,11 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import torch
 
-from ..profiling import op_span
+from ..profiling import count, op_span
 from ._lib import check_cuda_operand, device_of, f32_scalars, f32_vec, launch, library, pad_cols
 from .fastmath import exp_rn
 
@@ -91,15 +92,32 @@ def requant_epilogue_plain(acc, requant_scale, bias_scaled, out_inv=1.0,
     return torch.clamp(torch.round(y), qmin, qmax).to(torch.int8)
 
 
+class RequantConsts(NamedTuple):
+    """The epilogue's constants as the kernel reads them."""
+
+    r: torch.Tensor  # (N,) float32 requant scale
+    b: torch.Tensor  # (N,) float32 bias
+    s: torch.Tensor  # (1,) float32 out_inv
+
+
+def requant_consts(n, device, requant_scale, bias_scaled, out_inv=1.0) -> RequantConsts:
+    """The epilogue's constants from scalars or (N,) values: per call in the
+    wrappers, once per serving state in ``serving{,_swin}.prepare``."""
+    count("consts_formed")
+    return RequantConsts(f32_vec(requant_scale, n, device), f32_vec(bias_scaled, n, device),
+                         f32_scalars(out_inv, device=device))
+
+
 def int8_matmul_requant_plain(x_q, w_q, requant_scale, bias_scaled, out_inv=1.0,
                               qmin=-128, qmax=127, gelu=False):
     """Plain PyTorch version of the kernel (CPU, or CUDA for comparison)."""
-    dev = device_of(x_q, w_q)
-    n = w_q.shape[0]
-    return requant_epilogue_plain(
-        int_matmul_nt(x_q, w_q), f32_vec(requant_scale, n, dev),
-        f32_vec(bias_scaled, n, dev), out_inv, qmin, qmax, gelu,
-    )
+    r, b, s = requant_consts(w_q.shape[0], device_of(x_q, w_q), requant_scale, bias_scaled, out_inv)
+    return requant_epilogue_plain(int_matmul_nt(x_q, w_q), r, b, s[0], qmin, qmax, gelu)
+
+
+def int8_matmul_requant_prepared_plain(x_q, w_q, consts, qmin=-128, qmax=127, gelu=False):
+    """Plain version of ``int8_matmul_requant_prepared``."""
+    return requant_epilogue_plain(int_matmul_nt(x_q, w_q), consts.r, consts.b, consts.s[0], qmin, qmax, gelu)
 
 
 # The Hopper kernel's tiling (csrc/gemm_wgmma.cuh, p2v::wg)
@@ -261,10 +279,11 @@ def requant_pad(x_q, w_q):
     return pad_cols(x_q, 32), pad_cols(w_q, 32)
 
 
-def _requant_args(x_q, w_q, requant_scale, bias_scaled, out_inv, gelu, qmin, qmax):
-    """Checked CUDA launch arguments of the int8 kernel, (x, w, r, b, scalars,
-    out), K padded by ``requant_pad``; raises where it does not run
-    (``requant_plan`` at the padded K; |qmin|, |qmax| ≤ 2^22)."""
+def _requant_launch(entry, x_q, w_q, consts, qmin, qmax, gelu, *extra):
+    """Check the operands, pad K (``requant_pad``) and launch the C entry
+    ``entry`` on the epilogue constants ``consts``; returns (M, N) int8.
+    Raises where the kernel does not run (``requant_plan`` at the padded K;
+    |qmin|, |qmax| ≤ 2^22)."""
     dev = x_q.device
     if max(abs(qmin), abs(qmax)) > MAX_CODE:
         raise ValueError(f"int8_matmul_requant kernel needs |qmin|, |qmax| <= 2^22, got [{qmin}, {qmax}]")
@@ -272,13 +291,15 @@ def _requant_args(x_q, w_q, requant_scale, bias_scaled, out_inv, gelu, qmin, qma
     n = w_q.shape[0]
     check_cuda_operand(x_q, "x_q", torch.int8)
     check_cuda_operand(w_q, "w_q", torch.int8, (n, k))
+    for name, t, size in (("r", consts.r, n), ("b", consts.b, n), ("out_inv", consts.s, 1)):
+        check_cuda_operand(t, name, torch.float32, (size,))
     x_q, w_q = requant_pad(x_q, w_q)
-    requant_plan(m, n, x_q.shape[1],
-                 _sm_count(dev.index if dev.index is not None else torch.cuda.current_device()), bool(gelu))
-    r = f32_vec(requant_scale, n, dev)
-    b = f32_vec(bias_scaled, n, dev)
-    s = f32_scalars(out_inv, device=dev)
-    return x_q, w_q, r, b, s, torch.empty((m, n), dtype=torch.int8, device=dev)
+    k = x_q.shape[1]
+    requant_plan(m, n, k, _sm_count(dev.index if dev.index is not None else torch.cuda.current_device()),
+                 bool(gelu))
+    out = torch.empty((m, n), dtype=torch.int8, device=dev)
+    launch(entry, x_q, w_q, consts.r, consts.b, consts.s, out, m, n, k, qmin, qmax, int(bool(gelu)), *extra)
+    return out
 
 
 def int8_matmul_requant_grid(x_q, w_q, requant_scale, bias_scaled, out_inv=1.0,
@@ -286,10 +307,8 @@ def int8_matmul_requant_grid(x_q, w_q, requant_scale, bias_scaled, out_inv=1.0,
     """The int8 kernel launched on ``grid`` CTAs (0: the plan's persistent
     grid; ``requant_plan(...).tiles``: one tile per CTA). A measurement hook
     for CUDA tensors; not counted in ``int8_matmul_requant.launches``."""
-    x_q, w_q, r, b, s, out = _requant_args(x_q, w_q, requant_scale, bias_scaled, out_inv, gelu, qmin, qmax)
-    (m, k), n = x_q.shape, w_q.shape[0]
-    launch("p2v_int8_matmul_requant_grid", x_q, w_q, r, b, s, out, m, n, k, qmin, qmax, int(bool(gelu)), grid)
-    return out
+    consts = requant_consts(w_q.shape[0], x_q.device, requant_scale, bias_scaled, out_inv)
+    return _requant_launch("p2v_int8_matmul_requant_grid", x_q, w_q, consts, qmin, qmax, gelu, grid)
 
 
 @op_span
@@ -309,15 +328,27 @@ def int8_matmul_requant(x_q, w_q, requant_scale, bias_scaled, out_inv=1.0,
     if dev.type == "cpu":
         return int8_matmul_requant_plain(x_q, w_q, requant_scale, bias_scaled,
                                          out_inv, qmin, qmax, gelu)
-    x_q, w_q, r, b, s, out = _requant_args(x_q, w_q, requant_scale, bias_scaled, out_inv, gelu, qmin, qmax)
-    (m, k), n = x_q.shape, w_q.shape[0]
-    launch("p2v_int8_matmul_requant", x_q, w_q, r, b, s, out, m, n, k,
-           qmin, qmax, int(bool(gelu)))
+    consts = requant_consts(w_q.shape[0], dev, requant_scale, bias_scaled, out_inv)
+    out = _requant_launch("p2v_int8_matmul_requant", x_q, w_q, consts, qmin, qmax, gelu)
     int8_matmul_requant.launches += 1
     return out
 
 
 int8_matmul_requant.launches = 0
+
+
+@op_span(of=int8_matmul_requant)
+def int8_matmul_requant_prepared(x_q, w_q, consts, qmin=-128, qmax=127, gelu=False):
+    """``int8_matmul_requant`` on its epilogue constants formed beforehand
+    (``requant_consts``): the serving forwards' entry, which forms nothing
+    per call. CPU tensors take ``int8_matmul_requant_prepared_plain``; CUDA
+    tensors launch the kernel (counted in ``int8_matmul_requant.launches``)
+    or raise."""
+    if device_of(x_q, w_q).type == "cpu":
+        return int8_matmul_requant_prepared_plain(x_q, w_q, consts, qmin, qmax, gelu)
+    out = _requant_launch("p2v_int8_matmul_requant", x_q, w_q, consts, qmin, qmax, gelu)
+    int8_matmul_requant.launches += 1
+    return out
 
 
 def pack_int4(w_q: torch.Tensor) -> torch.Tensor:
@@ -387,9 +418,7 @@ def _int4_args(x_q, w_packed, requant_scale, bias_scaled, out_inv, gelu):
     x_q, w_packed = int4_pad(x_q, w_packed)
     int4_requant_plan(m, n, x_q.shape[1],
                       _sm_count(dev.index if dev.index is not None else torch.cuda.current_device()), bool(gelu))
-    r = f32_vec(requant_scale, n, dev)
-    b = f32_vec(bias_scaled, n, dev)
-    s = f32_scalars(out_inv, device=dev)
+    r, b, s = requant_consts(n, dev, requant_scale, bias_scaled, out_inv)
     return x_q, w_packed, r, b, s, torch.empty((m, n), dtype=torch.int8, device=dev)
 
 

@@ -44,11 +44,12 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from ..profiling import op_span
+from ..profiling import count, op_span
 from ._lib import check_cuda_operand, device_of, f32_vec, launch, library, pad_cols
 from .intln import ln_codes
 from .matmul_int8 import MAX_CODE, MAX_SMEM, MAX_STAGES, TILE_K, TILE_M, WIDTHS, _sm_count, int_matmul_nt
@@ -59,10 +60,18 @@ MAX_CLUSTER = 4  # CTAs per cluster that split N
 N_ALIGN, K_ALIGN = 16, 32  # the wrapper's zero padding of N (16-byte rows) and K (whole TMA words)
 
 
+class ResLnConsts(NamedTuple):
+    """The kernel's constants: the hoisted per-column vectors and s1."""
+
+    vecs: torch.Tensor  # (9, N), or (9, N padded to N_ALIGN) where prepared
+    s1: torch.Tensor  # (1,) float32
+
+
 def res_ln_consts(n, device, requant_scale, bias_scaled, s_mid, s_res, s_out,
-                  ln_w, ln_b, ln_out_scale, ratio):
+                  ln_w, ln_b, ln_out_scale, ratio) -> ResLnConsts:
     """The hoisted per-column vectors (9, n) and the LN input scale s1 (1,),
     shared by the kernel and the plain version."""
+    count("consts_formed")
     v = lambda a: f32_vec(a, n, device)  # noqa: E731
     s_out_v = v(s_out)
     s1 = s_out_v.min()
@@ -73,7 +82,15 @@ def res_ln_consts(n, device, requant_scale, bias_scaled, s_mid, s_res, s_out,
         v(requant_scale), v(bias_scaled), v(s_mid), v(s_res), inv_s_out,
         mask, v(ln_w) / osc, v(ln_b) / osc, v(ratio),
     ])
-    return vecs, s1.reshape(1)
+    return ResLnConsts(vecs, s1.reshape(1))
+
+
+def res_ln_prepared(n, device, *scales) -> ResLnConsts:
+    """``res_ln_consts(n, device, *scales)`` with the vectors zero-padded to
+    the kernel's N (``N_ALIGN``): what ``int8_matmul_res_ln_prepared``
+    reads, formed once per serving state."""
+    vecs, s1 = res_ln_consts(n, device, *scales)
+    return ResLnConsts(pad_cols(vecs, N_ALIGN), s1)
 
 
 def res_ln_epilogue_plain(acc, res_q, vecs, s1, qmin=-128, qmax=127, n_true=None):
@@ -94,6 +111,12 @@ def int8_matmul_res_ln_plain(x_q, w_q, requant_scale, bias_scaled, res_q, s_mid,
     vecs, s1 = res_ln_consts(w_q.shape[0], dev, requant_scale, bias_scaled, s_mid,
                              s_res, s_out, ln_w, ln_b, ln_out_scale, ratio)
     return res_ln_epilogue_plain(int_matmul_nt(x_q, w_q), res_q, vecs, s1, qmin, qmax)
+
+
+def int8_matmul_res_ln_prepared_plain(x_q, w_q, res_q, consts, qmin=-128, qmax=127):
+    """Plain version of ``int8_matmul_res_ln_prepared``."""
+    return res_ln_epilogue_plain(int_matmul_nt(x_q, w_q), res_q, consts.vecs[:, :w_q.shape[0]], consts.s1,
+                                 qmin, qmax)
 
 
 def res_ln_pad(x_q, w_q, res_q, vecs):
@@ -260,9 +283,9 @@ def res_ln_kernel_info(m: int, n: int, cs: int = 0, nc: int = 0) -> dict:
     return out
 
 
-def _res_ln_launch(entry, x_q, w_q, requant_scale, bias_scaled, res_q, s_mid, s_res, s_out, ln_w, ln_b,
-                   ln_out_scale, ratio, qmin, qmax, *extra):
-    """Check, pad and launch the C entry ``entry``; returns (res, ln) (M, N)."""
+def _res_ln_launch(entry, x_q, w_q, res_q, consts, qmin, qmax, *extra):
+    """Check, pad and launch the C entry ``entry`` on the constants
+    ``consts`` (vectors at N or already padded); returns (res, ln) (M, N)."""
     dev = device_of(x_q, w_q, res_q)
     m, k = x_q.shape
     n = w_q.shape[0]
@@ -272,9 +295,10 @@ def _res_ln_launch(entry, x_q, w_q, requant_scale, bias_scaled, res_q, s_mid, s_
     check_cuda_operand(w_q, "w_q", torch.int8, (n, k))
     check_cuda_operand(res_q, "res_q", torch.int8, (m, n))
     plan = res_ln_plan(m, n, k, _sm_count(dev.index if dev.index is not None else torch.cuda.current_device()))
-    vecs, s1 = res_ln_consts(n, dev, requant_scale, bias_scaled, s_mid, s_res,
-                             s_out, ln_w, ln_b, ln_out_scale, ratio)
-    x_p, w_p, res_p, vecs = res_ln_pad(x_q, w_q, res_q, vecs)
+    x_p, w_p, res_p, vecs = res_ln_pad(x_q, w_q, res_q, consts.vecs)
+    s1 = consts.s1
+    check_cuda_operand(vecs, "vecs", torch.float32, (9, plan.n_pad))
+    check_cuda_operand(s1, "s1", torch.float32, (1,))
     res_out = torch.empty((m, plan.n_pad), dtype=torch.int8, device=dev)
     ln_out = torch.empty((m, plan.n_pad), dtype=torch.int8, device=dev)
     launch(entry, x_p, w_p, res_p, vecs, s1, res_out, ln_out, m, plan.n_pad, n, plan.k_pad, qmin, qmax, *extra)
@@ -289,8 +313,9 @@ def int8_matmul_res_ln_forced(x_q, w_q, requant_scale, bias_scaled, res_q, s_mid
     and ``nc`` consumers (0: free; raises where that plan does not fit). A
     measurement hook for CUDA tensors; not counted in
     ``int8_matmul_res_ln.launches``."""
-    return _res_ln_launch("p2v_int8_matmul_res_ln_forced", x_q, w_q, requant_scale, bias_scaled, res_q, s_mid,
-                          s_res, s_out, ln_w, ln_b, ln_out_scale, ratio, qmin, qmax, cs, nc)
+    consts = res_ln_consts(w_q.shape[0], x_q.device, requant_scale, bias_scaled, s_mid, s_res, s_out, ln_w, ln_b,
+                           ln_out_scale, ratio)
+    return _res_ln_launch("p2v_int8_matmul_res_ln_forced", x_q, w_q, res_q, consts, qmin, qmax, cs, nc)
 
 
 @op_span
@@ -312,10 +337,25 @@ def int8_matmul_res_ln(x_q, w_q, requant_scale, bias_scaled, res_q, s_mid, s_res
         return int8_matmul_res_ln_plain(x_q, w_q, requant_scale, bias_scaled, res_q,
                                         s_mid, s_res, s_out, ln_w, ln_b,
                                         ln_out_scale, ratio, qmin, qmax)
-    out = _res_ln_launch("p2v_int8_matmul_res_ln", x_q, w_q, requant_scale, bias_scaled, res_q, s_mid, s_res,
-                         s_out, ln_w, ln_b, ln_out_scale, ratio, qmin, qmax)
+    consts = res_ln_consts(w_q.shape[0], x_q.device, requant_scale, bias_scaled, s_mid, s_res, s_out, ln_w, ln_b,
+                           ln_out_scale, ratio)
+    out = _res_ln_launch("p2v_int8_matmul_res_ln", x_q, w_q, res_q, consts, qmin, qmax)
     int8_matmul_res_ln.launches += 1
     return out
 
 
 int8_matmul_res_ln.launches = 0
+
+
+@op_span(of=int8_matmul_res_ln)
+def int8_matmul_res_ln_prepared(x_q, w_q, res_q, consts, qmin=-128, qmax=127):
+    """``int8_matmul_res_ln`` on its constants formed beforehand
+    (``res_ln_prepared``): the serving forwards' entry, which forms nothing
+    per call. CPU tensors take ``int8_matmul_res_ln_prepared_plain``; CUDA
+    tensors launch the kernel (counted in ``int8_matmul_res_ln.launches``)
+    or raise."""
+    if device_of(x_q, w_q, res_q).type == "cpu":
+        return int8_matmul_res_ln_prepared_plain(x_q, w_q, res_q, consts, qmin, qmax)
+    out = _res_ln_launch("p2v_int8_matmul_res_ln", x_q, w_q, res_q, consts, qmin, qmax)
+    int8_matmul_res_ln.launches += 1
+    return out

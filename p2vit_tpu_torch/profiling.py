@@ -29,13 +29,17 @@ and counts. One thread records at a time. The span names:
     ``swin.merge``: a PatchMerging; ``swin.head``: the final LN where it is
     not fused, the token mean and the head.
   * ``op.<wrapper>``: one call of a kernel wrapper of ``ops.KERNELS``, its
-    checks, padding, constant vectors and launch.
+    checks, padding, constant vectors and launch, or of its ``*_prepared``
+    entry (checks, padding and launch).
 
 Counts, on the innermost open span: ``syncs``, each synchronizing CUDA call
 the host made (PyTorch's own detector, ``torch.cuda.set_sync_debug_mode``
 at "warn" while recording; nothing without a card), and, on ``op.*`` spans,
 ``launches``, the wrapper's kernel launches (its ``launches`` counter, the
-entry of ``ops.launch_counts()``). ``count(name, n)`` adds others.
+entry of ``ops.launch_counts()``), and ``consts_formed``, each call of a
+helper that forms a kernel's constant vectors from scales (the wrappers do
+per call; ``serving{,_swin}.prepare`` once per state, so a default forward
+counts none). ``count(name, n)`` adds others.
 ``sync_sites()`` tallies the source lines that synchronized. ``clock()`` is
 the (``time.time_ns``, ``perf_counter_ns``) pair read at ``enable``, which
 puts a span on a profiler trace's clock (``chrome_events``).
@@ -162,22 +166,27 @@ def count(name: str, n: int = 1) -> None:
         c[name] = c.get(name, 0) + n
 
 
-def op_span(fn):
+def op_span(fn=None, *, of=None):
     """Wrap a kernel wrapper in an ``op.<name>`` span that counts its
     launches. Off, the call goes straight through. ``launches`` and
     ``__name__`` stay on the returned function, which the wrapped one's own
-    ``<name>.launches += 1`` reaches through its module's global."""
-    name = "op." + fn.__name__
+    ``<name>.launches += 1`` reaches through its module's global. ``of``: the
+    wrapper whose second entry ``fn`` is (the one on prepared constants);
+    its calls are recorded under ``of``'s span name and launch counter."""
+    if fn is None:
+        return functools.partial(op_span, of=of)
+    name = "op." + (of or fn).__name__
 
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
         if not _REC.on:
             return fn(*args, **kwargs)
+        counter = of or wrapper
         with _OpenSpan(name, {}) as sp:
-            before = wrapper.launches
+            before = counter.launches
             out = fn(*args, **kwargs)
-            if wrapper.launches != before:
-                sp.counts["launches"] = sp.counts.get("launches", 0) + wrapper.launches - before
+            if counter.launches != before:
+                sp.counts["launches"] = sp.counts.get("launches", 0) + counter.launches - before
         return out
 
     return wrapper

@@ -20,12 +20,19 @@ position add in PyTorch and block 0's LN1 (``ops/intln.int_ln_requant``);
 (``ops/layer_fused.fused_vit_layer``; it overrides ``fuse_qkv``). All give
 the default path's logits bit for bit. Every layer is driven from its 29
 constants (``layer_consts``; ``stack_layer_consts`` stacks them over depth)
-by ``apply_unfused_layer`` or ``apply_fused_layer``. ``lis=False`` runs
-every attention kernel's fp32 softmax arm. ``attach_u8_ingest`` lets the
-forward take raw uint8 images. ``weight_only_params`` dequantizes the same
-weight codes into float32 params for a bf16 ``fp_forward`` (weight-only
-serving). Not ported: the TPU-only arms (``scan_layers``, the ``resln`` and
-``lis="bypass"`` timing probes).
+by ``apply_unfused_layer`` or ``apply_fused_layer``, formed per call. The
+default flags instead read what their kernels read, formed once by
+``prepare`` at the end of ``convert`` (``s["consts"]``), through the
+wrappers' ``*_prepared`` entries (``apply_prepared_layer``): inside such a
+forward no Python number and no scale product reaches the device. A state
+without ``"consts"`` is served with its constants formed per call, bit for
+bit the same; a state changed after ``convert`` needs ``prepare`` again.
+``lis=False`` runs every attention kernel's fp32 softmax arm.
+``attach_u8_ingest`` lets the forward take raw uint8 images.
+``weight_only_params`` dequantizes the same weight codes into float32
+params for a bf16 ``fp_forward`` (weight-only serving). Not ported: the
+TPU-only arms (``scan_layers``, the ``resln`` and ``lis="bypass"`` timing
+probes).
 
 Numerics: every requant scale the PoT search produces is a power of two,
 so the requant multiplies are exact; serving is compared with the
@@ -216,7 +223,37 @@ def convert(params, qstate, cfg: ViTConfig, policy: QuantPolicy, bit_config) -> 
     s["s_out"] = qstate["act_out"]["scale"]
     s["bits"] = tuple(bits)
     s["lis"] = 1 if policy.int_softmax else 0
+    s["consts"] = prepare(s, cfg)
     return s
+
+
+def prepare(s, cfg: ViTConfig) -> dict:
+    """The constants of a default ``serving_forward`` (``fuse_embed``,
+    ``fuse_qkv``), formed once from serving state ``s``, each by the helper
+    and the float32 operations the wrappers apply per call, so the forward
+    that reads them gives the same codes: the embed's (``embed_prepared`` of
+    ``_embed_fused_consts``), per block the qkv weights and constants
+    (``qkv_prepared``), the two junctions' (``res_ln_prepared``) and fc1's
+    (``requant_consts``) from ``layer_consts``, and the head's. ``convert``
+    stores them as ``s["consts"]``."""
+    c = cfg.embed_dim
+    dev = s["patch"]["w_q"].device
+    e = _embed_fused_consts(s, cfg)
+    e.pop("s_input")
+    blocks = []
+    for bi in range(len(s["blocks"])):
+        (w_qkv, qr, qb, srq, sat, oro, _, prr, prb, smid, sprev, sres1, ln2w, ln2b, ln2o, ln2r,
+         w_fc1, f1r, f1b, f1inv, _, f2r, f2b, smid2, sres2, lnnw, lnnb, lnno, lnnr) = layer_consts(s, cfg, bi)
+        blocks.append({
+            "qkv": attention_lis.qkv_prepared(w_qkv, qr, qb, cfg.num_heads, srq, sat, oro),
+            "proj": matmul_ln.res_ln_prepared(c, dev, prr, prb, smid, sprev, sres1, ln2w, ln2b, ln2o, ln2r),
+            "fc1": matmul_int8.requant_consts(w_fc1.shape[0], dev, f1r, f1b, f1inv),
+            "fc2": matmul_ln.res_ln_prepared(c, dev, f2r, f2b, smid2, sres1, sres2, lnnw, lnnb, lnno, lnnr),
+        })
+    hd = s["head"]
+    return {"embed": embed_fused.embed_prepared(c, dev, **e), "blocks": blocks,
+            "head": matmul_int8.requant_consts(hd["w_q"].shape[0], dev, s["s_qact2"] * hd["sw"] / s["s_out"],
+                                               hd["bias"] / s["s_out"])}
 
 
 def weight_only_params(params, qstate, cfg: ViTConfig, policy: QuantPolicy, bit_config) -> dict:
@@ -293,15 +330,28 @@ def _embed_fused_consts(s, cfg: ViTConfig):
     )
 
 
+def _ptf_mask(s_in, c: int, device):
+    """(PTF mask round(s/s1), s1 = min(s)) of the input scale ``s_in``
+    (scalar or (C,)) over C channels."""
+    s_in_v = torch.broadcast_to(torch.as_tensor(s_in, dtype=torch.float32, device=device), (c,))
+    s1 = s_in_v.min()
+    return torch.round(s_in_v / s1), s1
+
+
 def _int_ln_codes(c_in, s_in, w, b, out_scale, ratio, use_kernels=True):
     """Integer LN on codes (..., C) at the producer's scale ``s_in`` → codes
     of the consumer node through ``int_ln_requant`` (or its plain version)."""
     c = c_in.shape[-1]
-    s_in_v = torch.broadcast_to(torch.as_tensor(s_in, dtype=torch.float32, device=c_in.device), (c,))
-    s1 = s_in_v.min()
+    mask, s1 = _ptf_mask(s_in, c, c_in.device)
     fn = intln.int_ln_requant if use_kernels else intln.int_ln_requant_plain
-    out = fn(c_in.reshape(-1, c).contiguous(), torch.round(s_in_v / s1), s1, w, b, out_scale, ratio)
+    out = fn(c_in.reshape(-1, c).contiguous(), mask, s1, w, b, out_scale, ratio)
     return out.reshape(c_in.shape)
+
+
+def int_ln_prepared(s_in, c: int, w, b, out_scale, ratio, device) -> intln.LnConsts:
+    """``_int_ln_codes``' constants formed once: what
+    ``int_ln_requant_prepared`` reads."""
+    return intln.ln_prepared(c, device, *_ptf_mask(s_in, c, device), w, b, out_scale, ratio)
 
 
 def embed_codes(s, cfg: ViTConfig, x, use_kernels: bool = True, fuse_embed: bool = True,
@@ -314,6 +364,11 @@ def embed_codes(s, cfg: ViTConfig, x, use_kernels: bool = True, fuse_embed: bool
     it staged (patch GEMM, [CLS] and position add, block 0's LN1), bit for
     bit the same codes. ``x``: float32, or uint8 after ``attach_u8_ingest``."""
     patches = extract_patches(_input_codes(s, x, u8_affine), cfg.patch_size).contiguous()
+    if fuse_embed and "consts" in s:
+        fn = (embed_fused.fused_patch_embed_prepared if use_kernels
+              else embed_fused.fused_patch_embed_prepared_plain)
+        xc, h = fn(patches, s["patch"]["w_q"], s["consts"]["embed"])
+        return h, xc
     if fuse_embed:
         fn = embed_fused.fused_patch_embed if use_kernels else embed_fused.fused_patch_embed_plain
         xc, h = fn(patches, s["patch"]["w_q"], **_embed_fused_consts(s, cfg))
@@ -337,10 +392,15 @@ def embed_codes(s, cfg: ViTConfig, x, use_kernels: bool = True, fuse_embed: bool
 
 def head_logits(s, h, use_kernels: bool = True):
     """The serving epilogue: final-norm codes (h[:, 0]) → head → f32 logits."""
-    mm = matmul_int8.int8_matmul_requant if use_kernels else matmul_int8.int8_matmul_requant_plain
     hd = s["head"]
-    logits_c = mm(h[:, 0].contiguous(), hd["w_q"], s["s_qact2"] * hd["sw"] / s["s_out"],
-                  hd["bias"] / s["s_out"])
+    if "consts" in s:
+        mm = (matmul_int8.int8_matmul_requant_prepared if use_kernels
+              else matmul_int8.int8_matmul_requant_prepared_plain)
+        logits_c = mm(h[:, 0].contiguous(), hd["w_q"], s["consts"]["head"])
+    else:
+        mm = matmul_int8.int8_matmul_requant if use_kernels else matmul_int8.int8_matmul_requant_plain
+        logits_c = mm(h[:, 0].contiguous(), hd["w_q"], s["s_qact2"] * hd["sw"] / s["s_out"],
+                      hd["bias"] / s["s_out"])
     return logits_c.to(torch.float32) * s["s_out"]
 
 
@@ -352,6 +412,7 @@ def layer_consts(s, cfg: ViTConfig, bi: int) -> tuple:
     b, out-scale and ratio; the fc1 weight, epilogue and 1/s_mq1; the fc2
     weight and epilogue, s_mid2, s_res2, and the LN fused after fc2 (the
     next block's LN1, or the final norm after the last block)."""
+    profiling.count("consts_formed")
     blocks = s["blocks"]
     sb = blocks[bi]
     qkv, pr, fc1, fc2 = sb["qkv"], sb["proj"], sb["mlp_fc1"], sb["fc2"]
@@ -425,6 +486,26 @@ def apply_unfused_layer(cfg: ViTConfig, layer, h, xc, lis=True, fuse_qkv=True, u
     return h.reshape(b, n_tok, c), xc2.reshape(b, n_tok, c)
 
 
+def apply_prepared_layer(cfg: ViTConfig, sb, pb, h, xc, lis=True, use_kernels=True):
+    """ONE encoder layer on (B, N, C) codes at the default flags, through
+    the four kernels' ``*_prepared`` entries (their plain versions with
+    ``use_kernels=False``) on block ``sb``'s weights and its constants ``pb``
+    (``prepare``); bit for bit ``apply_unfused_layer`` on ``layer_consts``.
+    Returns (h', xc')."""
+    if use_kernels:
+        attn = attention_lis.lis_attention_qkv_fused_prepared
+        res_ln, mm = matmul_ln.int8_matmul_res_ln_prepared, matmul_int8.int8_matmul_requant_prepared
+    else:
+        attn = attention_lis.lis_attention_qkv_fused_prepared_plain
+        res_ln, mm = matmul_ln.int8_matmul_res_ln_prepared_plain, matmul_int8.int8_matmul_requant_prepared_plain
+    b, n_tok, c = h.shape
+    h = attn(h, pb["qkv"], cfg.num_heads, lis=lis)
+    xc2, h = res_ln(h.reshape(-1, c), sb["proj"]["w_q"], xc.reshape(-1, c), pb["proj"])
+    h = mm(h, sb["mlp_fc1"]["w_q"], pb["fc1"], gelu=True)
+    xc2, h = res_ln(h, sb["fc2"]["w_q"], xc2, pb["fc2"])
+    return h.reshape(b, n_tok, c), xc2.reshape(b, n_tok, c)
+
+
 def apply_fused_layer(cfg: ViTConfig, layer, h, xc, lis=True, use_kernels=True):
     """ONE encoder layer on (B, N, C) codes from ``layer_consts`` (or a
     ``stack_layer_consts`` slice) in one ``fused_vit_layer`` launch (its
@@ -454,19 +535,25 @@ def serving_forward(s, cfg: ViTConfig, x, use_kernels: bool = True, lis: bool = 
     (``layer_fused.check_fits``).
     ``u8_affine``: ingest uint8 through the fused affine; prove it first with
     ``u8_ingest_exact(s, affine=True)``.
+    The prologue (``fuse_embed``), the layers (``fuse_qkv``, no
+    ``fuse_layer``) and the head read ``s["consts"]`` where the state has it
+    (``prepare``); the other arms form their constants per call.
     """
     with profiling.span(profiling.FORWARD, batch=x.shape[0]):
         if fuse_layer and use_kernels and x.device.type != "cpu":
             layer_fused.check_fits(cfg.seq_len, cfg.embed_dim, cfg.num_heads, cfg.hidden_dim)
+        prepared = s.get("consts") if fuse_qkv and not fuse_layer else None
         with profiling.span("vit.embed"):
             h, xc = embed_codes(s, cfg, x, use_kernels, fuse_embed, u8_affine)
         for bi in range(len(s["blocks"])):
             with profiling.span("vit.block", index=bi):
-                layer = layer_consts(s, cfg, bi)
-                if fuse_layer:
-                    h, xc = apply_fused_layer(cfg, layer, h, xc, lis, use_kernels)
+                if prepared is not None:
+                    h, xc = apply_prepared_layer(cfg, s["blocks"][bi], prepared["blocks"][bi], h, xc, lis,
+                                                 use_kernels)
+                elif fuse_layer:
+                    h, xc = apply_fused_layer(cfg, layer_consts(s, cfg, bi), h, xc, lis, use_kernels)
                 else:
-                    h, xc = apply_unfused_layer(cfg, layer, h, xc, lis, fuse_qkv, use_kernels)
+                    h, xc = apply_unfused_layer(cfg, layer_consts(s, cfg, bi), h, xc, lis, fuse_qkv, use_kernels)
         with profiling.span("vit.head"):
             return head_logits(s, h, use_kernels)
 

@@ -31,6 +31,13 @@ attention kernels' fp32 softmax arm; ``attach_u8_ingest`` lets the forward
 take raw uint8 images. ``weight_only_params`` dequantizes the serving
 codes into float32 params for a bf16 ``fp_forward``. Not ported
 (ROADMAP.md): the timing probes ``reorder="bypass"`` and ``lis="bypass"``.
+
+At the default flags the forward reads what its kernels read, formed once
+by ``prepare`` at the end of ``convert`` (``s["consts"]``, from the quant
+state ``convert`` was given), through the wrappers' ``*_prepared``
+entries: inside it no Python number and no scale product reaches the
+device. The other flags, and a state without ``"consts"``, form their
+constants per call, bit for bit the same.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ from .models.swin import (
     window_reverse,
 )
 from .ops import attention_lis, intln, matmul_int8, matmul_ln, swin_stem
-from .serving import _int_ln_codes, _u8_normalize, u8_ingest_consts
+from .serving import _int_ln_codes, _u8_normalize, int_ln_prepared, u8_ingest_consts
 
 _I8 = (-128, 127)
 _ROW = {4: 2, 8: 3}  # weight-scale row of each eval bit
@@ -137,7 +144,88 @@ def convert(params, qstate, cfg: SwinConfig, policy: QuantPolicy, bit_config=8) 
                       for bq in sq["blocks"])
     s["patch_norm"] = params["patch_norm"]
     s["norm"] = params["norm"]
+    s["consts"] = prepare(s, qstate, cfg)
     return s
+
+
+def _block_scales(sb, bq, hd: int) -> dict:
+    """A block's GEMM epilogues (requant, bias[, out_inv]) and attention
+    scalars (``swin_lis_attention``'s four) from its scales."""
+    aq = bq["attn"]
+    q1, a1, q3, q4 = aq["qact1"]["scale"], aq["qact_attn1"]["scale"], aq["qact3"]["scale"], aq["qact4"]["scale"]
+    m1, m2 = bq["mlp_qact1"]["scale"], bq["mlp_qact2"]["scale"]
+    return {"qkv": (bq["qact1"]["scale"] * sb["qkv"]["sw"] / q1, sb["qkv_b"] / q1),
+            "attn": (q1 ** 2 * hd**-0.5 / a1, a1, aq["qact2"]["scale"], q1 / q3),
+            "proj": (q3 * sb["proj"]["sw"] / q4, sb["proj_b"] / q4),
+            "fc1": (bq["qact3"]["scale"] * sb["fc1"]["sw"], sb["fc1_b"], 1.0 / m1),
+            "fc2": (m1 * sb["fc2"]["sw"] / m2, sb["fc2_b"] / m2)}
+
+
+def _fc2_junction(s, qstate, st, sqs, j):
+    """The fc2 junction's LN after block ``j``: the next block's norm1, or
+    the final norm; (LN params, its out-scale)."""
+    if j + 1 < len(st["blocks"]):
+        return st["blocks"][j + 1]["norm1"], sqs["blocks"][j + 1]["qact1"]["scale"]
+    return s["norm"], qstate["qact2"]["scale"]
+
+
+def prepare(s, qstate, cfg: SwinConfig) -> dict:
+    """The constants of a default ``serving_forward`` (fp stem, two-step
+    attention, ``fuse_res``), formed once from serving state ``s`` and the
+    quant state ``qstate`` it was converted from, each by the helper and the
+    float32 operations the forward and its wrappers apply per call, so the
+    forward that reads them gives the same codes: the stem's dequantized
+    weights and LN; per block each GEMM's epilogue, the attention scalars,
+    each stage's first norm1, the residual junction's norm2 and the fc2
+    junction's next LN (a plain fc2's epilogue before a PatchMerging); each
+    PatchMerging's LN and reduction; the head. ``convert`` stores them as
+    ``s["consts"]``; serve them with the same ``qstate``."""
+    dev = s["patch"]["w_q"].device
+    rq = matmul_int8.requant_consts
+    w_q, sw = s["patch"]["w_q"], s["patch"]["sw"]
+    s_prev = qstate["patch_qact"]["scale"]
+    out = {"stem": {"pw": w_q.to(torch.float32) * sw[:, None],
+                    "ln": _iln_prepared(qstate["patch_qact_bn"]["scale"], w_q.shape[0], s["patch_norm"], s_prev,
+                                        dev)},
+           "stages": []}
+    for i, st in enumerate(s["stages"]):
+        sqs = qstate["stages"][i]
+        blocks, own_norm1 = [], True  # the block's norm1 is no fc2 junction's LN
+        for j, sb in enumerate(st["blocks"]):
+            bq = sqs["blocks"][j]
+            c = sb["proj"]["w_q"].shape[0]
+            sc = _block_scales(sb, bq, c // cfg.num_heads[i])
+            pb = {"norm1": _iln_prepared(s_prev, c, sb["norm1"], bq["qact1"]["scale"], dev) if own_norm1 else None,
+                  "qkv": rq(3 * c, dev, *sc["qkv"]),
+                  "attn": attention_lis.swin_attention_scalars(*sc["attn"], dev, lis=False),
+                  "proj": rq(c, dev, *sc["proj"]),
+                  "res": intln.res_ln_requant_prepared(c, dev, s_prev, bq["attn"]["qact4"]["scale"],
+                                                       bq["qact2"]["scale"], sb["norm2"]["w"], sb["norm2"]["b"],
+                                                       bq["qact3"]["scale"], 1.0),
+                  "fc1": rq(sb["fc1"]["w_q"].shape[0], dev, *sc["fc1"])}
+            own_norm1 = j + 1 == len(st["blocks"]) and i + 1 < len(s["stages"])  # a plain fc2 before the merge
+            if own_norm1:
+                pb["fc2"] = rq(c, dev, *sc["fc2"])
+            else:
+                ln_p, ln_out = _fc2_junction(s, qstate, st, sqs, j)
+                pb["fc2"] = matmul_ln.res_ln_prepared(c, dev, *sc["fc2"], bq["mlp_qact2"]["scale"],
+                                                      bq["qact2"]["scale"], bq["qact4"]["scale"], ln_p["w"],
+                                                      ln_p["b"], ln_out, 1.0)
+            blocks.append(pb)
+            s_prev = bq["qact4"]["scale"]
+        ps = {"blocks": blocks}
+        if "downsample" in st:
+            dq, red = sqs["downsample"], st["downsample"]["red"]
+            ps["merge"] = {"ln": _iln_prepared(s_prev, red["w_q"].shape[1], st["downsample"]["norm"],
+                                               dq["qact1"]["scale"], dev, expand=4),
+                           "red": rq(red["w_q"].shape[0], dev, dq["qact1"]["scale"] * red["sw"] / dq["qact2"]["scale"],
+                                     0.0)}
+            s_prev = dq["qact2"]["scale"]
+        out["stages"].append(ps)
+    out["head"] = rq(s["head"]["w_q"].shape[0], dev,
+                     qstate["qact3"]["scale"] * s["head"]["sw"] / qstate["act_out"]["scale"],
+                     s["head_b"] / qstate["act_out"]["scale"])
+    return out
 
 
 def weight_only_params(params, qstate, cfg: SwinConfig, policy: QuantPolicy, bit_config=8) -> dict:
@@ -198,12 +286,28 @@ def launches_per_forward(cfg: SwinConfig, fuse_stem: bool = False, int_stem: boo
     return {k: v for k, v in counts.items() if v}
 
 
+def _iln_scale(s_in, c: int, expand: int, device):
+    """The input scale of an LN over C channels, tiled over a PatchMerging
+    concat of ``expand`` copies."""
+    return torch.broadcast_to(torch.as_tensor(s_in, dtype=torch.float32, device=device), (c // expand,)).repeat(expand)
+
+
 def _iln(codes, s_in, lnp, out_scale, expand=1, use_kernels=True):
     """Integer LN on codes; ``expand`` tiles the input scale over a
     PatchMerging concat of ``expand`` copies."""
-    s_in_v = torch.broadcast_to(torch.as_tensor(s_in, dtype=torch.float32, device=codes.device),
-                                (codes.shape[-1] // expand,)).repeat(expand)
+    s_in_v = _iln_scale(s_in, codes.shape[-1], expand, codes.device)
     return _int_ln_codes(codes, s_in_v, lnp["w"], lnp["b"], out_scale, 1.0, use_kernels)
+
+
+def _iln_prepared(s_in, c: int, lnp, out_scale, device, expand=1) -> intln.LnConsts:
+    """``_iln``'s constants over C channels, formed once."""
+    return int_ln_prepared(_iln_scale(s_in, c, expand, device), c, lnp["w"], lnp["b"], out_scale, 1.0, device)
+
+
+def _ln_prepared_codes(codes, consts, use_kernels=True):
+    """``_iln`` on its prepared constants: codes (..., C) → codes (..., C)."""
+    fn = intln.int_ln_requant_prepared if use_kernels else intln.int_ln_requant_prepared_plain
+    return fn(codes.reshape(-1, codes.shape[-1]).contiguous(), consts).reshape(codes.shape)
 
 
 def attach_u8_ingest(s, mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225)):
@@ -267,7 +371,8 @@ def stem_codes(s, qstate, cfg: SwinConfig, x, use_kernels: bool = True, fuse_ste
         xc = mm(pc.reshape(-1, pc.shape[-1]), w_q, s["s_input"] * sw / sq_bn,
                 (s["patch_b"] - zp_b) / sq_bn)
         return _iln(xc, sq_bn, pn, s_pq, use_kernels=use_kernels).reshape(b, pc.shape[1], -1)
-    pw = w_q.to(torch.float32) * sw[:, None]
+    pc = s.get("consts")
+    pw = w_q.to(torch.float32) * sw[:, None] if pc is None else pc["stem"]["pw"]
     px = _patches((q0 - s["zp_input"]) * s["s_input"], cfg.patch_size)
     if fuse_stem:
         fn = swin_stem.fused_swin_stem if use_kernels else swin_stem.fused_swin_stem_plain
@@ -275,6 +380,8 @@ def stem_codes(s, qstate, cfg: SwinConfig, x, use_kernels: bool = True, fuse_ste
         return xc.reshape(b, px.shape[1], -1)
     h = px @ pw.T + s["patch_b"]
     xc = torch.clamp(torch.round(h / sq_bn), *_I8).to(torch.int8)
+    if pc is not None:
+        return _ln_prepared_codes(xc, pc["stem"]["ln"], use_kernels).reshape(b, px.shape[1], -1)
     return _iln(xc, sq_bn, pn, s_pq, use_kernels=use_kernels).reshape(b, px.shape[1], -1)
 
 
@@ -283,6 +390,43 @@ def _residual_codes(a, s_a, b, s_b, s_out):
     as int8, each product and the sum rounded on its own."""
     val = a.to(torch.float32) * s_a + b.to(torch.float32) * s_b
     return torch.clamp(torch.round(val / s_out), *_I8).to(torch.int8)
+
+
+def _prepared_entries(use_kernels: bool) -> dict:
+    """The window attention, the residual junction, the fc2 junction and the
+    requant GEMM on prepared constants (their plain versions with
+    ``use_kernels=False``)."""
+    if use_kernels:
+        return {"attn": attention_lis.swin_lis_attention_prepared, "res_ln": intln.int_res_ln_requant_prepared,
+                "mm_res_ln": matmul_ln.int8_matmul_res_ln_prepared, "mm": matmul_int8.int8_matmul_requant_prepared}
+    return {"attn": attention_lis.swin_lis_attention_prepared_plain,
+            "res_ln": intln.int_res_ln_requant_prepared_plain,
+            "mm_res_ln": matmul_ln.int8_matmul_res_ln_prepared_plain,
+            "mm": matmul_int8.int8_matmul_requant_prepared_plain}
+
+
+def _block_prepared(cfg: SwinConfig, i, j, sb, bq, pb, xc, h_ln, plain_fc2, lis, entries, use_kernels):
+    """Block ``j`` of stage ``i`` at the default flags on its prepared
+    constants ``pb`` through ``entries`` (``_prepared_entries``), bit for
+    bit the per-call block: (its qact4 codes, the LN codes its fc2 junction
+    carries out, or None after the plain fc2 before a PatchMerging)."""
+    attn, res_ln, mm_res_ln, mm = entries["attn"], entries["res_ln"], entries["mm_res_ln"], entries["mm"]
+    res, ws, heads, shift = cfg.stage_res(i), cfg.window(i), cfg.num_heads[i], cfg.shift(i, j)
+    bs, l, c = xc.shape
+    h = _ln_prepared_codes(xc, pb["norm1"], use_kernels) if h_ln is None else h_ln
+    hw = window_partition(_roll(h.reshape(bs, res, res, c), -shift), ws)
+    hw = mm(hw.reshape(-1, c), sb["qkv"]["w_q"], pb["qkv"]).reshape(-1, ws * ws, 3 * c)
+    hw = attn(hw, sb["bias_val"], sb["mask_s2"], heads, (res // ws) ** 2, pb["attn"], lis=lis)
+    hw = mm(hw.reshape(-1, c), sb["proj"]["w_q"], pb["proj"])
+    h = _roll(window_reverse(hw.reshape(-1, ws * ws, c), ws, res, res), shift)
+    xc, h = res_ln(xc.reshape(-1, c), h.reshape(-1, c).contiguous(), pb["res"])
+    h = mm(h, sb["fc1"]["w_q"], pb["fc1"], gelu=True)
+    if plain_fc2:
+        h = mm(h, sb["fc2"]["w_q"], pb["fc2"])
+        xc = _residual_codes(xc, bq["qact2"]["scale"], h, bq["mlp_qact2"]["scale"], bq["qact4"]["scale"])
+        return xc.reshape(bs, l, c), None
+    xc, h = mm_res_ln(h, sb["fc2"]["w_q"], xc, pb["fc2"])
+    return xc.reshape(bs, l, c), h.reshape(bs, l, c)
 
 
 @torch.no_grad()
@@ -325,6 +469,8 @@ def serving_forward(s, qstate, cfg: SwinConfig, policy: QuantPolicy, x, use_kern
         lis = bool(policy.int_softmax) if lis is None else bool(lis)
         if lis:
             attention_lis.check_lis_scale(s["min_s2"])
+        prep = s.get("consts") if fuse_res and not (fuse_stem or int_stem or fold_windows) else None
+        entries = _prepared_entries(use_kernels) if prep is not None else None
 
         b = x.shape[0]
         with profiling.span("swin.stem"):
@@ -341,87 +487,90 @@ def serving_forward(s, qstate, cfg: SwinConfig, policy: QuantPolicy, x, use_kern
             for j, sb in enumerate(st["blocks"]):
                 with profiling.span("swin.block", stage=i, block=j):
                     bq = sqs["blocks"][j]
-                    aq = bq["attn"]
-                    shift = cfg.shift(i, j)
-                    bs, l, c = xc.shape
-                    hd = c // heads
-                    shortcut = xc
-                    h = _iln(xc, s_prev, sb["norm1"], bq["qact1"]["scale"], use_kernels=use_kernels) \
-                        if h_ln is None else h_ln
-                    qkv = (sb["qkv"]["w_q"], bq["qact1"]["scale"] * sb["qkv"]["sw"] / aq["qact1"]["scale"],
-                           sb["qkv_b"] / aq["qact1"]["scale"])
-                    scales = (aq["qact1"]["scale"] ** 2 * hd**-0.5 / aq["qact_attn1"]["scale"],
-                              aq["qact_attn1"]["scale"], aq["qact2"]["scale"],
-                              aq["qact1"]["scale"] / aq["qact3"]["scale"])
-                    proj = (sb["proj"]["w_q"], aq["qact3"]["scale"] * sb["proj"]["sw"] / aq["qact4"]["scale"],
-                            sb["proj_b"] / aq["qact4"]["scale"])
-                    if fold_windows and res > ws:
-                        # the cyclic shift rides in the kernel's addresses: no roll copies
-                        hq = mm(h.reshape(-1, c), *qkv).reshape(bs, res, res, 3 * c)
-                        hw = attn_fold(hq, sb["bias_val"], sb["mask_s2"], heads, ws, *scales, lis=lis, shift=shift)
-                        h = mm(hw.reshape(-1, c), *proj)
+                    # fuse_res: fc2 + residual + the LN that follows in the same
+                    # token layout (the next block's norm1, or the final norm),
+                    # but before a PatchMerging
+                    junction = fuse_res and (j + 1 < nblk or last_stage)
+                    if prep is not None:
+                        xc, h_f = _block_prepared(cfg, i, j, sb, bq, prep["stages"][i]["blocks"][j], xc, h_ln,
+                                                  not junction, lis, entries, use_kernels)
                     else:
-                        hw = window_partition(_roll(h.reshape(bs, res, res, c), -shift), ws)
-                        hw = mm(hw.reshape(-1, c), *qkv).reshape(-1, ws * ws, 3 * c)
-                        hw = attn(hw, sb["bias_val"], sb["mask_s2"], heads, (res // ws) ** 2, *scales,
-                                  lis=lis)
-                        hw = mm(hw.reshape(-1, c), *proj)
-                        h = _roll(window_reverse(hw.reshape(-1, ws * ws, c), ws, res, res), shift)
-                    # residual requant-add → block qact2 codes, and their norm2 codes
-                    if fuse_res:
-                        xc, h = res_ln(shortcut.reshape(-1, c), s_prev, h.reshape(-1, c).contiguous(),
-                                       aq["qact4"]["scale"], bq["qact2"]["scale"], sb["norm2"]["w"],
-                                       sb["norm2"]["b"], bq["qact3"]["scale"], 1.0)
-                    else:
-                        xc = _residual_codes(shortcut, s_prev, h.reshape(bs, l, c), aq["qact4"]["scale"],
-                                             bq["qact2"]["scale"])
-                        h = _iln(xc, bq["qact2"]["scale"], sb["norm2"], bq["qact3"]["scale"],
-                                 use_kernels=use_kernels).reshape(-1, c)
-                    h = mm(h, sb["fc1"]["w_q"], bq["qact3"]["scale"] * sb["fc1"]["sw"], sb["fc1_b"],
-                           out_inv=1.0 / bq["mlp_qact1"]["scale"], gelu=True)
-                    fc2 = sb["fc2"]
-                    r_fc2 = bq["mlp_qact1"]["scale"] * fc2["sw"] / bq["mlp_qact2"]["scale"]
-                    b_fc2 = sb["fc2_b"] / bq["mlp_qact2"]["scale"]
-                    if fuse_res and (j + 1 < nblk or last_stage):
-                        # fc2 + residual + the LN that follows in the same token
-                        # layout: the next block's norm1, or the final norm
-                        if j + 1 < nblk:
-                            ln_p = st["blocks"][j + 1]["norm1"]
-                            ln_out = sqs["blocks"][j + 1]["qact1"]["scale"]
+                        aq = bq["attn"]
+                        shift = cfg.shift(i, j)
+                        bs, l, c = xc.shape
+                        sc = _block_scales(sb, bq, c // heads)
+                        shortcut = xc
+                        h = _iln(xc, s_prev, sb["norm1"], bq["qact1"]["scale"], use_kernels=use_kernels) \
+                            if h_ln is None else h_ln
+                        if fold_windows and res > ws:
+                            # the cyclic shift rides in the kernel's addresses: no roll copies
+                            hq = mm(h.reshape(-1, c), sb["qkv"]["w_q"], *sc["qkv"]).reshape(bs, res, res, 3 * c)
+                            hw = attn_fold(hq, sb["bias_val"], sb["mask_s2"], heads, ws, *sc["attn"], lis=lis,
+                                           shift=shift)
+                            h = mm(hw.reshape(-1, c), sb["proj"]["w_q"], *sc["proj"])
                         else:
-                            ln_p, ln_out = s["norm"], qstate["qact2"]["scale"]
-                        xc, h_f = mm_res_ln(h, fc2["w_q"], r_fc2, b_fc2, xc.reshape(-1, c),
-                                            bq["mlp_qact2"]["scale"], bq["qact2"]["scale"],
-                                            bq["qact4"]["scale"], ln_p["w"], ln_p["b"], ln_out, 1.0)
-                        if j + 1 < nblk:
-                            h_ln = h_f.reshape(bs, l, c)
+                            hw = window_partition(_roll(h.reshape(bs, res, res, c), -shift), ws)
+                            hw = mm(hw.reshape(-1, c), sb["qkv"]["w_q"], *sc["qkv"]).reshape(-1, ws * ws, 3 * c)
+                            hw = attn(hw, sb["bias_val"], sb["mask_s2"], heads, (res // ws) ** 2, *sc["attn"],
+                                      lis=lis)
+                            hw = mm(hw.reshape(-1, c), sb["proj"]["w_q"], *sc["proj"])
+                            h = _roll(window_reverse(hw.reshape(-1, ws * ws, c), ws, res, res), shift)
+                        # residual requant-add → block qact2 codes, and their norm2 codes
+                        if fuse_res:
+                            xc, h = res_ln(shortcut.reshape(-1, c), s_prev, h.reshape(-1, c).contiguous(),
+                                           aq["qact4"]["scale"], bq["qact2"]["scale"], sb["norm2"]["w"],
+                                           sb["norm2"]["b"], bq["qact3"]["scale"], 1.0)
                         else:
-                            final_ln = h_f.reshape(bs, l, c)
+                            xc = _residual_codes(shortcut, s_prev, h.reshape(bs, l, c), aq["qact4"]["scale"],
+                                                 bq["qact2"]["scale"])
+                            h = _iln(xc, bq["qact2"]["scale"], sb["norm2"], bq["qact3"]["scale"],
+                                     use_kernels=use_kernels).reshape(-1, c)
+                        r_fc1, b_fc1, inv_fc1 = sc["fc1"]
+                        h = mm(h, sb["fc1"]["w_q"], r_fc1, b_fc1, out_inv=inv_fc1, gelu=True)
+                        if junction:
+                            ln_p, ln_out = _fc2_junction(s, qstate, st, sqs, j)
+                            xc, h_f = mm_res_ln(h, sb["fc2"]["w_q"], *sc["fc2"], xc.reshape(-1, c),
+                                                bq["mlp_qact2"]["scale"], bq["qact2"]["scale"],
+                                                bq["qact4"]["scale"], ln_p["w"], ln_p["b"], ln_out, 1.0)
+                            h_f = h_f.reshape(bs, l, c)
+                        else:
+                            # plain fc2, then the residual requant-add
+                            h = mm(h, sb["fc2"]["w_q"], *sc["fc2"])
+                            xc = _residual_codes(xc.reshape(-1, c), bq["qact2"]["scale"], h,
+                                                 bq["mlp_qact2"]["scale"], bq["qact4"]["scale"])
+                            h_f = None
+                        xc = xc.reshape(bs, l, c)
+                    if j + 1 < nblk:
+                        h_ln = h_f
                     else:
-                        # plain fc2, then the residual requant-add (fuse_res: the
-                        # block before a PatchMerging)
-                        h = mm(h, fc2["w_q"], r_fc2, b_fc2)
-                        xc = _residual_codes(xc.reshape(-1, c), bq["qact2"]["scale"], h,
-                                             bq["mlp_qact2"]["scale"], bq["qact4"]["scale"])
-                        h_ln = None
-                    xc = xc.reshape(bs, l, c)
+                        final_ln = h_f
                     s_prev = bq["qact4"]["scale"]
             if "downsample" in st:
                 with profiling.span("swin.merge"):
                     dq = sqs["downsample"]
                     red = st["downsample"]["red"]
-                    xc = _iln(_merge_patches(xc, res), s_prev, st["downsample"]["norm"], dq["qact1"]["scale"],
-                              expand=4, use_kernels=use_kernels)
-                    c2 = xc.shape[-1]
-                    xc = mm(xc.reshape(-1, c2), red["w_q"], dq["qact1"]["scale"] * red["sw"] / dq["qact2"]["scale"],
-                            0.0).reshape(b, -1, c2 // 2)
+                    xm = _merge_patches(xc, res)
+                    c2 = xm.shape[-1]
+                    if prep is not None:
+                        pm = prep["stages"][i]["merge"]
+                        xc = _ln_prepared_codes(xm, pm["ln"], use_kernels)
+                        xc = entries["mm"](xc.reshape(-1, c2), red["w_q"], pm["red"])
+                    else:
+                        xc = _iln(xm, s_prev, st["downsample"]["norm"], dq["qact1"]["scale"], expand=4,
+                                  use_kernels=use_kernels)
+                        xc = mm(xc.reshape(-1, c2), red["w_q"], dq["qact1"]["scale"] * red["sw"] / dq["qact2"]["scale"],
+                                0.0)
+                    xc = xc.reshape(b, -1, c2 // 2)
                     s_prev = dq["qact2"]["scale"]
 
         with profiling.span("swin.head"):
             if final_ln is None:
                 final_ln = _iln(xc, s_prev, s["norm"], qstate["qact2"]["scale"], use_kernels=use_kernels)
             c3 = _mean_codes(final_ln, qstate["qact2"]["scale"], qstate["qact3"]["scale"])
-            logits_c = mm(c3, s["head"]["w_q"],
-                          qstate["qact3"]["scale"] * s["head"]["sw"] / qstate["act_out"]["scale"],
-                          s["head_b"] / qstate["act_out"]["scale"])
+            if prep is not None:
+                logits_c = entries["mm"](c3, s["head"]["w_q"], prep["head"])
+            else:
+                logits_c = mm(c3, s["head"]["w_q"],
+                              qstate["qact3"]["scale"] * s["head"]["sw"] / qstate["act_out"]["scale"],
+                              s["head_b"] / qstate["act_out"]["scale"])
             return logits_c.to(torch.float32) * qstate["act_out"]["scale"]

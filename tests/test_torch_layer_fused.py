@@ -273,6 +273,7 @@ def test_fuse_layer_dead_channel(state):
     sb = ts["blocks"][0]
     sb["norm2_cs"] = sb["norm2_cs"].clone()
     sb["norm2_cs"][0] = 0.0
+    ts["consts"] = tserving.prepare(ts, TTINY)  # the default path's constants, formed again
     x = state["x"]
     got = tserving.serving_forward(ts, TTINY, T(x), fuse_layer=True)
     assert bool(torch.isfinite(got).all())

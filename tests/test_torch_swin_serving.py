@@ -363,17 +363,18 @@ def test_kernel_and_plain_paths_agree_on_cpu_with_the_stated_calls(state, monkey
     for mod, name in ((attention_lis, "swin_lis_attention_plain"), (intln, "int_ln_requant_plain"),
                       (intln, "int_res_ln_requant_plain"), (tss.matmul_ln, "int8_matmul_res_ln_plain"),
                       (tss.matmul_int8, "int8_matmul_requant_plain")):
-        fn = getattr(mod, name)
+        for entry in (name, name.replace("_plain", "_prepared_plain")):
+            fn = getattr(mod, entry)
 
-        def rec(*a, _fn=fn, _n=name, **k):
-            calls[_n] = calls.get(_n, 0) + 1
-            return _fn(*a, **k)
+            def rec(*a, _fn=fn, _k=name.replace("_plain", ""), **k):
+                calls[_k] = calls.get(_k, 0) + 1
+                return _fn(*a, **k)
 
-        monkeypatch.setattr(mod, name, rec)
+            monkeypatch.setattr(mod, entry, rec)
     reset_launch_counts()
     a = tss.serving_forward(ts, state["tq"], TTINY, tmake_policy(), x)
     assert set(launch_counts().values()) == {0}
-    assert {k.replace("_plain", ""): v for k, v in calls.items()} == tss.launches_per_forward(TTINY)
+    assert calls == tss.launches_per_forward(TTINY)
     assert torch.equal(a, tss.serving_forward(ts, state["tq"], TTINY, tmake_policy(), x,
                                               use_kernels=False))
     assert _lib.library.cache_info().currsize == 0

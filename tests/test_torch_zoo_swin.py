@@ -57,6 +57,13 @@ PLAIN = {"swin_lis_attention": (attention_lis, "swin_lis_attention_plain"),
          "int8_matmul_res_ln": (matmul_ln, "int8_matmul_res_ln_plain"),
          "int8_matmul_requant": (matmul_int8, "int8_matmul_requant_plain"),
          "fused_swin_stem": (swin_stem, "fused_swin_stem_plain")}
+# their entries on constants formed once (``prepare``), which the default path
+# takes where the state holds them
+PREPARED = {"swin_lis_attention": (attention_lis, "swin_lis_attention_prepared_plain"),
+            "int_ln_requant": (intln, "int_ln_requant_prepared_plain"),
+            "int_res_ln_requant": (intln, "int_res_ln_requant_prepared_plain"),
+            "int8_matmul_res_ln": (matmul_ln, "int8_matmul_res_ln_prepared_plain"),
+            "int8_matmul_requant": (matmul_int8, "int8_matmul_requant_prepared_plain")}
 
 
 def _images(seed, n, size=224):
@@ -124,11 +131,12 @@ def one_torch_thread():
 
 
 def _capture(run):
-    """Run ``run()`` with every plain version wrapped; returns the calls
-    made from outside another plain version: [(kernel, bound arguments)]."""
+    """Run ``run()`` with every plain version (and prepared one) wrapped;
+    returns the calls made from outside another plain version: [(kernel,
+    bound arguments)]."""
     calls, depth = [], [0]
     with pytest.MonkeyPatch.context() as mp:
-        for kernel, (mod, pname) in PLAIN.items():
+        for kernel, (mod, pname) in [*PLAIN.items(), *PREPARED.items()]:
             fn = getattr(mod, pname)
             sig = inspect.signature(fn)
 

@@ -67,6 +67,12 @@ PLAIN = {"fused_patch_embed": (embed_fused, "fused_patch_embed_plain"),
          "int8_matmul_requant": (matmul_int8, "int8_matmul_requant_plain"),
          "int_ln_requant": (intln, "int_ln_requant_plain"),
          "fused_vit_layer": (layer_fused, "fused_vit_layer_plain")}
+# their entries on constants formed once (``prepare``), which the default path
+# takes where the state holds them
+PREPARED = {"fused_patch_embed": (embed_fused, "fused_patch_embed_prepared_plain"),
+            "lis_attention_qkv_fused": (attention_lis, "lis_attention_qkv_fused_prepared_plain"),
+            "int8_matmul_res_ln": (matmul_ln, "int8_matmul_res_ln_prepared_plain"),
+            "int8_matmul_requant": (matmul_int8, "int8_matmul_requant_prepared_plain")}
 
 
 def _depth1(name):
@@ -173,11 +179,12 @@ def one_torch_thread():
 
 
 def _capture(run):
-    """Run ``run()`` with every plain version wrapped; returns the calls
-    made from outside another plain version: [(kernel, bound arguments)]."""
+    """Run ``run()`` with every plain version (and prepared one) wrapped;
+    returns the calls made from outside another plain version: [(kernel,
+    bound arguments)]."""
     calls, depth = [], [0]
     with pytest.MonkeyPatch.context() as mp:
-        for kernel, (mod, pname) in PLAIN.items():
+        for kernel, (mod, pname) in [*PLAIN.items(), *PREPARED.items()]:
             fn = getattr(mod, pname)
             sig = inspect.signature(fn)
 
@@ -240,7 +247,7 @@ def _plan(kernel, a, b, lis):
         (_, n_patch, k), c = a["patches"].shape, a["w_q"].shape[0]
         return embed_fused.embed_plan(b * n_patch, c, k, SMS)
     if kernel == "lis_attention_qkv_fused":
-        (_, n, c_in), c3 = a["h_q"].shape, a["w_q"].shape[0]
+        (_, n, c_in), c3 = a["h_q"].shape, (a["w_q"] if "w_q" in a else a["consts"].w).shape[0]
         dk = attention_lis.qkv_kernel_hd(c3 // 3 // a["num_heads"])
         return attention_lis.qkv_cluster_plan(n, _pad(c_in, 16), dk)
     if kernel == "lis_attention_fused":
