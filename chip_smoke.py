@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port's serving paths, weight-store tools, CLI,
 data-free calibration, serving planner and parallel serving once on one GPU.
 
-    python3 chip_smoke.py            # twenty paths and six zoo members, batches 1, 8, 64
+    python3 chip_smoke.py            # twenty paths and seven zoo members, batches 1, 8, 64
 
 Builds the fourteen CUDA kernels from ``p2vit_tpu_torch/csrc`` (one nvcc per
 source, in parallel, sm_90a), then drives twelve int8 serving paths of two
@@ -27,21 +27,24 @@ weight-store GEMM tools:
   (``fuse_stem=True``) and ``swin_int_stem_unfused`` (``int_stem=True,
   fuse_res=False``).
 * The zoo (``ZOO``: ``deit_tiny``, ``deit_base``, ``vit_base``,
-  ``vit_large``, ``swin_small``, ``swin_base``), each member at full width
-  and depth: seeded init → calibrate (``ZOO_CALIB`` = 8 seeded images; LIS
-  off: uint8 images normalized on the host by the family's mean and std)
+  ``vit_large``, ``vit_large_384``, ``swin_small``, ``swin_base``), each
+  member at full width and depth: seeded init → calibrate (``ZOO_CALIB`` = 8
+  seeded images; LIS off: uint8 images normalized on the host by the
+  member's mean and std)
   → convert (W4A8 ``[4]*num_matmuls``, Swin ``convert(4)``) →
   serving_forward on each of its paths: DeiT-T default, staged, fused layer
   (bitwise against default) and LIS off on uint8; DeiT-B default and staged;
   ViT-B default, LIS off default and staged on uint8 at the vit family's
   mean = std = 0.5; ViT-L (depth 24) default, staged and LIS off on uint8;
+  ViT-L/384 (``vit_large_patch16_384``: 577 tokens, row 3 on clusters of
+  10 CTAs) default at its own mean = std = 0.5;
   Swin-S default and ``fold_windows`` (bitwise against default); Swin-B
   default, ``fold_windows``, ``fuse_stem`` and LIS off on uint8. Each path:
   phases 1-4 below at batches 1 and 8 (phase 1 at both), then one profiler
   window at batch 64 (device ms per forward, beside the member's bf16
   ``fp_forward``) and each kernel against its plain version at batch 8
-  (the ``per_model`` entries, with ``"batch": 8``). DeiT-B, ViT-B and ViT-L
-  are held to ``fuse_layer=True`` raising ValueError naming
+  (the ``per_model`` entries, with ``"batch": 8``). DeiT-B, ViT-B, ViT-L and
+  ViT-L/384 are held to ``fuse_layer=True`` raising ValueError naming
   ``fuse_layer=False`` with nothing launched (the fused layer's shared
   memory; JAX's VMEM guard refuses them too). The zoo's seconds on a line
   of their own.
@@ -355,6 +358,7 @@ ZOO = {"deit_tiny": ("deit_tiny_patch16_224", "DeiT-T", "deit", ("", "_staged", 
        "deit_base": ("deit_base_patch16_224", "DeiT-B", "deit", ("", "_staged"), ()),
        "vit_base": ("vit_base_patch16_224", "ViT-B", "vit", ("",), ("", "_staged")),
        "vit_large": ("vit_large_patch16_224", "ViT-L", "vit", ("", "_staged"), ("",)),
+       "vit_large_384": ("vit_large_patch16_384", "ViT-L/384", "vit", ("",), ()),
        "swin_small": ("swin_small_patch4_window7_224", "Swin-S", "swin", ("swin", "swin_fold"), ()),
        "swin_base": ("swin_base_patch4_window7_224", "Swin-B", "swin", ("swin", "swin_fold", "swin_stem"),
                      ("swin_lisoff",))}
@@ -1759,7 +1763,7 @@ def _cli_run(label, argv, route, dev, smi, counts_api):
     ``launches_per_forward``, and host ms per batch. Returns the logits."""
     from p2vit_tpu_torch import cli, serving, serving_swin
     from p2vit_tpu_torch.config import make_policy
-    from p2vit_tpu_torch.models import MODEL_ZOO, PREPROCESS, swin, vit
+    from p2vit_tpu_torch.models import MODEL_ZOO, preprocess, swin, vit
 
     reset_launch_counts, launch_counts = counts_api
     args = cli.build_parser().parse_args(argv)
@@ -1767,7 +1771,7 @@ def _cli_run(label, argv, route, dev, smi, counts_api):
     is_swin = args.model.startswith("swin")
     family = swin if is_swin else vit
     policy = make_policy(args.ptf, args.lis, args.quant_method)
-    pp = PREPROCESS[args.model.split("_")[0]]
+    pp = preprocess(cli.FULL_NAME[args.model])
     u8 = args.u8_ingest
     orig_make_dataset = cli.make_dataset
     if route == "none":  # the device half over seeded images in place of the decoded folder
@@ -2744,13 +2748,13 @@ def run_zoo(members, setup, img, ops, counts_api, reps) -> dict:
     to ``fuse_layer=True`` raising ValueError naming ``fuse_layer=False``,
     with nothing launched. Returns {path name: per-kernel results}."""
     from p2vit_tpu_torch import serving, serving_swin
-    from p2vit_tpu_torch.models import PREPROCESS, SWIN_ZOO, VIT_ZOO, swin, vit
+    from p2vit_tpu_torch.models import SWIN_ZOO, VIT_ZOO, preprocess, swin, vit
 
     reset_launch_counts, launch_counts = counts_api
     per_model = {}
     for member in members:
         zoo_name, disp, family, on_paths, off_paths = ZOO[member]
-        mean, std = PREPROCESS[family]["mean"], PREPROCESS[family]["std"]
+        mean, std = preprocess(zoo_name)["mean"], preprocess(zoo_name)["std"]
         for lis, keys in ((True, on_paths), (False, off_paths)):
             if not keys:
                 continue

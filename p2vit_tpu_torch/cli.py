@@ -70,6 +70,7 @@ MODEL_CHOICES = [
     "deit_base",
     "vit_base",
     "vit_large",
+    "vit_large_384",
     "swin_tiny",
     "swin_small",
     "swin_base",
@@ -82,6 +83,7 @@ FULL_NAME = {
     "deit_base": "deit_base_patch16_224",
     "vit_base": "vit_base_patch16_224",
     "vit_large": "vit_large_patch16_224",
+    "vit_large_384": "vit_large_patch16_384",
     "swin_tiny": "swin_tiny_patch4_window7_224",
     "swin_small": "swin_small_patch4_window7_224",
     "swin_base": "swin_base_patch4_window7_224",
@@ -268,9 +270,9 @@ def make_dataset(args, cfg, split: str, raw: bool = False):
     preprocessing: the native loader under ``--native-loader``, else PIL;
     uint8 CHW batches when ``raw`` (the uint8 ingest)."""
     from . import data
-    from .models import PREPROCESS
+    from .models import preprocess
 
-    pp = PREPROCESS[args.model.split("_")[0]]
+    pp = preprocess(FULL_NAME[args.model])
     root = f"{args.data}/{split}"
     if args.native_loader:
         return data.NativeImageFolder(root, cfg.img_size, pp["mean"], pp["std"], pp["crop_pct"],
@@ -340,7 +342,7 @@ def build_model_fn(args, cfg, family, params, calib, policy, u8: bool, meshes=(N
     Serving states and their parallel forms are built once per bit
     config."""
     from . import serving, serving_swin
-    from .models import PREPROCESS, swin, vit
+    from .models import preprocess, swin, vit
 
     is_swin = family is swin
     srv = serving_swin if is_swin else serving
@@ -358,7 +360,7 @@ def build_model_fn(args, cfg, family, params, calib, policy, u8: bool, meshes=(N
                 cache[key] = _to_bf16(srv.weight_only_params(params, calib.qstate, cfg, policy, list(key)))
             return family.fp_forward(cache[key], cfg, x.to(torch.bfloat16)).to(torch.float32)
     elif args.quant and args.serve:
-        pp = PREPROCESS[args.model.split("_")[0]]
+        pp = preprocess(FULL_NAME[args.model])
 
         def forward(key):
             s = srv.convert(params, calib.qstate, cfg, policy, list(key))
@@ -433,7 +435,7 @@ def plot_activations(args, cfg, is_swin, params, val, u8, device):
         print("--plot is ViT/DeiT-only (reference plots vit_base); skipping")
         return None
     from . import analysis, data
-    from .models import PREPROCESS
+    from .models import preprocess
 
     it = data.iterate_batches(val, min(args.val_batchsize, 8))
     try:
@@ -442,7 +444,7 @@ def plot_activations(args, cfg, is_swin, params, val, u8, device):
         it.close()
     x = torch.from_numpy(imgs).to(device)
     if u8:
-        pp = PREPROCESS[args.model.split("_")[0]]
+        pp = preprocess(FULL_NAME[args.model])
         mean = torch.tensor(pp["mean"], dtype=torch.float32, device=device)[:, None, None]
         std = torch.tensor(pp["std"], dtype=torch.float32, device=device)[:, None, None]
         x = (x.to(torch.float32) / torch.tensor(255.0, device=device) - mean) / std

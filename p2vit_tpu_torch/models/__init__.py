@@ -1,6 +1,11 @@
 """Model zoo (counterpart of ``p2vit_tpu/models/__init__.py``): the ViT/DeiT
-and Swin constructors, ``MODEL_ZOO`` over both, and each family's
-preprocessing (``PREPROCESS``)."""
+and Swin constructors, ``MODEL_ZOO`` over both, each family's preprocessing
+(``PREPROCESS``) and, through ``preprocess``, each member's.
+
+The port's zoo has one member the JAX package's lacks: ViT-L/16 fine-tuned
+at 384 (Dosovitskiy et al., arXiv 2010.11929, Table 1 "ViT-Large"; timm
+``vit_large_patch16_384``), 577 tokens, preprocessed at timm's 384 ViTs'
+mean = std = 0.5 and ``crop_pct`` 1.0 (``PREPROCESS_BY_MODEL``)."""
 
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ VIT_ZOO = {
     "deit_base_patch16_224": ViTConfig(embed_dim=768, depth=12, num_heads=12),
     "vit_base_patch16_224": ViTConfig(embed_dim=768, depth=12, num_heads=12),
     "vit_large_patch16_224": ViTConfig(embed_dim=1024, depth=24, num_heads=16),
+    "vit_large_patch16_384": ViTConfig(img_size=384, embed_dim=1024, depth=24, num_heads=16),
 }
 
 SWIN_ZOO = {
@@ -30,3 +36,14 @@ PREPROCESS = {
     "vit": {"mean": (0.5, 0.5, 0.5), "std": (0.5, 0.5, 0.5), "crop_pct": 0.9},
     "swin": {"mean": (0.485, 0.456, 0.406), "std": (0.229, 0.224, 0.225), "crop_pct": 0.9},
 }
+
+# Members whose preprocessing differs from their family's
+PREPROCESS_BY_MODEL = {
+    "vit_large_patch16_384": {"mean": (0.5, 0.5, 0.5), "std": (0.5, 0.5, 0.5), "crop_pct": 1.0},
+}
+
+
+def preprocess(name: str) -> dict:
+    """The preprocessing of zoo member ``name``: its own where
+    ``PREPROCESS_BY_MODEL`` has it, else its family's (the name's prefix)."""
+    return PREPROCESS_BY_MODEL.get(name, PREPROCESS[name.split("_")[0]])

@@ -102,11 +102,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
 
-from ..profiling import count, op_span
+from ..profiling import annotate, count, op_span
 from ._lib import check_cuda_operand, device_of, f32_scalars, f32_vec, launch, library, pad_cols
 from .fastmath import exp2i, exp_rn, floor_log2i
 from .matmul_int8 import int8_matmul_requant_plain, int_matmul_nt, requant_epilogue_plain
@@ -538,6 +539,25 @@ def qkv_kernel_info(n: int, lis: bool = True, hd: int = HEAD_DIM) -> dict:
     return dict(zip(keys, list(info)))
 
 
+@functools.cache
+def qkv_launch_facts(n: int, c_in: int, hd: int, lis: bool, card: bool) -> dict:
+    """The qkv-fused kernel's launch at N tokens, C_in input channels and
+    head_dim ``hd``, read once per shape for the ``op.lis_attention_qkv_fused``
+    span's attributes: ``cluster``, CTAs per cluster (``qkv_cluster_plan``),
+    and with ``card`` ``resident_clusters``, the clusters the card holds at
+    once (``qkv_kernel_info``'s ``max_active_clusters``). Empty where the
+    kernel does not take the shape. The cache hands out one dict per shape:
+    callers copy it."""
+    try:
+        plan = qkv_cluster_plan(n, -(-c_in // QKV_CIN_ALIGN) * QKV_CIN_ALIGN, hd)
+    except ValueError:
+        return {}
+    facts = {"cluster": plan.cluster}
+    if card:
+        facts["resident_clusters"] = qkv_kernel_info(n, lis, hd)["max_active_clusters"]
+    return facts
+
+
 def qkv_kernel_hd(d: int) -> int:
     """The qkv-fused kernel instance that serves head_dim d: 64 for d ≤ 64
     (smaller heads zero-padded), 128 for 64 < d ≤ 128."""
@@ -693,12 +713,21 @@ def lis_attention_qkv_fused(h_q, w_q, requant_vec, bias_vec, num_heads,
     check_cuda_operand(w_q, "w_q", torch.int8, (w_q.shape[0], h_q.shape[-1]))
     _check_lis_bits(lis, lis_bits)
     consts = qkv_prepared(w_q, requant_vec, bias_vec, num_heads, score_requant, attn_scale, out_requant)
+    _note_launch(h_q, consts, num_heads, lis)
     out = _qkv_launch(h_q, consts, num_heads, lis, phase_ns)
     lis_attention_qkv_fused.launches += 1
     return out
 
 
 lis_attention_qkv_fused.launches = 0
+
+
+def _note_launch(h_q, consts: QkvConsts, num_heads: int, lis: bool) -> None:
+    """While recording, put the launch's facts (``qkv_launch_facts``, read
+    once per shape) on the open span."""
+    w = consts.w
+    annotate(lambda: qkv_launch_facts(h_q.shape[1], w.shape[1], w.shape[0] // 3 // num_heads, bool(lis),
+                                      w.device.type == "cuda"))
 
 
 @op_span(of=lis_attention_qkv_fused)
@@ -708,6 +737,7 @@ def lis_attention_qkv_fused_prepared(h_q, consts, num_heads, lis_bits=4, lis=Tru
     nothing per call. CPU tensors take
     ``lis_attention_qkv_fused_prepared_plain``; CUDA tensors launch the
     kernel (counted in ``lis_attention_qkv_fused.launches``) or raise."""
+    _note_launch(h_q, consts, num_heads, lis)
     if device_of(h_q, consts.w).type == "cpu":
         return lis_attention_qkv_fused_prepared_plain(h_q, consts, num_heads, lis_bits, lis)
     _check_lis_bits(lis, lis_bits)

@@ -30,7 +30,10 @@ and counts. One thread records at a time. The span names:
     not fused, the token mean and the head.
   * ``op.<wrapper>``: one call of a kernel wrapper of ``ops.KERNELS``, its
     checks, padding, constant vectors and launch, or of its ``*_prepared``
-    entry (checks, padding and launch).
+    entry (checks, padding and launch). ``op.lis_attention_qkv_fused``
+    carries its launch's ``cluster`` (CTAs per cluster) and, on the card,
+    ``resident_clusters`` (the clusters the card holds at once), read while
+    recording, once per shape (``attention_lis.qkv_launch_facts``).
 
 Counts, on the innermost open span: ``syncs``, each synchronizing CUDA call
 the host made (PyTorch's own detector, ``torch.cuda.set_sync_debug_mode``
@@ -39,7 +42,7 @@ at "warn" while recording; nothing without a card), and, on ``op.*`` spans,
 entry of ``ops.launch_counts()``), and ``consts_formed``, each call of a
 helper that forms a kernel's constant vectors from scales (the wrappers do
 per call; ``serving{,_swin}.prepare`` once per state, so a default forward
-counts none). ``count(name, n)`` adds others.
+counts none). ``count(name, n)`` adds others; ``annotate(read)`` sets attributes.
 ``sync_sites()`` tallies the source lines that synchronized. ``clock()`` is
 the (``time.time_ns``, ``perf_counter_ns``) pair read at ``enable``, which
 puts a span on a profiler trace's clock (``chrome_events``).
@@ -164,6 +167,14 @@ def count(name: str, n: int = 1) -> None:
     if _REC.on and _REC.open:
         c = _REC.open[-1].counts
         c[name] = c.get(name, 0) + n
+
+
+def annotate(read) -> None:
+    """Set the attributes of the dict ``read()`` returns on the innermost
+    open span; ``read`` is called only then (none open or recording off:
+    nothing)."""
+    if _REC.on and _REC.open:
+        _REC.open[-1].attrs.update(read())
 
 
 def op_span(fn=None, *, of=None):

@@ -43,7 +43,7 @@ import torch
 from .. import data, native, profiling, serving, serving_swin
 from ..cli import FULL_NAME
 from ..config import make_policy
-from ..models import MODEL_ZOO, PREPROCESS, SWIN_ZOO, swin, vit
+from ..models import MODEL_ZOO, SWIN_ZOO, preprocess, swin, vit
 from .latency_ab import profiler_device_ms
 
 DATA = Path(__file__).resolve().parents[2] / "build" / "e2e_imnet"
@@ -146,7 +146,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     name = FULL_NAME.get(args.model, args.model)
     cfg = MODEL_ZOO[name]
-    pp = PREPROCESS[name.split("_")[0]]
+    pp = preprocess(name)
     raw = not args.f32
     if not args.host_only and args.device != "cpu" and not torch.cuda.is_available():
         raise SystemExit("e2e_eval: no CUDA device; pass --device cpu or --host-only")

@@ -12,6 +12,7 @@ against the JAX package's on the same image files, bit for bit.
   either native library does not build here (no libjpeg or libpng).
 """
 
+import dataclasses
 import threading
 
 import numpy as np
@@ -74,12 +75,17 @@ def folder(tmp_path_factory):
 
 
 def test_zoo_and_preprocess_equal_jax():
+    """The port's zoo is JAX's and ViT-L at 384, which is JAX's ViT-L at
+    img_size 384; the families' preprocessing is JAX's."""
     assert PREPROCESS == J_PREPROCESS
-    assert sorted(MODEL_ZOO) == sorted(J_ZOO)
+    port_only = {"vit_large_patch16_384": dataclasses.replace(J_ZOO["vit_large_patch16_224"], img_size=384)}
+    assert sorted(MODEL_ZOO) == sorted([*J_ZOO, *port_only])
     for k, cfg in MODEL_ZOO.items():
-        jc = J_ZOO[k]
+        jc = port_only.get(k) or J_ZOO[k]
         for f in ("img_size", "patch_size", "embed_dim", "num_heads", "num_classes"):
             assert getattr(cfg, f) == getattr(jc, f), (k, f)
+    for k, jc in port_only.items():
+        assert dataclasses.asdict(MODEL_ZOO[k]) == dataclasses.asdict(jc), k
 
 
 @pytest.mark.parametrize("raw", [False, True])

@@ -22,6 +22,7 @@ from p2vit_tpu import plan as jplan
 from p2vit_tpu import profiling as jprofiling
 from p2vit_tpu.models import SWIN_ZOO as J_SWIN_ZOO
 from p2vit_tpu.models import VIT_ZOO as J_VIT_ZOO
+from p2vit_tpu.models.common import ViTConfig as JViTConfig
 from p2vit_tpu_torch import plan, profiling
 from p2vit_tpu_torch.models import SWIN_ZOO, VIT_ZOO
 from p2vit_tpu_torch.tools import latency_ab
@@ -35,7 +36,11 @@ def _port_cfg(name):
 
 
 def _jax_cfg(name):
-    return J_VIT_ZOO[name] if name in J_VIT_ZOO else J_SWIN_ZOO[name]
+    """JAX's zoo entry, or, for a member the JAX package's zoo lacks (ViT-L
+    at 384), JAX's ``ViTConfig`` at the port entry's sizes."""
+    if name in J_VIT_ZOO or name in J_SWIN_ZOO:
+        return J_VIT_ZOO[name] if name in J_VIT_ZOO else J_SWIN_ZOO[name]
+    return JViTConfig(**dataclasses.asdict(VIT_ZOO[name]))
 
 
 @pytest.fixture
